@@ -1,0 +1,21 @@
+"""bioreason_tpu_torch: the PyTorch/CUDA port of bioreason_tpu for NVIDIA Hopper.
+
+The JAX package `bioreason_tpu` stays the reference; this package mirrors its
+module names so every counterpart is easy to find, and imports neither JAX
+nor anything of `bioreason_tpu`. Every Pallas kernel on a ported path becomes
+a kernel written by hand for `sm_90a` (sources under `csrc/`, built with
+`nvcc` at first use); everything else is plain PyTorch.
+
+Layering (bottom-up):
+  data/      byte text tokenizer, k-mer DNA tokenizer, chat template,
+             bi-modal processor, KEGG prompt formatting
+  ops/       flash-attention forward (CUDA kernel + plain version), sampling
+  models/    layers, attention dispatch, NT-v2 encoder, Qwen3 decoder, fusion
+  generate/  prefill + decode generation engine
+  serve.py   micro-batching HTTP inference server
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; asking
+for CUDA where there is none raises.
+"""
+
+__version__ = "0.1.0"

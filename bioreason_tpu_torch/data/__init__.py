@@ -1,0 +1,8 @@
+from bioreason_tpu_torch.data.chat_template import render_chat
+from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only, synthetic_kegg_items
+from bioreason_tpu_torch.data.nt_tokenizer import KmerTokenizer
+from bioreason_tpu_torch.data.processor import BioProcessor, ProcessorOutput
+from bioreason_tpu_torch.data.text_tokenizer import ByteTextTokenizer
+
+__all__ = ["render_chat", "format_kegg_prompt_only", "synthetic_kegg_items",
+           "KmerTokenizer", "BioProcessor", "ProcessorOutput", "ByteTextTokenizer"]

@@ -1,0 +1,133 @@
+"""KV-cached generation engine: prefill + a decode loop of one token per step
+(the port of bioreason_tpu/generate/engine.py).
+
+* prefill embeds the left-padded prompt, DNA splice included, and fills a
+  per-layer KV cache of P + max_new slots in one batched pass (the flash
+  kernel on the card: causal, q_offset 0, over the whole cache width);
+* decode runs one token per step through the grouped plain attention over
+  the cache, samples, writes the cache in place, and stops early once every
+  row has emitted EOS;
+* like the reference path, it returns COMPLETION ids only.
+
+The JAX engine jits prefill and a `lax.while_loop`; here PyTorch runs
+eagerly and the loop is a Python loop whose exit test is the one host sync
+per step. Guided decoding, `group_size > 1` and the device mesh come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from bioreason_tpu_torch.config import FusionConfig, SamplingConfig
+from bioreason_tpu_torch.models import layers as L
+from bioreason_tpu_torch.models.fusion import FusionModel, fused_input_embeddings
+from bioreason_tpu_torch.models.qwen3 import decoder_forward, init_cache
+from bioreason_tpu_torch.ops.sampling import completion_mask_from_eos, sample_logits
+from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
+
+
+class GenerationEngine:
+    def __init__(self, fusion_cfg: FusionConfig, eos_token_id: int,
+                 pad_token_id: Optional[int] = None, device=None):
+        """Runs on `device`: CUDA unless the caller passes "cpu"."""
+        self.cfg = fusion_cfg
+        self.eos_token_id = eos_token_id
+        self.pad_token_id = pad_token_id if pad_token_id is not None else eos_token_id
+        self.device = resolve_device(device)
+        # per-call host timings and counts of the last `generate`, and the
+        # number of logit rows that were not finite over all calls
+        self.last_stats: Dict[str, float] = {}
+        self.nonfinite_rows = 0
+
+    def _put(self, arr) -> Optional[torch.Tensor]:
+        if arr is None:
+            return None
+        return torch.as_tensor(arr, device=self.device)
+
+    @torch.inference_mode()
+    def prefill(self, model: FusionModel, input_ids, attention_mask,
+                dna_input_ids=None, dna_attention_mask=None, max_new_tokens: int = 0
+                ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]], torch.Tensor]:
+        """Embed, splice and prefill a cache of P + max_new_tokens slots.
+
+        Returns (fp32 logits [B, V] at the last prompt column, the cache,
+        the cache mask [B, P + max_new_tokens] with the prompt's slots set).
+        Prompts are LEFT-padded, so the last column is every row's last real
+        token (engine.py:96-97)."""
+        cfg = self.cfg.decoder
+        b, p = input_ids.shape
+        embeds = fused_input_embeddings(model, self.cfg, input_ids,
+                                        dna_input_ids, dna_attention_mask)
+        cache = init_cache(cfg, b, p + max_new_tokens, torch_dtype(cfg.dtype), self.device)
+        cache_mask = F.pad(attention_mask.to(torch.int32), (0, max_new_tokens))
+        hidden, cache = decoder_forward(
+            model.decoder, cfg, inputs_embeds=embeds, attention_mask=attention_mask,
+            positions=L.positions_from_mask(attention_mask), cache=cache,
+            cache_index=0, cache_mask=cache_mask, return_hidden=True)
+        # the head runs on the last column only: [B, P, V] fp32 logits would
+        # be gigabytes at a 151936-token vocab
+        return L.lm_logits(model.decoder, hidden[:, -1]), cache, cache_mask
+
+    @torch.inference_mode()
+    def generate(self, model: FusionModel, input_ids, attention_mask,
+                 dna_input_ids=None, dna_attention_mask=None,
+                 sampling: SamplingConfig = SamplingConfig(),
+                 max_new_tokens: Optional[int] = None, greedy: bool = False,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (completion_ids [B, max_new], completion_mask [B, max_new])
+        as numpy int arrays; ids after the first EOS are the pad id."""
+        mnt = max_new_tokens if max_new_tokens is not None else sampling.max_new_tokens
+        cfg = self.cfg.decoder
+        input_ids, attention_mask = self._put(input_ids), self._put(attention_mask)
+        dna_input_ids, dna_attention_mask = self._put(dna_input_ids), self._put(dna_attention_mask)
+        b, p = input_ids.shape
+
+        bad = torch.zeros((), dtype=torch.int64, device=self.device)
+
+        def sample(logits):
+            bad.add_((~torch.isfinite(logits).all(-1)).sum())
+            return sample_logits(logits, sampling.temperature, sampling.top_k,
+                                 sampling.top_p, greedy, generator)
+
+        t0 = time.perf_counter()
+        last_logits, cache, cache_mask = self.prefill(
+            model, input_ids, attention_mask, dna_input_ids, dna_attention_mask, mnt)
+        prompt_lens = attention_mask.sum(-1)
+        out = torch.full((b, mnt), self.pad_token_id, dtype=torch.int64, device=self.device)
+        tok = sample(last_logits)
+        out[:, 0] = tok
+        done = tok == self.eos_token_id
+        all_done = bool(done.all())             # host sync: prefill has finished
+        t1 = time.perf_counter()
+        ones = torch.ones((b, 1), dtype=torch.int32, device=self.device)
+
+        step = 1
+        while step < mnt and not all_done:
+            slot = p + step - 1
+            cache_mask[:, slot] = 1
+            logits, cache = decoder_forward(
+                model.decoder, cfg, input_ids=out[:, step - 1:step], attention_mask=ones,
+                positions=(prompt_lens + step - 1)[:, None], cache=cache,
+                cache_index=slot, cache_mask=cache_mask)
+            tok = torch.where(done, self.pad_token_id, sample(logits[:, 0]))
+            out[:, step] = tok
+            done |= tok == self.eos_token_id
+            step += 1
+            all_done = bool(done.all())         # host sync: one per step
+
+        mask = completion_mask_from_eos(out, self.eos_token_id)
+        out = torch.where(mask.bool(), out, self.pad_token_id)
+        ids, mask = out.cpu().numpy(), mask.cpu().numpy()
+        t2 = time.perf_counter()
+        self.nonfinite_rows += int(bad)
+        self.last_stats = {"batch": b, "prompt_len": p, "steps": step,
+                           "prefill_s": t1 - t0, "decode_s": t2 - t1,
+                           "decode_tokens": b * (step - 1)}
+        return ids, mask

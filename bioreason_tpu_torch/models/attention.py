@@ -1,0 +1,63 @@
+"""Attention dispatch: the flash kernel on CUDA, grouped einsums otherwise
+(the port of bioreason_tpu/models/attention.py).
+
+`attention(impl="auto")` decides from the tensors it is given, not from the
+default platform: a CUDA tensor with more than one query row launches
+`flash_fwd`, whose wrapper raises on a dtype or head dim the kernel does not
+take (so no such call runs the plain version on the card unseen); decode
+steps (Tq == 1) and CPU tensors take `xla_attention`, as the JAX dispatch
+sends decode and small shapes to XLA (attention.py:104-110).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bioreason_tpu_torch.ops.flash_attention import flash_attention
+
+_NEG = torch.finfo(torch.float32).min
+
+
+def xla_attention(q, k, v, kv_mask=None, causal=False, q_offset=None):
+    """q: [B,Tq,Hq,D], k/v: [B,Tk,Hkv,D], kv_mask: [B,Tk] (1=valid).
+
+    GQA with grouped einsums: the expanded [B,Tk,Hq,D] K/V is never built.
+    Logits and softmax in fp32, probabilities cast to q's dtype for the
+    value product. When `causal`, query i attends to keys j <= i + q_offset
+    (q_offset defaults to Tk - Tq). A fully masked row softmaxes a row of
+    equal minima and returns the mean of V, as the JAX function does."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, tq, hkv, group, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * (d ** -0.5)
+    if kv_mask is not None:
+        logits = logits.masked_fill(~kv_mask.bool()[:, None, None, None, :], _NEG)
+    if causal:
+        if q_offset is None:
+            q_offset = tk - tq
+        qi = torch.arange(tq, device=q.device)[:, None] + q_offset
+        kj = torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(kj > qi, _NEG)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(q.dtype))
+    return out.reshape(b, tq, hq, d)
+
+
+def use_kernel(q: torch.Tensor) -> bool:
+    """The `impl="auto"` rule for taking the flash kernel."""
+    return q.is_cuda and q.shape[1] > 1
+
+
+def attention(q, k, v, kv_mask=None, causal=False, q_offset=None, impl="auto"):
+    """Multi-head (grouped-query) attention. Shapes as in `xla_attention`.
+
+    impl: 'auto' (see `use_kernel`), 'pallas' (always the flash kernel; the
+    name is the JAX config's) or 'xla' (always the grouped einsums)."""
+    if impl == "auto":
+        impl = "pallas" if use_kernel(q) else "xla"
+    if impl == "pallas":
+        return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal, q_offset=q_offset)
+    if impl == "xla":
+        return xla_attention(q, k, v, kv_mask=kv_mask, causal=causal, q_offset=q_offset)
+    raise ValueError(f"unknown attention impl {impl!r}")

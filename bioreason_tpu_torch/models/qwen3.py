@@ -1,0 +1,144 @@
+"""Qwen3-style causal decoder (the port of bioreason_tpu/models/qwen3.py):
+pre-norm RMSNorm transformer with grouped-query attention, per-head q/k
+RMSNorm before RoPE, SwiGLU MLP and tied embeddings.
+
+The KV cache is a list of per-layer {k, v} [B, S, Hkv, D] buffers written in
+place (`cache[i]["k"][:, idx:idx+t] = k`), never reallocated per step; the
+JAX package gets the same effect from donated buffers and
+dynamic_update_slice. The int8 cache and the grouped GRPO decode come with
+later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from bioreason_tpu_torch.config import DecoderConfig
+from bioreason_tpu_torch.models import layers as L
+from bioreason_tpu_torch.models.attention import attention
+
+
+class DecoderAttention(nn.Module):
+    def __init__(self, cfg: DecoderConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        h, qd, kvd = cfg.hidden_size, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        self.q = L.linear(h, qd, False, device, dtype)
+        self.k = L.linear(h, kvd, False, device, dtype)
+        self.v = L.linear(h, kvd, False, device, dtype)
+        self.o = L.linear(qd, h, False, device, dtype)
+        self.q_norm = L.RMSNorm(cfg.head_dim, device)
+        self.k_norm = L.RMSNorm(cfg.head_dim, device)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: DecoderConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.ln1 = L.RMSNorm(cfg.hidden_size, device)
+        self.attn = DecoderAttention(cfg, device, dtype)
+        self.ln2 = L.RMSNorm(cfg.hidden_size, device)
+        self.mlp = L.SwiGLU(cfg.hidden_size, cfg.intermediate_size, False, device, dtype)
+
+
+class Qwen3Decoder(nn.Module):
+    """Parameters of the decoder; `decoder_forward` runs it."""
+
+    def __init__(self, cfg: DecoderConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.embed = L.Embedding(cfg.vocab_size, cfg.hidden_size, device, dtype)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device, dtype)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = L.RMSNorm(cfg.hidden_size, device)
+        self.lm_head = (None if cfg.tie_word_embeddings
+                        else L.linear(cfg.hidden_size, cfg.vocab_size, False, device, dtype))
+
+
+def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer KV cache: a list of {k, v} [B, S, Hkv, D] zero buffers."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+def cache_entry_update(entry: Dict[str, torch.Tensor], k: torch.Tensor,
+                       v: torch.Tensor, index: int) -> Dict[str, torch.Tensor]:
+    """Write new K/V [B, T, Hkv, D] at `index`, in place. Returns the entry."""
+    t = k.shape[1]
+    entry["k"][:, index:index + t] = k
+    entry["v"][:, index:index + t] = v
+    return entry
+
+
+def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
+                   causal, cache_entry=None, cache_index=None):
+    """One decoder block. h: [B, T, H]."""
+    b, t, _ = h.shape
+    x = L.rmsnorm(lp.ln1, h, cfg.rms_norm_eps)
+    q, k, v = L.qkv_proj(lp.attn, x)
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    q = L.rmsnorm(lp.attn.q_norm, q, cfg.rms_norm_eps)
+    k = L.rmsnorm(lp.attn.k_norm, k, cfg.rms_norm_eps)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    if cache_entry is not None:
+        cache_entry_update(cache_entry, k, v, cache_index)
+        k_all, v_all = cache_entry["k"], cache_entry["v"]
+    else:
+        k_all, v_all = k, v
+    # with a cache the queries sit at absolute positions cache_index.. among
+    # the keys: q_offset is passed explicitly (0 for a prefill), never
+    # left to the Tk - Tq default
+    a = attention(q, k_all, v_all, kv_mask=kv_mask, causal=causal,
+                  q_offset=cache_index if cache_entry is not None else None,
+                  impl=cfg.attention_impl)
+    h = h + L.dense(lp.attn.o, a.reshape(b, t, -1))
+    x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
+    return h + L.swiglu(lp.mlp, x)
+
+
+def decoder_forward(
+    dec: Qwen3Decoder,
+    cfg: DecoderConfig,
+    input_ids: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[List[Dict[str, torch.Tensor]]] = None,
+    cache_index: int = 0,
+    cache_mask: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
+) -> Tuple[torch.Tensor, Optional[List[Dict[str, torch.Tensor]]]]:
+    """Run the decoder. Returns (fp32 logits [B,T,V] or the final hidden
+    state with `return_hidden`, the cache or None).
+
+    Without cache: causal self-attention over the block (`attention_mask`
+    [B,T] marks valid tokens; left padding supported). With cache: the
+    block's K/V are written at `cache_index` and attention runs over the
+    whole cache with `cache_mask` [B,S] marking valid slots (causal within
+    a multi-token block, q_offset = cache_index)."""
+    if inputs_embeds is None:
+        inputs_embeds = L.embed(dec.embed, input_ids)
+    h = inputs_embeds.to(dec.embed.weight.dtype)
+    b, t, _ = h.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((b, t), dtype=torch.int32, device=h.device)
+    if positions is None:
+        positions = L.positions_from_mask(attention_mask)
+    if cache is not None:
+        kv_mask, causal = cache_mask, t > 1
+    else:
+        kv_mask, causal = attention_mask, True
+
+    for i, lp in enumerate(dec.layers):
+        h = _layer_forward(lp, h, cfg, positions, kv_mask, causal,
+                           None if cache is None else cache[i], cache_index)
+    h = L.rmsnorm(dec.final_norm, h, cfg.rms_norm_eps)
+    out = h if return_hidden else L.lm_logits(dec, h)
+    return out, cache

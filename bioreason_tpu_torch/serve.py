@@ -1,0 +1,259 @@
+"""Inference serving: HTTP server over the generation engine, in window
+micro-batch mode (the port of bioreason_tpu/serve.py).
+
+Concurrent requests arriving within `batch_window_ms` are padded into one
+batch (prompt width bucketed to 128) and generated in one engine call.
+
+Endpoints:
+  POST /generate  {"question": str, "reference_sequence": str,
+                   "variant_sequence": str, "max_new_tokens"?: int,
+                   "greedy"?: bool}
+              ->  {"completion": str, "answer": str}
+  GET  /healthz ->  {"status": "ok"}
+
+Run (on the card; `--device cpu` for the CPU):
+  python -m bioreason_tpu_torch.serve --decoder tiny --encoder tiny --port 8787
+
+Continuous batching, KV depth tiers, int8 weights and activations, fused
+projections and guided decoding come with later slices; `main` refuses
+their flags.
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
+                                        SamplingConfig)
+from bioreason_tpu_torch.data.chat_template import render_chat
+from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only
+from bioreason_tpu_torch.data.nt_tokenizer import KmerTokenizer
+from bioreason_tpu_torch.data.processor import BioProcessor
+from bioreason_tpu_torch.data.text_tokenizer import ByteTextTokenizer
+from bioreason_tpu_torch.generate.engine import GenerationEngine
+from bioreason_tpu_torch.models.fusion import FusionModel, init_fusion
+from bioreason_tpu_torch.train.rewards import extract_answer
+
+DECODER_PRESETS = {"tiny": DecoderConfig.tiny, "qwen3-0.6b": DecoderConfig.qwen3_0_6b}
+ENCODER_PRESETS = {"tiny": EncoderConfig.tiny, "nt-500m": EncoderConfig.nt_v2_500m}
+# flags of the JAX server whose paths are not ported yet
+LATER_FLAGS = ("continuous", "tiers", "int8", "fuse", "w8a8", "guided_regex")
+
+
+def _bucket(n: int, multiple: int = 128) -> int:
+    return ((max(n, 1) + multiple - 1) // multiple) * multiple
+
+
+def prepare_batch(processor: BioProcessor, cfg: FusionConfig, items: List[Dict[str, Any]]):
+    """KEGG items -> the engine's numpy inputs (input_ids, attention_mask,
+    dna_input_ids, dna_attention_mask): prompt-only chat rendering, the
+    bi-modal processor with left padding, and the width bucketed to 128 so
+    prompt shapes repeat (serve.py:263-281)."""
+    examples = [format_kegg_prompt_only(it) for it in items]
+    out = processor(
+        text=[render_chat(ex["prompt"], add_generation_prompt=True) for ex in examples],
+        batch_dna_sequences=[ex["dna_sequences"] for ex in examples],
+        max_length_text=cfg.max_length_text, max_length_dna=cfg.max_length_dna,
+        padding_side="left")
+    input_ids, attention_mask = out.input_ids, out.attention_mask
+    pad = _bucket(input_ids.shape[1]) - input_ids.shape[1]
+    if pad:
+        input_ids = np.pad(input_ids, ((0, 0), (pad, 0)),
+                           constant_values=processor.text_tokenizer.pad_token_id)
+        attention_mask = np.pad(attention_mask, ((0, 0), (pad, 0)))
+    return input_ids, attention_mask, out.dna_input_ids, out.dna_attention_mask
+
+
+class InferenceServer:
+    def __init__(self, model: FusionModel, fusion_cfg: FusionConfig,
+                 processor: BioProcessor,
+                 sampling: SamplingConfig = SamplingConfig(),
+                 max_batch: int = 8, batch_window_ms: float = 20.0,
+                 max_new_tokens: int = 256, greedy_default: bool = False,
+                 device=None, seed: int = 0):
+        """`device`: CUDA unless the caller passes "cpu"; `model` must live
+        there. Sampled (non-greedy) batches draw from a generator seeded with
+        `seed` plus the batch count."""
+        self.model = model
+        self.cfg = fusion_cfg
+        self.processor = processor
+        self.sampling = sampling
+        self.max_batch = max_batch
+        self.batch_window_s = batch_window_ms / 1000.0
+        self.max_new_tokens = max_new_tokens
+        self.greedy_default = greedy_default
+        self.seed = seed
+        self.engine = GenerationEngine(
+            fusion_cfg, eos_token_id=processor.text_tokenizer.eos_token_id,
+            device=device)
+        self.engine_calls = 0
+        self._queue: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self._worker = threading.Thread(target=self._batch_loop, daemon=True)
+
+    # -- batching worker ------------------------------------------------
+
+    def start(self):
+        self._worker.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._worker.join(timeout=5)
+
+    def _batch_loop(self):
+        while not self._stop.is_set():
+            try:
+                first = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.monotonic() + self.batch_window_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            try:
+                self._run_batch(batch)
+            except Exception as e:      # fail this batch's requests, keep serving
+                for req in batch:
+                    req["error"] = f"{type(e).__name__}: {e}"
+                    req["event"].set()
+
+    def _run_batch(self, reqs: List[Dict[str, Any]]):
+        input_ids, attention_mask, dna_ids, dna_mask = prepare_batch(
+            self.processor, self.cfg, [r["item"] for r in reqs])
+        mnt = max(r.get("max_new_tokens") or self.max_new_tokens for r in reqs)
+        greedy = all(r.get("greedy", self.greedy_default) for r in reqs)
+        self.engine_calls += 1
+        gen = torch.Generator(device=self.engine.device).manual_seed(
+            self.seed + self.engine_calls)
+        ids, mask = self.engine.generate(
+            self.model, input_ids, attention_mask, dna_ids, dna_mask,
+            sampling=self.sampling, max_new_tokens=mnt, greedy=greedy, generator=gen)
+        tok = self.processor.text_tokenizer
+        for i, req in enumerate(reqs):
+            text = tok.decode(ids[i][mask[i].astype(bool)], skip_special_tokens=True)
+            req["result"] = {"completion": text, "answer": extract_answer(text)}
+            req["event"].set()
+
+    # -- public sync API (used by the HTTP handler and tests) ------------
+
+    def generate(self, item: Dict[str, Any], max_new_tokens: Optional[int] = None,
+                 greedy: Optional[bool] = None, timeout: float = 600.0) -> Dict[str, str]:
+        req = {"item": item, "max_new_tokens": max_new_tokens,
+               "greedy": self.greedy_default if greedy is None else greedy,
+               "event": threading.Event()}
+        self._queue.put(req)
+        if not req["event"].wait(timeout):
+            raise TimeoutError("generation timed out")
+        if "error" in req:
+            raise RuntimeError(req["error"])
+        return req["result"]
+
+
+def make_http_server(server: InferenceServer, port: int = 8787,
+                     host: str = "0.0.0.0") -> ThreadingHTTPServer:
+    """`port=0` binds an ephemeral port (read it from `server_address`)."""
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):                       # quiet
+            pass
+
+        def _send(self, code: int, payload: Dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"status": "ok"})
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/generate":
+                self._send(404, {"error": "not found"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                payload = json.loads(self.rfile.read(length))
+                item = {
+                    "question": payload["question"],
+                    "reference_sequence": payload.get("reference_sequence", ""),
+                    "variant_sequence": payload.get("variant_sequence", ""),
+                    "answer": "",
+                }
+                result = server.generate(item,
+                                         max_new_tokens=payload.get("max_new_tokens"),
+                                         greedy=payload.get("greedy"))
+                self._send(200, result)
+            except Exception as e:
+                self._send(400, {"error": str(e)})
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def build_config(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
+                 max_length_dna: int = 2048):
+    """(FusionConfig, BioProcessor) of a preset pair, with the byte text
+    tokenizer and the k-mer DNA tokenizer."""
+    tok = ByteTextTokenizer()
+    cfg = FusionConfig(decoder=DECODER_PRESETS[decoder](), encoder=ENCODER_PRESETS[encoder](),
+                       dna_pad_token_id=tok.dna_pad_id, max_length_dna=max_length_dna)
+    return cfg, BioProcessor(tok, KmerTokenizer())
+
+
+def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
+                 max_length_dna: int = 2048, seed: int = 0, device=None,
+                 **server_kw) -> InferenceServer:
+    """Server over weights drawn from `seed` (no checkpoint is loaded yet)."""
+    cfg, processor = build_config(decoder, encoder, max_length_dna)
+    model = init_fusion(cfg, seed=seed, device=device)
+    return InferenceServer(model, cfg, processor, device=device, seed=seed, **server_kw)
+
+
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--decoder", default="qwen3-0.6b", choices=sorted(DECODER_PRESETS))
+    p.add_argument("--encoder", default="nt-500m", choices=sorted(ENCODER_PRESETS))
+    p.add_argument("--port", type=int, default=8787)
+    p.add_argument("--max_batch", type=int, default=8)
+    p.add_argument("--max_new_tokens", type=int, default=256)
+    p.add_argument("--max_length_dna", type=int, default=2048)
+    p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    for flag in LATER_FLAGS:
+        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
+                       help="not ported yet (raises)")
+    args = p.parse_args(argv)
+    asked = [f"--{f}" for f in LATER_FLAGS if getattr(args, f) is not None]
+    if asked:
+        raise NotImplementedError(f"{', '.join(asked)}: not ported to bioreason_tpu_torch yet")
+
+    server = build_server(args.decoder, args.encoder, args.max_length_dna, args.seed,
+                          args.device, max_batch=args.max_batch,
+                          max_new_tokens=args.max_new_tokens).start()
+    httpd = make_http_server(server, args.port)
+    print(f"serving on :{args.port} (POST /generate, GET /healthz)")
+    httpd.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

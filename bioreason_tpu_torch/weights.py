@@ -1,0 +1,105 @@
+"""Import the JAX package's parameter tree into the port's modules.
+
+`from_jax_params(tree, cfg)` takes the nested dict that
+`bioreason_tpu.models.init_fusion` (or a checkpoint load) returns, with its
+leaves as numpy arrays, e.g. `jax.tree.map(np.asarray, params)`, and fills a
+`FusionModel`. The conversion:
+
+* layer leaves are stacked `[L, ...]` (qwen3.py:59, nt_encoder.py:47) and are
+  unstacked into one module per layer;
+* `dense` kernels are `[in, out]` (layers.py:25); the port stores them
+  TRANSPOSED, as `nn.Linear`'s `[out, in]` weight, so `F.linear` runs them
+  as they are;
+* dense weights and embeddings are cast to the tower's dtype (the JAX package
+  keeps fp32 masters and casts them on every call, which gives the same
+  values); norm scales and biases stay fp32;
+* a tied decoder (no `lm_head` leaf) keeps `lm_head = None` and
+  `layers.lm_logits` reads the embedding as the head.
+
+The int8 `{"q", "scale"}` storage, the fused `qkv`/`gateup` leaves and LoRA
+adapters are not converted: merge and unfuse on the JAX side first.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from bioreason_tpu_torch.config import FusionConfig
+from bioreason_tpu_torch.models.fusion import FusionModel
+from bioreason_tpu_torch.utils.devices import resolve_device
+
+
+def _copy(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
+    arr = np.asarray(src, dtype=np.float32)
+    if transpose:
+        arr = arr.T
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(arr.shape)} does not fit {tuple(dst.shape)}")
+    dst.copy_(torch.tensor(arr))
+
+
+def _dense(lin: nn.Linear, p: Dict[str, Any]) -> None:
+    if not isinstance(p["kernel"], np.ndarray) or "lora_a" in p:
+        raise ValueError("only float, unfused, merged dense leaves are converted")
+    _copy(lin.weight, p["kernel"], transpose=True)
+    if lin.bias is not None:
+        _copy(lin.bias, p["bias"])
+    elif "bias" in p:
+        raise ValueError("the tree has a bias the config does not expect")
+
+
+def _norm(norm: nn.Module, p: Dict[str, Any]) -> None:
+    _copy(norm.scale, p["scale"])
+    if "bias" in p:
+        _copy(norm.bias, p["bias"])
+
+
+def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer `i` of a stacked [L, ...] subtree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+@torch.no_grad()
+def from_jax_params(tree: Dict[str, Any], cfg: FusionConfig,
+                    device: Optional[torch.device] = None) -> FusionModel:
+    """The JAX fusion parameter tree (numpy leaves) as a `FusionModel` on
+    `device` (CUDA unless the caller asks for the CPU)."""
+    model = FusionModel(cfg, resolve_device(device))
+
+    enc, et = model.encoder, tree["encoder"]
+    _copy(enc.embed.weight, et["embed"]["embedding"])
+    for i, lm in enumerate(enc.layers):
+        lp = _layer(et["layers"], i)
+        _norm(lm.ln1, lp["ln1"])
+        for name in ("q", "k", "v", "o"):
+            _dense(getattr(lm.attn, name), lp["attn"][name])
+        _norm(lm.ln2, lp["ln2"])
+        for name, sub in lp["mlp"].items():
+            _dense(getattr(lm.mlp, name), sub)
+    _norm(enc.final_norm, et["final_norm"])
+
+    dec, dt = model.decoder, tree["decoder"]
+    _copy(dec.embed.weight, dt["embed"]["embedding"])
+    for i, lm in enumerate(dec.layers):
+        lp = _layer(dt["layers"], i)
+        _norm(lm.ln1, lp["ln1"])
+        for name in ("q", "k", "v", "o"):
+            _dense(getattr(lm.attn, name), lp["attn"][name])
+        _norm(lm.attn.q_norm, lp["attn"]["q_norm"])
+        _norm(lm.attn.k_norm, lp["attn"]["k_norm"])
+        _norm(lm.ln2, lp["ln2"])
+        for name in ("gate", "up", "down"):
+            _dense(getattr(lm.mlp, name), lp["mlp"][name])
+    _norm(dec.final_norm, dt["final_norm"])
+    if ("lm_head" in dt) != (dec.lm_head is not None):
+        raise ValueError("tie_word_embeddings does not match the tree's lm_head")
+    if dec.lm_head is not None:
+        _dense(dec.lm_head, dt["lm_head"])
+
+    _dense(model.dna_projection, tree["dna_projection"])
+    return model
+

@@ -1,0 +1,160 @@
+"""The port's `models/layers.py` against the JAX package's, function by
+function: the same numpy inputs and parameters through both, fp32 on the
+CPU, atol 1e-5 (both sides compute in fp32; the gap is summation order)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bioreason_tpu.models import layers as JL
+from bioreason_tpu_torch.models import layers as TL
+
+ATOL = 1e-5
+RNG = np.random.default_rng(0)
+
+
+def arr(*shape, scale=1.0):
+    return (RNG.standard_normal(shape) * scale).astype(np.float32)
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def close(port, ref, atol=ATOL):
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref), atol=atol, rtol=0)
+
+
+def linear_from(p):
+    """An nn.Linear holding the JAX dense leaf `p` ([in, out] kernel)."""
+    k = p["kernel"]
+    lin = TL.linear(k.shape[0], k.shape[1], "bias" in p)
+    with torch.no_grad():
+        lin.weight.copy_(t(k.T.copy()))
+        if "bias" in p:
+            lin.bias.copy_(t(p["bias"]))
+    return lin
+
+
+def dense_params(i, o, bias):
+    p = {"kernel": arr(i, o, scale=i ** -0.5)}
+    if bias:
+        p["bias"] = arr(o)
+    return p
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_dense(bias):
+    p, x = dense_params(24, 40, bias), arr(3, 5, 24)
+    close(TL.dense(linear_from(p), t(x)), JL.dense(p, x, jnp.float32))
+
+
+def test_qkv_proj():
+    ps = {n: dense_params(32, o, False) for n, o in (("q", 48), ("k", 16), ("v", 16))}
+    x = arr(2, 7, 32)
+    mod = torch.nn.Module()
+    for n, p in ps.items():
+        setattr(mod, n, linear_from(p))
+    for a, b in zip(TL.qkv_proj(mod, t(x)), JL.qkv_proj(ps, x, jnp.float32, 48, 16)):
+        close(a, b)
+
+
+def test_embed_and_out_of_vocab_clamp():
+    table = arr(50, 16, scale=0.02)
+    emb = TL.Embedding(50, 16)
+    with torch.no_grad():
+        emb.weight.copy_(t(table))
+    ids = RNG.integers(0, 50, (3, 9)).astype(np.int32)
+    close(TL.embed(emb, t(ids)), JL.embed({"embedding": table}, ids, jnp.float32))
+    # ids past the vocab (the DNA placeholder can lie there) are clamped for
+    # the lookup instead of faulting; the splice replaces those rows
+    oov = torch.tensor([[0, 49, 50, 151938]])
+    np.testing.assert_array_equal(TL.embed(emb, oov).detach().numpy(), table[[0, 49, 49, 49]][None])
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_logits(tied):
+    vocab, h = 60, 24
+    table = arr(vocab, h, scale=0.02)
+    dec = torch.nn.Module()
+    dec.embed = TL.Embedding(vocab, h)
+    with torch.no_grad():
+        dec.embed.weight.copy_(t(table))
+    jparams = {"embed": {"embedding": table}}
+    dec.lm_head = None
+    if not tied:
+        head = dense_params(h, vocab, False)
+        jparams["lm_head"] = head
+        dec.lm_head = linear_from(head)
+    x = arr(2, 5, h)
+    out = TL.lm_logits(dec, t(x))
+    assert out.dtype == torch.float32
+    close(out, JL.lm_logits(jparams, x))
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_norms(kind):
+    d = 32
+    x = arr(4, 6, d, scale=3.0) + 1.5
+    scale, bias = arr(d) + 1.0, arr(d)
+    if kind == "rmsnorm":
+        mod = TL.RMSNorm(d)
+        with torch.no_grad():
+            mod.scale.copy_(t(scale))
+        close(TL.rmsnorm(mod, t(x), 1e-6), JL.rmsnorm({"scale": scale}, x, 1e-6))
+    else:
+        mod = TL.LayerNorm(d)
+        with torch.no_grad():
+            mod.scale.copy_(t(scale))
+            mod.bias.copy_(t(bias))
+        close(TL.layernorm(mod, t(x), 1e-12),
+              JL.layernorm({"scale": scale, "bias": bias}, x, 1e-12))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_swiglu(bias):
+    d, hdn = 24, 40
+    ps = {"gate": dense_params(d, hdn, bias), "up": dense_params(d, hdn, bias),
+          "down": dense_params(hdn, d, bias)}
+    mod = TL.SwiGLU(d, hdn, bias)
+    for n, p in ps.items():
+        setattr(mod, n, linear_from(p))
+    x = arr(2, 5, d)
+    close(TL.swiglu(mod, t(x)), JL.swiglu(ps, x, jnp.float32))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_gelu_mlp(bias):
+    d, hdn = 24, 40
+    ps = {"up": dense_params(d, hdn, bias), "down": dense_params(hdn, d, bias)}
+    mod = TL.GeluMLP(d, hdn, bias)
+    for n, p in ps.items():
+        setattr(mod, n, linear_from(p))
+    x = arr(2, 5, d)
+    close(TL.gelu_mlp(mod, t(x)), JL.gelu_mlp(ps, x, jnp.float32))
+
+
+@pytest.mark.parametrize("theta,max_pos", [(10_000.0, 64), (1_000_000.0, 1200)])
+def test_apply_rope(theta, max_pos):
+    x = arr(2, 9, 3, 16)
+    pos = RNG.integers(0, max_pos, (2, 9)).astype(np.int32)
+    close(TL.apply_rope(t(x), t(pos), theta), JL.apply_rope(x, pos, theta))
+
+
+def test_positions_from_mask_left_padded():
+    mask = np.array([[0, 0, 1, 1, 1], [1, 1, 1, 1, 1], [0, 0, 0, 0, 1]], np.int32)
+    np.testing.assert_array_equal(TL.positions_from_mask(t(mask)).numpy(),
+                                  np.asarray(JL.positions_from_mask(mask)))
+
+
+def test_init_normal_distributions():
+    """Dense N(0, 1/in) with zero bias, embeddings N(0, 0.02^2), norms ones."""
+    mod = torch.nn.Module()
+    mod.lin = TL.linear(400, 300, True)
+    mod.emb = TL.Embedding(500, 64)
+    mod.norm = TL.RMSNorm(64)
+    TL.init_normal_(mod, torch.Generator().manual_seed(0))
+    assert abs(mod.lin.weight.std().item() - 400 ** -0.5) < 2e-3
+    assert abs(mod.emb.weight.std().item() - 0.02) < 1e-3
+    assert torch.all(mod.lin.bias == 0) and torch.all(mod.norm.scale == 1)
