@@ -8,11 +8,16 @@ a kernel written by hand for `sm_90a` (sources under `csrc/`, built with
 
 Layering (bottom-up):
   data/      byte text tokenizer, k-mer DNA tokenizer, chat template,
-             bi-modal processor, KEGG prompt formatting
-  ops/       flash-attention forward (CUDA kernel + plain version), sampling
-  models/    layers, attention dispatch, NT-v2 encoder, Qwen3 decoder, fusion
+             bi-modal processor, KEGG formatting and loading, SFT collation
+  ops/       flash attention forward and backward (CUDA kernels + plain
+             versions), vocab-chunked cross-entropy, sampling
+  models/    layers (with LoRA), attention dispatch, NT-v2 encoder, Qwen3
+             decoder, fusion (with the training forward)
   generate/  prefill + decode generation engine
+  train/     LoRA, trainable selection, AdamW + schedule, SFT trainer,
+             checkpoints, batching
   serve.py   micro-batching HTTP inference server
+  cli/       train_sft (the SFT entry point)
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; asking
 for CUDA where there is none raises.

@@ -1,0 +1,29 @@
+"""Shared CLI plumbing: model-size presets and dataset loading (the port's
+counterpart of bioreason_tpu/cli/common.py, KEGG only)."""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from bioreason_tpu_torch.config import DecoderConfig, EncoderConfig
+from bioreason_tpu_torch.data.kegg import format_kegg_for_dna_llm, synthetic_kegg_items
+from bioreason_tpu_torch.data.utils import split_dataset, truncate_dna
+
+DECODER_PRESETS = {"tiny": DecoderConfig.tiny, "qwen3-0.6b": DecoderConfig.qwen3_0_6b}
+ENCODER_PRESETS = {"tiny": EncoderConfig.tiny, "nt-500m": EncoderConfig.nt_v2_500m}
+
+
+def load_items(data_dir: Optional[str], n_synthetic: int, truncate_per_side: int,
+               seed: int = 42, synthetic_seq_len: int = 512
+               ) -> Tuple[List[Dict], List[Dict], List[Dict]]:
+    """Load (a local JSON dir, else the synthetic KEGG corpus), truncate,
+    split 80/10/10 and chat-format the KEGG items (common.py:53-79)."""
+    if data_dir:
+        from bioreason_tpu_torch.data.loaders import load_local_dataset
+        raw = load_local_dataset(data_dir)
+    else:
+        raw = synthetic_kegg_items(n_synthetic, seq_len=synthetic_seq_len, seed=seed)
+    raw = [truncate_dna(dict(x), truncate_per_side) for x in raw]
+    train, val, test = split_dataset(raw, seed=seed)
+    fmt = format_kegg_for_dna_llm
+    return [fmt(x) for x in train], [fmt(x) for x in val], [fmt(x) for x in test]

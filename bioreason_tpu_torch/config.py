@@ -1,4 +1,4 @@
-"""Configuration dataclasses of the port (the serving subset of
+"""Configuration dataclasses of the port (the serving and SFT subset of
 bioreason_tpu/config.py, with the same field names and presets).
 
 Presets mirror the reference model zoo: the Qwen3-0.6B decoder and the
@@ -8,6 +8,7 @@ NT-v2-500M encoder at their published widths, plus `tiny` test sizes.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -24,13 +25,15 @@ class DecoderConfig:
     rms_norm_eps: float = 1e-6
     tie_word_embeddings: bool = True
     attention_impl: str = "auto"     # 'auto' | 'xla' (plain) | 'pallas' (kernel)
-    dtype: str = "bfloat16"          # storage and compute dtype of the weights
+    remat: bool = True               # per-layer activation checkpointing in training
+    remat_policy: str = "full"       # 'full' (torch.utils.checkpoint); 'dots' raises
+    dtype: str = "bfloat16"          # compute dtype (frozen weights are stored in it)
 
     @classmethod
     def tiny(cls, vocab_size: int = 300) -> "DecoderConfig":
         return cls(vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
                    num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
-                   attention_impl="xla", dtype="float32")
+                   remat=False, attention_impl="xla", dtype="float32")
 
     @classmethod
     def qwen3_0_6b(cls, vocab_size: int = 151936) -> "DecoderConfig":
@@ -54,6 +57,8 @@ class EncoderConfig:
     token_dropout: bool = False      # ESM-style inference-time embed rescale
     mask_token_id: int = 2           # <mask> id (KmerTokenizer layout)
     attention_impl: str = "auto"
+    remat: bool = True
+    remat_policy: str = "full"       # see DecoderConfig
     dtype: str = "bfloat16"
 
     @property
@@ -63,7 +68,7 @@ class EncoderConfig:
     @classmethod
     def tiny(cls, vocab_size: int = 4107) -> "EncoderConfig":
         return cls(vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
-                   num_layers=2, num_heads=4, attention_impl="xla",
+                   num_layers=2, num_heads=4, remat=False, attention_impl="xla",
                    dtype="float32")
 
     @classmethod
@@ -79,6 +84,8 @@ class FusionConfig:
     dna_pad_token_id: int = 260       # ByteTextTokenizer's <|dna_pad|>
     max_length_dna: int = 2048
     max_length_text: int = 512
+    ce_save_logits: bool = False      # keep bf16 chunk logits for the CE backward
+                                      # (ops/fused_ce.py) instead of recomputing
 
     @classmethod
     def tiny(cls, text_vocab: int = 300, dna_pad_token_id: int = 260) -> "FusionConfig":
@@ -93,3 +100,56 @@ class SamplingConfig:
     top_k: int = 20
     max_new_tokens: int = 800
 
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    r: int = 32
+    alpha: int = 64
+    dropout: float = 0.05
+    # exclude embeddings, lm_head and the DNA tower (reference
+    # train_dna_qwen.py:103-134, grpo_trainer.py:262-279)
+    exclude_patterns: Tuple[str, ...] = ("embed", "lm_head", "encoder", "dna_projection")
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    learning_rate: float = 2e-5
+    weight_decay: float = 0.01
+    warmup_ratio: float = 0.1        # cosine with 10% warmup (train_dna_qwen.py:393-411)
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    total_steps: int = 1000
+    # skip steps whose grads contain non-finite values (bad-batch guard;
+    # gives up after this many consecutive bad steps). 0 disables.
+    skip_nonfinite_after: int = 100
+
+
+@dataclass(frozen=True)
+class SFTConfig:
+    batch_size: int = 4
+    grad_accum_steps: int = 1        # reference pl.Trainer accumulate_grad_batches
+    max_length_text: int = 512
+    max_length_dna: int = 2048
+    bucket: int = 128
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    lora: Optional[LoRAConfig] = field(default_factory=LoRAConfig)
+    train_projection: bool = True    # projection always trainable (dna_llm quirk list)
+    freeze_encoder: bool = True      # reference de-facto freezes DNA tower
+    frozen_dtype: str = "bfloat16"   # frozen >=2-D leaves need no fp32 master copy
+    pp_micro: int = 0                # pipeline parallelism: not ported (raises)
+    # detached focal CE weighting on the TRAIN loss only (eval stays plain CE)
+    focal_gamma: float = 0.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.pp_micro > 0:
+            raise NotImplementedError(
+                "SFTConfig.pp_micro > 0: pipeline parallelism is not ported yet "
+                "(ROADMAP.md, queue 1, slice 9: multi-device)")
+        if self.frozen_dtype == "int8":
+            raise NotImplementedError(
+                "SFTConfig.frozen_dtype='int8': int8 frozen weights are not ported yet "
+                "(ROADMAP.md, queue 1, slice 6: quantization)")

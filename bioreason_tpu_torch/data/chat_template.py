@@ -1,5 +1,5 @@
 """Qwen3-style chat rendering with DNA content parts (the port's copy of
-`render_chat`, bioreason_tpu/data/chat_template.py:100-160).
+`render_chat` and `apply_chat_template`, bioreason_tpu/data/chat_template.py:100-183).
 
 Rendering rules (as exercised by the reference's datasets):
   - leading system turn:  <|im_start|>system\\n{content}<|im_end|>\\n
@@ -86,3 +86,24 @@ def _render_user_content(parts: List[Dict[str, Any]], add_dna_id: bool, dna_coun
         elif "text" in part:
             chunks.append(part["text"])
     return "".join(chunks), dna_count
+
+
+def apply_chat_template(example: Dict[str, Any], **kw) -> Dict[str, Any]:
+    """trl-style maybe_apply_chat_template over a {'prompt': messages} example.
+
+    - last turn 'user'      -> rendered with add_generation_prompt=True
+    - last turn 'assistant' -> rendered fully, then cut right after the final
+      assistant text (continue_final_message): the trailing '<|im_end|>\\n'
+      is dropped, as the reference SFT collator feeds the model."""
+    messages = example["prompt"]
+    last_role = messages[-1]["role"]
+    if last_role == "user":
+        rendered = render_chat(messages, add_generation_prompt=True, **kw)
+    elif last_role == "assistant":
+        rendered = render_chat(messages, add_generation_prompt=False, **kw)
+        final_text = _part_text(messages[-1]["content"]).strip()
+        idx = rendered.rindex(final_text)
+        rendered = rendered[: idx + len(final_text)]
+    else:
+        raise ValueError(f"Unsupported final role: {last_role}")
+    return {**example, "prompt": rendered}

@@ -1,16 +1,52 @@
 """KEGG prompt formatting and the synthetic KEGG-shaped corpus (the port's
-copy of bioreason_tpu/data/kegg.py:105-196).
+copy of bioreason_tpu/data/kegg.py:42-196).
 
 `format_kegg_prompt_only` is the GRPO/serving prompt mapping (reference
 reason.py:128-148): two DNA content parts (reference + variant) followed by
-the question. `synthetic_kegg_items` makes deterministic KEGG-shaped items
-for tests and the chip smoke run (no dataset is downloaded).
+the question. `format_kegg_for_dna_llm` is the SFT example: the same user
+turn and an assistant turn with the reasoning trace and `Answer: ...`.
+`process_kegg_item` normalizes a raw KEGG record. `synthetic_kegg_items`
+makes deterministic KEGG-shaped items for tests and the chip smoke run (no
+dataset is downloaded).
 """
 
 from __future__ import annotations
 
 import random
 from typing import Any, Dict, List
+
+
+def process_kegg_item(item: Dict[str, Any]) -> Dict[str, Any]:
+    """Answer lower-cased and stripped, reasoning steps joined by newlines,
+    sequences upper-cased and stripped (reference kegg.py:41-71)."""
+    return {
+        "question": item.get("question", ""),
+        "answer": item.get("answer", "").lower().strip(),
+        "reasoning": "\n".join(item.get("reasoning", {}).get("reasoning_steps", [])),
+        "reference_sequence": item.get("reference_sequence", "").upper().strip(),
+        "variant_sequence": item.get("variant_sequence", "").upper().strip(),
+    }
+
+
+def format_kegg_for_dna_llm(example: Dict[str, Any]) -> Dict[str, Any]:
+    return {
+        "prompt": [
+            {
+                "role": "user",
+                "content": [
+                    *({"type": "dna", "text": None} for _ in range(2)),
+                    {"type": "text", "text": example["question"].strip()},
+                ],
+            },
+            {
+                "role": "assistant",
+                "reasoning_content": example["reasoning"].strip(),
+                "content": [{"type": "text", "text": f"Answer: {example['answer'].strip()}"}],
+            },
+        ],
+        "dna_sequences": [example["reference_sequence"], example["variant_sequence"]],
+        "answer": example["answer"],
+    }
 
 
 def format_kegg_prompt_only(example: Dict[str, Any]) -> Dict[str, Any]:

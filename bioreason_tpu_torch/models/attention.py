@@ -3,10 +3,11 @@
 
 `attention(impl="auto")` decides from the tensors it is given, not from the
 default platform: a CUDA tensor with more than one query row launches
-`flash_fwd`, whose wrapper raises on a dtype or head dim the kernel does not
-take (so no such call runs the plain version on the card unseen); decode
-steps (Tq == 1) and CPU tensors take `xla_attention`, as the JAX dispatch
-sends decode and small shapes to XLA (attention.py:104-110).
+`flash_fwd` (and, in training, `flash_bwd` in the backward), whose wrapper
+raises on a dtype or head dim the kernels do not take (so no such call runs
+the plain version on the card unseen); decode steps (Tq == 1) and CPU
+tensors take `xla_attention`, as the JAX dispatch sends decode and small
+shapes to XLA (attention.py:104-110).
 """
 
 from __future__ import annotations

@@ -7,30 +7,39 @@ with the next valid DNA embedding, both taken in flat row-major order, with
 a cumsum-scatter and a gather over static shapes (no host loop): the k-th
 valid DNA token overall matches the k-th placeholder overall, because the
 processor flattens DNA sequences batch-major.
+
+`fusion_forward` is the training forward: with labels (or their gathered
+supervised positions) it returns the vocab-chunked CE (ops/fused_ce.py) on
+the final hidden states, and the [B, T, V] logits never exist.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 from torch import nn
 
 from bioreason_tpu_torch.config import FusionConfig
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.nt_encoder import NTEncoder, encoder_forward
-from bioreason_tpu_torch.models.qwen3 import Qwen3Decoder
+from bioreason_tpu_torch.models.qwen3 import Qwen3Decoder, decoder_forward
+from bioreason_tpu_torch.ops import fused_ce as CE
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
 
 class FusionModel(nn.Module):
     """Encoder, decoder and the DNA projection (nn.Linear with bias,
-    reference dna_llm.py:97)."""
+    reference dna_llm.py:97). The projection is always trained, so it is
+    stored as an fp32 master and cast to the decoder dtype on every call."""
 
     def __init__(self, cfg: FusionConfig, device=None):
         super().__init__()
         self.encoder = NTEncoder(cfg.encoder, device, torch_dtype(cfg.encoder.dtype))
         self.decoder = Qwen3Decoder(cfg.decoder, device, torch_dtype(cfg.decoder.dtype))
         self.dna_projection = L.linear(cfg.encoder.hidden_size, cfg.decoder.hidden_size,
-                                       True, device, torch_dtype(cfg.decoder.dtype))
+                                       True, device, torch.float32)
 
 
 def init_fusion(cfg: FusionConfig, seed: int = 0, device=None) -> FusionModel:
@@ -43,10 +52,14 @@ def init_fusion(cfg: FusionConfig, seed: int = 0, device=None) -> FusionModel:
 
 
 def encode_dna(model: FusionModel, cfg: FusionConfig, dna_input_ids,
-               dna_attention_mask) -> torch.Tensor:
-    """DNA tower -> projected embeddings [S, Ld, H_text] (decoder dtype)."""
-    hidden = encoder_forward(model.encoder, cfg.encoder, dna_input_ids, dna_attention_mask)
-    return L.dense(model.dna_projection, hidden)
+               dna_attention_mask, train_encoder: bool = False) -> torch.Tensor:
+    """DNA tower -> projected embeddings [S, Ld, H_text] (decoder dtype).
+    Unless `train_encoder`, the tower runs without autograd (the JAX
+    stop_gradient): no activation of it is kept for a backward."""
+    with torch.set_grad_enabled(train_encoder and torch.is_grad_enabled()):
+        hidden = encoder_forward(model.encoder, cfg.encoder, dna_input_ids,
+                                 dna_attention_mask)
+    return L.dense(model.dna_projection, hidden, torch_dtype(cfg.decoder.dtype))
 
 
 def splice_embeddings(text_embeds, input_ids, dna_embeds, dna_mask,
@@ -88,14 +101,28 @@ def splice_embeddings_per_item(text_embeds, input_ids, dna_embeds, dna_mask,
     return torch.where(text_mask[..., None], replacement.to(text_embeds.dtype), text_embeds)
 
 
+def validate_splice(input_ids, dna_input_ids, dna_pad_token_id: int,
+                    dna_tokenizer_pad_id: int = 1) -> None:
+    """Host-side strict count check (reference dna_llm.py:222-225): as many
+    `<|dna_pad|>` placeholders as non-pad DNA tokens."""
+    if dna_input_ids is None:
+        return
+    n_tokens = int((np.asarray(input_ids) == dna_pad_token_id).sum())
+    n_features = int((np.asarray(dna_input_ids) != dna_tokenizer_pad_id).sum())
+    if n_features != n_tokens:
+        raise ValueError(f"DNA features and DNA tokens do not match: features "
+                         f"{n_features}, tokens: {n_tokens}")
+
+
 def fused_input_embeddings(model: FusionModel, cfg: FusionConfig, input_ids,
-                           dna_input_ids=None, dna_attention_mask=None) -> torch.Tensor:
+                           dna_input_ids=None, dna_attention_mask=None,
+                           train_encoder: bool = False) -> torch.Tensor:
     """Text embedding lookup + DNA splice (reference dna_llm.py:211-229).
     Uses the row-local splice when the DNA batch is a multiple of the text
     batch, the batch-global one otherwise."""
-    embeds = L.embed(model.decoder.embed, input_ids)
+    embeds = L.embed(model.decoder.embed, input_ids, torch_dtype(cfg.decoder.dtype))
     if dna_input_ids is not None:
-        dna = encode_dna(model, cfg, dna_input_ids, dna_attention_mask)
+        dna = encode_dna(model, cfg, dna_input_ids, dna_attention_mask, train_encoder)
         b, s = input_ids.shape[0], dna_input_ids.shape[0]
         if s % b == 0 and s >= b:
             embeds = splice_embeddings_per_item(embeds, input_ids, dna, dna_attention_mask,
@@ -104,3 +131,60 @@ def fused_input_embeddings(model: FusionModel, cfg: FusionConfig, input_ids,
             embeds = splice_embeddings(embeds, input_ids, dna, dna_attention_mask,
                                        cfg.dna_pad_token_id)
     return embeds
+
+
+def fusion_forward(
+    model: FusionModel,
+    cfg: FusionConfig,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    dna_input_ids: Optional[torch.Tensor] = None,
+    dna_attention_mask: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    train_encoder: bool = False,
+    train_embeddings: bool = False,
+    lora_dropout_gen: Optional[torch.Generator] = None,
+    lora_dropout_rate: float = 0.0,
+    label_positions: Optional[torch.Tensor] = None,
+    label_targets: Optional[torch.Tensor] = None,
+    label_valid: Optional[torch.Tensor] = None,
+    focal_gamma: float = 0.0,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Fused forward. Returns (logits, loss or None).
+
+    With `labels`, the loss is the vocab-chunked CE on the final hidden
+    states and `logits` is None. With `label_positions/targets/valid` (from
+    fused_ce.gather_label_positions) instead, the head runs only on the
+    supervised positions, at the same loss. `focal_gamma` > 0 weighs the CE
+    by the detached (1 - p)^gamma. Without either, returns fp32 logits."""
+    embeds = fused_input_embeddings(model, cfg, input_ids, dna_input_ids,
+                                    dna_attention_mask, train_encoder)
+    gathered = label_positions is not None
+    if labels is None and not gathered:
+        logits, _ = decoder_forward(model.decoder, cfg.decoder, inputs_embeds=embeds,
+                                    attention_mask=attention_mask)
+        return logits, None
+
+    hidden, _ = decoder_forward(model.decoder, cfg.decoder, inputs_embeds=embeds,
+                                attention_mask=attention_mask, return_hidden=True,
+                                lora_dropout_gen=lora_dropout_gen,
+                                lora_dropout_rate=lora_dropout_rate)
+    dec = model.decoder
+    head = dec.lm_head.weight if dec.lm_head is not None else dec.embed.weight   # [V, H]
+    h = hidden.to(torch.bfloat16) if cfg.decoder.dtype == "bfloat16" else hidden
+    if focal_gamma > 0.0:
+        if gathered:
+            loss = CE.decoder_lm_loss_focal_gathered(
+                h, head, label_positions, label_targets, label_valid, focal_gamma,
+                need_embedding_grad=train_embeddings)
+        else:
+            loss = CE.decoder_lm_loss_focal(h, head, labels, focal_gamma,
+                                            need_embedding_grad=train_embeddings)
+    elif gathered:
+        loss = CE.decoder_lm_loss_gathered(h, head, label_positions, label_targets,
+                                           label_valid, need_embedding_grad=train_embeddings,
+                                           save_logits=cfg.ce_save_logits)
+    else:
+        loss = CE.decoder_lm_loss(h, head, labels, need_embedding_grad=train_embeddings,
+                                  save_logits=cfg.ce_save_logits)
+    return None, loss

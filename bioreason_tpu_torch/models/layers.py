@@ -2,21 +2,30 @@
 
 Parameters live in small `nn.Module`s; the functions below take the module
 the way the JAX functions take their param subtree, so each counterpart
-reads the same. Weights are stored in the compute dtype (the JAX package
-keeps fp32 masters and casts them to bf16 on every call, which gives the
-same values), except norm scales and biases of norms, which stay fp32.
+reads the same. Every function computes in the dtype it is given (the
+tower's compute dtype, `cfg.dtype`), whatever dtype a weight is stored in:
+frozen weights are stored in the compute dtype, trainable ones (LoRA
+adapters, the DNA projection, a fully fine-tuned tower) as fp32 masters that
+are cast on every call, as the JAX package does. Norm scales and biases of
+norms stay fp32.
 
 Dense layers are `nn.Linear`, so kernels are stored `[out, in]`: the JAX
-package's `[in, out]` kernels are transposed once by `weights.py`.
+package's `[in, out]` kernels are transposed once by `weights.py`. A LoRA
+adapter rides on its `nn.Linear` as `lora_a` [in, r], `lora_b` [r, out] (the
+JAX layouts) and a `lora_scale` buffer; `dense` adds it when present.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+# (generator, rate) of inverted dropout on a LoRA adapter's input
+Dropout = Optional[Tuple[torch.Generator, float]]
 
 
 def linear(in_dim: int, out_dim: int, bias: bool, device=None,
@@ -62,40 +71,87 @@ class GeluMLP(nn.Module):
         self.down = linear(hidden, dim, bias, device, dtype)
 
 
-def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ W (+ b) in the weight's dtype."""
-    return F.linear(x.to(lin.weight.dtype), lin.weight, lin.bias)
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+          dropout: Dropout = None) -> torch.Tensor:
+    """x @ W (+ b) (+ the LoRA adapter) in `dtype` (default: x's dtype),
+    whatever dtype the weights are stored in."""
+    dtype = x.dtype if dtype is None else dtype
+    x = x.to(dtype)
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    y = F.linear(x, lin.weight.to(dtype), bias)
+    d = lora_delta(lin, x, dtype, dropout)
+    return y if d is None else y + d
 
 
-def qkv_proj(attn: nn.Module, x: torch.Tensor):
+def add_adapter(lin: nn.Linear, a: torch.Tensor, b: torch.Tensor, scale: float) -> None:
+    """Attach a LoRA adapter to `lin`: fp32 parameters `lora_a` [in, r] and
+    `lora_b` [r, out], and the fp32 scalar buffer `lora_scale` (alpha / r)."""
+    if (a.shape[0], b.shape[1], a.shape[1]) != (lin.in_features, lin.out_features, b.shape[0]):
+        raise ValueError(f"adapter {tuple(a.shape)} x {tuple(b.shape)} does not fit "
+                         f"{lin.in_features} -> {lin.out_features}")
+    lin.lora_a = nn.Parameter(a.detach().to(device=lin.weight.device, dtype=torch.float32))
+    lin.lora_b = nn.Parameter(b.detach().to(device=lin.weight.device, dtype=torch.float32))
+    lin.register_buffer("lora_scale", torch.tensor(float(scale), dtype=torch.float32,
+                                                   device=lin.weight.device))
+
+
+def has_adapter(lin: nn.Module) -> bool:
+    return isinstance(getattr(lin, "lora_a", None), nn.Parameter)
+
+
+def lora_delta(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+               dropout: Dropout = None) -> Optional[torch.Tensor]:
+    """The adapter's contribution ((x @ A) @ B) * scale in `dtype`, or None
+    when `lin` carries no adapter. `dropout` = (generator, rate) applies
+    inverted dropout to the adapter input only (PEFT lora_dropout)."""
+    if not has_adapter(lin):
+        return None
+    xl = x.to(dtype)
+    if dropout is not None:
+        gen, rate = dropout
+        keep = torch.rand(xl.shape, generator=gen, device=xl.device) < 1.0 - rate
+        xl = torch.where(keep, xl / (1.0 - rate), torch.zeros_like(xl))
+    return ((xl @ lin.lora_a.to(dtype)) @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
+
+
+def qkv_proj(attn: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+             drops: Tuple[Dropout, Dropout, Dropout] = (None, None, None)):
     """Attention input projections -> (q, k, v) [..., q_dim/kv_dim/kv_dim]."""
-    return dense(attn.q, x), dense(attn.k, x), dense(attn.v, x)
+    return (dense(attn.q, x, dtype, drops[0]), dense(attn.k, x, dtype, drops[1]),
+            dense(attn.v, x, dtype, drops[2]))
 
 
-def embed(emb: Embedding, ids: torch.Tensor) -> torch.Tensor:
-    """Row lookup. Ids outside the vocab are clamped for the lookup: the DNA
-    placeholder id may lie past the vocab (e.g. 151938 with a 151936 vocab),
-    and the splice overwrites those rows anyway. `jnp.take` fills them
-    instead; an out-of-range `torch.embedding` on CUDA is a device assert."""
+def embed(emb: Embedding, ids: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Row lookup, cast to `dtype` (default: the table's). Ids outside the
+    vocab are clamped for the lookup: the DNA placeholder id may lie past
+    the vocab (e.g. 151938 with a 151936 vocab), and the splice overwrites
+    those rows anyway. `jnp.take` fills them instead; an out-of-range
+    `torch.embedding` on CUDA is a device assert."""
     w = emb.weight
-    return F.embedding(ids.clamp(0, w.shape[0] - 1), w)
+    out = F.embedding(ids.clamp(0, w.shape[0] - 1), w)
+    return out if dtype is None else out.to(dtype)
 
 
 def lm_logits(dec: nn.Module, h: torch.Tensor) -> torch.Tensor:
     """Vocabulary logits [..., H] -> [..., V] in fp32 (tied embedding or a
-    separate `lm_head`). Operands stay in the weight dtype and the products
+    separate `lm_head`). Operands are in h's dtype and the products
     accumulate AND come out in fp32, as the JAX einsum with
     preferred_element_type=float32 does: a bf16-output GEMM would round the
     logits and can flip greedy near-ties."""
     w = dec.lm_head.weight if dec.lm_head is not None else dec.embed.weight   # [V, H]
-    h2 = h.reshape(-1, h.shape[-1]).to(w.dtype)
-    if h2.is_cuda and w.dtype != torch.float32:
-        out = torch.mm(h2, w.t(), out_dtype=torch.float32)
-    else:
-        # products of the stored values are exact in fp32, so upcasting
-        # first computes the same function
-        out = h2.float() @ w.float().t()
-    return out.reshape(*h.shape[:-1], w.shape[0])
+    h2 = h.reshape(-1, h.shape[-1])
+    return mm_f32(h2, w.to(h.dtype).t()).reshape(*h.shape[:-1], w.shape[0])
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two matrices of one dtype, accumulated and returned in fp32
+    (preferred_element_type=float32): cuBLAS with an fp32 output on the
+    card; on the CPU the products of the stored values are exact in fp32,
+    so upcasting first computes the same function."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
 
 
 def rmsnorm(norm: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -113,13 +169,18 @@ def layernorm(norm: LayerNorm, x: torch.Tensor, eps: float = 1e-12) -> torch.Ten
     return (y * norm.scale + norm.bias).to(x.dtype)
 
 
-def swiglu(mlp: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    return dense(mlp.down, F.silu(dense(mlp.gate, x)) * dense(mlp.up, x))
+def swiglu(mlp: SwiGLU, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+           dropout: Dropout = None) -> torch.Tensor:
+    g = dense(mlp.gate, x, dtype, dropout)
+    u = dense(mlp.up, x, dtype, dropout)
+    return dense(mlp.down, F.silu(g) * u, dtype, dropout)
 
 
-def gelu_mlp(mlp: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(mlp: GeluMLP, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+             dropout: Dropout = None) -> torch.Tensor:
     # exact (erf) gelu: HF ESM uses F.gelu's default, not the tanh approximation
-    return dense(mlp.down, F.gelu(dense(mlp.up, x), approximate="none"))
+    up = dense(mlp.up, x, dtype, dropout)
+    return dense(mlp.down, F.gelu(up, approximate="none"), dtype, dropout)
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +202,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def remat(fn: Callable, cfg) -> Callable:
+    """Per-layer rematerialization honoring cfg.remat/remat_policy (JAX
+    layers.py:326-336): 'full' recomputes the layer in backward
+    (`torch.utils.checkpoint`, non-reentrant); only while autograd records.
+    'dots' (save matmul outputs) has no counterpart yet and raises."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP.md, queue 1, "
+            f"item 1: left out of the SFT slice); use 'full' or remat=False")
+
+    def wrapped(*args, **kw):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kw)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:

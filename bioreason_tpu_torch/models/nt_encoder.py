@@ -14,6 +14,7 @@ from torch import nn
 from bioreason_tpu_torch.config import EncoderConfig
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.attention import attention
+from bioreason_tpu_torch.utils.devices import torch_dtype
 
 
 class EncoderAttention(nn.Module):
@@ -47,10 +48,27 @@ class NTEncoder(nn.Module):
         self.final_norm = L.LayerNorm(cfg.hidden_size, device)
 
 
+def _layer_forward(lp: EncoderLayer, h, cfg: EncoderConfig, positions, attention_mask):
+    b, t, _ = h.shape
+    dtype = h.dtype
+    nh, hd = cfg.num_heads, cfg.head_dim
+    x = L.layernorm(lp.ln1, h, cfg.norm_eps)
+    q, k, v = L.qkv_proj(lp.attn, x, dtype)
+    q = L.apply_rope(q.reshape(b, t, nh, hd), positions, cfg.rope_theta)
+    k = L.apply_rope(k.reshape(b, t, nh, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, t, nh, hd)
+    a = attention(q, k, v, kv_mask=attention_mask, causal=False, impl=cfg.attention_impl)
+    h = h + L.dense(lp.attn.o, a.reshape(b, t, -1), dtype)
+    x = L.layernorm(lp.ln2, h, cfg.norm_eps)
+    mlp = L.swiglu if cfg.use_swiglu else L.gelu_mlp
+    return h + mlp(lp.mlp, x, dtype)
+
+
 def encoder_forward(enc: NTEncoder, cfg: EncoderConfig, input_ids: torch.Tensor,
                     attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Returns the last hidden state [B, T, H] in the weights' dtype."""
-    h = L.embed(enc.embed, input_ids)
+    """Returns the last hidden state [B, T, H] in the compute dtype. Layers
+    are recomputed in backward when `cfg.remat` and autograd records."""
+    h = L.embed(enc.embed, input_ids, torch_dtype(cfg.dtype))
     b, t, _ = h.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, t), dtype=torch.int32, device=h.device)
@@ -66,17 +84,7 @@ def encoder_forward(enc: NTEncoder, cfg: EncoderConfig, input_ids: torch.Tensor,
     h = h * attention_mask[..., None].to(h.dtype)
     positions = L.positions_from_mask(attention_mask)
 
-    nh, hd = cfg.num_heads, cfg.head_dim
+    layer = L.remat(_layer_forward, cfg)
     for lp in enc.layers:
-        x = L.layernorm(lp.ln1, h, cfg.norm_eps)
-        q, k, v = L.qkv_proj(lp.attn, x)
-        q = L.apply_rope(q.reshape(b, t, nh, hd), positions, cfg.rope_theta)
-        k = L.apply_rope(k.reshape(b, t, nh, hd), positions, cfg.rope_theta)
-        v = v.reshape(b, t, nh, hd)
-        a = attention(q, k, v, kv_mask=attention_mask, causal=False,
-                      impl=cfg.attention_impl)
-        h = h + L.dense(lp.attn.o, a.reshape(b, t, -1))
-        x = L.layernorm(lp.ln2, h, cfg.norm_eps)
-        mlp = L.swiglu if cfg.use_swiglu else L.gelu_mlp
-        h = h + mlp(lp.mlp, x)
+        h = layer(lp, h, cfg, positions, attention_mask)
     return L.layernorm(enc.final_norm, h, cfg.norm_eps)

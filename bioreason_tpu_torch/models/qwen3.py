@@ -7,6 +7,11 @@ place (`cache[i]["k"][:, idx:idx+t] = k`), never reallocated per step; the
 JAX package gets the same effect from donated buffers and
 dynamic_update_slice. The int8 cache and the grouped GRPO decode come with
 later slices.
+
+Training runs the same layers with autograd: each layer may be recomputed in
+backward (`cfg.remat`, `layers.remat`) and draws its LoRA dropout masks from
+its own generator, seeded per layer and step, so a recomputed layer draws
+the same masks (the JAX package's per-layer dropout keys, qwen3.py:251-260).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from torch import nn
 from bioreason_tpu_torch.config import DecoderConfig
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.attention import attention
+from bioreason_tpu_torch.utils.devices import torch_dtype
 
 
 class DecoderAttention(nn.Module):
@@ -74,11 +80,18 @@ def cache_entry_update(entry: Dict[str, torch.Tensor], k: torch.Tensor,
 
 
 def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
-                   causal, cache_entry=None, cache_index=None):
-    """One decoder block. h: [B, T, H]."""
+                   causal, cache_entry=None, cache_index=None, dropout_seed=None,
+                   dropout_rate: float = 0.0):
+    """One decoder block. h: [B, T, H] in the compute dtype. With a
+    `dropout_seed`, the LoRA adapters' inputs take inverted dropout drawn
+    from a generator seeded with it (q, k, v, o, gate, up, down in turn)."""
     b, t, _ = h.shape
+    dtype = h.dtype
+    drop = None
+    if dropout_seed is not None:
+        drop = (torch.Generator(device=h.device).manual_seed(dropout_seed), dropout_rate)
     x = L.rmsnorm(lp.ln1, h, cfg.rms_norm_eps)
-    q, k, v = L.qkv_proj(lp.attn, x)
+    q, k, v = L.qkv_proj(lp.attn, x, dtype, (drop, drop, drop))
     q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
@@ -98,9 +111,9 @@ def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
     a = attention(q, k_all, v_all, kv_mask=kv_mask, causal=causal,
                   q_offset=cache_index if cache_entry is not None else None,
                   impl=cfg.attention_impl)
-    h = h + L.dense(lp.attn.o, a.reshape(b, t, -1))
+    h = h + L.dense(lp.attn.o, a.reshape(b, t, -1), dtype, drop)
     x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
-    return h + L.swiglu(lp.mlp, x)
+    return h + L.swiglu(lp.mlp, x, dtype, drop)
 
 
 def decoder_forward(
@@ -114,6 +127,8 @@ def decoder_forward(
     cache_index: int = 0,
     cache_mask: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
+    lora_dropout_gen: Optional[torch.Generator] = None,
+    lora_dropout_rate: float = 0.0,
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, torch.Tensor]]]]:
     """Run the decoder. Returns (fp32 logits [B,T,V] or the final hidden
     state with `return_hidden`, the cache or None).
@@ -122,23 +137,47 @@ def decoder_forward(
     [B,T] marks valid tokens; left padding supported). With cache: the
     block's K/V are written at `cache_index` and attention runs over the
     whole cache with `cache_mask` [B,S] marking valid slots (causal within
-    a multi-token block, q_offset = cache_index)."""
+    a multi-token block, q_offset = cache_index).
+
+    Training (no cache): `lora_dropout_gen` (a CPU generator) draws one
+    dropout seed per layer when `lora_dropout_rate` > 0; layers are
+    recomputed in backward when `cfg.remat`."""
+    dtype = torch_dtype(cfg.dtype)
     if inputs_embeds is None:
         inputs_embeds = L.embed(dec.embed, input_ids)
-    h = inputs_embeds.to(dec.embed.weight.dtype)
+    h = inputs_embeds.to(dtype)
     b, t, _ = h.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, t), dtype=torch.int32, device=h.device)
     if positions is None:
         positions = L.positions_from_mask(attention_mask)
+
     if cache is not None:
         kv_mask, causal = cache_mask, t > 1
+        for i, lp in enumerate(dec.layers):
+            h = _layer_forward(lp, h, cfg, positions, kv_mask, causal, cache[i], cache_index)
     else:
-        kv_mask, causal = attention_mask, True
-
-    for i, lp in enumerate(dec.layers):
-        h = _layer_forward(lp, h, cfg, positions, kv_mask, causal,
-                           None if cache is None else cache[i], cache_index)
+        seeds = [None] * len(dec.layers)
+        if lora_dropout_gen is not None and lora_dropout_rate > 0.0:
+            seeds = torch.randint(0, 2 ** 62, (len(dec.layers),),
+                                  generator=lora_dropout_gen).tolist()
+        layer = L.remat(_layer_forward, cfg)
+        for lp, seed in zip(dec.layers, seeds):
+            h = layer(lp, h, cfg, positions, attention_mask, True,
+                      dropout_seed=seed, dropout_rate=lora_dropout_rate)
     h = L.rmsnorm(dec.final_norm, h, cfg.rms_norm_eps)
     out = h if return_hidden else L.lm_logits(dec, h)
     return out, cache
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Shifted causal LM loss, mean over supervised tokens (HF semantics:
+    logits[:, :-1] predict labels[:, 1:])."""
+    logits = logits[:, :-1].float()
+    targets = labels[:, 1:]
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, 0).long()
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    return ((logz - gold) * valid).sum() / valid.sum().clamp(min=1)

@@ -1,14 +1,21 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-version (the port of the forward half of bioreason_tpu/ops/flash_attention.py).
+"""Flash attention: the hand-written Hopper kernels and their plain
+versions (the port of bioreason_tpu/ops/flash_attention.py).
 
 `flash_attention` launches `csrc/flash_fwd.cu` on CUDA tensors: one kernel
-for both Pallas forwards (`_fwd_kernel`, `_fwd_single_kernel`). It reads the
-[B, T, H, D] layout through strides and the [B, Tk] key mask as it is, so
-none of the TPU wrapper's head-major transposes, block padding or per-head
-mask repeat exists here. On CPU tensors it computes `flash_attention_ref`;
-on a CUDA tensor it launches the kernel or raises, never anything else.
+for both Pallas forwards (`_fwd_kernel`, `_fwd_single_kernel`). When
+autograd records (a training step), it runs through `FlashAttention`, a
+`torch.autograd.Function` (the JAX `custom_vjp`) whose backward is
+`flash_bwd`: `csrc/flash_bwd.cu`, one pair of kernels for the three Pallas
+backward kernels (`_dq_kernel`, `_dkv_kernel`, `_bwd_single_kernel`).
+Without autograd (serving) it launches the forward alone, as before.
 
-The backward kernels come with the training slice.
+The kernels read the [B, T, H, D] layout through strides and the [B, Tk]
+key mask as it is, so none of the TPU wrapper's head-major transposes,
+block padding or per-head mask repeat exists here. On CPU tensors the
+wrappers compute `flash_attention_ref` / `flash_attention_bwd_ref`; on a
+CUDA tensor they launch the kernel or raise, never anything else. Each
+wrapper counts its launches (`flash_attention.launches`,
+`flash_bwd.launches`).
 """
 
 from __future__ import annotations
@@ -17,36 +24,56 @@ import ctypes
 
 import torch
 
-from bioreason_tpu_torch.ops.cuda_build import load_library
+from bioreason_tpu_torch.ops.cuda_build import load_libraries
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
-_fwd = None
-_build_log = ""
+_fns = {}
+_build_logs = {}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "flash_fwd": [_P, _P, _P, _P, _P, _P,                 # q k v mask o lse
+                  _I, _I, _I, _I, _I, _I,                 # B Tq Tk Hq Hkv D
+                  _LL, _LL, _LL, _LL, _LL, _LL,           # q, k strides (b, t, h)
+                  _LL, _LL, _LL, _LL, _LL, _LL,           # v, o strides
+                  _I, _I, ctypes.c_float, _P],            # causal q_offset scale stream
+    "flash_bwd": [_P, _P, _P, _P, _P, _P, _P,             # q k v mask o lse do
+                  _P, _P, _P, _P,                         # dq dk dv delta
+                  _I, _I, _I, _I, _I, _I,                 # B Tq Tk Hq Hkv D
+                  ctypes.POINTER(_LL),                    # 24 strides
+                  _I, _I, ctypes.c_float, _P],            # causal q_offset scale stream
+}
 
 
-def _fwd_fn():
-    global _fwd, _build_log
-    if _fwd is None:
-        lib, _build_log = load_library("flash_fwd", "flash_fwd.cu")
-        fn = lib.flash_fwd_bf16
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p,                 # q k v mask o lse
-                       i, i, i, i, i, i,                 # B Tq Tk Hq Hkv D
-                       ll, ll, ll, ll, ll, ll,           # q, k strides (b, t, h)
-                       ll, ll, ll, ll, ll, ll,           # v, o strides
-                       i, i, ctypes.c_float, p]          # causal q_offset scale stream
+def _load(*names: str) -> None:
+    """Build (one nvcc per source, run together) and load the C entries
+    `<name>_bf16` of csrc/<name>.cu that are not loaded yet."""
+    missing = [n for n in names if n not in _fns]
+    if not missing:
+        return
+    for name, (lib, log) in load_libraries({n: f"{n}.cu" for n in missing}).items():
+        _build_logs[name] = log
+        fn = getattr(lib, f"{name}_bf16")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _fwd = fn
-    return _fwd
+        _fns[name] = fn
 
 
-def build() -> str:
-    """Compile (if needed) and load the kernel library; returns nvcc's
-    output (the ptxas report) if this process built it, else ""."""
-    _fwd_fn()
-    return _build_log
+def _kernel_fn(name: str):
+    """The C entry `<name>_bf16` of csrc/<name>.cu, built at first use."""
+    _load(name)
+    return _fns[name]
+
+
+def build(*names: str) -> dict:
+    """Compile (if needed) and load kernel libraries ("flash_fwd",
+    "flash_bwd"; both by default), their builds run together. Returns
+    name -> nvcc's output (the ptxas report) if this process built it,
+    else ""."""
+    names = names or ("flash_fwd", "flash_bwd")
+    _load(*names)
+    return {n: _build_logs.get(n, "") for n in names}
 
 
 def flash_attention_ref(q, k, v, kv_mask=None, causal=False, q_offset=None):
@@ -80,6 +107,43 @@ def flash_attention_ref(q, k, v, kv_mask=None, causal=False, q_offset=None):
             lse.reshape(b, hq, tq))
 
 
+def flash_attention_bwd_ref(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
+    """Plain backward of `flash_attention_ref`: fp32 math, grouped einsums,
+    P recomputed from the saved LSE (selected to 0 on invalid pairs, so a
+    fully masked row gives dq = 0), delta = rowsum(dO * O). Returns
+    (dq, dk, dv) in the dtypes of q, k, v."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5
+    qg = q.float().reshape(b, tq, hkv, group, d)
+    dog = dout.float().reshape(b, tq, hkv, group, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    valid = torch.ones((b, 1, 1, 1, tk), dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        valid = kv_mask.bool().reshape(b, 1, 1, 1, tk)
+    if causal:
+        qi = torch.arange(tq, device=q.device)[:, None] + q_offset
+        kj = torch.arange(tk, device=q.device)[None, :]
+        valid = valid & (kj <= qi)
+    lse_g = lse.float().reshape(b, hkv, group, tq, 1)
+    p = torch.exp(torch.where(valid, s - lse_g, -torch.inf))
+    delta = (dout.float() * out.float()).sum(-1)                       # [B, Tq, Hq]
+    delta = delta.reshape(b, tq, hkv, group).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dq.reshape(b, tq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _aligned(x) -> bool:
+    """The kernels' layout rule: unit last stride, 16-byte aligned rows."""
+    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
+
+
 def _check(q, k, v, kv_mask):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, D]")
@@ -99,13 +163,109 @@ def _check(q, k, v, kv_mask):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if x.dtype != torch.bfloat16:
-            raise ValueError(f"flash_fwd takes bfloat16, {name} is {x.dtype}")
-        if (x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3])
-                or x.data_ptr() % 16):
+            raise ValueError(f"the flash kernels take bfloat16, {name} is {x.dtype}")
+        if not _aligned(x):
             raise ValueError(f"{name} needs a unit last stride and 16-byte "
                              f"aligned rows, got strides {x.stride()}")
     if kv_mask is not None and kv_mask.device != q.device:
         raise ValueError(f"kv_mask is on {kv_mask.device}, q on {q.device}")
+
+
+def _mask_i32(kv_mask):
+    return None if kv_mask is None else kv_mask.to(torch.int32).contiguous()
+
+
+def _forward(q, k, v, kv_mask, causal, q_offset):
+    """(out, lse): the kernel on a CUDA tensor, the plain version on a CPU one."""
+    if not q.is_cuda:
+        return flash_attention_ref(q, k, v, kv_mask, causal, q_offset)
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty((b, tq, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    if b == 0 or tq == 0:
+        return out, lse
+    mask = _mask_i32(kv_mask)
+    rc = _kernel_fn("flash_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr(),
+        b, tq, tk, hq, hkv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(bool(causal)), int(q_offset), float(d ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd launch failed: cudaError {rc}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
+    """Gradients (dq, dk, dv) of `flash_attention` given the forward's out
+    and lse and the output gradient dout. Launches `csrc/flash_bwd.cu` on
+    CUDA tensors (delta = rowsum(dO * O) is folded into the dq kernel) and
+    computes `flash_attention_bwd_ref` on CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, kv_mask, causal, q_offset, out, lse, dout)
+    _check(q, k, v, kv_mask)
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    for name, x, shape in (("out", out, q.shape), ("dout", dout, q.shape),
+                           ("lse", lse, (b, hq, tq))):
+        if tuple(x.shape) != tuple(shape) or x.device != q.device:
+            raise ValueError(f"{name} must be {tuple(shape)} on {q.device}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+    if out.dtype != torch.bfloat16 or lse.dtype != torch.float32:
+        raise ValueError(f"flash_bwd takes bf16 out and fp32 lse, got {out.dtype}, {lse.dtype}")
+    dout = dout.to(torch.bfloat16)
+    if not _aligned(dout):
+        # autograd may hand a strided grad; the kernel reads rows of 16 bytes
+        dout = dout.contiguous()
+    if not _aligned(out):
+        raise ValueError(f"out needs a unit last stride and 16-byte aligned rows, "
+                         f"got strides {out.stride()}")
+    lse = lse.contiguous()
+    dq = torch.empty((b, tq, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, tk, hkv, d), dtype=v.dtype, device=q.device)
+    if b == 0 or tq == 0 or tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    mask = _mask_i32(kv_mask)
+    strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, out, dout, dq, dk, dv)
+                                         for s in x.stride()[:3]))
+    rc = _kernel_fn("flash_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        b, tq, tk, hq, hkv, d, strides,
+        int(bool(causal)), int(q_offset), float(d ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd launch failed: cudaError {rc}")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` with its gradient: forward `flash_fwd` (out and
+    the fp32 LSE, which is not differentiable), backward `flash_bwd`. Saves
+    q, k, v, the mask, out and lse; nothing of the [Tq, Tk] scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, q_offset):
+        out, lse = _forward(q, k, v, kv_mask, causal, q_offset)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, kv_mask, ctx.causal, ctx.q_offset, out, lse, dout)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, kv_mask=None, causal=False, q_offset=None,
@@ -115,35 +275,17 @@ def flash_attention(q, k, v, kv_mask=None, causal=False, q_offset=None,
     q [B,Tq,Hq,D], k/v [B,Tk,Hkv,D] bf16 (D in {64, 128}), kv_mask [B,Tk]
     (nonzero = valid), causal means key j <= query i + q_offset, with
     q_offset defaulting to Tk - Tq. Returns out [B,Tq,Hq,D] (and, with
-    `return_lse`, lse [B,Hq,Tq] fp32)."""
+    `return_lse`, lse [B,Hq,Tq] fp32). Differentiable in q, k and v."""
     _check(q, k, v, kv_mask)
-    b, tq, hq, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
+    tq, tk = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = tk - tq if causal else 0
-    if not q.is_cuda:
-        out, lse = flash_attention_ref(q, k, v, kv_mask, causal, q_offset)
-        return (out, lse) if return_lse else out
-
-    out = torch.empty((b, tq, hq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    if b == 0 or tq == 0:
-        return (out, lse) if return_lse else out
-    mask = None
-    if kv_mask is not None:
-        mask = kv_mask.to(torch.int32).contiguous()
-    fn = _fwd_fn()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(),
-            b, tq, tk, hq, hkv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(bool(causal)), int(q_offset), float(d ** -0.5),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {rc}")
-    flash_attention.launches += 1
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out, lse = FlashAttention.apply(q, k, v, kv_mask, causal, q_offset)
+    else:
+        out, lse = _forward(q, k, v, kv_mask, causal, q_offset)
     return (out, lse) if return_lse else out
 
 
-flash_attention.launches = 0      # kernel launches since the last reset
+flash_attention.launches = 0      # flash_fwd launches since the last reset
+flash_bwd.launches = 0            # flash_bwd launches since the last reset

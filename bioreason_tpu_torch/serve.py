@@ -31,8 +31,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
-                                        SamplingConfig)
+from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS
+from bioreason_tpu_torch.config import FusionConfig, SamplingConfig
 from bioreason_tpu_torch.data.chat_template import render_chat
 from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only
 from bioreason_tpu_torch.data.nt_tokenizer import KmerTokenizer
@@ -42,8 +42,6 @@ from bioreason_tpu_torch.generate.engine import GenerationEngine
 from bioreason_tpu_torch.models.fusion import FusionModel, init_fusion
 from bioreason_tpu_torch.train.rewards import extract_answer
 
-DECODER_PRESETS = {"tiny": DecoderConfig.tiny, "qwen3-0.6b": DecoderConfig.qwen3_0_6b}
-ENCODER_PRESETS = {"tiny": EncoderConfig.tiny, "nt-500m": EncoderConfig.nt_v2_500m}
 # flags of the JAX server whose paths are not ported yet
 LATER_FLAGS = ("continuous", "tiers", "int8", "fuse", "w8a8", "guided_regex")
 

@@ -1,0 +1,134 @@
+"""SFT trainer: LoRA fine-tuning of the fusion model (the port of
+bioreason_tpu/train/sft.py, on one device: no mesh, no sequence or
+pipeline parallelism, no int8 frozen weights).
+
+One `train_step` is: host batch -> supervised positions gathered
+(fused_ce.gather_label_positions) -> device tensors -> `fusion_forward`
+with the vocab-chunked CE -> backward (the decoder's attention through
+`flash_bwd` on the card) -> `AdamW.step` (clip, AdamW, warmup-cosine,
+non-finite guard). As in the reference: LoRA over the text tower (all its
+linear layers; embeddings and lm_head excluded), frozen DNA tower, trainable
+projection. Trainable parameters are fp32 masters; frozen float parameters
+of two or more dimensions are stored in `cfg.frozen_dtype`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from bioreason_tpu_torch.config import FusionConfig, SFTConfig
+from bioreason_tpu_torch.models.fusion import FusionModel, fusion_forward, init_fusion, \
+    validate_splice
+from bioreason_tpu_torch.ops.fused_ce import gather_label_positions
+from bioreason_tpu_torch.train import trainable as T
+from bioreason_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from bioreason_tpu_torch.train.lora import attach_lora, has_lora
+from bioreason_tpu_torch.train.optim import AdamW, global_norm
+from bioreason_tpu_torch.utils.devices import resolve_device
+
+BATCH_KEYS = ("input_ids", "attention_mask", "dna_input_ids", "dna_attention_mask",
+              "label_positions", "label_targets", "label_valid")
+
+
+class SFTTrainer:
+    def __init__(self, fusion_cfg: FusionConfig, cfg: SFTConfig,
+                 model: Optional[FusionModel] = None, device=None):
+        """`model`: weights to fine-tune (e.g. `weights.from_jax_params`);
+        default: drawn from `cfg.seed`. Adapters are attached unless the
+        model carries some already. Runs on `device` (CUDA unless "cpu")."""
+        self.fusion_cfg, self.cfg = fusion_cfg, cfg
+        self.device = resolve_device(device)
+        if model is None:
+            model = init_fusion(fusion_cfg, seed=cfg.seed, device=self.device)
+        self.model = model.to(self.device)
+        if cfg.lora is not None:
+            if not has_lora(model):
+                gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+                attach_lora(model, cfg.lora, gen)
+            regex = T.LORA_TRAINABLE
+        else:
+            regex = T.FULL_FINETUNE
+        if not cfg.freeze_encoder:
+            regex = f"({regex})|{T.ENCODER}"
+        self.params = T.set_trainable(model, regex, cfg.frozen_dtype)
+        self.names = T.trainable_names(model)
+        self.opt = AdamW(self.params, cfg.optim)
+        self.step = 0
+        self._dropout_gen = torch.Generator().manual_seed(cfg.seed + 2)   # per-step seeds
+        self._acc: Optional[List[torch.Tensor]] = None                    # grad accumulation
+        self._micro = 0
+
+    def _loss(self, db: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
+        cfg = self.cfg
+        rate = cfg.lora.dropout if (train and cfg.lora is not None) else 0.0
+        _, loss = fusion_forward(
+            self.model, self.fusion_cfg, db["input_ids"], db["attention_mask"],
+            db.get("dna_input_ids"), db.get("dna_attention_mask"),
+            label_positions=db["label_positions"], label_targets=db["label_targets"],
+            label_valid=db["label_valid"],
+            train_encoder=train and not cfg.freeze_encoder,
+            train_embeddings=train and cfg.lora is None,
+            lora_dropout_gen=self._dropout_gen if rate > 0.0 else None,
+            lora_dropout_rate=rate,
+            focal_gamma=cfg.focal_gamma if train else 0.0)
+        return loss
+
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        validate_splice(batch["input_ids"], batch.get("dna_input_ids"),
+                        self.fusion_cfg.dna_pad_token_id)
+        if "label_positions" not in batch:
+            # the 151936-row head then runs on the supervised span only
+            pos, tgt, val = gather_label_positions(batch["labels"])
+            batch = {**batch, "label_positions": pos, "label_targets": tgt,
+                     "label_valid": val}
+        return {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
+                for k in BATCH_KEYS if batch.get(k) is not None}
+
+    def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
+        """One micro-step; the optimizer applies the mean gradient of every
+        `grad_accum_steps` micro-steps. Returns loss, grad_norm (of this
+        micro-step's raw gradients) and the schedule's lr at the new step."""
+        loss = self._loss(self._device_batch(batch), train=True)
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        k = self.cfg.grad_accum_steps
+        if k <= 1:
+            grad_norm = self.opt.step(grads)
+        else:
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self.params, grads)]
+            grad_norm = float(global_norm(grads))
+            self._acc = grads if self._acc is None else torch._foreach_add(self._acc, grads)
+            self._micro += 1
+            if self._micro == k:
+                self.opt.step(torch._foreach_div(self._acc, float(k)))
+                self._acc, self._micro = None, 0
+        self.step += 1
+        return {"loss": float(loss.detach()), "grad_norm": grad_norm,
+                "lr": self.opt.schedule(self.step)}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, Any]) -> float:
+        """The plain (not focal) CE of a batch, no dropout."""
+        return float(self._loss(self._device_batch(batch), train=False))
+
+    def trainable_state(self) -> Dict[str, torch.Tensor]:
+        return dict(zip(self.names, self.params))
+
+    def save(self, path: str, metadata: Optional[Dict] = None) -> str:
+        """Trainable parameters, optimizer state and step to `path`."""
+        return save_checkpoint(path, self.trainable_state(), self.opt.state_dict(),
+                               self.step, metadata)
+
+    @torch.no_grad()
+    def restore(self, path: str) -> "SFTTrainer":
+        state = load_checkpoint(path)
+        if sorted(state["trainable"]) != sorted(self.names):
+            raise ValueError(f"checkpoint {path} holds other trainable parameters")
+        for name, p in zip(self.names, self.params):
+            p.copy_(state["trainable"][name])
+        self.opt.load_state_dict(state["opt_state"])
+        self.step = int(state["step"])
+        return self

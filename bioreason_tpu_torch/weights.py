@@ -13,11 +13,15 @@ leaves as numpy arrays, e.g. `jax.tree.map(np.asarray, params)`, and fills a
 * dense weights and embeddings are cast to the tower's dtype (the JAX package
   keeps fp32 masters and casts them on every call, which gives the same
   values); norm scales and biases stay fp32;
+* LoRA leaves (`lora_a` [L, in, r], `lora_b` [L, r, out], `lora_scale` [L]
+  beside a stacked kernel, train/lora.py) become one adapter per layer on
+  the `nn.Linear`, in the JAX layouts, fp32 (`layers.add_adapter`);
+* trainable leaves stay fp32: the adapters and the DNA projection;
 * a tied decoder (no `lm_head` leaf) keeps `lm_head = None` and
   `layers.lm_logits` reads the embedding as the head.
 
-The int8 `{"q", "scale"}` storage, the fused `qkv`/`gateup` leaves and LoRA
-adapters are not converted: merge and unfuse on the JAX side first.
+The int8 `{"q", "scale"}` storage and the fused `qkv`/`gateup` leaves are
+not converted: unfuse on the JAX side first.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 
 from bioreason_tpu_torch.config import FusionConfig
 from bioreason_tpu_torch.models.fusion import FusionModel
+from bioreason_tpu_torch.models.layers import add_adapter
 from bioreason_tpu_torch.utils.devices import resolve_device
 
 
@@ -43,9 +48,13 @@ def _copy(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
 
 
 def _dense(lin: nn.Linear, p: Dict[str, Any]) -> None:
-    if not isinstance(p["kernel"], np.ndarray) or "lora_a" in p:
-        raise ValueError("only float, unfused, merged dense leaves are converted")
+    if not isinstance(p["kernel"], np.ndarray):
+        raise ValueError("only float, unfused dense leaves are converted")
     _copy(lin.weight, p["kernel"], transpose=True)
+    if "lora_a" in p:
+        add_adapter(lin, torch.tensor(np.asarray(p["lora_a"], np.float32)),
+                    torch.tensor(np.asarray(p["lora_b"], np.float32)),
+                    float(np.asarray(p["lora_scale"])))
     if lin.bias is not None:
         _copy(lin.bias, p["bias"])
     elif "bias" in p:

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (`bioreason_tpu_torch`) on one
-NVIDIA H100: the quickest proof that the port builds and serves on the card.
+NVIDIA H100: the quickest proof that the port builds, serves and trains on
+the card.
 
-    python3 chip_smoke.py            # needs one CUDA card
+    python3 chip_smoke.py          # needs one CUDA card
 
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
   1. device   the card's name and power limit (nvidia-smi); TF32 off for the
               reference computations.
-  2. build    compile csrc/flash_fwd.cu with nvcc for sm_90a (ptxas report).
+  2. build    compile csrc/flash_fwd.cu and csrc/flash_bwd.cu with nvcc for
+              sm_90a, one nvcc each, started together (ptxas reports).
   3. kernels  flash_fwd against its plain version (`flash_attention_ref`,
               fp32 math) in bf16 on the card at the encoder, prefill and
-              q_offset shapes, with kernel, plain, bound and library
-              (torch's scaled_dot_product_attention, a yardstick the port
-              never calls) times.
+              q_offset shapes and the training encoder's shape, and flash_bwd
+              against `flash_attention_bwd_ref` at the SFT shapes (T=768,
+              and T=1000 with left pads), the encoder shape and one causal
+              q_offset shape with Tq < Tk (the forward it differentiates is
+              held to `flash_attention_ref` there too), with kernel, plain,
+              bound and library (torch's scaled_dot_product_attention and
+              its backward, a yardstick the port never calls) times.
   4. serve    the port's InferenceServer at Qwen3-0.6B + NT-v2-500M width,
               bf16, weights from a fixed seed: the kernel route against the
               plain route on one request, then 8 concurrent greedy requests
@@ -21,6 +27,14 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               finite and the kernel ran in every encoder and prefill layer.
   5. profile  torch.profiler over one prefill and one short engine call of
               the same batch: device time by kernel, the device's busy share.
+  6. train    LoRA SFT at Qwen3-0.6B + NT-v2-500M width, bf16 frozen weights
+              from seed 0: the `train_sft` CLI for 4 steps on synthetic KEGG
+              items; the SFTTrainer at bench.py's shape (B=4, 768 text
+              tokens, 2 x 128 DNA tokens per item, the last 128 positions
+              supervised, remat off) for 2 + 10 timed steps, with flash_fwd
+              and flash_bwd counted per step; one loss + gradient of the
+              kernel route against the plain ('xla') route; the LoRA B leaves
+              checked to have moved; one step profiled.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -31,9 +45,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -52,6 +69,13 @@ PEAK_HBM_BYTES = 3.35e12
 OUT_ATOL, OUT_RTOL = 2e-2, 2e-2
 # the LSE is fp32 in both: same bf16 products, other summation order, __expf
 LSE_ATOL = 1e-3
+
+# flash_bwd vs its plain version: the kernel rounds P and dS to bf16 before
+# their products (as the Pallas kernels do) and writes bf16 gradients; the
+# plain version keeps fp32 throughout. Each gradient element is a sum of up
+# to ~1000 such terms whose rounding errors (2^-9 relative) mostly cancel, so
+# the error stays well under 2% of the gradient's largest element
+BWD_RTOL_OF_MAX = 2e-2
 
 ENCODER_LAYERS, DECODER_LAYERS = 29, 28
 
@@ -85,13 +109,16 @@ def phase_device(torch):
 # -- phase 2 -----------------------------------------------------------------
 
 def phase_build():
+    """Both kernels, one nvcc per source, started together."""
     from bioreason_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
-    report = fa.build()
-    log(f"build: flash_fwd in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    reports = fa.build("flash_fwd", "flash_bwd")
+    log(f"build: {', '.join(reports)} in {time.perf_counter() - t0:.2f} s")
+    for name, report in reports.items():
+        log(f"build: {name}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -176,6 +203,100 @@ def kernel_case(torch, name, b, tq, tk, hq, hkv, d, causal, q_offset, mask, seed
     return row
 
 
+def bwd_case(torch, name, b, tq, tk, hq, hkv, d, causal, q_offset, mask, seed):
+    """flash_bwd against flash_attention_bwd_ref on one shape: the same bf16
+    q, k, v, dO, and the kernel forward's out and lse, on the card. That
+    forward is first held to flash_attention_ref, so an error of flash_fwd
+    at this shape cannot hide in the backward's inputs."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                     for shape in ((b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, d),
+                                   (b, tq, hq, d)))
+    out, lse = fa.flash_attention(q, k, v, mask, causal=causal, q_offset=q_offset,
+                                  return_lse=True)
+    grads = fa.flash_bwd(q, k, v, mask, causal, q_offset, out, lse, dout)
+    torch.cuda.synchronize()
+    vis = mask.bool()[:, None, :].expand(b, tq, tk)
+    if causal:
+        vis = vis & (torch.arange(tk, device=dev)[None, :]
+                     <= torch.arange(tq, device=dev)[:, None] + q_offset)
+    rows = vis.any(-1)                                             # [B, Tq]
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, mask, causal, q_offset)
+    o, r = out.float()[rows], ref_out.float()[rows]
+    fwd_err = float((o - r).abs().max())
+    if not torch.allclose(o, r, atol=OUT_ATOL, rtol=OUT_RTOL):
+        fail(f"kernel {name}: the forward's out differs from the plain version, "
+             f"max abs err {fwd_err:.4g}")
+    lrows = rows[:, None, :].expand(b, hq, tq)
+    lse_err = float((lse[lrows] - ref_lse[lrows]).abs().max())
+    if lse_err > LSE_ATOL:
+        fail(f"kernel {name}: the forward's lse differs from the plain version by {lse_err:.4g}")
+    del ref_out, ref_lse, o, r
+    refs = fa.flash_attention_bwd_ref(q, k, v, mask, causal, q_offset, out, lse, dout)
+    errs = {}
+    for gname, got, ref, sel in (("dq", grads[0], refs[0], rows), ("dk", grads[1], refs[1], None),
+                                 ("dv", grads[2], refs[2], None)):
+        a, r = got.float(), ref.float()
+        if sel is not None:
+            a, r = a[sel], r[sel]
+        if not bool(torch.isfinite(a).all()):
+            fail(f"kernel {name}: {gname} is not finite")
+        errs[gname] = float((a - r).abs().max())
+        ref_max = float(r.abs().max())
+        if errs[gname] > BWD_RTOL_OF_MAX * ref_max:
+            fail(f"kernel {name}: {gname} differs from the plain version by {errs[gname]:.4g} "
+                 f"(max |ref| {ref_max:.4g}, tolerance {BWD_RTOL_OF_MAX} of it)")
+        errs[gname + "_ref_max"] = ref_max
+    empty = ~rows
+    if bool(empty.any()) and bool(grads[0][empty].ne(0).any()):
+        fail(f"kernel {name}: fully masked rows have dq != 0")
+
+    ms = cuda_ms(lambda: fa.flash_bwd(q, k, v, mask, causal, q_offset, out, lse, dout),
+                 iters=20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, mask, causal, q_offset, out,
+                                                          lse, dout), iters=3, warmup=1)
+    # library yardstick: the backward of one SDPA call on the same work, on
+    # a retained graph (layout copies and the mask made before timing)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    if causal and tq == tk and bool(mask.bool().all()):
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=hkv != hq)
+    else:
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis[:, None],
+                                           enable_gqa=hkv != hq)
+    do_t = dout.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True),
+                         iters=10)
+
+    # the work this data needs: 10*D flops per visible (query, key) pair and
+    # head (Q K^T, dO V^T, P^T dO, dS K, dS^T Q); q, out, dO and lse read for
+    # the query rows that see a key, k and v for the keys some query sees,
+    # the mask read once; all of dq, dk, dv written once
+    flops = 10.0 * d * hq * float(vis.sum())
+    q_rows, kv_rows = float(rows.sum()), float(vis.any(1).sum())
+    nbytes = (2 * (3 * q_rows * hq * d + 2 * kv_rows * hkv * d)   # q out dO, k v
+              + 4 * q_rows * hq + 4 * mask.numel()                # lse, mask
+              + 2 * (q.numel() + 2 * k.numel()))                  # dq, dk dv
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    err = max(errs["dq"], errs["dk"], errs["dv"])
+    row = {"shape": name, "B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
+           "causal": causal, "q_offset": q_offset, "fwd_max_abs_err": fwd_err,
+           "fwd_lse_max_abs_err": lse_err, "max_abs_err": err, **errs, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    log(f"kernel {name} (bwd): B={b} Tq={tq} Tk={tk} Hq={hq} Hkv={hkv} D={d} causal={causal} "
+        f"q_offset={q_offset}: forward max abs err {fwd_err:.3g} (lse {lse_err:.3g}); max abs err "
+        f"dq {errs['dq']:.3g} dk {errs['dk']:.3g} dv {errs['dv']:.3g} (max |ref| "
+        f"{errs['dq_ref_max']:.3g} {errs['dk_ref_max']:.3g} {errs['dv_ref_max']:.3g}, tolerance "
+        f"{BWD_RTOL_OF_MAX} of each); ms {ms:.4f} plain_ms {plain_ms:.3f} library_ms "
+        f"{library_ms:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}), "
+        f"{row['tflops']:.1f} TFLOP/s")
+    return row
+
+
 def right_padded(torch, b, t, lo, gen):
     lens = torch.randint(lo, t + 1, (b,), generator=gen, device="cuda")
     return (torch.arange(t, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
@@ -225,7 +346,28 @@ def phase_kernels(torch, max_new):
     s_, t_ = dna_ids.shape
     rows.append(kernel_case(torch, f"encoder_served_T{t_}", s_, t_, t_, 16, 16, 64, False,
                             None, torch.as_tensor(dna_mask, device="cuda"), 16))
-    return rows
+    # (f) the encoder as the train phase's bench-shape batch gives it: 2 x 4
+    # DNA sequences of 128 tokens, all valid (the decoder's training shapes
+    # are held in the backward cases below, forward first)
+    rows.append(kernel_case(torch, "encoder_sft_T128", 8, 128, 128, 16, 16, 64, False, None,
+                            torch.ones((8, 128), dtype=torch.int32, device="cuda"), 17))
+
+    bwd_rows = [
+        # bench.py's SFT shape, the single-block regime on the TPU: all valid
+        bwd_case(torch, "sft_T768", 4, 768, 768, 16, 8, 128, True, 0,
+                 torch.ones((4, 768), dtype=torch.int32, device="cuda"), 21),
+        # the tiled regime on the TPU: ragged edge, left pads (fully masked rows)
+        bwd_case(torch, "sft_T1000_leftpad", 4, 1000, 1000, 16, 8, 128, True, 0,
+                 left_padded(torch, 4, 1000, 0, 300, g), 22),
+        # the encoder under --dna_model_finetune: bidirectional, right pads
+        bwd_case(torch, "encoder_T128_bwd", 16, 128, 128, 16, 16, 64, False, 0,
+                 right_padded(torch, 16, 128, 64, g), 23),
+        # the rest of the kernel's contract, off the SFT path: Tq < Tk with
+        # a causal q_offset > 0 and a ragged key edge
+        bwd_case(torch, "q_offset_194_bwd", 2, 136, 330, 16, 8, 128, True, 194,
+                 left_padded(torch, 2, 330, 0, 40, g), 24),
+    ]
+    return rows, bwd_rows
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -388,6 +530,154 @@ def phase_profile(torch, card, server, items, max_new):
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def bench_batch(cfg, b=4, t_text=768, l_dna=128):
+    """bench.py's SFT batch (bench.py:253-268): random text ids, 2 DNA
+    sequences of l_dna tokens per item spliced after the first token, the
+    last 128 positions supervised, labels gathered to those positions."""
+    from bioreason_tpu_torch.ops.fused_ce import gather_label_positions
+    npr = np.random.default_rng(0)
+    input_ids = npr.integers(0, 150000, (b, t_text)).astype(np.int32)
+    for i in range(b):
+        input_ids[i, 1:1 + 2 * l_dna] = cfg.dna_pad_token_id
+    labels = np.where(np.arange(t_text)[None] >= t_text - 128, input_ids, -100)
+    pos, tgt, val = gather_label_positions(labels)
+    return {"input_ids": input_ids, "attention_mask": np.ones((b, t_text), np.int32),
+            "dna_input_ids": npr.integers(6, 4102, (2 * b, l_dna)).astype(np.int32),
+            "dna_attention_mask": np.ones((2 * b, l_dna), np.int32),
+            "label_positions": pos, "label_targets": tgt, "label_valid": val}
+
+
+def reset_counts(fa):
+    fa.flash_attention.launches = 0
+    fa.flash_bwd.launches = 0
+
+
+def phase_train(torch, card):
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from bioreason_tpu_torch.cli import train_sft
+    from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
+                                            LoRAConfig, OptimConfig, SFTConfig)
+    from bioreason_tpu_torch.models.fusion import fusion_forward
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    per_step_fwd = ENCODER_LAYERS + DECODER_LAYERS
+
+    # (a) the CLI, end to end: collate, labels, gathered CE, optimizer. Its
+    # presets keep remat on, so each decoder layer's forward runs twice.
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_sft_", dir=build_dir)
+    try:
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        trainer = train_sft.main(["--max_steps", "4", "--seed", "0", "--checkpoint_dir", ckpt])
+        secs = time.perf_counter() - t0
+        fwd, bwd = fa.flash_attention.launches, fa.flash_bwd.launches
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [m["loss"] for m in trainer.history]
+    log(f"train (cli) [{card}]: 4 steps in {secs:.1f} s (build and data included), losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
+        f"{[round(m['step_time'] * 1e3, 1) for m in trainer.history]}; flash_fwd {fwd}, "
+        f"flash_bwd {bwd} launches")
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        fail(f"train_sft.main did not run 4 finite steps: {losses}")
+    if bwd != 4 * DECODER_LAYERS or fwd != 4 * (per_step_fwd + DECODER_LAYERS):
+        fail(f"train_sft.main launched flash_fwd {fwd} and flash_bwd {bwd} times in 4 steps")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) the SFTTrainer at bench.py's shape, remat off
+    dec = dataclasses.replace(DecoderConfig.qwen3_0_6b(), remat=False)
+    enc = dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False)
+    cfg = FusionConfig(decoder=dec, encoder=enc, dna_pad_token_id=151938)
+    sft = SFTConfig(batch_size=4, lora=LoRAConfig(r=32, alpha=64),
+                    optim=OptimConfig(total_steps=100), seed=0)
+    trainer = SFTTrainer(cfg, sft)
+    batch = bench_batch(cfg)
+    n_train = sum(p.numel() for p in trainer.params)
+    b_leaves = {n: p.detach().clone() for n, p in trainer.trainable_state().items()
+                if n.endswith("lora_b")}
+    for _ in range(2):                                   # warm-up
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # --- the main path: counts from 0 just before, read just after ---------
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    metrics = [trainer.train_step(batch) for _ in range(10)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = fa.flash_attention.launches, fa.flash_bwd.launches
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    log(f"train (bench shape) [{card}]: B=4 T=768 DNA 8x128, LoRA r32/a64 over "
+        f"{n_train / 1e6:.2f} M trainable parameters, remat off: {40 / dt:.3f} examples/s, "
+        f"{dt / 10 * 1e3:.1f} ms per step over 10 steps, torch.cuda.max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; losses {[round(x, 4) for x in losses]}")
+    # (d) kernels per step, finite losses
+    log(f"train (bench shape): flash_fwd {fwd} launches ({fwd / 10:g} per step), flash_bwd "
+        f"{bwd} ({bwd / 10:g} per step)")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite training loss: {losses}")
+    if bwd != 10 * DECODER_LAYERS or fwd != 10 * per_step_fwd:
+        fail(f"expected {DECODER_LAYERS} flash_bwd and {per_step_fwd} flash_fwd launches per "
+             f"step, got {bwd / 10:g} and {fwd / 10:g}")
+    # (e) the adapters' B leaves have moved
+    state = trainer.trainable_state()
+    still = [n for n, b0 in b_leaves.items() if torch.equal(state[n].detach(), b0)]
+    log(f"train (bench shape): {len(b_leaves) - len(still)} of {len(b_leaves)} LoRA B "
+        f"leaves moved")
+    if still:
+        fail(f"LoRA B leaves did not move: {still[:4]}")
+
+    # (c) one loss + gradient through the kernels against the plain route
+    db = trainer._device_batch(batch)
+
+    def loss_and_grad(c):
+        _, loss = fusion_forward(trainer.model, c, db["input_ids"], db["attention_mask"],
+                                 db["dna_input_ids"], db["dna_attention_mask"],
+                                 label_positions=db["label_positions"],
+                                 label_targets=db["label_targets"],
+                                 label_valid=db["label_valid"])
+        grads = torch.autograd.grad(loss, trainer.params)
+        return float(loss.detach()), torch.cat([g.float().flatten() for g in grads])
+    lk, gk = loss_and_grad(cfg)
+    plain = dataclasses.replace(cfg, decoder=dataclasses.replace(dec, attention_impl="xla"),
+                                encoder=dataclasses.replace(enc, attention_impl="xla"))
+    lp, gp = loss_and_grad(plain)
+    cos = float(F.cosine_similarity(gk, gp, dim=0))
+    log(f"train: kernel vs plain route, one loss + gradient: loss {lk:.6f} vs {lp:.6f} "
+        f"(diff {abs(lk - lp):.3g}), cosine of the {gk.numel()} trainable gradients {cos:.6f}, "
+        f"norms {float(gk.norm()):.4g} vs {float(gp.norm()):.4g}")
+    if not (math.isfinite(lk) and math.isfinite(lp)) or cos < 0.99:
+        fail(f"kernel and plain routes disagree in training (cosine {cos:.4f})")
+    del gk, gp
+
+    # (f) one step under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    share = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+             for name in ("flash_fwd", "flash_bwd")}
+    log(f"profile [{card}] train step: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernel launches; "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / max(busy_ms, 1e-9):.1f}% of device time)"
+                    for k, v in share.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return {"fwd_launches": fwd, "bwd_launches": bwd}
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -402,22 +692,38 @@ def main():
     max_new = 64
     card = phase_device(torch)
     phase_build()
-    rows = phase_kernels(torch, max_new)
+    rows, bwd_rows = phase_kernels(torch, max_new)
     launches, server, items = phase_serve(torch, card, max_new)
     phase_profile(torch, card, server, items, max_new=8)
+    del server
+    torch.cuda.empty_cache()
+    train = phase_train(torch, card)
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    served = rows[-2]                  # the served prefill: the kernel's largest call
-    entry = {"name": "flash_fwd", "route": "cuda",
-             "source": "bioreason_tpu_torch/csrc/flash_fwd.cu",
-             "replaces": "bioreason_tpu/ops/flash_attention.py:60",
-             "also_replaces": "bioreason_tpu/ops/flash_attention.py:239",
-             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
-             "ms": served["ms"], "plain_ms": served["plain_ms"],
-             "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
-             "library_ms": served["library_ms"], "at_shape": served["shape"],
-             "shapes": rows}
-    log(json.dumps({"kernels": [entry]}))
+    # the served prefill: the kernel's largest call
+    served = next(r for r in rows if r["shape"].startswith("prefill_served"))
+    fwd_entry = {"name": "flash_fwd", "route": "cuda",
+                 "source": "bioreason_tpu_torch/csrc/flash_fwd.cu",
+                 "replaces": "bioreason_tpu/ops/flash_attention.py:60",
+                 "also_replaces": ["bioreason_tpu/ops/flash_attention.py:239"],
+                 "launches": launches, "train_launches": train["fwd_launches"],
+                 "max_abs_err": max(r["max_abs_err"] for r in rows),
+                 "ms": served["ms"], "plain_ms": served["plain_ms"],
+                 "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
+                 "library_ms": served["library_ms"], "at_shape": served["shape"],
+                 "shapes": rows}
+    sft = bwd_rows[0]                  # sft_T768: bench.py's training shape
+    bwd_entry = {"name": "flash_bwd", "route": "cuda",
+                 "source": "bioreason_tpu_torch/csrc/flash_bwd.cu",
+                 "replaces": "bioreason_tpu/ops/flash_attention.py:118",
+                 "also_replaces": ["bioreason_tpu/ops/flash_attention.py:160",
+                                   "bioreason_tpu/ops/flash_attention.py:271"],
+                 "launches": train["bwd_launches"],
+                 "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+                 "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
+                 "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],
+                 "at_shape": sft["shape"], "shapes": bwd_rows}
+    log(json.dumps({"kernels": [fwd_entry, bwd_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

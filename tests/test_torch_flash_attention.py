@@ -1,13 +1,15 @@
-"""The port's flash-attention forward against the JAX package's Pallas
-kernels, run as the JAX tests run them on the CPU (interpret mode).
+"""The port's flash attention, forward and backward, against the JAX
+package's Pallas kernels, run as the JAX tests run them on the CPU
+(interpret mode).
 
-`flash_attention_ref` is the plain version the port's wrapper computes on
-CPU tensors, and the function the CUDA kernel is held to on the card by
-`chip_smoke.py` (the kernel itself cannot run here: there is no nvcc and no
+`flash_attention_ref` and `flash_attention_bwd_ref` are the plain versions
+the port's wrappers compute on CPU tensors, and the functions the CUDA
+kernels are held to on the card by `chip_smoke.py` (the kernel itself cannot run here: there is no nvcc and no
 card). fp32 inputs, atol 1e-5: both sides compute in fp32 and differ only
 in summation order and the online-softmax rescaling.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,3 +155,90 @@ def test_dispatch_rule():
                        xla_attention(q, k, v, causal=True))
     with pytest.raises(ValueError):
         attention(q, k, v, impl="splash")
+
+
+# -- backward ----------------------------------------------------------------------
+# (name, B, Tq, Tk, Hq, Hkv, D, causal, q_offset, block_q, block_k, mask kind)
+BWD_CASES = [
+    # single-block regime (Tq == Tk == 128): the JAX default takes the fused
+    # one-pass _bwd_single_kernel
+    ("single_causal_gqa", 2, 128, 128, 4, 2, 64, True, None, None, None, "none"),
+    ("single_bidir_mask_gqa", 2, 128, 128, 4, 2, 64, False, None, None, None, "right"),
+    # tiled regime (_dq_kernel + _dkv_kernel), forced by 32-row blocks:
+    # causal, left pads (fully masked query rows), q_offset 0 and > 0
+    ("tiled_causal_leftpad", 2, 96, 96, 4, 2, 64, True, 0, 32, 32, "left"),
+    ("tiled_causal_q_offset", 2, 64, 96, 4, 1, 64, True, None, 32, 32, "none"),
+    # every key of one batch row masked: zero gradients there
+    ("tiled_fully_masked_row", 2, 64, 64, 2, 2, 64, False, None, 32, 32, "empty"),
+]
+
+
+def jax_grads(q, k, v, mask, cot, causal, q_offset, bq, bk):
+    bq, bk = bq or jfa.DEFAULT_BLOCK_Q, bk or jfa.DEFAULT_BLOCK_K
+    def f(q, k, v):
+        out = jfa.flash_attention(q, k, v, kv_mask=mask, causal=causal, q_offset=q_offset,
+                                  block_q=bq, block_k=bk, interpret=True)
+        return jnp.sum(out * cot)
+    return jax.jit(jax.grad(f, argnums=(0, 1, 2)))(q, k, v)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_backward_matches_pallas(case):
+    """`flash_attention(...).backward` on CPU tensors (FlashAttention ->
+    flash_attention_bwd_ref) against jax.grad of the Pallas kernels in
+    interpret mode; dq on the rows with a visible key (both are exactly 0
+    elsewhere), dk and dv everywhere; fp32, atol 1e-5."""
+    _, b, tq, tk, hq, hkv, d, causal, q_offset, bq, bk, mkind = case
+    q, k, v = inputs(b, tq, tk, hq, hkv, d, seed=tq + hq)
+    cot = np.random.default_rng(tk).standard_normal((b, tq, hq, d)).astype(np.float32)
+    mask = make_mask(mkind, b, tk, seed=tk + 1)
+    if mkind == "left":
+        mask[:, tk - tk // 3:] = 1               # self-attention: no empty cache slots
+    jdq, jdk, jdv = jax_grads(q, k, v, mask, cot, causal, q_offset, bq, bk)
+    tq_, tk_, tv_ = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    before = tfa.flash_bwd.launches
+    out = tfa.flash_attention(tq_, tk_, tv_, torch.from_numpy(mask), causal=causal,
+                              q_offset=q_offset)
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert tfa.flash_bwd.launches == before          # the CPU runs the plain version
+    qo = q_offset if q_offset is not None else (tk - tq if causal else 0)
+    visible = np.broadcast_to(mask[:, None, :], (b, tq, tk)).astype(bool)
+    if causal:
+        visible = visible & (np.arange(tk)[None, None, :] <= np.arange(tq)[None, :, None] + qo)
+    rows = visible.any(-1)                                     # [B, Tq]
+    np.testing.assert_allclose(tq_.grad.numpy()[rows], np.asarray(jdq)[rows], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tk_.grad.numpy(), np.asarray(jdk), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tv_.grad.numpy(), np.asarray(jdv), atol=ATOL, rtol=0)
+    if mkind in ("left", "empty"):
+        assert (~rows).any()
+        assert np.all(tq_.grad.numpy()[~rows] == 0.0)
+    if mkind == "empty":                                       # batch row 0 sees no key
+        assert not tk_.grad[0].any() and not tv_.grad[0].any() and not tq_.grad[0].any()
+
+
+@pytest.mark.parametrize("causal,q_offset,mkind", [(True, 0, "left"), (False, None, "right"),
+                                                   (True, 16, "none")])
+def test_bwd_ref_matches_autograd_of_the_plain_forward(causal, q_offset, mkind):
+    """flash_attention_bwd_ref (P from the saved LSE, delta = rowsum(dO*O))
+    against torch autograd through flash_attention_ref, fp32, atol 1e-5."""
+    q, k, v = (torch.tensor(x, requires_grad=True)
+               for x in inputs(2, 40, 56, 4, 2, 64, seed=21))
+    mask = torch.from_numpy(make_mask(mkind, 2, 56, seed=22))
+    dout = torch.randn(2, 40, 4, 64, generator=torch.Generator().manual_seed(23))
+    qo = q_offset if q_offset is not None else (56 - 40 if causal else 0)
+    out, lse = tfa.flash_attention_ref(q, k, v, mask, causal, qo)
+    out.backward(dout)
+    dq, dk, dv = tfa.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), mask, causal,
+                                             qo, out.detach(), lse, dout)
+    for port, ref in ((dq, q.grad), (dk, k.grad), (dv, v.grad)):
+        torch.testing.assert_close(port, ref, atol=ATOL, rtol=0)
+
+
+def test_serving_without_autograd_launches_no_backward_path():
+    """Without autograd the wrapper runs the forward alone (no
+    FlashAttention node); with it, the output carries the Function."""
+    q, k, v = (torch.from_numpy(x) for x in inputs(1, 8, 8, 2, 2, 64, seed=24))
+    with torch.no_grad():
+        assert tfa.flash_attention(q.requires_grad_(), k, v).grad_fn is None
+    out = tfa.flash_attention(q, k, v, causal=True)
+    assert type(out.grad_fn).__name__.startswith("FlashAttention")

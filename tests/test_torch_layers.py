@@ -158,3 +158,86 @@ def test_init_normal_distributions():
     assert abs(mod.lin.weight.std().item() - 400 ** -0.5) < 2e-3
     assert abs(mod.emb.weight.std().item() - 0.02) < 1e-3
     assert torch.all(mod.lin.bias == 0) and torch.all(mod.norm.scale == 1)
+
+
+def lora_leaf(i, o, r=4, bias=False):
+    p = dense_params(i, o, bias)
+    p.update(lora_a=arr(i, r, scale=0.3), lora_b=arr(r, o, scale=0.3),
+             lora_scale=np.float32(2.0))
+    return p
+
+
+def with_adapter(p):
+    lin = linear_from(p)
+    TL.add_adapter(lin, t(p["lora_a"]), t(p["lora_b"]), float(p["lora_scale"]))
+    return lin
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_dense_with_lora_adapter(bias):
+    p, x = lora_leaf(24, 40, bias=bias), arr(3, 5, 24)
+    lin = with_adapter(p)
+    close(TL.dense(lin, t(x)), JL.dense(p, x, jnp.float32))
+    close(TL.lora_delta(lin, t(x), torch.float32), JL.lora_delta(p, x, jnp.float32))
+    assert TL.lora_delta(linear_from(p), t(x), torch.float32) is None
+
+
+def test_swiglu_with_adapters():
+    d, hdn = 24, 40
+    ps = {"gate": lora_leaf(d, hdn), "up": lora_leaf(d, hdn), "down": lora_leaf(hdn, d)}
+    mod = TL.SwiGLU(d, hdn)
+    for n, p in ps.items():
+        setattr(mod, n, with_adapter(p))
+    x = arr(2, 5, d)
+    close(TL.swiglu(mod, t(x)), JL.swiglu(ps, x, jnp.float32))
+
+
+def test_dense_computes_in_the_given_dtype():
+    """An fp32 master weight used at bf16 compute gives a bf16 result that
+    agrees with JAX dense(params, x, bfloat16) to one bf16 ulp at |y| < 8
+    (2^-5: the two round the adapter's partial products at other places)."""
+    p, x = lora_leaf(32, 16), arr(4, 32)
+    lin = with_adapter(p)
+    out = TL.dense(lin, t(x), torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and lin.weight.dtype == torch.float32
+    ref = JL.dense({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), jnp.bfloat16)
+    assert ref.dtype == jnp.bfloat16 and float(jnp.abs(ref).max()) < 8
+    np.testing.assert_allclose(out.float().detach().numpy(), np.asarray(ref, np.float32),
+                               atol=2 ** -5, rtol=0)
+
+
+def test_lora_dropout_statistics():
+    """Inverted dropout at rate 0.5 on the adapter input: about half the
+    entries kept, each scaled by 2 (the random streams of the two packages
+    differ, so the port is checked by statistics); the base path is
+    untouched and the same generator state draws the same mask."""
+    lin = TL.linear(1, 1, False)
+    with torch.no_grad():
+        lin.weight.zero_()
+    TL.add_adapter(lin, torch.ones(1, 1), torch.ones(1, 1), 1.0)
+    x = torch.ones(200_000, 1)
+    gen = torch.Generator().manual_seed(0)
+    y = TL.dense(lin, x, torch.float32, (gen, 0.5))
+    vals = set(torch.unique(y).tolist())
+    assert vals <= {0.0, 2.0}
+    assert abs(float((y == 2.0).float().mean()) - 0.5) < 0.005
+    assert abs(float(y.detach().mean()) - 1.0) < 0.01
+    again = TL.dense(lin, x, torch.float32, (torch.Generator().manual_seed(0), 0.5))
+    assert torch.equal(y, again)
+
+
+def test_remat_full_gives_the_same_gradients_and_dots_raises():
+    from types import SimpleNamespace
+    mod = TL.SwiGLU(16, 32)
+    TL.init_normal_(mod, torch.Generator().manual_seed(0))
+    x = torch.randn(3, 16, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for remat in (False, True):
+        mod.zero_grad()
+        fn = TL.remat(lambda m, x: TL.swiglu(m, x), SimpleNamespace(remat=remat,
+                                                                     remat_policy="full"))
+        fn(mod, x).square().sum().backward()
+        grads.append(mod.up.weight.grad.clone())
+    torch.testing.assert_close(grads[0], grads[1], atol=0, rtol=0)
+    with pytest.raises(NotImplementedError):
+        TL.remat(TL.swiglu, SimpleNamespace(remat=True, remat_policy="dots"))

@@ -226,6 +226,13 @@ import importlib, pkgutil, sys
 sys.path.insert(0, {str(repo)!r})
 import bioreason_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "bioreason_tpu_torch.")]
+training = {{"bioreason_tpu_torch.ops.fused_ce", "bioreason_tpu_torch.train.lora",
+            "bioreason_tpu_torch.train.trainable", "bioreason_tpu_torch.train.optim",
+            "bioreason_tpu_torch.train.sft", "bioreason_tpu_torch.train.checkpoint",
+            "bioreason_tpu_torch.train.dataflow", "bioreason_tpu_torch.data.collate",
+            "bioreason_tpu_torch.data.utils", "bioreason_tpu_torch.data.loaders",
+            "bioreason_tpu_torch.cli.common", "bioreason_tpu_torch.cli.train_sft"}}
+assert training <= set(names), sorted(training - set(names))
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
@@ -236,4 +243,4 @@ assert not bad, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20
+    assert int(proc.stdout.split()[0]) >= 33

@@ -1,0 +1,482 @@
+"""The port's SFT slice against the JAX package: optimizer, LoRA transforms,
+data collation, `fusion_forward`'s losses, the whole `SFTTrainer` step, and
+the `train_sft` CLI.
+
+Tiny configs in fp32 on the CPU; batches and parameters made once from a
+seed and fed to both packages (parameters through `from_jax_params`). The
+JAX calls are compiled whole with `jax.jit`, as the other port tests do.
+"""
+
+import copy
+import dataclasses
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from bioreason_tpu import config as JC
+from bioreason_tpu.data import collate as JD
+from bioreason_tpu.data import kegg as JK
+from bioreason_tpu.data import utils as JU
+from bioreason_tpu.data.chat_template import apply_chat_template as j_apply_chat_template
+from bioreason_tpu.data.nt_tokenizer import KmerTokenizer as JKmer
+from bioreason_tpu.data.processor import BioProcessor as JProc
+from bioreason_tpu.data.text_tokenizer import ByteTextTokenizer as JByte
+from bioreason_tpu.models import fusion as JF
+from bioreason_tpu.parallel import make_mesh
+from bioreason_tpu.train import lora as JL
+from bioreason_tpu.train.optim import make_optimizer
+from bioreason_tpu.train.sft import SFTTrainer as JTrainer
+from bioreason_tpu_torch import config as TC
+from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
+from bioreason_tpu_torch.data import collate as TD
+from bioreason_tpu_torch.data import kegg as TK
+from bioreason_tpu_torch.data import utils as TU
+from bioreason_tpu_torch.data.chat_template import apply_chat_template
+from bioreason_tpu_torch.models import fusion as TF
+from bioreason_tpu_torch.ops.fused_ce import gather_label_positions
+from bioreason_tpu_torch.train import lora as TL
+from bioreason_tpu_torch.train import trainable as TT
+from bioreason_tpu_torch.train.dataflow import batch_iterator, prefetch
+from bioreason_tpu_torch.train.optim import AdamW, cosine_warmup_schedule
+from bioreason_tpu_torch.train.sft import SFTTrainer
+from bioreason_tpu_torch.weights import from_jax_params
+
+TOK = ByteTextTokenizer()
+PROC = BioProcessor(TOK, KmerTokenizer())
+JPROC = JProc(JByte(), JKmer())
+LORA = dict(r=4, alpha=8, dropout=0.0)
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+# -- data ----------------------------------------------------------------------
+
+def items(n, seed):
+    return TK.synthetic_kegg_items(n, seq_len=40, seed=seed)
+
+
+def test_kegg_formatting_and_chat_template_match():
+    for it in items(3, 0):
+        ex = TK.format_kegg_for_dna_llm(dict(it))
+        assert ex == JK.format_kegg_for_dna_llm(dict(it))
+        assert apply_chat_template(ex) == j_apply_chat_template(ex)
+    raw = {"question": " q ", "answer": " Apoptosis ", "reasoning": {"reasoning_steps": ["a", "b"]},
+           "reference_sequence": " acgt ", "variant_sequence": "acct"}
+    assert TK.process_kegg_item(raw) == JK.process_kegg_item(raw)
+
+
+def test_split_and_truncate_match():
+    xs = list(range(37))
+    assert TU.split_dataset(xs, seed=3) == JU.split_dataset(xs, seed=3)
+    for per_side in (0, 4, 30):
+        it = items(1, 1)[0]
+        assert TU.truncate_dna(dict(it), per_side) == JU.truncate_dna(dict(it), per_side)
+
+
+@pytest.mark.parametrize("bucket,supervise_eos", [(None, False), (64, True)])
+def test_sft_collate_matches(bucket, supervise_eos):
+    exs = [TK.format_kegg_for_dna_llm(it) for it in items(3, 2)]
+    a = TD.sft_collate(exs, PROC, 512, 64, bucket=bucket, supervise_eos=supervise_eos,
+                       return_answer=True)
+    b = JD.sft_collate(exs, JPROC, 512, 64, bucket=bucket, supervise_eos=supervise_eos,
+                       return_answer=True)
+    assert sorted(a) == sorted(b)
+    for key in a:
+        np.testing.assert_array_equal(np.asarray(a[key]), np.asarray(b[key]))
+    assert (a["labels"] != -100).any()
+
+
+def test_load_local_dataset_matches(tmp_path):
+    from bioreason_tpu.data.loaders import load_local_dataset as jload
+    from bioreason_tpu_torch.data.loaders import load_local_dataset as tload
+    import json
+    (tmp_path / "a_1.json").write_text(json.dumps(
+        {"question": "q?", "answer": " MAPK ", "reasoning": {"reasoning_steps": ["x", "y"]},
+         "reference_sequence": "acgt", "variant_sequence": "acct"}))
+    (tmp_path / "b.jsonl").write_text("\n".join(json.dumps(
+        {"question": f"q{i}", "answer": "p53", "reasoning": "r", "reference_sequence": "aa",
+         "variant_sequence": "ag"}) for i in range(3)))
+    assert tload(str(tmp_path)) == jload(str(tmp_path))
+    assert len(tload(str(tmp_path))) == 4
+
+
+def test_batch_iterator_and_prefetch():
+    seen = list(prefetch(batch_iterator(list(range(10)), list, 3, seed=1, epochs=2)))
+    assert len(seen) == 6 and all(len(b) == 3 for b in seen)
+    for epoch in (seen[:3], seen[3:]):         # 9 distinct items, the 10th dropped
+        assert len(set(sum(epoch, []))) == 9
+    assert seen[:3] != seen[3:]
+    tail = list(batch_iterator(list(range(5)), list, 3, shuffle=False, drop_last=False))
+    assert tail == [[0, 1, 2], [3, 4, 3]]
+
+
+# -- optimizer -----------------------------------------------------------------
+
+@pytest.mark.parametrize("warmup_ratio", [0.1, 0.0])
+def test_schedule_matches_optax(warmup_ratio):
+    cfg = JC.OptimConfig(learning_rate=3e-3, total_steps=40, warmup_ratio=warmup_ratio)
+    _, sched = make_optimizer(cfg)
+    ours = cosine_warmup_schedule(TC.OptimConfig(**dataclasses.asdict(cfg)))
+    # optax computes in fp32: 1e-6 of the peak
+    for step in (0, 1, 3, 4, 5, 20, 39, 40, 55):
+        assert ours(step) == pytest.approx(float(sched(step)), rel=0, abs=3e-9)
+    if warmup_ratio:
+        assert ours(0) == 0.0
+
+
+def test_adamw_matches_optax_three_steps():
+    """Clip (the first step's norm is above the limit), weight decay, lr 0 at
+    step 0 (warmup), and a NaN gradient skipped without advancing the
+    count; atol 1e-6 on parameters of size ~1 (fp32 on both sides)."""
+    cfg = JC.OptimConfig(learning_rate=1e-2, weight_decay=0.1, total_steps=10,
+                         warmup_ratio=0.2, grad_clip=1.0, skip_nonfinite_after=2)
+    rng = np.random.default_rng(0)
+    shapes = [(4, 3), (5,), (2, 2, 2)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) * 2.0 for s in shapes] for _ in range(4)]
+    grads[2][1][3] = np.nan
+    tx, _ = make_optimizer(cfg)
+    jp = [jnp.asarray(p) for p in params]
+    state = tx.init(jp)
+    tp = [torch.nn.Parameter(t(p.copy())) for p in params]
+    opt = AdamW(tp, TC.OptimConfig(**dataclasses.asdict(cfg)))
+    for i, g in enumerate(grads):
+        upd, state = tx.update([jnp.asarray(x) for x in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        norm = opt.step([t(x) for x in g])
+        if i == 0:
+            assert norm > cfg.grad_clip
+            # lr is exactly 0 at step 0: nothing moved
+            for p, p0 in zip(tp, params):
+                np.testing.assert_array_equal(p.detach().numpy(), p0)
+        for a, b in zip(tp, jp):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-6, rtol=0)
+    assert opt.count == 3 and opt.total_notfinite == 1 and opt.notfinite_count == 0
+    assert int(state.total_notfinite) == 1
+
+
+def test_adamw_gives_up_after_consecutive_nonfinite():
+    p = torch.nn.Parameter(torch.ones(3))
+    opt = AdamW([p], TC.OptimConfig(learning_rate=0.1, warmup_ratio=0.0,
+                                    skip_nonfinite_after=1, weight_decay=0.0))
+    bad = torch.tensor([1.0, float("nan"), 1.0])
+    opt.step([bad])
+    assert opt.count == 0 and torch.equal(p.detach(), torch.ones(3))
+    opt.step([bad])                 # 2 consecutive > 1: applied anyway
+    assert opt.count == 1 and opt.notfinite_count == 2
+
+
+def test_config_refuses_later_slices():
+    with pytest.raises(NotImplementedError):
+        TC.SFTConfig(pp_micro=2)
+    with pytest.raises(NotImplementedError):
+        TC.SFTConfig(frozen_dtype="int8")
+
+
+# -- models: LoRA, fusion_forward ------------------------------------------------
+
+def fusion_cfgs(**dec_kw):
+    """JAX and port tiny configs, decoder head dim 64 (one the kernel takes)."""
+    dec_kw = {"head_dim": 64, **dec_kw}
+    jcfg = JC.FusionConfig.tiny(text_vocab=TOK.vocab_size, dna_pad_token_id=TOK.dna_pad_id)
+    tcfg = TC.FusionConfig.tiny(text_vocab=TOK.vocab_size, dna_pad_token_id=TOK.dna_pad_id)
+    return (dataclasses.replace(jcfg, decoder=dataclasses.replace(jcfg.decoder, **dec_kw)),
+            dataclasses.replace(tcfg, decoder=dataclasses.replace(tcfg.decoder, **dec_kw)))
+
+
+@functools.lru_cache(maxsize=None)
+def lora_params():
+    """JAX tiny fusion params with adapters whose B is nonzero."""
+    jcfg, _ = fusion_cfgs()
+    params = jax.jit(JF.init_fusion, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    lp = JL.attach_lora(jax.random.PRNGKey(1), params, JC.LoRAConfig(r=4, alpha=8))
+    rng = np.random.default_rng(5)
+    return jax.tree_util.tree_map_with_path(
+        lambda p, x: (x + rng.standard_normal(x.shape).astype(np.float32) * 0.05
+                      if "lora_b" in jax.tree_util.keystr(p) else np.asarray(x)), lp)
+
+
+@functools.lru_cache(maxsize=None)
+def collated(n, seed, bucket=None):
+    exs = [TK.format_kegg_for_dna_llm(it) for it in items(n, seed)]
+    return TD.sft_collate(exs, PROC, 512, 64, bucket=bucket)
+
+
+def model_args(batch):
+    return tuple(t(batch[k]) for k in ("input_ids", "attention_mask", "dna_input_ids",
+                                       "dna_attention_mask"))
+
+
+def test_lora_attach_merge_strip_give_the_same_functions():
+    """Attach (B = 0) keeps the function; merge folds a nonzero adapter into
+    the weights at fp32 rounding (atol 1e-5); strip returns the base."""
+    _, tcfg = fusion_cfgs()
+    args = model_args(collated(2, 3))
+    model = TF.init_fusion(tcfg, seed=0, device="cpu")
+    with torch.no_grad():
+        base, _ = TF.fusion_forward(model, tcfg, *args)
+        TL.attach_lora(model, TC.LoRAConfig(r=4, alpha=8), torch.Generator().manual_seed(0))
+        names = [n for n, _ in model.named_parameters() if "lora_a" in n]
+        assert len(names) == 7 * tcfg.decoder.num_layers
+        assert all(n.startswith("decoder.layers.") for n in names)
+        torch.testing.assert_close(TF.fusion_forward(model, tcfg, *args)[0], base,
+                                   atol=1e-6, rtol=0)
+        gen = torch.Generator().manual_seed(1)
+        for n, p in model.named_parameters():
+            if "lora_b" in n:
+                p.add_(torch.randn(p.shape, generator=gen) * 0.05)
+        adapted, _ = TF.fusion_forward(model, tcfg, *args)
+        assert (adapted - base).abs().max() > 1e-3
+        merged = TL.merge_lora(copy.deepcopy(model))
+        assert not TL.has_lora(merged) and TL.has_lora(model)
+        torch.testing.assert_close(TF.fusion_forward(merged, tcfg, *args)[0], adapted,
+                                   atol=1e-5, rtol=0)
+        TL.strip_lora(model)
+        torch.testing.assert_close(TF.fusion_forward(model, tcfg, *args)[0], base,
+                                   atol=1e-6, rtol=0)
+
+
+def test_from_jax_params_learns_lora_leaves():
+    _, tcfg = fusion_cfgs()
+    tree = lora_params()
+    model = from_jax_params(tree, tcfg, device="cpu")
+    q = model.decoder.layers[1].attn.q
+    np.testing.assert_array_equal(q.lora_a.detach().numpy(),
+                                  tree["decoder"]["layers"]["attn"]["q"]["lora_a"][1])
+    np.testing.assert_array_equal(q.lora_b.detach().numpy(),
+                                  tree["decoder"]["layers"]["attn"]["q"]["lora_b"][1])
+    assert float(q.lora_scale) == 2.0
+    assert q.lora_a.dtype == torch.float32 and model.dna_projection.weight.dtype == torch.float32
+
+
+def jax_fusion_loss(jcfg, **static):
+    def f(params, ids, am, dids, dam, **kw):
+        return JF.fusion_forward(params, jcfg, ids, am, dids, dam, **kw, **static)[1]
+    return jax.jit(jax.value_and_grad(f))
+
+
+@pytest.mark.parametrize("mode", ["labels", "gathered", "focal_labels", "focal_gathered"])
+def test_fusion_forward_loss_and_grads_match(mode):
+    """Loss and the projection's gradient, LoRA adapters active; fp32,
+    rtol 1e-5 on the loss, atol 1e-5 on gradients of size ~1e-2."""
+    jcfg, tcfg = fusion_cfgs()
+    tree = lora_params()
+    batch = collated(2, 4)
+    gamma = 2.0 if mode.startswith("focal") else 0.0
+    kw = {}
+    if mode.endswith("gathered"):
+        pos, tgt, val = gather_label_positions(batch["labels"])
+        kw = dict(label_positions=pos, label_targets=tgt, label_valid=val)
+    else:
+        kw = dict(labels=batch["labels"])
+    jloss, jgrad = jax_fusion_loss(jcfg, focal_gamma=gamma)(
+        tree, *(batch[k] for k in ("input_ids", "attention_mask", "dna_input_ids",
+                                   "dna_attention_mask")), **{k: jnp.asarray(v) for k, v in kw.items()})
+    model = from_jax_params(tree, tcfg, device="cpu")
+    _, loss = TF.fusion_forward(model, tcfg, *model_args(batch), focal_gamma=gamma,
+                                **{k: t(v) for k, v in kw.items()})
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-5)
+    np.testing.assert_allclose(model.dna_projection.weight.grad.numpy(),
+                               np.asarray(jgrad["dna_projection"]["kernel"]).T, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(model.decoder.layers[0].mlp.down.lora_b.grad.numpy(),
+                               np.asarray(jgrad["decoder"]["layers"]["mlp"]["down"]["lora_b"][0]),
+                               atol=1e-5, rtol=0)
+    # the frozen encoder ran without autograd
+    assert all(p.grad is None for p in model.encoder.parameters())
+
+
+def test_cross_entropy_loss_matches():
+    from bioreason_tpu.models.qwen3 import cross_entropy_loss as jce
+    from bioreason_tpu_torch.models.qwen3 import cross_entropy_loss as tce
+    rng = np.random.default_rng(6)
+    logits = rng.standard_normal((2, 9, 30)).astype(np.float32) * 3
+    labels = rng.integers(0, 30, (2, 9))
+    labels[:, :4] = -100
+    assert float(tce(t(logits), t(labels))) == pytest.approx(float(jce(logits, labels)), rel=1e-6)
+
+
+# -- the slice as a whole: two trainer steps ----------------------------------------
+
+def sft_cfgs(tcfg_cls, jcfg_cls):
+    kw = dict(batch_size=2, max_length_dna=64, bucket=None, frozen_dtype="",
+              optim=dict(learning_rate=1e-2, total_steps=20, warmup_ratio=0.0, eps=1e-3))
+    make = lambda C: C.SFTConfig(**{**kw, "optim": C.OptimConfig(**kw["optim"]),
+                                    "lora": C.LoRAConfig(**LORA)})
+    return make(tcfg_cls), make(jcfg_cls)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run():
+    """The JAX SFTTrainer on a one-device mesh: its initial parameters and
+    the metrics and trainable leaves after each of two steps."""
+    jcfg, _ = fusion_cfgs()
+    _, jsft = sft_cfgs(TC, JC)
+    trainer = JTrainer(jcfg, jsft, mesh=make_mesh(JC.MeshConfig(data=1), devices=jax.devices()[:1]))
+    init = jax.tree.map(np.asarray, trainer.params)
+    metrics = [trainer.train_step(collated(2, s)) for s in (10, 11)]
+    final = jax.tree.map(np.asarray, trainer.params)
+    return init, metrics, final
+
+
+def flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_trainer_two_steps_match_jax(impl):
+    """Per-step loss and grad-norm at 1e-5 relative. The port's decoder runs
+    the grouped einsums ('xla') or the flash route's plain forward and
+    backward ('pallas'; the JAX side stays on 'xla': the two differ only on
+    fully masked pad rows, which no supervised position reads). Trainable
+    leaves after two steps at atol 1e-5. Adam divides each gradient by its
+    own RMS plus eps: with the default eps = 1e-8 an element whose gradient
+    is near 0 (the adapters' A after one step from B = 0) moves by up to a
+    full lr step in a direction set by fp noise, so both sides run with
+    eps = 1e-3, which keeps the update a smooth function of the gradient
+    (slope <= 0.53 / eps) while the rest of the arithmetic is unchanged."""
+    init, jmetrics, jfinal = jax_run()
+    _, tcfg = fusion_cfgs(attention_impl=impl)
+    tsft, _ = sft_cfgs(TC, JC)
+    trainer = SFTTrainer(tcfg, tsft, model=from_jax_params(init, tcfg, device="cpu"),
+                         device="cpu")
+    assert not any(n.startswith(("encoder.", "decoder.embed")) for n in trainer.names)
+    for s, jm in zip((10, 11), jmetrics):
+        m = trainer.train_step(collated(2, s))
+        assert math.isfinite(m["loss"])
+        assert m["loss"] == pytest.approx(jm["loss"], rel=1e-5)
+        assert m["grad_norm"] == pytest.approx(jm["grad_norm"], rel=1e-5)
+        assert m["lr"] == pytest.approx(jm["lr"], rel=1e-6)
+    jf = flat_leaves(jfinal)
+    state = trainer.trainable_state()
+    n_lora = 0
+    for name, p in state.items():
+        parts = name.split(".")
+        if parts[0] == "dna_projection":
+            ref = jf[f"dna_projection/{'kernel' if parts[1] == 'weight' else 'bias'}"]
+            ref = ref.T if parts[1] == "weight" else ref
+        else:                                   # decoder.layers.<i>.<mod>.<lin>.lora_x
+            i, mod, lin, leaf = int(parts[2]), parts[3], parts[4], parts[5]
+            ref = jf[f"decoder/layers/{mod}/{lin}/{leaf}"][i]
+            n_lora += 1
+        np.testing.assert_allclose(p.detach().numpy(), ref, atol=1e-5, rtol=0, err_msg=name)
+    assert n_lora == 2 * 7 * tcfg.decoder.num_layers
+
+
+def test_remat_recomputes_the_same_dropout_masks():
+    """Per-layer dropout generators are seeded before the layer runs, so a
+    layer recomputed in backward (remat) draws the masks it drew forward:
+    loss and gradients equal those without remat."""
+    _, tcfg = fusion_cfgs()
+    batch = collated(2, 13)
+    pos, tgt, val = (t(x) for x in gather_label_positions(batch["labels"]))
+    out = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, decoder=dataclasses.replace(tcfg.decoder, remat=remat))
+        model = from_jax_params(lora_params(), cfg, device="cpu")
+        _, loss = TF.fusion_forward(model, cfg, *model_args(batch), label_positions=pos,
+                                    label_targets=tgt, label_valid=val,
+                                    lora_dropout_gen=torch.Generator().manual_seed(7),
+                                    lora_dropout_rate=0.3)
+        loss.backward()
+        out.append((float(loss.detach()), model.decoder.layers[1].attn.q.lora_a.grad.clone()))
+    assert out[0][0] == out[1][0]
+    torch.testing.assert_close(out[0][1], out[1][1], atol=0, rtol=0)
+
+
+def test_grad_accumulation_applies_the_mean_gradient():
+    """Two micro-steps of one batch with grad_accum_steps=2 move the
+    parameters as one step of that batch does (the mean of equal grads)."""
+    _, tcfg = fusion_cfgs()
+    batch = collated(2, 14)
+    finals = []
+    for k, steps in ((1, 1), (2, 2)):
+        sft = TC.SFTConfig(batch_size=2, bucket=None, frozen_dtype="", grad_accum_steps=k,
+                           lora=TC.LoRAConfig(**LORA),
+                           optim=TC.OptimConfig(learning_rate=1e-2, warmup_ratio=0.0))
+        trainer = SFTTrainer(tcfg, sft, model=from_jax_params(lora_params(), tcfg, device="cpu"),
+                             device="cpu")
+        for _ in range(steps):
+            trainer.train_step(batch)
+        assert trainer.opt.count == 1
+        finals.append(torch.cat([p.detach().flatten() for p in trainer.params]))
+    torch.testing.assert_close(finals[0], finals[1], atol=1e-6, rtol=0)
+
+
+def test_trainer_attaches_adapters_and_trains_on_its_own():
+    _, tcfg = fusion_cfgs()
+    sft = TC.SFTConfig(batch_size=2, max_length_dna=64, bucket=None,
+                       lora=TC.LoRAConfig(r=4, alpha=8, dropout=0.1),
+                       optim=TC.OptimConfig(learning_rate=1e-2, total_steps=10))
+    trainer = SFTTrainer(tcfg, sft, device="cpu")
+    frozen = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+              if not p.requires_grad}
+    assert all(p.dtype == torch.float32 for p in trainer.params)
+    # bf16 storage of frozen >= 2-D leaves, fp32 norms
+    assert trainer.model.decoder.layers[0].mlp.up.weight.dtype == torch.bfloat16
+    assert trainer.model.decoder.layers[0].ln1.scale.dtype == torch.float32
+    batch = collated(2, 12)
+    losses = [trainer.train_step(batch)["loss"] for _ in range(4)]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    assert math.isfinite(trainer.eval_step(batch))
+    for n, p in trainer.model.named_parameters():
+        if n in frozen:
+            assert torch.equal(p.detach(), frozen[n]), n
+
+
+# -- the CLI ------------------------------------------------------------------------
+
+def test_cli_train_sft_runs_and_checkpoint_round_trips(tmp_path):
+    from bioreason_tpu_torch.cli import train_sft
+    argv = ["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", "--max_steps", "2",
+            "--max_length_dna", "64", "--n_synthetic", "16", "--batch_size", "2",
+            "--checkpoint_dir", str(tmp_path), "--save_every", "1", "--eval_every", "2"]
+    trainer = train_sft.main(argv)
+    assert trainer.step == 2 and len(trainer.history) == 2
+    assert all(math.isfinite(m["loss"]) for m in trainer.history)
+    assert math.isfinite(trainer.history[-1]["val_loss"])
+    saved = {n: p.detach().clone() for n, p in trainer.trainable_state().items()}
+    with torch.no_grad():
+        for p in trainer.params:
+            p.zero_()
+    trainer.restore(str(tmp_path / "sft_final"))
+    assert trainer.step == 2 and trainer.opt.count == 2
+    for n, p in trainer.trainable_state().items():
+        assert torch.equal(p.detach(), saved[n]), n
+    resumed = train_sft.main(argv + ["--resume", "--max_steps", "1"])
+    assert resumed.step == 3
+
+
+@pytest.mark.parametrize("flag", ["--hf_llm_dir=x", "--sp_dna", "--dna_attention=local:64",
+                                  "--sample_every=5", "--test_generative", "--wandb"])
+def test_cli_refuses_later_slices(flag):
+    from bioreason_tpu_torch.cli import train_sft
+    with pytest.raises(NotImplementedError):
+        train_sft.main(["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag])
+
+
+def test_trainable_regexes():
+    _, tcfg = fusion_cfgs()
+    model = TF.init_fusion(tcfg, seed=0, device="cpu")
+    TL.attach_lora(model, TC.LoRAConfig(r=4, alpha=8))
+    lora = TT.set_trainable(model, TT.LORA_TRAINABLE)
+    names = TT.trainable_names(model)
+    assert len(lora) == len(names) == 2 * 7 * 2 + 2
+    assert {"dna_projection.weight", "dna_projection.bias"} <= set(names)
+    TT.set_trainable(model, TT.FULL_FINETUNE)
+    names = TT.trainable_names(model)
+    assert "decoder.embed.weight" in names and not any(n.startswith("encoder.") for n in names)
