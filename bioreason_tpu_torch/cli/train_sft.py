@@ -9,16 +9,23 @@ On the card (the default device), at Qwen3-0.6B + NT-v2-500M width with
 weights drawn from --seed:
   python -m bioreason_tpu_torch.cli.train_sft --max_steps 4
 
+Long DNA with the encoder trained, through the banded kernels (local_fwd
+and local_bwd in every encoder layer):
+  python -m bioreason_tpu_torch.cli.train_sft --dna_attention local:256 \
+      --dna_model_finetune --max_length_dna 2048 --truncate_dna_per_side 0 \
+      --data_dir <dir of KEGG .json/.jsonl>
+
 Each step prints one JSON line of metrics; the final trainable parameters,
 optimizer state and step go to <checkpoint_dir>/sft_final. Pretrained
-checkpoints, sequence parallelism, other DNA attention, probes, sampling,
-generative tests, profiling and wandb come with later slices: `main`
-refuses their flags.
+checkpoints, sequence parallelism (`--sp_dna`, `--dna_attention sp`,
+`sp_pallas`, `sp_local:<W>`), probes, sampling, generative tests, profiling
+and wandb come with later slices: `main` refuses their flags.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -27,7 +34,7 @@ import time
 import numpy as np
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("hf_llm_dir", "hf_dna_dir", "evo2_dir", "sp_dna", "dna_attention",
+LATER_FLAGS = ("hf_llm_dir", "hf_dna_dir", "evo2_dir", "sp_dna",
                "probe_markers", "sample_every", "test_generative", "profile_dir", "wandb")
 
 
@@ -52,6 +59,10 @@ def parse_args(argv=None):
     p.add_argument("--lora_alpha", type=int, default=64)
     p.add_argument("--lora_dropout", type=float, default=0.05)
     p.add_argument("--no_lora", action="store_true", help="full finetune of the decoder")
+    p.add_argument("--dna_attention", default=None,
+                   help="encoder attention override: xla | pallas | local:<W> (banded, "
+                        "|i-j| <= W, O(T*W) for long DNA); sp, sp_pallas and sp_local:<W> "
+                        "are not ported yet (raise)")
     p.add_argument("--dna_model_finetune", action="store_true",
                    help="train the DNA encoder too")
     p.add_argument("--supervise_eos", action="store_true",
@@ -73,6 +84,13 @@ def parse_args(argv=None):
     asked = [f"--{f}" for f in LATER_FLAGS if getattr(args, f) is not None]
     if asked:
         raise NotImplementedError(f"{', '.join(asked)}: not ported to bioreason_tpu_torch yet")
+    impl = args.dna_attention
+    if impl in ("sp", "sp_pallas") or (impl or "").startswith("sp_local:"):
+        raise NotImplementedError(f"--dna_attention {impl}: sequence parallelism is not ported "
+                                  f"to bioreason_tpu_torch yet")
+    if impl is not None and impl not in ("xla", "pallas") and not (
+            impl.startswith("local:") and impl[6:].isdigit()):
+        p.error(f"--dna_attention {impl!r}: expected xla, pallas or local:<W>")
     return args
 
 
@@ -87,9 +105,12 @@ def main(argv=None):
     from bioreason_tpu_torch.train.sft import SFTTrainer
 
     tok = ByteTextTokenizer()
+    encoder = ENCODER_PRESETS[args.encoder]()
+    if args.dna_attention:
+        encoder = dataclasses.replace(encoder, attention_impl=args.dna_attention)
     fusion_cfg = FusionConfig(
         decoder=DECODER_PRESETS[args.decoder](vocab_size=tok.vocab_size),
-        encoder=ENCODER_PRESETS[args.encoder](), dna_pad_token_id=tok.dna_pad_id,
+        encoder=encoder, dna_pad_token_id=tok.dna_pad_id,
         max_length_text=args.max_length_text, max_length_dna=args.max_length_dna)
     proc = BioProcessor(tok, KmerTokenizer())
     train_items, val_items, _ = load_items(args.data_dir, args.n_synthetic,

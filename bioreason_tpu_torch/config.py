@@ -56,6 +56,8 @@ class EncoderConfig:
     mlp_bias: bool = False           # NT-v2 add_bias_fnn=False; plain ESM2: True
     token_dropout: bool = False      # ESM-style inference-time embed rescale
     mask_token_id: int = 2           # <mask> id (KmerTokenizer layout)
+    # 'auto' | 'xla' | 'pallas' as the decoder's, or 'local:<W>': banded
+    # attention, |i - j| <= W, O(T * W) for long DNA (ops/local_attention.py)
     attention_impl: str = "auto"
     remat: bool = True
     remat_policy: str = "full"       # see DecoderConfig
@@ -148,7 +150,7 @@ class SFTConfig:
         if self.pp_micro > 0:
             raise NotImplementedError(
                 "SFTConfig.pp_micro > 0: pipeline parallelism is not ported yet "
-                "(ROADMAP.md, queue 1, slice 9: multi-device)")
+                "(ROADMAP.md, queue 1: multi-device)")
         if self.frozen_dtype == "int8":
             raise NotImplementedError(
                 "SFTConfig.frozen_dtype='int8': int8 frozen weights are not ported yet "

@@ -51,6 +51,19 @@
 //   * shared memory is dynamic (69.6 KB and 52.7 KB at D=128), rows padded
 //     to D+8 elements so the fragment loads are bank-conflict free.
 // Not yet: wgmma, TMA, a producer warp, double buffering (later work).
+//
+// local_bwd_dq / local_bwd_dkv, the same bodies with BAND = true, replace the
+// banded backward of bioreason_tpu/ops/local_attention.py:
+//   _dq_kernel  (:95)   banded dq, P from the LSE, delta computed outside
+//   _dkv_kernel (:133)  banded dk/dv per q head, fp32, GQA-summed outside
+//                       (:309-311)
+// Key j is visible to query i iff |i - j| <= window and mask[j] (Tq == Tk).
+// The dq block loops only over the key tiles that meet [q0 - window,
+// q0 + 63 + window], the dk/dv block only over the q tiles that meet
+// [k0 - window, k0 + 63 + window]: O(T * window) work, where the TPU grid
+// walks 2R+1 clamped blocks. delta is folded into the dq prologue and the
+// GQA group is summed in registers, as in flash_bwd: no per-q-head fp32
+// temporaries. Own __global__ names and C entry (local_bwd_bf16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,24 +180,28 @@ constexpr size_t dkv_smem_bytes() {
   return (size_t)(2 * KV_BK + 2 * KV_BQ) * (D + 8) * 2 + KV_BK * 4 + 2 * KV_BQ * 4;
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const int* __restrict__ mask,
-                    const __nv_bfloat16* __restrict__ o,
-                    const float* __restrict__ lse,
-                    const __nv_bfloat16* __restrict__ dout,
-                    __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
-                    int Tq, int Tk, int Hq, int Hkv,
-                    long long q_sb, long long q_st, long long q_sh,
-                    long long k_sb, long long k_st, long long k_sh,
-                    long long v_sb, long long v_st, long long v_sh,
-                    long long o_sb, long long o_st, long long o_sh,
-                    long long do_sb, long long do_st, long long do_sh,
-                    long long dq_sb, long long dq_st, long long dq_sh,
-                    int causal, int q_offset, float scale) {
+// The dq and dk/dv bodies. BAND = false: the flash backward (causal with
+// q_offset, or bidirectional; `window` unused). BAND = true: the banded
+// backward (|i - j| <= window; causal and q_offset unused).
+#define DQ_PARAMS                                                              \
+  const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,   \
+      const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,      \
+      const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,     \
+      const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq, \
+      float* __restrict__ delta, int Tq, int Tk, int Hq, int Hkv,             \
+      long long q_sb, long long q_st, long long q_sh, long long k_sb,         \
+      long long k_st, long long k_sh, long long v_sb, long long v_st,         \
+      long long v_sh, long long o_sb, long long o_st, long long o_sh,         \
+      long long do_sb, long long do_st, long long do_sh, long long dq_sb,     \
+      long long dq_st, long long dq_sh
+#define DQ_ARGS                                                                \
+  q, k, v, mask, o, lse, dout, dq, delta, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh,   \
+      k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, do_sb, do_st,      \
+      do_sh, dq_sb, dq_st, dq_sh
+
+template <int D, bool BAND>
+__device__ __forceinline__ void dq_body(DQ_PARAMS, int causal, int q_offset,
+                                        int window, float scale) {
   constexpr int RP = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -236,14 +253,20 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  // last key any row of this tile can see (causal tile skip)
-  int k_end = Tk;
+  // last key any row of this tile can see (causal tile skip); with BAND
+  // also the first, so only the key tiles that meet the band are loaded
+  int k_begin = 0, k_end = Tk;
   if (causal) {
     const int last_row = min(q0 + DQ_BQ, Tq) - 1;
     k_end = min(Tk, last_row + q_offset + 1);
   }
+  if (BAND) {
+    const int last_row = min(q0 + DQ_BQ, Tq) - 1;
+    k_begin = max(0, q0 - window) / DQ_BK * DQ_BK;
+    k_end = min(Tk, last_row + window + 1);
+  }
 
-  for (int k0 = 0; k0 < k_end; k0 += DQ_BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += DQ_BK) {
     load_tile<D, DQ_BK>(ks, kb, k_st, k0, Tk, tid);
     load_tile<D, DQ_BK>(vs, vb, v_st, k0, Tk, tid);
     if (tid < DQ_BK) {
@@ -263,7 +286,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
         const int half = e >> 1;
         const int kc = n * 8 + 2 * t + (e & 1);
         const bool ok = qi[half] < Tq && kvalid[kc] &&
-                        (!causal || k0 + kc <= qi[half] + q_offset);
+                        (!causal || k0 + kc <= qi[half] + q_offset) &&
+                        (!BAND || abs(k0 + kc - qi[half]) <= window);
         const float p = ok ? __expf(s[n][e] * scale - lse_r[half]) : 0.f;
         s[n][e] = p * (dp[n][e] - dl_r[half]);
       }
@@ -283,24 +307,25 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const int* __restrict__ mask,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const __nv_bfloat16* __restrict__ dout,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                     int Tq, int Tk, int Hq, int Hkv,
-                     long long q_sb, long long q_st, long long q_sh,
-                     long long k_sb, long long k_st, long long k_sh,
-                     long long v_sb, long long v_st, long long v_sh,
-                     long long do_sb, long long do_st, long long do_sh,
-                     long long dk_sb, long long dk_st, long long dk_sh,
-                     long long dv_sb, long long dv_st, long long dv_sh,
-                     int causal, int q_offset, float scale) {
+#define DKV_PARAMS                                                             \
+  const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,   \
+      const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,      \
+      const float* __restrict__ lse, const float* __restrict__ delta,         \
+      const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk, \
+      __nv_bfloat16* __restrict__ dv, int Tq, int Tk, int Hq, int Hkv,        \
+      long long q_sb, long long q_st, long long q_sh, long long k_sb,         \
+      long long k_st, long long k_sh, long long v_sb, long long v_st,         \
+      long long v_sh, long long do_sb, long long do_st, long long do_sh,      \
+      long long dk_sb, long long dk_st, long long dk_sh, long long dv_sb,     \
+      long long dv_st, long long dv_sh
+#define DKV_ARGS                                                               \
+  q, k, v, mask, lse, delta, dout, dk, dv, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh,  \
+      k_sb, k_st, k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh, dk_sb, dk_st,   \
+      dk_sh, dv_sb, dv_st, dv_sh
+
+template <int D, bool BAND>
+__device__ __forceinline__ void dkv_body(DKV_PARAMS, int causal, int q_offset,
+                                         int window, float scale) {
   constexpr int RP = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -333,8 +358,13 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
   }
 
-  // the first query that can see key k0 is k0 - q_offset (causal)
-  int q_lo = causal ? max(0, k0 - q_offset) : 0;
+  // the first query that can see key k0 is k0 - q_offset (causal); with
+  // BAND the q tiles that meet [k0 - window, k0 + 63 + window]
+  int q_lo = causal ? max(0, k0 - q_offset) : 0, q_hi = Tq;
+  if (BAND) {
+    q_lo = max(0, k0 - window);
+    q_hi = min(Tq, min(k0 + KV_BK, Tk) + window);
+  }
   q_lo = (q_lo / KV_BQ) * KV_BQ;
 
   for (int j = 0; j < group; ++j) {
@@ -342,7 +372,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
     const __nv_bfloat16* dob = dout + b * do_sb + h * do_sh;
     const long long row_base = ((long long)b * Hq + h) * Tq;
-    for (int q0 = q_lo; q0 < Tq; q0 += KV_BQ) {
+    for (int q0 = q_lo; q0 < q_hi; q0 += KV_BQ) {
       __syncthreads();                   // the previous tile's readers are done
       load_tile<D, KV_BQ>(qs, qb, q_st, q0, Tq, tid);
       load_tile<D, KV_BQ>(dos, dob, do_st, q0, Tq, tid);
@@ -363,7 +393,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
           const int kl = r0 + (e >> 1) * 8;
           const int qc = n * 8 + 2 * t + (e & 1);
           const int qi = q0 + qc;
-          const bool ok = qi < Tq && kvalid[kl] && (!causal || k0 + kl <= qi + q_offset);
+          const bool ok = qi < Tq && kvalid[kl] && (!causal || k0 + kl <= qi + q_offset) &&
+                          (!BAND || abs(k0 + kl - qi) <= window);
           const float p = ok ? __expf(s[n][e] * scale - lse_s[qc]) : 0.f;
           s[n][e] = p;
           dp[n][e] = p * (dp[n][e] - delta_s[qc]);
@@ -391,37 +422,84 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(DQ_PARAMS, int causal, int q_offset, float scale) {
+  dq_body<D, false>(DQ_ARGS, causal, q_offset, 0, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_kernel(DKV_PARAMS, int causal, int q_offset, float scale) {
+  dkv_body<D, false>(DKV_ARGS, causal, q_offset, 0, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+local_bwd_dq_kernel(DQ_PARAMS, int window, float scale) {
+  dq_body<D, true>(DQ_ARGS, 0, 0, window, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+local_bwd_dkv_kernel(DKV_PARAMS, int window, float scale) {
+  dkv_body<D, true>(DKV_ARGS, 0, 0, window, scale);
+}
+
+// Launches the dq kernel, then the dk/dv kernel, on `stream`: the flash pair
+// (BAND = false, with causal and q_offset) or the banded pair (BAND = true,
+// with window).
+template <int D, bool BAND>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
            const int* mask, const __nv_bfloat16* o, const float* lse,
            const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk,
            __nv_bfloat16* dv, float* delta, int B, int Tq, int Tk, int Hq, int Hkv,
-           const long long* st, int causal, int q_offset, float scale, cudaStream_t stream) {
+           const long long* st, int causal, int q_offset, int window, float scale,
+           cudaStream_t stream) {
   // st: q, k, v, o, do, dq, dk, dv strides, (b, t, h) each
   const size_t smem_dq = dq_smem_bytes<D>(), smem_kv = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  constexpr auto kSmem = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err;
+  if constexpr (BAND) {
+    err = cudaFuncSetAttribute(local_bwd_dq_kernel<D>, kSmem, (int)smem_dq);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(local_bwd_dkv_kernel<D>, kSmem, (int)smem_kv);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, kSmem, (int)smem_dq);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, kSmem, (int)smem_kv);
+  }
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid_dq((Tq + DQ_BQ - 1) / DQ_BQ, B * Hq);
-  flash_bwd_dq_kernel<D><<<grid_dq, NTHREADS, smem_dq, stream>>>(
-      q, k, v, mask, o, lse, dout, dq, delta, Tq, Tk, Hq, Hkv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
-      causal, q_offset, scale);
+  if constexpr (BAND)
+    local_bwd_dq_kernel<D><<<grid_dq, NTHREADS, smem_dq, stream>>>(
+        q, k, v, mask, o, lse, dout, dq, delta, Tq, Tk, Hq, Hkv,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+        st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
+        window, scale);
+  else
+    flash_bwd_dq_kernel<D><<<grid_dq, NTHREADS, smem_dq, stream>>>(
+        q, k, v, mask, o, lse, dout, dq, delta, Tq, Tk, Hq, Hkv,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+        st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
+        causal, q_offset, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || Tk <= 0) return (int)err;
 
   // delta comes from the dq kernel: the two launches are ordered on `stream`
   const dim3 grid_kv((Tk + KV_BK - 1) / KV_BK, B * Hkv);
-  flash_bwd_dkv_kernel<D><<<grid_kv, NTHREADS, smem_kv, stream>>>(
-      q, k, v, mask, lse, delta, dout, dk, dv, Tq, Tk, Hq, Hkv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[12], st[13], st[14], st[18], st[19], st[20], st[21], st[22], st[23],
-      causal, q_offset, scale);
+  if constexpr (BAND)
+    local_bwd_dkv_kernel<D><<<grid_kv, NTHREADS, smem_kv, stream>>>(
+        q, k, v, mask, lse, delta, dout, dk, dv, Tq, Tk, Hq, Hkv,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+        st[12], st[13], st[14], st[18], st[19], st[20], st[21], st[22], st[23],
+        window, scale);
+  else
+    flash_bwd_dkv_kernel<D><<<grid_kv, NTHREADS, smem_kv, stream>>>(
+        q, k, v, mask, lse, delta, dout, dk, dv, Tq, Tk, Hq, Hkv,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+        st[12], st[13], st[14], st[18], st[19], st[20], st[21], st[22], st[23],
+        causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -452,10 +530,43 @@ extern "C" int flash_bwd_bf16(
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   auto* dlp = static_cast<float*>(delta);
   if (D == 64)
-    return launch<64>(qp, kp, vp, mp, op, lp, dop, dqp, dkp, dvp, dlp, B, Tq, Tk, Hq,
-                      Hkv, strides, causal, q_offset, scale, st);
+    return launch<64, false>(qp, kp, vp, mp, op, lp, dop, dqp, dkp, dvp, dlp, B, Tq, Tk,
+                             Hq, Hkv, strides, causal, q_offset, 0, scale, st);
   if (D == 128)
-    return launch<128>(qp, kp, vp, mp, op, lp, dop, dqp, dkp, dvp, dlp, B, Tq, Tk, Hq,
-                       Hkv, strides, causal, q_offset, scale, st);
+    return launch<128, false>(qp, kp, vp, mp, op, lp, dop, dqp, dkp, dvp, dlp, B, Tq, Tk,
+                              Hq, Hkv, strides, causal, q_offset, 0, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Plain C entry point of the banded backward (loaded with ctypes): the
+// arguments of flash_bwd_bf16 with Tq == Tk == T and `window` in place of
+// causal and q_offset; key j is visible to query i iff |i - j| <= window and
+// mask[j]. Returns the first non-zero cudaError (0 = success).
+extern "C" int local_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* mask, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv, void* delta,
+    int B, int T, int Hq, int Hkv, int D, const long long* strides, int window,
+    float scale, void* stream) {
+  if (B <= 0 || T <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
+      (long long)B * Hq > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* mp = static_cast<const int*>(mask);
+  const auto* op = static_cast<const __nv_bfloat16*>(o);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dop = static_cast<const __nv_bfloat16*>(dout);
+  auto* dqp = static_cast<__nv_bfloat16*>(dq);
+  auto* dkp = static_cast<__nv_bfloat16*>(dk);
+  auto* dvp = static_cast<__nv_bfloat16*>(dv);
+  auto* dlp = static_cast<float*>(delta);
+  if (D == 64)
+    return launch<64, true>(qp, kp, vp, mp, op, lp, dop, dqp, dkp, dvp, dlp, B, T, T,
+                            Hq, Hkv, strides, 0, 0, window, scale, st);
+  if (D == 128)
+    return launch<128, true>(qp, kp, vp, mp, op, lp, dop, dqp, dkp, dvp, dlp, B, T, T,
+                             Hq, Hkv, strides, 0, 0, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

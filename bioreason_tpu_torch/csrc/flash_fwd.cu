@@ -6,6 +6,18 @@
 // Both compute the same function; on this card one tiled kernel covers both,
 // and its causal tile skip is what the TPU kernel's row groups do.
 //
+// local_fwd_kernel, the same body with BAND = true, replaces the banded
+// forward of bioreason_tpu/ops/local_attention.py:
+//   _fwd_kernel        (:46)  key j visible to query i iff |i - j| <= window
+//                             and mask[j]; self-attention, Tq == Tk
+// The TPU kernel's grid is 2R+1 key blocks wide with the block index clamped
+// to the band; here each 64-row q tile loops only over the 64-key tiles that
+// meet [q0 - window, q0 + 63 + window], so the work is O(T * window). Its own
+// __global__ name and C entry (local_fwd_bf16) keep it apart from flash_fwd
+// in a profile. Bound: the band's visible pairs are ~2W+1 per query, so at
+// the long-DNA encoder (D=64, W=256) it does ~64 flops per byte of q, k, v
+// and o: bytes-bound, far below the card's ridge.
+//
 // Function: q [B,Tq,Hq,D], k/v [B,Tk,Hkv,D] (any strides with a unit last
 // stride, rows 16-byte aligned), optional key-padding mask [B,Tk] int32
 // (nonzero = valid) -> o [B,Tq,Hq,D] bf16 (its own strides) and
@@ -71,19 +83,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ mask,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int Tq, int Tk, int Hq, int Hkv,
-                 long long q_sb, long long q_st, long long q_sh,
-                 long long k_sb, long long k_st, long long k_sh,
-                 long long v_sb, long long v_st, long long v_sh,
-                 long long o_sb, long long o_st, long long o_sh,
-                 int causal, int q_offset, float scale) {
+// The body of both kernels. BAND = false: the flash forward (causal with
+// q_offset, or bidirectional; `window` unused). BAND = true: the banded
+// forward (|i - j| <= window on array indices; causal and q_offset unused).
+template <int D, bool BAND>
+__device__ __forceinline__ void
+fwd_body(const __nv_bfloat16* __restrict__ q,
+         const __nv_bfloat16* __restrict__ k,
+         const __nv_bfloat16* __restrict__ v,
+         const int* __restrict__ mask,
+         __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+         int Tq, int Tk, int Hq, int Hkv,
+         long long q_sb, long long q_st, long long q_sh,
+         long long k_sb, long long k_st, long long k_sh,
+         long long v_sb, long long v_st, long long v_sh,
+         long long o_sb, long long o_st, long long o_sh,
+         int causal, int q_offset, int window, float scale) {
   constexpr int RP = D + 8;     // padded smem row (elements)
   constexpr int CH = D / 8;     // 16-byte chunks per row
   __shared__ __align__(16) __nv_bfloat16 ks[BK * RP];   // stages Q first
@@ -133,14 +148,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int qpos0 = q0 + r0 + q_offset;
   const int qpos1 = qpos0 + 8;
 
-  // last key any row of this tile can see (causal tile skip)
-  int k_end = Tk;
+  // last key any row of this tile can see (causal tile skip); with BAND
+  // also the first, so only the key tiles that meet the band are loaded
+  int k_begin = 0, k_end = Tk;
   if (causal) {
     const int last_row = min(q0 + BQ, Tq) - 1;
     k_end = min(Tk, last_row + q_offset + 1);
   }
+  if (BAND) {
+    const int last_row = min(q0 + BQ, Tq) - 1;
+    k_begin = max(0, q0 - window) / BK * BK;
+    k_end = min(Tk, last_row + window + 1);
+  }
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     // ---- K and V tiles -> smem (zero past Tk), key validity -> smem -----
     for (int i = tid; i < BK * CH; i += NTHREADS) {
       const int r = i / CH, c = (i % CH) * 8;
@@ -180,7 +201,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int kc = n * 8 + 2 * t + (e & 1);
         const int qp = (e < 2) ? qpos0 : qpos1;
-        const bool ok = kvalid[kc] && (!causal || k0 + kc <= qp);
+        const bool ok = kvalid[kc] && (!causal || k0 + kc <= qp) &&
+                        (!BAND || abs(k0 + kc - qp) <= window);
         const float x = ok ? s[n][e] * scale : NEG_INF;
         s[n][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
@@ -203,7 +225,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int kc = n * 8 + 2 * t + (e & 1);
         const int qp = (e < 2) ? qpos0 : qpos1;
-        const bool ok = kvalid[kc] && (!causal || k0 + kc <= qp);
+        const bool ok = kvalid[kc] && (!causal || k0 + kc <= qp) &&
+                        (!BAND || abs(k0 + kc - qp) <= window);
         const float p = ok ? __expf(s[n][e] - ((e < 2) ? mx0 : mx1)) : 0.f;
         s[n][e] = p;
         if (e < 2) rs0 += p; else rs1 += p;
@@ -262,6 +285,42 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const int* __restrict__ mask,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Tq, int Tk, int Hq, int Hkv,
+                 long long q_sb, long long q_st, long long q_sh,
+                 long long k_sb, long long k_st, long long k_sh,
+                 long long v_sb, long long v_st, long long v_sh,
+                 long long o_sb, long long o_st, long long o_sh,
+                 int causal, int q_offset, float scale) {
+  fwd_body<D, false>(q, k, v, mask, o, lse, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh,
+                     k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh,
+                     causal, q_offset, 0, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+local_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const int* __restrict__ mask,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int T, int Hq, int Hkv,
+                 long long q_sb, long long q_st, long long q_sh,
+                 long long k_sb, long long k_st, long long k_sh,
+                 long long v_sb, long long v_st, long long v_sh,
+                 long long o_sb, long long o_st, long long o_sh,
+                 int window, float scale) {
+  fwd_body<D, true>(q, k, v, mask, o, lse, T, T, Hq, Hkv, q_sb, q_st, q_sh,
+                    k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh,
+                    0, 0, window, scale);
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream` and returns
@@ -293,6 +352,43 @@ extern "C" int flash_fwd_bf16(
     flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(
         qp, kp, vp, mp, op, lp, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh, k_sb, k_st,
         k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, q_offset, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the banded forward (loaded with ctypes): q [B,T,Hq,D],
+// k/v [B,T,Hkv,D], mask [B,T] or null, o [B,T,Hq,D], lse [B,Hq,T]; key j is
+// visible to query i iff |i - j| <= window and mask[j]. Returns
+// cudaGetLastError() of the launch (0 = success).
+extern "C" int local_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* mask, void* o,
+    void* lse, int B, int T, int Hq, int Hkv, int D,
+    long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh,
+    long long o_sb, long long o_st, long long o_sh,
+    int window, float scale, void* stream) {
+  if (B <= 0 || T <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
+      (long long)B * Hq > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + BQ - 1) / BQ, B * Hq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* mp = static_cast<const int*>(mask);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp = static_cast<float*>(lse);
+  if (D == 64) {
+    local_fwd_kernel<64><<<grid, NTHREADS, 0, st>>>(
+        qp, kp, vp, mp, op, lp, T, Hq, Hkv, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+        v_sb, v_st, v_sh, o_sb, o_st, o_sh, window, scale);
+  } else if (D == 128) {
+    local_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(
+        qp, kp, vp, mp, op, lp, T, Hq, Hkv, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+        v_sb, v_st, v_sh, o_sb, o_st, o_sh, window, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -8,6 +8,12 @@ raises on a dtype or head dim the kernels do not take (so no such call runs
 the plain version on the card unseen); decode steps (Tq == 1) and CPU
 tensors take `xla_attention`, as the JAX dispatch sends decode and small
 shapes to XLA (attention.py:104-110).
+
+`impl="local:<W>"` is the banded route for long DNA (JAX attention.py:92-100,
+bidirectional only): `local_attention`, whose wrapper launches `local_fwd`
+(and `local_bwd`) on CUDA tensors and computes the plain banded version on
+CPU tensors. It never falls back to `xla_attention`, whose fully masked rows
+differ.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from bioreason_tpu_torch.ops.flash_attention import flash_attention
+from bioreason_tpu_torch.ops.local_attention import local_attention
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -54,7 +61,12 @@ def attention(q, k, v, kv_mask=None, causal=False, q_offset=None, impl="auto"):
     """Multi-head (grouped-query) attention. Shapes as in `xla_attention`.
 
     impl: 'auto' (see `use_kernel`), 'pallas' (always the flash kernel; the
-    name is the JAX config's) or 'xla' (always the grouped einsums)."""
+    name is the JAX config's), 'xla' (always the grouped einsums) or
+    'local:<W>' (banded, |i - j| <= W; bidirectional only)."""
+    if impl.startswith("local:"):
+        if causal:
+            raise NotImplementedError("local attention is bidirectional-only")
+        return local_attention(q, k, v, int(impl.split(":", 1)[1]), kv_mask=kv_mask)
     if impl == "auto":
         impl = "pallas" if use_kernel(q) else "xla"
     if impl == "pallas":

@@ -16,6 +16,10 @@ wrappers compute `flash_attention_ref` / `flash_attention_bwd_ref`; on a
 CUDA tensor they launch the kernel or raise, never anything else. Each
 wrapper counts its launches (`flash_attention.launches`,
 `flash_bwd.launches`).
+
+The two sources also hold the banded kernels of ops/local_attention.py
+(C entries `local_fwd_bf16`, `local_bwd_bf16`): one library per source,
+`kernel_fn(entry)` finds an entry in its library.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ from bioreason_tpu_torch.ops.cuda_build import load_libraries
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
+LIBRARIES = ("flash_fwd", "flash_bwd")            # csrc/<name>.cu
+# C entry `<entry>_bf16` -> the library that holds it
+_LIBRARY_OF = {"flash_fwd": "flash_fwd", "flash_bwd": "flash_bwd",
+               "local_fwd": "flash_fwd", "local_bwd": "flash_bwd"}
+_libs = {}
 _fns = {}
 _build_logs = {}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -43,37 +52,63 @@ _ARGTYPES = {
                   _I, _I, _I, _I, _I, _I,                 # B Tq Tk Hq Hkv D
                   ctypes.POINTER(_LL),                    # 24 strides
                   _I, _I, ctypes.c_float, _P],            # causal q_offset scale stream
+    "local_fwd": [_P, _P, _P, _P, _P, _P,                 # q k v mask o lse
+                  _I, _I, _I, _I, _I,                     # B T Hq Hkv D
+                  _LL, _LL, _LL, _LL, _LL, _LL,           # q, k strides (b, t, h)
+                  _LL, _LL, _LL, _LL, _LL, _LL,           # v, o strides
+                  _I, ctypes.c_float, _P],                # window scale stream
+    "local_bwd": [_P, _P, _P, _P, _P, _P, _P,             # q k v mask o lse do
+                  _P, _P, _P, _P,                         # dq dk dv delta
+                  _I, _I, _I, _I, _I,                     # B T Hq Hkv D
+                  ctypes.POINTER(_LL),                    # 24 strides
+                  _I, ctypes.c_float, _P],                # window scale stream
 }
 
 
 def _load(*names: str) -> None:
-    """Build (one nvcc per source, run together) and load the C entries
-    `<name>_bf16` of csrc/<name>.cu that are not loaded yet."""
-    missing = [n for n in names if n not in _fns]
+    """Build (one nvcc per source, run together) and load the libraries
+    csrc/<name>.cu that are not loaded yet."""
+    missing = [n for n in names if n not in _libs]
     if not missing:
         return
     for name, (lib, log) in load_libraries({n: f"{n}.cu" for n in missing}).items():
         _build_logs[name] = log
-        fn = getattr(lib, f"{name}_bf16")
-        fn.argtypes = _ARGTYPES[name]
+        _libs[name] = lib
+
+
+def kernel_fn(entry: str):
+    """The C entry `<entry>_bf16` ("flash_fwd", "flash_bwd", "local_fwd",
+    "local_bwd"), its library built at first use."""
+    if entry not in _fns:
+        _load(_LIBRARY_OF[entry])
+        fn = getattr(_libs[_LIBRARY_OF[entry]], f"{entry}_bf16")
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
-        _fns[name] = fn
-
-
-def _kernel_fn(name: str):
-    """The C entry `<name>_bf16` of csrc/<name>.cu, built at first use."""
-    _load(name)
-    return _fns[name]
+        _fns[entry] = fn
+    return _fns[entry]
 
 
 def build(*names: str) -> dict:
-    """Compile (if needed) and load kernel libraries ("flash_fwd",
-    "flash_bwd"; both by default), their builds run together. Returns
-    name -> nvcc's output (the ptxas report) if this process built it,
-    else ""."""
-    names = names or ("flash_fwd", "flash_bwd")
+    """Compile (if needed) and load kernel libraries (`LIBRARIES` by
+    default), their builds run together. Returns name -> nvcc's output (the
+    ptxas report) if this process built it, else ""."""
+    names = names or LIBRARIES
     _load(*names)
     return {n: _build_logs.get(n, "") for n in names}
+
+
+def _visible(q, k, kv_mask, causal, q_offset):
+    """[B|1, 1, 1, Tq|1, Tk] bool: key j visible to query i."""
+    b, tq = q.shape[:2]
+    tk = k.shape[1]
+    valid = torch.ones((b, 1, 1, 1, tk), dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        valid = kv_mask.bool().reshape(b, 1, 1, 1, tk)
+    if causal:
+        qi = torch.arange(tq, device=q.device)[:, None] + q_offset
+        kj = torch.arange(tk, device=q.device)[None, :]
+        valid = valid & (kj <= qi)
+    return valid
 
 
 def flash_attention_ref(q, k, v, kv_mask=None, causal=False, q_offset=None):
@@ -82,20 +117,19 @@ def flash_attention_ref(q, k, v, kv_mask=None, causal=False, q_offset=None):
     Same contract and fully-masked-row semantics as the kernel: returns
     (out [B,Tq,Hq,D] in q's dtype, lse [B,Hq,Tq] fp32); a query row with no
     visible key gives out 0 and lse -1e30."""
-    b, tq, hq, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    group = hq // hkv
     if q_offset is None:
-        q_offset = tk - tq if causal else 0
+        q_offset = k.shape[1] - q.shape[1] if causal else 0
+    return attention_ref(q, k, v, _visible(q, k, kv_mask, causal, q_offset))
+
+
+def attention_ref(q, k, v, valid):
+    """`flash_attention_ref` over any visibility mask `valid`, a bool
+    tensor that broadcasts to [B, Hkv, group, Tq, Tk]."""
+    b, tq, hq, d = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
     qg = q.float().reshape(b, tq, hkv, group, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (d ** -0.5)
-    valid = torch.ones((b, 1, 1, 1, tk), dtype=torch.bool, device=q.device)
-    if kv_mask is not None:
-        valid = kv_mask.bool().reshape(b, 1, 1, 1, tk)
-    if causal:
-        qi = torch.arange(tq, device=q.device)[:, None] + q_offset
-        kj = torch.arange(tk, device=q.device)[None, :]
-        valid = valid & (kj <= qi)
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
@@ -112,21 +146,22 @@ def flash_attention_bwd_ref(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
     P recomputed from the saved LSE (selected to 0 on invalid pairs, so a
     fully masked row gives dq = 0), delta = rowsum(dO * O). Returns
     (dq, dk, dv) in the dtypes of q, k, v."""
+    dq, dk, dv = attention_bwd_ref(q, k, v, _visible(q, k, kv_mask, causal, q_offset), out,
+                                   lse, dout)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_ref(q, k, v, valid, out, lse, dout):
+    """`flash_attention_bwd_ref` over any visibility mask `valid` (as in
+    `attention_ref`); returns fp32 (dq, dk, dv)."""
     b, tq, hq, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     group = hq // hkv
     scale = d ** -0.5
     qg = q.float().reshape(b, tq, hkv, group, d)
     dog = dout.float().reshape(b, tq, hkv, group, d)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
-    valid = torch.ones((b, 1, 1, 1, tk), dtype=torch.bool, device=q.device)
-    if kv_mask is not None:
-        valid = kv_mask.bool().reshape(b, 1, 1, 1, tk)
-    if causal:
-        qi = torch.arange(tq, device=q.device)[:, None] + q_offset
-        kj = torch.arange(tk, device=q.device)[None, :]
-        valid = valid & (kj <= qi)
     lse_g = lse.float().reshape(b, hkv, group, tq, 1)
     p = torch.exp(torch.where(valid, s - lse_g, -torch.inf))
     delta = (dout.float() * out.float()).sum(-1)                       # [B, Tq, Hq]
@@ -136,7 +171,7 @@ def flash_attention_bwd_ref(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
-    return dq.reshape(b, tq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.reshape(b, tq, hq, d), dk, dv
 
 
 def _aligned(x) -> bool:
@@ -186,7 +221,7 @@ def _forward(q, k, v, kv_mask, causal, q_offset):
     if b == 0 or tq == 0:
         return out, lse
     mask = _mask_i32(kv_mask)
-    rc = _kernel_fn("flash_fwd")(
+    rc = kernel_fn("flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
@@ -234,7 +269,7 @@ def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
     mask = _mask_i32(kv_mask)
     strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, out, dout, dq, dk, dv)
                                          for s in x.stride()[:3]))
-    rc = _kernel_fn("flash_bwd")(
+    rc = kernel_fn("flash_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), dout.data_ptr(),

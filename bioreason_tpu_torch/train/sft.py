@@ -8,8 +8,11 @@ with the vocab-chunked CE -> backward (the decoder's attention through
 `flash_bwd` on the card) -> `AdamW.step` (clip, AdamW, warmup-cosine,
 non-finite guard). As in the reference: LoRA over the text tower (all its
 linear layers; embeddings and lm_head excluded), frozen DNA tower, trainable
-projection. Trainable parameters are fp32 masters; frozen float parameters
-of two or more dimensions are stored in `cfg.frozen_dtype`.
+projection. `freeze_encoder=False` (the CLI's --dna_model_finetune) trains
+the DNA tower too (JAX train/sft.py:66-67), through `flash_bwd` or, on
+`attention_impl="local:<W>"`, the banded `local_bwd`. Trainable parameters
+are fp32 masters; frozen float parameters of two or more dimensions are
+stored in `cfg.frozen_dtype`.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ the card.
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
   1. device   the card's name and power limit (nvidia-smi); TF32 off for the
               reference computations.
-  2. build    compile csrc/flash_fwd.cu and csrc/flash_bwd.cu with nvcc for
-              sm_90a, one nvcc each, started together (ptxas reports).
+  2. build    compile csrc/flash_fwd.cu and csrc/flash_bwd.cu (the flash
+              kernels and the banded local_* kernels) with nvcc for sm_90a,
+              one nvcc each, started together (ptxas reports).
   3. kernels  flash_fwd against its plain version (`flash_attention_ref`,
               fp32 math) in bf16 on the card at the encoder, prefill and
               q_offset shapes and the training encoder's shape, and flash_bwd
@@ -18,7 +19,14 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               q_offset shape with Tq < Tk (the forward it differentiates is
               held to `flash_attention_ref` there too), with kernel, plain,
               bound and library (torch's scaled_dot_product_attention and
-              its backward, a yardstick the port never calls) times.
+              its backward, a yardstick the port never calls) times; then
+              flash_bwd at the long-DNA decoder's shape (causal, B=2, the
+              collate's T=4480 with its left pads, and T=4608), and local_fwd
+              / local_bwd against `local_attention_ref` /
+              `local_attention_bwd_ref` at five banded shapes (bench.py's
+              smoke shape, the long-DNA encoder, T=8192, rows with no valid
+              key, a band wider than T), with flash_fwd / flash_bwd at the
+              long-DNA encoder's shape without the band beside them.
   4. serve    the port's InferenceServer at Qwen3-0.6B + NT-v2-500M width,
               bf16, weights from a fixed seed: the kernel route against the
               plain route on one request, then 8 concurrent greedy requests
@@ -35,6 +43,16 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               and flash_bwd counted per step; one loss + gradient of the
               kernel route against the plain ('xla') route; the LoRA B leaves
               checked to have moved; one step profiled.
+  7. train-long  long-DNA SFT with the encoder trained through the banded
+              kernels: the `train_sft` CLI for 4 steps with --dna_attention
+              local:256 --dna_model_finetune on 16 synthetic KEGG items of
+              2 x 12,288 bp (encoder 4 x 2048 tokens, decoder B=2, T=4480),
+              with the launches of local_fwd, local_bwd, flash_fwd and
+              flash_bwd counted per step and the encoder's leaves checked to
+              have moved; the same trainer for 2 + 5 timed steps; one loss +
+              gradient of the kernel route against the plain route (the
+              band through `local_attention_ref`, patched into this process's
+              dispatch); one step profiled.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -78,6 +96,7 @@ LSE_ATOL = 1e-3
 BWD_RTOL_OF_MAX = 2e-2
 
 ENCODER_LAYERS, DECODER_LAYERS = 29, 28
+LONG_DNA_BP, LONG_WINDOW = 12288, 256     # 2048 encoder tokens per sequence
 
 
 def fail(msg: str) -> None:
@@ -90,6 +109,13 @@ def log(msg: str) -> None:
 
 
 # -- phase 1 -----------------------------------------------------------------
+
+def smi_clocks() -> str:
+    """The card's SM clock, power draw and temperature, for the record."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
 
 def phase_device(torch):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -112,7 +138,7 @@ def phase_build():
     """Both kernels, one nvcc per source, started together."""
     from bioreason_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
-    reports = fa.build("flash_fwd", "flash_bwd")
+    reports = fa.build(*fa.LIBRARIES)
     log(f"build: {', '.join(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
         log(f"build: {name}")
@@ -309,6 +335,131 @@ def left_padded(torch, b, p, extra, max_pad, gen):
     return ((pos >= pads[:, None]) & (pos < p)).to(torch.int32)
 
 
+def band_visible(torch, t, window, mask):
+    """[B, T, T] bool: key j visible to query i, |i - j| <= window and mask[j]."""
+    i = torch.arange(t, device="cuda")
+    return ((i[:, None] - i[None, :]).abs() <= window)[None] & mask.bool()[:, None, :]
+
+
+def local_case(torch, name, b, t, hq, hkv, d, window, mask, seed):
+    """local_fwd and local_bwd against their plain versions on one shape, in
+    bf16: out on every row (pad queries are computed, as on the TPU), the
+    LSE on rows that see a key, rows that see none exactly (0, -1e30) with
+    dq = 0; dq, dk, dv within BWD_RTOL_OF_MAX of the largest |ref|. Returns
+    the forward's and the backward's rows of numbers."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.ops import local_attention as la
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                     for shape in ((b, t, hq, d), (b, t, hkv, d), (b, t, hkv, d),
+                                   (b, t, hq, d)))
+    out, lse = la.local_attention(q, k, v, window, mask, return_lse=True)
+    grads = la.local_bwd(q, k, v, window, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    vis = band_visible(torch, t, window, mask)
+    rows = vis.any(-1)                                             # [B, T]
+    ref_out, ref_lse = la.local_attention_ref(q, k, v, window, mask)
+    err = float((out.float() - ref_out.float()).abs().max())
+    if not torch.allclose(out.float(), ref_out.float(), atol=OUT_ATOL, rtol=OUT_RTOL):
+        fail(f"kernel {name}: local_fwd out differs from the plain version, max abs err {err:.4g}")
+    lrows = rows[:, None, :].expand(b, hq, t)
+    lse_err = float((lse[lrows] - ref_lse[lrows]).abs().max())
+    if lse_err > LSE_ATOL:
+        fail(f"kernel {name}: local_fwd lse differs from the plain version by {lse_err:.4g}")
+    empty = ~rows
+    n_empty = int(empty.sum())
+    if n_empty and (bool(out[empty].ne(0).any())
+                    or bool(lse.transpose(1, 2)[empty].ne(la.NEG_INF).any())
+                    or bool(grads[0][empty].ne(0).any())):
+        fail(f"kernel {name}: rows with no visible key are not (0, -1e30) with dq = 0")
+    del ref_out, ref_lse
+    refs = la.local_attention_bwd_ref(q, k, v, window, mask, out, lse, dout)
+    errs = {}
+    for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        a, r = got.float(), ref.float()
+        if not bool(torch.isfinite(a).all()):
+            fail(f"kernel {name}: local_bwd {gname} is not finite")
+        errs[gname] = float((a - r).abs().max())
+        ref_max = float(r.abs().max())
+        if errs[gname] > BWD_RTOL_OF_MAX * ref_max:
+            fail(f"kernel {name}: local_bwd {gname} differs from the plain version by "
+                 f"{errs[gname]:.4g} (max |ref| {ref_max:.4g}, tolerance {BWD_RTOL_OF_MAX} of it)")
+        errs[gname + "_ref_max"] = ref_max
+    del refs
+
+    ms = cuda_ms(lambda: la.local_attention(q, k, v, window, mask), iters=20)
+    bwd_ms = cuda_ms(lambda: la.local_bwd(q, k, v, window, mask, out, lse, dout), iters=20)
+    plain_ms = cuda_ms(lambda: la.local_attention_ref(q, k, v, window, mask), iters=3, warmup=1)
+    plain_bwd_ms = cuda_ms(lambda: la.local_attention_bwd_ref(q, k, v, window, mask, out, lse,
+                                                              dout), iters=3, warmup=1)
+    # library yardstick: SDPA with the dense band mask, forward and the
+    # backward of one call on a retained graph (copies and mask made first)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    amask = vis[:, None]
+    with torch.no_grad():
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask, enable_gqa=hkv != hq), iters=10)
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, enable_gqa=hkv != hq)
+    do_t = dout.transpose(1, 2).contiguous()
+    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t,
+                                                         retain_graph=True), iters=10)
+    del o, qt, kt, vt, amask
+
+    # the work this data needs: the band's visible (query, key) pairs; the
+    # bytes it needs: q (out, dO, lse) of the rows that see a key, k and v of
+    # the keys some query sees, the mask, and every output written once
+    pairs = float(vis.sum())
+    q_rows, kv_rows = float(rows.sum()), float(vis.any(1).sum())
+    del vis
+    fwd_bytes = (2 * (q_rows * hq * d + 2 * kv_rows * hkv * d + out.numel())
+                 + 4 * lse.numel() + 4 * mask.numel())
+    bwd_bytes = (2 * (3 * q_rows * hq * d + 2 * kv_rows * hkv * d)
+                 + 4 * q_rows * hq + 4 * mask.numel()
+                 + 2 * (q.numel() + 2 * k.numel()))
+    shape = {"B": b, "T": t, "Hq": hq, "Hkv": hkv, "D": d, "window": window,
+             "visible_pairs": pairs, "rows_without_key": n_empty}
+    out_rows = []
+    for kind, flops, nbytes, kms, pms, lms, e in (
+            ("fwd", 4.0 * d * hq * pairs, fwd_bytes, ms, plain_ms, library_ms,
+             {"max_abs_err": err, "lse_max_abs_err": lse_err}),
+            ("bwd", 10.0 * d * hq * pairs, bwd_bytes, bwd_ms, plain_bwd_ms, library_bwd_ms,
+             {"max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]), **errs})):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        out_rows.append({"shape": name, "kernel": f"local_{kind}", **shape, **e, "ms": kms,
+                         "plain_ms": pms, "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "tflops": flops / (kms * 1e-3) / 1e12})
+    f_, b_ = out_rows
+    log(f"kernel {name} (band): B={b} T={t} Hq={hq} Hkv={hkv} D={d} W={window}: "
+        f"{pairs:.4g} visible pairs, {n_empty} rows without a key; local_fwd max abs err "
+        f"{err:.3g} (lse {lse_err:.3g}), ms {ms:.4f} plain_ms {plain_ms:.3f} library_ms "
+        f"{library_ms:.4f} bound_ms {f_['bound_ms']:.4f} ({f_['bound_by']}), "
+        f"{f_['tflops']:.1f} TFLOP/s; local_bwd max abs err dq {errs['dq']:.3g} dk "
+        f"{errs['dk']:.3g} dv {errs['dv']:.3g} (max |ref| {errs['dq_ref_max']:.3g} "
+        f"{errs['dk_ref_max']:.3g} {errs['dv_ref_max']:.3g}), ms {bwd_ms:.4f} plain_ms "
+        f"{plain_bwd_ms:.3f} library_ms {library_bwd_ms:.4f} bound_ms {b_['bound_ms']:.4f} "
+        f"({b_['bound_by']}), {b_['tflops']:.1f} TFLOP/s")
+    return out_rows
+
+
+def long_items():
+    """The long-DNA corpus of phase 7: 16 KEGG-shaped items of 2 x 12,288 bp."""
+    from bioreason_tpu_torch.data.kegg import synthetic_kegg_items
+    return synthetic_kegg_items(n=16, seq_len=LONG_DNA_BP, seed=0)
+
+
+def long_batch(items):
+    """Two items collated as the CLI collates them in phase 7 (B=2, text 512,
+    DNA 2048 tokens per sequence, bucket 128)."""
+    from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
+    from bioreason_tpu_torch.data.collate import sft_collate
+    from bioreason_tpu_torch.data.kegg import format_kegg_for_dna_llm
+    proc = BioProcessor(ByteTextTokenizer(), KmerTokenizer())
+    return sft_collate([format_kegg_for_dna_llm(x) for x in items[:2]], proc,
+                       max_length_text=512, max_length_dna=2048, bucket=128)
+
+
 def served_inputs(n: int = 8):
     """The 8-request batch phase 4 serves, as `prepare_batch` hands it to
     the engine: KEGG-shaped items of 2 x 2048 bp."""
@@ -367,7 +518,40 @@ def phase_kernels(torch, max_new):
         bwd_case(torch, "q_offset_194_bwd", 2, 136, 330, 16, 8, 128, True, 194,
                  left_padded(torch, 2, 330, 0, 40, g), 24),
     ]
-    return rows, bwd_rows
+    # the long-DNA decoder (phase 7): causal over the DNA placeholders of
+    # 2 x 2048 tokens per item, with the left pads the collate gives
+    am = torch.as_tensor(long_batch(long_items())["attention_mask"], device="cuda")
+    bwd_rows.append(bwd_case(torch, f"dec_long_T{am.shape[1]}_collate", 2, am.shape[1],
+                             am.shape[1], 16, 8, 128, True, 0, am, 25))
+    bwd_rows.append(bwd_case(torch, "dec_long_T4608", 2, 4608, 4608, 16, 8, 128, True, 0,
+                             torch.ones((2, 4608), dtype=torch.int32, device="cuda"), 26))
+
+    # the banded kernels: local_fwd and local_bwd against their plain versions
+    enc_mask = right_padded(torch, 4, 2048, 1024, g)
+    band_rows = [
+        # (a) bench.py's smoke shape (bench.py:38-41, 67): GQA, D=128
+        *local_case(torch, "bench_smoke_T512_W96", 2, 512, 16, 8, 128, 96,
+                    torch.ones((2, 512), dtype=torch.int32, device="cuda"), 31),
+        # (b) the long-DNA encoder: 2 x 2 sequences of 2048 tokens, right pads
+        *local_case(torch, "encoder_long_T2048_W256", 4, 2048, 16, 16, 64, LONG_WINDOW,
+                    enc_mask, 32),
+        # (c) 4x the length: time should grow about linearly in T
+        *local_case(torch, "encoder_T8192_W256", 1, 8192, 16, 16, 64, LONG_WINDOW,
+                    torch.ones((1, 8192), dtype=torch.int32, device="cuda"), 33),
+        # (d) left pads longer than the band: rows that see no valid key
+        *local_case(torch, "leftpad_T1000_W300", 2, 1000, 16, 16, 64, 300,
+                    (torch.arange(1000, device="cuda")[None, :]
+                     >= torch.tensor([[620], [40]], device="cuda")).to(torch.int32), 34),
+        # (e) a band wider than the sequence: full bidirectional attention
+        *local_case(torch, "encoder_T344_W4096", 16, 344, 16, 16, 64, 4096,
+                    right_padded(torch, 16, 344, 200, g), 35),
+    ]
+    # the long-DNA encoder's shape without the band, for the O(T * W) saving
+    rows.append(kernel_case(torch, "encoder_long_T2048_full", 4, 2048, 2048, 16, 16, 64, False,
+                            None, enc_mask, 32))
+    bwd_rows.append(bwd_case(torch, "encoder_long_T2048_full_bwd", 4, 2048, 2048, 16, 16, 64,
+                             False, 0, enc_mask, 32))
+    return rows, bwd_rows, band_rows
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -549,14 +733,47 @@ def bench_batch(cfg, b=4, t_text=768, l_dna=128):
             "label_positions": pos, "label_targets": tgt, "label_valid": val}
 
 
-def reset_counts(fa):
-    fa.flash_attention.launches = 0
-    fa.flash_bwd.launches = 0
+def _wrappers():
+    """Each kernel's wrapper, which counts its launches."""
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    from bioreason_tpu_torch.ops import local_attention as la
+    return {"flash_fwd": fa.flash_attention, "flash_bwd": fa.flash_bwd,
+            "local_fwd": la.local_attention, "local_bwd": la.local_bwd}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def profile_step(torch, card, label, step, names):
+    """One training step under torch.profiler: device busy share and the
+    share of device time of the kernels whose names hold each of `names`."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    share = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+             for name in names}
+    log(f"profile [{card}] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernel launches; "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / max(busy_ms, 1e-9):.1f}% of device time)"
+                    for k, v in share.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
 def phase_train(torch, card):
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     from bioreason_tpu_torch.cli import train_sft
     from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
                                             LoRAConfig, OptimConfig, SFTConfig)
@@ -571,7 +788,7 @@ def phase_train(torch, card):
     os.makedirs(build_dir, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="smoke_sft_", dir=build_dir)
     try:
-        reset_counts(fa)
+        reset_counts()
         t0 = time.perf_counter()
         trainer = train_sft.main(["--max_steps", "4", "--seed", "0", "--checkpoint_dir", ckpt])
         secs = time.perf_counter() - t0
@@ -606,7 +823,7 @@ def phase_train(torch, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # --- the main path: counts from 0 just before, read just after ---------
-    reset_counts(fa)
+    reset_counts()
     t0 = time.perf_counter()
     metrics = [trainer.train_step(batch) for _ in range(10)]
     torch.cuda.synchronize()
@@ -659,23 +876,140 @@ def phase_train(torch, card):
     del gk, gp
 
     # (f) one step under the profiler
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    share = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
-             for name in ("flash_fwd", "flash_bwd")}
-    log(f"profile [{card}] train step: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernel launches; "
-        + ", ".join(f"{k} {v:.3f} ms ({100 * v / max(busy_ms, 1e-9):.1f}% of device time)"
-                    for k, v in share.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    profile_step(torch, card, "train step", lambda: trainer.train_step(batch),
+                 ("flash_fwd", "flash_bwd"))
     return {"fwd_launches": fwd, "bwd_launches": bwd}
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+def phase_train_long(torch, card):
+    """Long-DNA SFT with the encoder trained through the banded kernels."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.cli import train_sft
+    from bioreason_tpu_torch.models import attention as attn_mod
+    from bioreason_tpu_torch.models.fusion import fusion_forward, init_fusion
+    from bioreason_tpu_torch.ops import local_attention as la
+    per_step = {"local_fwd": 2 * ENCODER_LAYERS, "local_bwd": ENCODER_LAYERS,
+                "flash_fwd": 2 * DECODER_LAYERS, "flash_bwd": DECODER_LAYERS}
+
+    # (a) the CLI on a .jsonl of long items: both towers keep remat on, so
+    # each layer's forward runs twice a step
+    items = long_items()
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_long_", dir=build_dir)
+    try:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        with open(os.path.join(data_dir, "kegg_long.jsonl"), "w", encoding="utf-8") as fh:
+            fh.write("\n".join(json.dumps(x) for x in items))
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_sft.main([
+            "--max_steps", "4", "--seed", "0", "--checkpoint_dir", os.path.join(tmp, "ckpt"),
+            "--dna_attention", f"local:{LONG_WINDOW}", "--dna_model_finetune",
+            "--max_length_dna", "2048", "--truncate_dna_per_side", "0", "--data_dir", data_dir])
+        secs = time.perf_counter() - t0
+        got = counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [m["loss"] for m in trainer.history]
+    log(f"train-long (cli) [{card}]: 4 steps in {secs:.1f} s (data included), losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
+        f"{[round(m['step_time'] * 1e3, 1) for m in trainer.history]}; launches {got}")
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        fail(f"train_sft.main --dna_attention local:{LONG_WINDOW} did not run 4 finite "
+             f"steps: {losses}")
+    if got != {k: 4 * n for k, n in per_step.items()}:
+        fail(f"train_sft.main launched {got} in 4 steps, expected {per_step} per step "
+             f"(no flash_* launch in the encoder)")
+    init = init_fusion(trainer.fusion_cfg, seed=0, device="cuda")
+    state = trainer.trainable_state()
+    enc = [(n, p) for n, p in init.encoder.named_parameters()]
+    still = [n for n, p in enc if torch.equal(state[f"encoder.{n}"].detach(), p.float())]
+    log(f"train-long (cli): {len(enc) - len(still)} of {len(enc)} encoder leaves moved")
+    if still:
+        fail(f"encoder leaves did not move: {still[:4]}")
+    del init, enc, state
+
+    # (b) the same SFTTrainer on one batch of the corpus: 2 + 5 timed steps
+    # (its schedule ended with the CLI's 4 steps: lr 0, the update still runs)
+    batch = long_batch(items)
+    n_train = sum(p.numel() for p in trainer.params)
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clocks_before = smi_clocks()
+    # --- the main path: counts from 0 just before, read just after ---------
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics, step_ms = [], []
+    for _ in range(5):                   # each step ends in a host sync (loss, norm)
+        ts = time.perf_counter()
+        metrics.append(trainer.train_step(batch))
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counts()
+    # -----------------------------------------------------------------------
+    log(f"train-long (trainer): step ms {[round(x, 1) for x in step_ms]}; card clocks.sm, "
+        f"power.draw, temperature before [{clocks_before}] after [{smi_clocks()}]")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    b, t = np.asarray(batch["input_ids"]).shape
+    s_, t_dna = np.asarray(batch["dna_input_ids"]).shape
+    log(f"train-long (trainer) [{card}]: B={b} T={t}, encoder {s_} x {t_dna} DNA tokens on "
+        f"local:{LONG_WINDOW}, {n_train / 1e6:.2f} M trainable parameters (LoRA r32 + "
+        f"projection + encoder), remat on: {5 * b / dt:.3f} examples/s, {dt / 5 * 1e3:.1f} ms "
+        f"per step over 5 steps, torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"losses {[round(x, 4) for x in losses]}; launches {got} "
+        f"({', '.join(f'{k} {v / 5:g}' for k, v in got.items())} per step)")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite long-DNA training loss: {losses}")
+    if got != {k: 5 * n for k, n in per_step.items()}:
+        fail(f"the long-DNA trainer launched {got} in 5 steps, expected {per_step} per step")
+
+    # (c) one loss + gradient through the kernels against the plain versions:
+    # the decoder on 'xla', the encoder's band through local_attention_ref
+    # (patched into this process's dispatch; autograd runs through it)
+    db = trainer._device_batch(batch)
+    cfg = trainer.fusion_cfg
+
+    def loss_and_grad(c):
+        _, loss = fusion_forward(trainer.model, c, db["input_ids"], db["attention_mask"],
+                                 db["dna_input_ids"], db["dna_attention_mask"],
+                                 label_positions=db["label_positions"],
+                                 label_targets=db["label_targets"],
+                                 label_valid=db["label_valid"], train_encoder=True)
+        grads = torch.autograd.grad(loss, trainer.params)
+        return float(loss.detach()), torch.cat([g.float().flatten() for g in grads])
+    lk, gk = loss_and_grad(cfg)
+    plain = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                 attention_impl="xla"))
+    kernel_route = attn_mod.local_attention
+    attn_mod.local_attention = lambda q, k, v, w, kv_mask=None: la.local_attention_ref(
+        q, k, v, w, kv_mask)[0]
+    try:
+        reset_counts()
+        lp, gp = loss_and_grad(plain)
+        if any(counts().values()):
+            fail(f"the plain route launched kernels: {counts()}")
+    finally:
+        attn_mod.local_attention = kernel_route
+    cos = float(F.cosine_similarity(gk, gp, dim=0))
+    log(f"train-long: kernel vs plain route, one loss + gradient: loss {lk:.6f} vs {lp:.6f} "
+        f"(diff {abs(lk - lp):.3g}), cosine of the {gk.numel()} trainable gradients {cos:.6f}, "
+        f"norms {float(gk.norm()):.4g} vs {float(gp.norm()):.4g}")
+    if not (math.isfinite(lk) and math.isfinite(lp)) or cos < 0.99:
+        fail(f"kernel and plain routes disagree in long-DNA training (cosine {cos:.4f})")
+    del gk, gp
+
+    # (d) one step under the profiler
+    profile_step(torch, card, "train-long step", lambda: trainer.train_step(batch),
+                 ("local_fwd", "local_bwd", "flash_fwd", "flash_bwd"))
+    return got
 
 
 # -- main ---------------------------------------------------------------------
@@ -692,12 +1026,14 @@ def main():
     max_new = 64
     card = phase_device(torch)
     phase_build()
-    rows, bwd_rows = phase_kernels(torch, max_new)
+    rows, bwd_rows, band_rows = phase_kernels(torch, max_new)
     launches, server, items = phase_serve(torch, card, max_new)
     phase_profile(torch, card, server, items, max_new=8)
     del server
     torch.cuda.empty_cache()
     train = phase_train(torch, card)
+    torch.cuda.empty_cache()
+    long = phase_train_long(torch, card)
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
     # the served prefill: the kernel's largest call
@@ -707,6 +1043,7 @@ def main():
                  "replaces": "bioreason_tpu/ops/flash_attention.py:60",
                  "also_replaces": ["bioreason_tpu/ops/flash_attention.py:239"],
                  "launches": launches, "train_launches": train["fwd_launches"],
+                 "long_launches": long["flash_fwd"],
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -718,12 +1055,27 @@ def main():
                  "replaces": "bioreason_tpu/ops/flash_attention.py:118",
                  "also_replaces": ["bioreason_tpu/ops/flash_attention.py:160",
                                    "bioreason_tpu/ops/flash_attention.py:271"],
-                 "launches": train["bwd_launches"],
+                 "launches": train["bwd_launches"], "long_launches": long["flash_bwd"],
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],
                  "at_shape": sft["shape"], "shapes": bwd_rows}
-    log(json.dumps({"kernels": [fwd_entry, bwd_entry]}))
+    # the banded kernels at the long-DNA encoder's shape, launches from the
+    # long-DNA trainer's timed steps
+    local_entries = []
+    for kind, replaces, also in (("fwd", "bioreason_tpu/ops/local_attention.py:46", []),
+                                 ("bwd", "bioreason_tpu/ops/local_attention.py:95",
+                                  ["bioreason_tpu/ops/local_attention.py:133"])):
+        mine = [r for r in band_rows if r["kernel"] == f"local_{kind}"]
+        at = next(r for r in mine if r["shape"].startswith("encoder_long"))
+        local_entries.append({
+            "name": f"local_{kind}", "route": "cuda",
+            "source": f"bioreason_tpu_torch/csrc/flash_{kind}.cu", "replaces": replaces,
+            "also_replaces": also, "launches": long[f"local_{kind}"],
+            "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": at["ms"],
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "at_shape": at["shape"], "shapes": mine})
+    log(json.dumps({"kernels": [fwd_entry, bwd_entry, *local_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

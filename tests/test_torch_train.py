@@ -377,6 +377,79 @@ def test_trainer_two_steps_match_jax(impl):
     assert n_lora == 2 * 7 * tcfg.decoder.num_layers
 
 
+def jax_leaf(jf, name):
+    """The JAX leaf of the port parameter `name` (dots, nn.Linear `weight`
+    transposed) in the flat tree `jf` (slashes, stacked [L, ...] layers)."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[1] == "layers":     # <tower>.layers.<i>.<path>.<leaf>
+        path, i = f"{parts[0]}/layers/{'/'.join(parts[3:-1])}", int(parts[2])
+    else:
+        path, i = "/".join(parts[:-1]), None
+    leaf = parts[-1]
+    key = ("embedding" if path.endswith("embed") else "kernel") if leaf == "weight" else leaf
+    ref = jf[f"{path}/{key}"]
+    ref = ref if i is None else ref[i]
+    return ref.T if key == "kernel" else ref
+
+
+def long_dna_collated(seed):
+    """Two items of 2 x 240 bp: 41 DNA tokens per sequence, so a band of 16
+    is narrower than the sequence."""
+    exs = [TK.format_kegg_for_dna_llm(it)
+           for it in TK.synthetic_kegg_items(2, seq_len=240, seed=seed)]
+    return TD.sft_collate(exs, PROC, 512, 64, bucket=None)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run_unfrozen(enc_impl):
+    """As `jax_run`, with the encoder trained (freeze_encoder=False) on
+    attention_impl `enc_impl` and batches of longer DNA."""
+    jcfg, _ = fusion_cfgs()
+    jcfg = dataclasses.replace(jcfg, encoder=dataclasses.replace(jcfg.encoder,
+                                                                 attention_impl=enc_impl))
+    _, jsft = sft_cfgs(TC, JC)
+    jsft = dataclasses.replace(jsft, freeze_encoder=False)
+    trainer = JTrainer(jcfg, jsft, mesh=make_mesh(JC.MeshConfig(data=1), devices=jax.devices()[:1]))
+    init = jax.tree.map(np.asarray, trainer.params)
+    metrics = [trainer.train_step(long_dna_collated(s)) for s in (20, 21)]
+    final = jax.tree.map(np.asarray, trainer.params)
+    return init, metrics, final
+
+
+@pytest.mark.parametrize("enc_impl", ["local:16", "xla"])
+def test_trainer_unfrozen_encoder_two_steps_match_jax(enc_impl):
+    """`freeze_encoder=False` (the CLI's --dna_model_finetune): the encoder's
+    leaves become fp32 masters and train, through the banded route
+    ('local:16': `LocalAttention` with its plain versions on the CPU against
+    the interpret-mode Pallas kernels) or the grouped einsums ('xla'). Loss
+    and grad-norm at rel 1e-5; LoRA, projection and encoder leaves after two
+    steps at atol 1e-5, eps = 1e-3 on both sides (see
+    test_trainer_two_steps_match_jax)."""
+    init, jmetrics, jfinal = jax_run_unfrozen(enc_impl)
+    _, tcfg = fusion_cfgs()
+    tcfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(tcfg.encoder,
+                                                                 attention_impl=enc_impl))
+    tsft, _ = sft_cfgs(TC, JC)
+    tsft = dataclasses.replace(tsft, freeze_encoder=False)
+    trainer = SFTTrainer(tcfg, tsft, model=from_jax_params(init, tcfg, device="cpu"),
+                         device="cpu")
+    enc_names = [n for n in trainer.names if n.startswith("encoder.")]
+    assert len(enc_names) == len(list(trainer.model.encoder.parameters()))
+    assert all(p.dtype == torch.float32 for p in trainer.params)
+    before = {n: p.detach().clone() for n, p in trainer.trainable_state().items()}
+    for s, jm in zip((20, 21), jmetrics):
+        m = trainer.train_step(long_dna_collated(s))
+        assert m["loss"] == pytest.approx(jm["loss"], rel=1e-5)
+        assert m["grad_norm"] == pytest.approx(jm["grad_norm"], rel=1e-5)
+    jf = flat_leaves(jfinal)
+    state = trainer.trainable_state()
+    for name, p in state.items():
+        np.testing.assert_allclose(p.detach().numpy(), jax_leaf(jf, name), atol=1e-5, rtol=0,
+                                   err_msg=name)
+    moved = [n for n in enc_names if not torch.equal(state[n].detach(), before[n])]
+    assert len(moved) == len(enc_names)
+
+
 def test_remat_recomputes_the_same_dropout_masks():
     """Per-layer dropout generators are seeded before the layer runs, so a
     layer recomputed in backward (remat) draws the masks it drew forward:
@@ -461,8 +534,33 @@ def test_cli_train_sft_runs_and_checkpoint_round_trips(tmp_path):
     assert resumed.step == 3
 
 
-@pytest.mark.parametrize("flag", ["--hf_llm_dir=x", "--sp_dna", "--dna_attention=local:64",
-                                  "--sample_every=5", "--test_generative", "--wandb"])
+def test_cli_long_dna_trains_the_encoder_through_the_band(tmp_path):
+    """`--dna_attention local:16 --dna_model_finetune` on the CPU: 2 finite
+    steps over 512 bp items cut to 64 DNA tokens, the encoder on the banded
+    route, and every encoder leaf moved from its seeded init."""
+    from bioreason_tpu_torch.cli import train_sft
+    trainer = train_sft.main(["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu",
+                              "--dna_attention", "local:16", "--dna_model_finetune",
+                              "--max_steps", "2", "--max_length_dna", "64", "--n_synthetic",
+                              "16", "--batch_size", "2", "--checkpoint_dir", str(tmp_path)])
+    assert trainer.fusion_cfg.encoder.attention_impl == "local:16"
+    assert len(trainer.history) == 2 and all(math.isfinite(m["loss"]) for m in trainer.history)
+    init = TF.init_fusion(trainer.fusion_cfg, seed=42, device="cpu")
+    state = trainer.trainable_state()
+    enc = [(n, p) for n, p in init.named_parameters() if n.startswith("encoder.")]
+    assert enc and all(n in state for n, _ in enc)
+    assert all(not torch.equal(state[n].detach(), p) for n, p in enc)
+
+
+def test_cli_rejects_an_unknown_dna_attention():
+    from bioreason_tpu_torch.cli import train_sft
+    with pytest.raises(SystemExit):
+        train_sft.parse_args(["--dna_attention", "local:x"])
+
+
+@pytest.mark.parametrize("flag", ["--hf_llm_dir=x", "--sp_dna", "--dna_attention=sp_local:64",
+                                  "--dna_attention=sp", "--sample_every=5",
+                                  "--test_generative", "--wandb"])
 def test_cli_refuses_later_slices(flag):
     from bioreason_tpu_torch.cli import train_sft
     with pytest.raises(NotImplementedError):
