@@ -3,7 +3,8 @@ source, run together) and load them with ctypes (plain C interface:
 pointers and the stream as `c_void_p`).
 
 The shared library goes to `bioreason_tpu_torch/build/`, keyed by a hash of
-the source and flags, so a fresh checkout builds once and a changed source
+the flags, the source and every header of csrc/ (`*.cuh`, which the sources
+include), so a fresh checkout builds once and a changed source or header
 builds anew. Nothing is built when a module is imported.
 """
 
@@ -26,18 +27,41 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_paths: Dict[str, Path] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (`nvcc`, `cuobjdump`): PATH, then
+    $CUDA_HOME/bin, then /usr/local/cuda/bin."""
+    found = shutil.which(name)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
+    path = os.path.join(cuda_home, "bin", name)
     if os.path.exists(path):
         return path
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+    raise RuntimeError(f"{name} not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
                        "the CUDA kernels of bioreason_tpu_torch cannot be built")
+
+
+def library_file(name: str, source: str, csrc_dir: Path = CSRC_DIR,
+                 build_dir: Path = BUILD_DIR) -> Path:
+    """Where the build of `source` (relative to `csrc_dir`) lives: its name
+    holds a hash of the nvcc flags, the source and every `*.cuh` header in
+    `csrc_dir`, in name order."""
+    path = csrc_dir / source
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(path.name.encode())
+    digest.update(path.read_bytes())
+    for header in sorted(csrc_dir.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return build_dir / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    """The shared library file loaded under `name` (after load_libraries)."""
+    return _paths[name]
 
 
 def load_libraries(sources: Dict[str, str]) -> Dict[str, Tuple[ctypes.CDLL, str]]:
@@ -53,14 +77,11 @@ def load_libraries(sources: Dict[str, str]) -> Dict[str, Tuple[ctypes.CDLL, str]
                 out[name] = (_libs[name], "")
                 continue
             path = CSRC_DIR / source
-            digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-            digest.update(path.name.encode())
-            digest.update(path.read_bytes())
-            so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+            so = library_file(name, source)
             tmp, proc = so.with_name(f"{so.name}.{os.getpid()}.tmp"), None
             if not so.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(path)],
+                proc = subprocess.Popen([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(path)],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True)
             builds[name] = (so, tmp, proc)
@@ -74,6 +95,7 @@ def load_libraries(sources: Dict[str, str]) -> Dict[str, Tuple[ctypes.CDLL, str]
                     continue
                 os.replace(tmp, so)
             _libs[name] = ctypes.CDLL(str(so))
+            _paths[name] = so
             out[name] = (_libs[name], log)
         if failed:
             raise RuntimeError("\n".join(failed))

@@ -2,12 +2,15 @@
 versions (the port of bioreason_tpu/ops/flash_attention.py).
 
 `flash_attention` launches `csrc/flash_fwd.cu` on CUDA tensors: one kernel
-for both Pallas forwards (`_fwd_kernel`, `_fwd_single_kernel`). When
-autograd records (a training step), it runs through `FlashAttention`, a
+(TMA, wgmma, a producer warp and two consumer warpgroups) for both Pallas
+forwards (`_fwd_kernel`, `_fwd_single_kernel`). When autograd records (a
+training step), it runs through `FlashAttention`, a
 `torch.autograd.Function` (the JAX `custom_vjp`) whose backward is
-`flash_bwd`: `csrc/flash_bwd.cu`, one pair of kernels for the three Pallas
-backward kernels (`_dq_kernel`, `_dkv_kernel`, `_bwd_single_kernel`).
-Without autograd (serving) it launches the forward alone, as before.
+`flash_bwd`: `csrc/flash_bwd.cu`, one pass per key tile for the three Pallas
+backward kernels (`_dq_kernel`, `_dkv_kernel`, `_bwd_single_kernel`), with a
+prep pass before it (delta, and the fp32 dq scratch zeroed) and a convert
+pass after it (dq to bf16). Without autograd (serving) it launches the
+forward alone.
 
 The kernels read the [B, T, H, D] layout through strides and the [B, Tk]
 key mask as it is, so none of the TPU wrapper's head-major transposes,
@@ -48,7 +51,7 @@ _ARGTYPES = {
                   _LL, _LL, _LL, _LL, _LL, _LL,           # v, o strides
                   _I, _I, ctypes.c_float, _P],            # causal q_offset scale stream
     "flash_bwd": [_P, _P, _P, _P, _P, _P, _P,             # q k v mask o lse do
-                  _P, _P, _P, _P,                         # dq dk dv delta
+                  _P, _P, _P, _P, _P, _P,                 # dq dk dv lse_log2 delta dq_accum
                   _I, _I, _I, _I, _I, _I,                 # B Tq Tk Hq Hkv D
                   ctypes.POINTER(_LL),                    # 24 strides
                   _I, _I, ctypes.c_float, _P],            # causal q_offset scale stream
@@ -174,9 +177,15 @@ def attention_bwd_ref(q, k, v, valid, out, lse, dout):
     return dq.reshape(b, tq, hq, d), dk, dv
 
 
+def _strides_ok(x) -> bool:
+    """The kernels' stride rule (TMA's): a unit last stride and the other
+    strides multiples of 16 bytes (8 bf16 elements)."""
+    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3])
+
+
 def _aligned(x) -> bool:
-    """The kernels' layout rule: unit last stride, 16-byte aligned rows."""
-    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
+    """The kernels' layout rule: the stride rule and a 16-byte aligned base."""
+    return _strides_ok(x) and not x.data_ptr() % 16
 
 
 def _check(q, k, v, kv_mask):
@@ -192,6 +201,10 @@ def _check(q, k, v, kv_mask):
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[2]}")
     if kv_mask is not None and tuple(kv_mask.shape) != (b, k.shape[1]):
         raise ValueError(f"kv_mask must be [B, Tk], got {tuple(kv_mask.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not _strides_ok(x):
+            raise ValueError(f"{name} needs a unit last stride and strides that are "
+                             f"multiples of 8 elements, got {x.stride()}")
     if not q.is_cuda:
         return
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -220,6 +233,8 @@ def _forward(q, k, v, kv_mask, causal, q_offset):
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     if b == 0 or tq == 0:
         return out, lse
+    if tk == 0:                       # no key: every row is fully masked
+        return out.zero_(), lse.fill_(NEG_INF)
     mask = _mask_i32(kv_mask)
     rc = kernel_fn("flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -238,8 +253,11 @@ def _forward(q, k, v, kv_mask, causal, q_offset):
 def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
     """Gradients (dq, dk, dv) of `flash_attention` given the forward's out
     and lse and the output gradient dout. Launches `csrc/flash_bwd.cu` on
-    CUDA tensors (delta = rowsum(dO * O) is folded into the dq kernel) and
-    computes `flash_attention_bwd_ref` on CPU tensors."""
+    CUDA tensors (a prep pass for delta = rowsum(dO * O), the backward
+    kernel, a convert pass for dq; one launch to the count) and computes
+    `flash_attention_bwd_ref` on CPU tensors. On the card dq is summed by
+    the TMA unit's fp32 reduce-adds in no fixed order, so it is not bitwise
+    reproducible."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, kv_mask, causal, q_offset, out, lse, dout)
     _check(q, k, v, kv_mask)
@@ -265,7 +283,11 @@ def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
     dv = torch.empty((b, tk, hkv, d), dtype=v.dtype, device=q.device)
     if b == 0 or tq == 0 or tk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    # fp32 scratch, filled by the prep pass: dq_accum [B, Hq, Tq_pad, D],
+    # lse * log2(e) and delta [B*Hq, Tq_pad] (Tq_pad = Tq rounded up to 64)
+    rows = b * hq * (-(-tq // 64) * 64)
+    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    dq_accum, lse_log2, delta = ws[:rows * d], ws[rows * d:rows * (d + 1)], ws[rows * (d + 1):]
     mask = _mask_i32(kv_mask)
     strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, out, dout, dq, dk, dv)
                                          for s in x.stride()[:3]))
@@ -273,7 +295,8 @@ def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse_log2.data_ptr(), delta.data_ptr(), dq_accum.data_ptr(),
         b, tq, tk, hq, hkv, d, strides,
         int(bool(causal)), int(q_offset), float(d ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -5,8 +5,8 @@ bioreason_tpu/ops/local_attention.py).
 Query i sees key j iff |i - j| <= window and kv_mask[j], on array indices,
 so the work is O(T * window) instead of O(T^2). Self-attention only
 (Tq == Tk). `local_attention` launches `local_fwd` (the C entry
-`local_fwd_bf16` of csrc/flash_fwd.cu: the flash forward's body with the
-band's tile range and predicate) on CUDA tensors, for the Pallas
+`local_fwd_bf16` of csrc/flash_fwd.cu: an mma.sync body with the band's
+tile range and predicate) on CUDA tensors, for the Pallas
 `_fwd_kernel`. When autograd records, it runs through `LocalAttention`, a
 `torch.autograd.Function` whose backward is `local_bwd` (`local_bwd_bf16`
 of csrc/flash_bwd.cu) for the Pallas `_dq_kernel` and `_dkv_kernel`.

@@ -9,8 +9,13 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
   1. device   the card's name and power limit (nvidia-smi); TF32 off for the
               reference computations.
   2. build    compile csrc/flash_fwd.cu and csrc/flash_bwd.cu (the flash
-              kernels and the banded local_* kernels) with nvcc for sm_90a,
-              one nvcc each, started together (ptxas reports).
+              kernels and the banded local_* kernels, both including
+              csrc/sm90.cuh) with nvcc for sm_90a, one nvcc each, started
+              together; print each kernel's ptxas report (registers,
+              spills) and, from `cuobjdump -sass`, its count of wgmma
+              (HGMMA) and TMA (UTMALDG, UBLKCP, UBLKRED, ...) instructions.
+              Fails on a spill, or where flash_fwd_kernel or flash_bwd_kernel
+              lacks either kind of instruction.
   3. kernels  flash_fwd against its plain version (`flash_attention_ref`,
               fp32 math) in bf16 on the card at the encoder, prefill and
               q_offset shapes and the training encoder's shape, and flash_bwd
@@ -19,9 +24,13 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               q_offset shape with Tq < Tk (the forward it differentiates is
               held to `flash_attention_ref` there too), with kernel, plain,
               bound and library (torch's scaled_dot_product_attention and
-              its backward, a yardstick the port never calls) times; then
-              flash_bwd at the long-DNA decoder's shape (causal, B=2, the
-              collate's T=4480 with its left pads, and T=4608), and local_fwd
+              its backward, a yardstick the port never calls; is_causal
+              without a mask where the case is causal, all valid and
+              Tq == Tk) times, the kernel (and the forward's library call)
+              also replayed from a CUDA graph (event times include the host
+              where it is slower than the card); then flash_fwd and flash_bwd at the long-DNA
+              decoder's shape (causal, B=2, the collate's T=4480 with its
+              left pads, and T=4608), and local_fwd
               / local_bwd against `local_attention_ref` /
               `local_attention_bwd_ref` at five banded shapes (bench.py's
               smoke shape, the long-DNA encoder, T=8192, rows with no valid
@@ -65,6 +74,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -94,6 +104,10 @@ LSE_ATOL = 1e-3
 # to ~1000 such terms whose rounding errors (2^-9 relative) mostly cancel, so
 # the error stays well under 2% of the gradient's largest element
 BWD_RTOL_OF_MAX = 2e-2
+
+# the redesigned kernels (wgmma + TMA) and the SASS opcodes counted as TMA
+REDESIGNED = ("flash_fwd_kernel", "flash_bwd_kernel")
+TMA_OPS = ("UTMALDG", "UTMASTG", "UTMAREDG", "UTMAPF", "UBLKCP", "UBLKRED")
 
 ENCODER_LAYERS, DECODER_LAYERS = 29, 28
 LONG_DNA_BP, LONG_WINDOW = 12288, 256     # 2048 encoder tokens per sequence
@@ -134,17 +148,79 @@ def phase_device(torch):
 
 # -- phase 2 -----------------------------------------------------------------
 
+def ptxas_report(log_text: str) -> dict:
+    """function -> {"registers", "spill_stores", "spill_loads", "smem"} from
+    nvcc's -Xptxas -v output."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": None, "spill_stores": 0, "spill_loads": 0, "smem": 0}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_stores"], out[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_counts(path) -> dict:
+    """function -> {"HGMMA": n, "TMA": n} from `cuobjdump -sass` of a library."""
+    from bioreason_tpu_torch.ops.cuda_build import cuda_tool
+    res = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {path} failed: {res.stderr.strip()[-500:]}")
+    out, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"HGMMA": 0, "TMA": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
+        if m and fn is not None:
+            op = m.group(1)
+            if op == "HGMMA":
+                out[fn]["HGMMA"] += 1
+            elif op in TMA_OPS:
+                out[fn]["TMA"] += 1
+    return out
+
+
 def phase_build():
-    """Both kernels, one nvcc per source, started together."""
+    """Both kernels, one nvcc per source, started together; their ptxas
+    reports and SASS instruction counts. Returns kernel -> numbers."""
     from bioreason_tpu_torch.ops import flash_attention as fa
+    from bioreason_tpu_torch.ops.cuda_build import library_path
     t0 = time.perf_counter()
     reports = fa.build(*fa.LIBRARIES)
     log(f"build: {', '.join(reports)} in {time.perf_counter() - t0:.2f} s")
+    kernels = {}
     for name, report in reports.items():
-        log(f"build: {name}")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
-                log(f"  ptxas: {line.strip()}")
+        ptx = ptxas_report(report)
+        sass = sass_counts(library_path(name))
+        log(f"build: {name} ({library_path(name).name})")
+        for fn in sorted(set(ptx) | set(sass)):
+            row = {**ptx.get(fn, {}), **sass.get(fn, {})}
+            kernels[fn] = row
+            log(f"  {fn[:96]}: {row}")
+            if row.get("spill_stores") or row.get("spill_loads"):
+                fail(f"ptxas spills in {fn}: {row}")
+    if not all(reports.values()):
+        log("build: a library was already built in this checkout: no ptxas report for it")
+    for want in REDESIGNED:
+        mine = {fn: row for fn, row in kernels.items() if want in fn}
+        if not mine or any(not row.get("HGMMA") or not row.get("TMA") for row in mine.values()):
+            fail(f"{want}: every build needs HGMMA and TMA instructions, got {mine}")
+    return kernels
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -160,6 +236,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time per call: `iters` calls captured in one CUDA graph and
+    replayed, so no host time between launches enters (`cuda_ms` includes
+    it where the host is slower than the card, as at the small shapes)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # capture wants a warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -196,16 +296,27 @@ def kernel_case(torch, name, b, tq, tk, hq, hkv, d, causal, q_offset, mask, seed
         if bool(out[empty].ne(0).any()) or bool(lse.transpose(1, 2)[empty].ne(fa.NEG_INF).any()):
             fail(f"kernel {name}: fully masked rows are not (0, -1e30)")
 
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, causal=causal, q_offset=q_offset),
-                 iters=20)
+    def kernel():
+        return fa.flash_attention(q, k, v, mask, causal=causal, q_offset=q_offset)
+    ms = cuda_ms(kernel, iters=20)
+    dev_ms = graph_ms(kernel)
     plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, mask, causal, qo), iters=3,
                        warmup=1)
     # library yardstick: one SDPA call on the same work (layout copies and
     # the boolean mask are made before timing)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    amask = vis[:, None]
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=amask, enable_gqa=hkv != hq), iters=10)
+    if causal and tq == tk and qo == 0 and bool(mask.bool().all()):
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=hkv != hq)
+    else:
+        amask = vis[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
+                                                  enable_gqa=hkv != hq)
+    library_ms = cuda_ms(library, iters=10)
+    library_dev_ms = graph_ms(library)
 
     # the work this data needs: (query, key) pairs with a visible key; QK^T
     # and PV take 2 flops per multiply-add each
@@ -219,12 +330,14 @@ def kernel_case(torch, name, b, tq, tk, hq, hkv, d, causal, q_offset, mask, seed
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     row = {"shape": name, "B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
            "causal": causal, "q_offset": qo, "max_abs_err": err, "lse_max_abs_err": lse_err,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_graph_ms": library_dev_ms,
            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "tflops": flops / (ms * 1e-3) / 1e12}
     log(f"kernel {name}: B={b} Tq={tq} Tk={tk} Hq={hq} Hkv={hkv} D={d} causal={causal} "
-        f"q_offset={qo}: max_abs_err {err:.3g} (lse {lse_err:.3g}); ms {ms:.4f} "
-        f"plain_ms {plain_ms:.3f} library_ms {library_ms:.4f} bound_ms {row['bound_ms']:.4f} "
+        f"q_offset={qo}: max_abs_err {err:.3g} (lse {lse_err:.3g}); ms {ms:.4f} (graph "
+        f"{dev_ms:.4f}) plain_ms {plain_ms:.3f} library_ms {library_ms:.4f} (graph "
+        f"{library_dev_ms:.4f}) bound_ms {row['bound_ms']:.4f} "
         f"({row['bound_by']}), {row['tflops']:.1f} TFLOP/s")
     return row
 
@@ -280,8 +393,10 @@ def bwd_case(torch, name, b, tq, tk, hq, hkv, d, causal, q_offset, mask, seed):
     if bool(empty.any()) and bool(grads[0][empty].ne(0).any()):
         fail(f"kernel {name}: fully masked rows have dq != 0")
 
-    ms = cuda_ms(lambda: fa.flash_bwd(q, k, v, mask, causal, q_offset, out, lse, dout),
-                 iters=20)
+    def kernel():
+        return fa.flash_bwd(q, k, v, mask, causal, q_offset, out, lse, dout)
+    ms = cuda_ms(kernel, iters=20)
+    dev_ms = graph_ms(kernel)
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, mask, causal, q_offset, out,
                                                           lse, dout), iters=3, warmup=1)
     # library yardstick: the backward of one SDPA call on the same work, on
@@ -293,8 +408,9 @@ def bwd_case(torch, name, b, tq, tk, hq, hkv, d, causal, q_offset, mask, seed):
         o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis[:, None],
                                            enable_gqa=hkv != hq)
     do_t = dout.transpose(1, 2).contiguous()
-    library_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True),
-                         iters=10)
+    def library():
+        return torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True)
+    library_ms = cuda_ms(library, iters=10)
 
     # the work this data needs: 10*D flops per visible (query, key) pair and
     # head (Q K^T, dO V^T, P^T dO, dS K, dS^T Q); q, out, dO and lse read for
@@ -309,16 +425,18 @@ def bwd_case(torch, name, b, tq, tk, hq, hkv, d, causal, q_offset, mask, seed):
     err = max(errs["dq"], errs["dk"], errs["dv"])
     row = {"shape": name, "B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
            "causal": causal, "q_offset": q_offset, "fwd_max_abs_err": fwd_err,
-           "fwd_lse_max_abs_err": lse_err, "max_abs_err": err, **errs, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+           "fwd_lse_max_abs_err": lse_err, "max_abs_err": err, **errs, "ms": ms,
+           "graph_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "tflops": flops / (ms * 1e-3) / 1e12}
     log(f"kernel {name} (bwd): B={b} Tq={tq} Tk={tk} Hq={hq} Hkv={hkv} D={d} causal={causal} "
         f"q_offset={q_offset}: forward max abs err {fwd_err:.3g} (lse {lse_err:.3g}); max abs err "
         f"dq {errs['dq']:.3g} dk {errs['dk']:.3g} dv {errs['dv']:.3g} (max |ref| "
         f"{errs['dq_ref_max']:.3g} {errs['dk_ref_max']:.3g} {errs['dv_ref_max']:.3g}, tolerance "
-        f"{BWD_RTOL_OF_MAX} of each); ms {ms:.4f} plain_ms {plain_ms:.3f} library_ms "
-        f"{library_ms:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}), "
+        f"{BWD_RTOL_OF_MAX} of each); ms {ms:.4f} (graph {dev_ms:.4f}) plain_ms "
+        f"{plain_ms:.3f} library_ms {library_ms:.4f} bound_ms "
+        f"{row['bound_ms']:.4f} ({row['bound_by']}), "
         f"{row['tflops']:.1f} TFLOP/s")
     return row
 
@@ -521,6 +639,10 @@ def phase_kernels(torch, max_new):
     # the long-DNA decoder (phase 7): causal over the DNA placeholders of
     # 2 x 2048 tokens per item, with the left pads the collate gives
     am = torch.as_tensor(long_batch(long_items())["attention_mask"], device="cuda")
+    rows.append(kernel_case(torch, f"dec_long_T{am.shape[1]}_collate", 2, am.shape[1],
+                            am.shape[1], 16, 8, 128, True, 0, am, 25))
+    rows.append(kernel_case(torch, "dec_long_T4608", 2, 4608, 4608, 16, 8, 128, True, 0,
+                            torch.ones((2, 4608), dtype=torch.int32, device="cuda"), 26))
     bwd_rows.append(bwd_case(torch, f"dec_long_T{am.shape[1]}_collate", 2, am.shape[1],
                              am.shape[1], 16, 8, 128, True, 0, am, 25))
     bwd_rows.append(bwd_case(torch, "dec_long_T4608", 2, 4608, 4608, 16, 8, 128, True, 0,
@@ -562,8 +684,12 @@ def phase_serve(torch, card, max_new):
     from bioreason_tpu_torch.serve import build_server, make_http_server, prepare_batch
 
     t0 = time.perf_counter()
+    # a batch window long enough that each burst of 8 threads is one batch
+    # on a slow host too: greedy tokens are compared across bursts, and
+    # another split of the same requests pads them differently
     server = build_server("qwen3-0.6b", "nt-500m", max_length_dna=2048, seed=0,
-                          max_batch=8, max_new_tokens=max_new, greedy_default=True)
+                          max_batch=8, batch_window_ms=500.0, max_new_tokens=max_new,
+                          greedy_default=True)
     cfg = server.cfg
     dec, enc = cfg.decoder, cfg.encoder
     if (dec.num_layers, dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim,
@@ -665,7 +791,8 @@ def phase_serve(torch, card, max_new):
         fail(f"not every request was answered: {first} {second} {http_result}")
     first_rows = rows_of(calls_out[:n_first])
     if len(first_rows) != 8 or first_rows != rows_of(calls_out[n_first:-1]) or first != second:
-        fail("greedy repeats of the same 8 requests differ")
+        fail(f"greedy repeats of the same 8 requests differ (engine call batch sizes "
+             f"{[ids.shape[0] for (ids, _), _ in calls_out]})")
     if server.engine.nonfinite_rows:
         fail(f"{server.engine.nonfinite_rows} logit rows were not finite")
     if launches != (ENCODER_LAYERS + DECODER_LAYERS) * calls:
@@ -1025,7 +1152,7 @@ def main():
     t_start = time.perf_counter()
     max_new = 64
     card = phase_device(torch)
-    phase_build()
+    built = phase_build()
     rows, bwd_rows, band_rows = phase_kernels(torch, max_new)
     launches, server, items = phase_serve(torch, card, max_new)
     phase_profile(torch, card, server, items, max_new=8)
@@ -1048,6 +1175,7 @@ def main():
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
                  "library_ms": served["library_ms"], "at_shape": served["shape"],
+                 "build": {fn: r for fn, r in built.items() if "flash_fwd_kernel" in fn},
                  "shapes": rows}
     sft = bwd_rows[0]                  # sft_T768: bench.py's training shape
     bwd_entry = {"name": "flash_bwd", "route": "cuda",
@@ -1059,7 +1187,10 @@ def main():
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],
-                 "at_shape": sft["shape"], "shapes": bwd_rows}
+                 "at_shape": sft["shape"],
+                 "build": {fn: r for fn, r in built.items()
+                           if any(f"flash_bwd_{k}kernel" in fn for k in ("", "prep_", "convert_"))},
+                 "shapes": bwd_rows}
     # the banded kernels at the long-DNA encoder's shape, launches from the
     # long-DNA trainer's timed steps
     local_entries = []

@@ -121,11 +121,14 @@ def test_wrapper_default_q_offset_is_tk_minus_tq():
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "gqa", "mask_shape"])
+@pytest.mark.parametrize("bad", ["head_dim", "gqa", "mask_shape", "stride"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     d = 32 if bad == "head_dim" else 64
     hkv = 3 if bad == "gqa" else 2
     q, k, v = (torch.from_numpy(x) for x in inputs(2, 8, 8, 4, hkv, d, seed=6))
+    if bad == "stride":
+        # rows 68 elements apart: TMA takes strides in 16-byte multiples only
+        q = torch.zeros((2, 8, 4, 68), dtype=q.dtype)[..., :64].copy_(q)
     mask = torch.ones((2, 9 if bad == "mask_shape" else 8), dtype=torch.int32)
     with pytest.raises(ValueError):
         tfa.flash_attention(q, k, v, mask)
