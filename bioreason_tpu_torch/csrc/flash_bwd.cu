@@ -1,7 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 in, fp32 accumulate.
+// Flash-attention backward for Hopper (sm_90a), bf16 in, fp32 accumulate:
+// one design, two kernels, told apart by the body's BAND switch.
 //
-// flash_bwd (flash_bwd_kernel with its two small passes) replaces the three
-// Pallas backward kernels of bioreason_tpu/ops/flash_attention.py:
+// flash_bwd (flash_bwd_kernel, BAND = false, with its two small passes)
+// replaces the three Pallas backward kernels of
+// bioreason_tpu/ops/flash_attention.py:
 //   _dq_kernel         (:118)  tiled dq, p from the LSE, delta computed outside
 //   _dkv_kernel        (:160)  tiled dk/dv per q head, GQA-summed outside (:511-514)
 //   _bwd_single_kernel (:271)  fused one-pass backward for Tq == Tk <= 768
@@ -9,6 +11,16 @@
 // covers every case they cover: causal with q_offset or bidirectional, a
 // [B, Tk] key mask, GQA (K/V never repeated), D in {64, 128}, any T (TMA
 // zero-fills the ragged edge), the [B, T, H, D] layout read through strides.
+//
+// local_bwd (local_bwd_kernel, BAND = true, between the same two passes)
+// replaces the banded backward of bioreason_tpu/ops/local_attention.py:
+//   _dq_kernel  (:95)   banded dq, P from the LSE, delta computed outside
+//   _dkv_kernel (:133)  banded dk/dv per q head, fp32, GQA-summed outside
+//                       (:309-311)
+// Key j is visible to query i iff |i - j| <= window and mask[j] (Tq == Tk).
+// Each 128-key tile walks only the q rows [k0 - window, last key + window]:
+// O(T * window) work, where the TPU grid walks 2R+1 clamped blocks. Its own
+// __global__ name and C entry (local_bwd_bf16).
 //
 // Function: given q [B,Tq,Hq,D], k/v [B,Tk,Hkv,D], the optional mask [B,Tk]
 // int32, the forward's o [B,Tq,Hq,D] and lse [B,Hq,Tq] fp32, and do (dO)
@@ -23,22 +35,25 @@
 // visible (query, key) pair (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) against
 // 2*D bytes per row of q, o, dO, dq and of k, v, dk, dv: ~320 flops per byte
 // at bench.py's SFT shape (T=768), ~1,100 at the long-DNA decoder (T=4480),
-// so the tensor cores bound it.
+// so the tensor cores bound it. The band (2W+1 keys a query) gives ~160 at
+// the long-DNA encoder (D=64, W=256): below the ridge, bytes-bound.
 //
 // Design (FlashAttention-3's backward, written with the PTX of sm90.cuh):
 //   * flash_bwd_prep_kernel: delta = rowsum(dO * O), lse * log2(e) (both
 //     into [B*Hq, Tq_pad] fp32, Tq_pad = Tq rounded up to 64, 0 past Tq), and
 //     zeroes the fp32 dq scratch dq_accum [B, Hq, Tq_pad, D] (each 64-row
 //     tile in the accumulator's fragment order, dq_frag_offset);
-//   * flash_bwd_kernel: one CTA of three warpgroups per (128-key tile, KV
-//     head, batch), heaviest first (a causal key tile's work falls with k0).
-//     Warpgroup 0 is the producer: K and V by TMA once, then a ring of two
-//     stages of (Q, dO) tiles of 64 rows by TMA and their lse / delta rows
-//     by bulk copy, guarded by full / empty mbarriers, over the Hq/Hkv q
-//     heads of the group and their q tiles from the first that sees the
-//     key tile. Warpgroups 1 and 2 own 64 keys each and keep dk and dv in
-//     registers for the whole group: the GQA sum happens there, with no
-//     fp32 per-head temporaries. Per q tile, 5 products by wgmma:
+//   * flash_bwd_kernel / local_bwd_kernel: one CTA of three warpgroups per
+//     (128-key tile, KV head, batch), heaviest first (a causal key tile's
+//     work falls with k0). Warpgroup 0 is the producer: K and V by TMA once,
+//     then a ring of two stages of (Q, dO) tiles of 64 rows by TMA and their
+//     lse / delta rows by bulk copy, guarded by full / empty mbarriers, over
+//     the Hq/Hkv q heads of the group and their q tiles from the first that
+//     sees the key tile to the last (the causal reach, or the band's q rows
+//     [k0 - window, last key + window]). Warpgroups 1 and 2 own 64 keys each
+//     and keep dk and dv in registers for the whole group: the GQA sum
+//     happens there, with no fp32 per-head temporaries. Per q tile, 5
+//     products by wgmma:
 //       S^T = K Q^T and dP^T = V dO^T (K, Q, V, dO K-major in shared memory);
 //       dV += P^T dO and dK += dS^T Q (P^T, dS^T from the accumulators as
 //       register A operands; dO and Q MN-major, the transpose bit);
@@ -51,409 +66,16 @@
 //       into dq_accum by the TMA unit's bulk reduce-add
 //       (cp.reduce.async.bulk .add.f32): no recomputation of S and dP for
 //       dq. P and dS take one FFMA, one ex2.approx and a few ALU operations
-//       a pair; the per-pair predicate is compiled out of the tiles where
-//       every pair of a thread's keys is visible.
+//       a pair; the per-pair predicate (key valid, query in range, and the
+//       causal reach or |i - j| <= W as one unsigned compare) is compiled
+//       out of the tiles where every pair of a thread's keys (for the band:
+//       of its warp's 16 keys) is visible.
 //   * flash_bwd_convert_kernel: dq = bf16(scale * dq_accum) in q's layout.
 // dq is summed by atomic reduce-adds whose order varies from run to run, so
 // it is not bitwise reproducible (dk and dv are); the error against the
 // plain version stays within the same tolerance.
-//
-// local_bwd_dq / local_bwd_dkv (dq_body / dkv_body: mma.sync, no load
-// pipeline) replace the banded backward of
-// bioreason_tpu/ops/local_attention.py:
-//   _dq_kernel  (:95)   banded dq, P from the LSE, delta computed outside
-//   _dkv_kernel (:133)  banded dk/dv per q head, fp32, GQA-summed outside
-//                       (:309-311)
-// Key j is visible to query i iff |i - j| <= window and mask[j] (Tq == Tk).
-// The dq block loops only over the key tiles that meet [q0 - window,
-// q0 + 63 + window], the dk/dv block only over the q tiles that meet
-// [k0 - window, k0 + 63 + window]: O(T * window) work, where the TPU grid
-// walks 2R+1 clamped blocks. delta is folded into the dq prologue and the
-// GQA group is summed in registers: no per-q-head fp32 temporaries. Own
-// __global__ names and C entry (local_bwd_bf16). They load without a
-// pipeline (rows padded to D+8 elements, so the 32-bit fragment loads are
-// bank-conflict free) and multiply with mma.sync m16n8k16; their redesign
-// on the machinery above is later work.
 
 #include "sm90.cuh"
-
-namespace {
-
-constexpr int NTHREADS = 128;          // 4 warps x 16 rows
-constexpr int DQ_BQ = 64, DQ_BK = 64;  // dq kernel: q rows per block, keys per tile
-constexpr int KV_BK = 64, KV_BQ = 32;  // dkv kernel: keys per block, q rows per tile
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed on the way into registers.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-using sm90::pack_bf16;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// ROWS rows of D bf16 from global memory (row stride `st`, rows from `row0`)
-// into shared memory rows of D+8 elements; rows at or past `limit` are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long st, int row0, int limit, int tid) {
-  constexpr int RP = D + 8, CH = D / 8;
-  for (int i = tid; i < ROWS * CH; i += NTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * st + c);
-    *reinterpret_cast<uint4*>(&dst[r * RP + c]) = val;
-  }
-}
-
-// acc[n] = A[r0..r0+15, :] . B[n*8..n*8+7, :]^T over the D columns, with A
-// and B both row-major tiles in shared memory; the rows of A are this
-// warp's 16 (r0 = warp*16 + g), N rows of B.
-template <int D, int N>
-__device__ __forceinline__ void mma_abt(float acc[N / 8][4], const __nv_bfloat16* sa,
-                                        int r0, const __nv_bfloat16* sb, int g, int t) {
-  constexpr int RP = D + 8;
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    uint32_t a[4];
-    a[0] = ld32(&sa[r0 * RP + c]);
-    a[1] = ld32(&sa[(r0 + 8) * RP + c]);
-    a[2] = ld32(&sa[r0 * RP + c + 8]);
-    a[3] = ld32(&sa[(r0 + 8) * RP + c + 8]);
-#pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const __nv_bfloat16* brow = &sb[(n * 8 + g) * RP + c];
-      mma_16816(acc[n], a, ld32(brow), ld32(brow + 8));
-    }
-  }
-}
-
-// acc[D/8] += P . Y: P is 16 rows x K columns in the accumulator layout of
-// mma_abt (rounded to bf16 as the A operand), Y is K rows x D in shared
-// memory, read through ldmatrix.trans.
-template <int D, int K>
-__device__ __forceinline__ void mma_pv(float acc[D / 8][4], const float p[K / 8][4],
-                                       const __nv_bfloat16* sy, int lane) {
-  constexpr int RP = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    // lanes 0-15: rows kk*16 + (lane & 15), columns n*8..; lanes 16-31 the
-    // next 8 columns: matrices {0,1} feed d-tile n, {2,3} d-tile n+1
-    const __nv_bfloat16* yrow = &sy[(kk * 16 + (lane & 15)) * RP + (lane >> 4) * 8];
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, yrow + n * 8);
-      mma_16816(acc[n], a, bf[0], bf[1]);
-      mma_16816(acc[n + 1], a, bf[2], bf[3]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * DQ_BQ + 2 * DQ_BK) * (D + 8) * 2 + DQ_BK * 4 + DQ_BQ * 4;
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * KV_BK + 2 * KV_BQ) * (D + 8) * 2 + KV_BK * 4 + 2 * KV_BQ * 4;
-}
-
-// The banded dq and dk/dv bodies: key j is visible to query i iff
-// |i - j| <= window (array indices) and mask[j].
-#define DQ_PARAMS                                                              \
-  const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,   \
-      const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,      \
-      const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,     \
-      const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq, \
-      float* __restrict__ delta, int Tq, int Tk, int Hq, int Hkv,             \
-      long long q_sb, long long q_st, long long q_sh, long long k_sb,         \
-      long long k_st, long long k_sh, long long v_sb, long long v_st,         \
-      long long v_sh, long long o_sb, long long o_st, long long o_sh,         \
-      long long do_sb, long long do_st, long long do_sh, long long dq_sb,     \
-      long long dq_st, long long dq_sh
-#define DQ_ARGS                                                                \
-  q, k, v, mask, o, lse, dout, dq, delta, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh,   \
-      k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, do_sb, do_st,      \
-      do_sh, dq_sb, dq_st, dq_sh
-
-template <int D>
-__device__ __forceinline__ void dq_body(DQ_PARAMS, int window, float scale) {
-  constexpr int RP = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + DQ_BQ * RP;
-  __nv_bfloat16* ks = dos + DQ_BQ * RP;      // stages O first, for delta
-  __nv_bfloat16* vs = ks + DQ_BK * RP;
-  int* kvalid = reinterpret_cast<int*>(vs + DQ_BK * RP);
-  float* delta_s = reinterpret_cast<float*>(kvalid + DQ_BK);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * DQ_BQ;
-
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-  const int* mb = mask ? mask + (long long)b * Tk : nullptr;
-
-  // ---- prologue: Q, dO, O tiles; delta = rowsum(dO * O), 2 threads a row
-  load_tile<D, DQ_BQ>(qs, q + b * q_sb + h * q_sh, q_st, q0, Tq, tid);
-  load_tile<D, DQ_BQ>(dos, dout + b * do_sb + h * do_sh, do_st, q0, Tq, tid);
-  load_tile<D, DQ_BQ>(ks, o + b * o_sb + h * o_sh, o_st, q0, Tq, tid);
-  __syncthreads();
-  {
-    const int r = tid >> 1, c0 = (tid & 1) * (D / 2);
-    float acc = 0.f;
-#pragma unroll 8
-    for (int c = c0; c < c0 + D / 2; c += 2) {
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dos[r * RP + c]));
-      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ks[r * RP + c]));
-      acc += a.x * y.x + a.y * y.y;
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((tid & 1) == 0) {
-      delta_s[r] = acc;
-      if (q0 + r < Tq) delta[(long long)bh * Tq + q0 + r] = acc;
-    }
-  }
-  __syncthreads();                       // ks is overwritten by K below
-
-  const int r0 = warp * 16 + g;          // this thread's rows: r0 and r0 + 8
-  const int qi[2] = {q0 + r0, q0 + r0 + 8};
-  const float lse_r[2] = {qi[0] < Tq ? lse[(long long)bh * Tq + qi[0]] : 0.f,
-                          qi[1] < Tq ? lse[(long long)bh * Tq + qi[1]] : 0.f};
-  const float dl_r[2] = {delta_s[r0], delta_s[r0 + 8]};
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  // the first and last key any row of this tile can see: only the key tiles
-  // that meet the band are loaded
-  const int last_row = min(q0 + DQ_BQ, Tq) - 1;
-  const int k_begin = max(0, q0 - window) / DQ_BK * DQ_BK;
-  const int k_end = min(Tk, last_row + window + 1);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += DQ_BK) {
-    load_tile<D, DQ_BK>(ks, kb, k_st, k0, Tk, tid);
-    load_tile<D, DQ_BK>(vs, vb, v_st, k0, Tk, tid);
-    if (tid < DQ_BK) {
-      const int kp = k0 + tid;
-      kvalid[tid] = (kp < Tk) && (mb == nullptr || mb[kp] != 0);
-    }
-    __syncthreads();
-
-    float s[DQ_BK / 8][4], dp[DQ_BK / 8][4];
-    mma_abt<D, DQ_BK>(s, qs, r0, ks, g, t);        // S = Q K^T
-    mma_abt<D, DQ_BK>(dp, dos, r0, vs, g, t);      // dP = dO V^T
-    // dS = P * (dP - delta), P selected to 0 on invalid pairs (e<2: row r0)
-#pragma unroll
-    for (int n = 0; n < DQ_BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int kc = n * 8 + 2 * t + (e & 1);
-        const bool ok = qi[half] < Tq && kvalid[kc] && abs(k0 + kc - qi[half]) <= window;
-        const float p = ok ? __expf(s[n][e] * scale - lse_r[half]) : 0.f;
-        s[n][e] = p * (dp[n][e] - dl_r[half]);
-      }
-    }
-    mma_pv<D, DQ_BK>(acc, s, ks, lane);           // dQ += dS K
-    __syncthreads();                     // before the next tile overwrites smem
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (qi[half] >= Tq) continue;
-    __nv_bfloat16* row = dq + b * dq_sb + (long long)qi[half] * dq_st + h * dq_sh + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
-  }
-}
-
-#define DKV_PARAMS                                                             \
-  const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,   \
-      const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,      \
-      const float* __restrict__ lse, const float* __restrict__ delta,         \
-      const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk, \
-      __nv_bfloat16* __restrict__ dv, int Tq, int Tk, int Hq, int Hkv,        \
-      long long q_sb, long long q_st, long long q_sh, long long k_sb,         \
-      long long k_st, long long k_sh, long long v_sb, long long v_st,         \
-      long long v_sh, long long do_sb, long long do_st, long long do_sh,      \
-      long long dk_sb, long long dk_st, long long dk_sh, long long dv_sb,     \
-      long long dv_st, long long dv_sh
-#define DKV_ARGS                                                               \
-  q, k, v, mask, lse, delta, dout, dk, dv, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh,  \
-      k_sb, k_st, k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh, dk_sb, dk_st,   \
-      dk_sh, dv_sb, dv_st, dv_sh
-
-template <int D>
-__device__ __forceinline__ void dkv_body(DKV_PARAMS, int window, float scale) {
-  constexpr int RP = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + KV_BK * RP;
-  __nv_bfloat16* qs = vs + KV_BK * RP;
-  __nv_bfloat16* dos = qs + KV_BQ * RP;
-  int* kvalid = reinterpret_cast<int*>(dos + KV_BQ * RP);
-  float* lse_s = reinterpret_cast<float*>(kvalid + KV_BK);
-  float* delta_s = lse_s + KV_BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / Hkv, hk = bh % Hkv;
-  const int group = Hq / Hkv;
-  const int k0 = blockIdx.x * KV_BK;
-  const int* mb = mask ? mask + (long long)b * Tk : nullptr;
-
-  load_tile<D, KV_BK>(ks, k + b * k_sb + hk * k_sh, k_st, k0, Tk, tid);
-  load_tile<D, KV_BK>(vs, v + b * v_sb + hk * v_sh, v_st, k0, Tk, tid);
-  if (tid < KV_BK) {
-    const int kp = k0 + tid;
-    kvalid[tid] = (kp < Tk) && (mb == nullptr || mb[kp] != 0);
-  }
-
-  const int r0 = warp * 16 + g;          // this thread's keys: r0 and r0 + 8
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-
-  // the q tiles that meet [k0 - window, k0 + 63 + window]
-  const int q_lo = max(0, k0 - window) / KV_BQ * KV_BQ;
-  const int q_hi = min(Tq, min(k0 + KV_BK, Tk) + window);
-
-  for (int j = 0; j < group; ++j) {
-    const int h = hk * group + j;
-    const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-    const __nv_bfloat16* dob = dout + b * do_sb + h * do_sh;
-    const long long row_base = ((long long)b * Hq + h) * Tq;
-    for (int q0 = q_lo; q0 < q_hi; q0 += KV_BQ) {
-      __syncthreads();                   // the previous tile's readers are done
-      load_tile<D, KV_BQ>(qs, qb, q_st, q0, Tq, tid);
-      load_tile<D, KV_BQ>(dos, dob, do_st, q0, Tq, tid);
-      if (tid < KV_BQ) {
-        const int qi = q0 + tid;
-        lse_s[tid] = qi < Tq ? lse[row_base + qi] : 0.f;
-        delta_s[tid] = qi < Tq ? delta[row_base + qi] : 0.f;
-      }
-      __syncthreads();
-
-      float s[KV_BQ / 8][4], dp[KV_BQ / 8][4];
-      mma_abt<D, KV_BQ>(s, ks, r0, qs, g, t);      // S^T = K Q^T
-      mma_abt<D, KV_BQ>(dp, vs, r0, dos, g, t);    // dP^T = V dO^T
-#pragma unroll
-      for (int n = 0; n < KV_BQ / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = r0 + (e >> 1) * 8;
-          const int qc = n * 8 + 2 * t + (e & 1);
-          const int qi = q0 + qc;
-          const bool ok = qi < Tq && kvalid[kl] && abs(k0 + kl - qi) <= window;
-          const float p = ok ? __expf(s[n][e] * scale - lse_s[qc]) : 0.f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - delta_s[qc]);
-        }
-      }
-      mma_pv<D, KV_BQ>(dva, s, dos, lane);        // dV += P^T dO
-      mma_pv<D, KV_BQ>(dka, dp, qs, lane);        // dK += dS^T Q
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int kp = k0 + r0 + half * 8;
-    if (kp >= Tk) continue;
-    __nv_bfloat16* krow = dk + b * dk_sb + (long long)kp * dk_st + hk * dk_sh + 2 * t;
-    __nv_bfloat16* vrow = dv + b * dv_sb + (long long)kp * dv_st + hk * dv_sh + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(krow + n * 8) =
-          pack_bf16(dka[n][2 * half] * scale, dka[n][2 * half + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vrow + n * 8) =
-          pack_bf16(dva[n][2 * half], dva[n][2 * half + 1]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-local_bwd_dq_kernel(DQ_PARAMS, int window, float scale) {
-  dq_body<D>(DQ_ARGS, window, scale);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-local_bwd_dkv_kernel(DKV_PARAMS, int window, float scale) {
-  dkv_body<D>(DKV_ARGS, window, scale);
-}
-
-// Launches the banded dq kernel, then the banded dk/dv kernel, on `stream`.
-template <int D>
-int launch_band(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                const int* mask, const __nv_bfloat16* o, const float* lse,
-                const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk,
-                __nv_bfloat16* dv, float* delta, int B, int T, int Hq, int Hkv,
-                const long long* st, int window, float scale, cudaStream_t stream) {
-  // st: q, k, v, o, do, dq, dk, dv strides, (b, t, h) each
-  const size_t smem_dq = dq_smem_bytes<D>(), smem_kv = dkv_smem_bytes<D>();
-  constexpr auto kSmem = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err = cudaFuncSetAttribute(local_bwd_dq_kernel<D>, kSmem, (int)smem_dq);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(local_bwd_dkv_kernel<D>, kSmem, (int)smem_kv);
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 grid_dq((T + DQ_BQ - 1) / DQ_BQ, B * Hq);
-  local_bwd_dq_kernel<D><<<grid_dq, NTHREADS, smem_dq, stream>>>(
-      q, k, v, mask, o, lse, dout, dq, delta, T, T, Hq, Hkv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
-      window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // delta comes from the dq kernel: the two launches are ordered on `stream`
-  const dim3 grid_kv((T + KV_BK - 1) / KV_BK, B * Hkv);
-  local_bwd_dkv_kernel<D><<<grid_kv, NTHREADS, smem_kv, stream>>>(
-      q, k, v, mask, lse, delta, dout, dk, dv, T, T, Hq, Hkv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[12], st[13], st[14], st[18], st[19], st[20], st[21], st[22], st[23],
-      window, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 namespace fa3b {
 
@@ -487,19 +109,23 @@ struct Smem {
 // P^T and dS^T = P^T * (dP^T - delta) in place of S^T and dP^T for one
 // warpgroup's 64 keys x 64 queries: rows are this thread's keys kp0, kp1,
 // columns queries q0 + 8 j + c2 (+1). P is selected to 0 on invalid pairs;
-// NEED = false (every pair visible) compiles without the predicate.
-template <bool NEED>
+// NEED = false (every pair visible) compiles without the predicate. BAND
+// checks |query - key| <= window in place of the causal reach.
+template <bool NEED, bool BAND>
 __device__ __forceinline__ void p_and_ds(float (&st)[BM / 2], float (&dpt)[BM / 2],
                                          const float* lsd, const float* dls, bool kval0,
                                          bool kval1, int kp0, int kp1, int q0, int c2, int Tq,
-                                         int causal, int q_offset, float scale_log2) {
+                                         int causal, int q_offset, int window, float scale_log2) {
 #pragma unroll
   for (int j = 0; j < BM / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int qi = q0 + 8 * j + c2 + (e & 1);
-      const bool ok = !NEED || (((e < 2) ? kval0 : kval1) && qi < Tq &&
-                                (!causal || ((e < 2) ? kp0 : kp1) <= qi + q_offset));
+      const int kp = (e < 2) ? kp0 : kp1;
+      const bool ok =
+          !NEED || (((e < 2) ? kval0 : kval1) && qi < Tq &&
+                    (BAND ? (unsigned)(qi - kp + window) <= (unsigned)(2 * window)
+                          : (!causal || kp <= qi + q_offset)));
       const float p = ok ? sm90::exp2_approx(fmaf(st[4 * j + e], scale_log2,
                                                   -lsd[8 * j + c2 + (e & 1)]))
                          : 0.f;
@@ -509,19 +135,22 @@ __device__ __forceinline__ void p_and_ds(float (&st)[BM / 2], float (&dpt)[BM / 
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                 const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v,
-                 const __grid_constant__ CUtensorMap tm_do,
-                 const int* __restrict__ mask, const float* __restrict__ lse2,
-                 const float* __restrict__ delta, float* __restrict__ dq_accum,
-                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                 int B, int Tq, int Tk, int Hq, int Hkv, int Tq_pad,
-                 long long dk_sb, long long dk_st, long long dk_sh,
-                 long long dv_sb, long long dv_st, long long dv_sh,
-                 int causal, int q_offset, float scale, float scale_log2) {
+// The backward's body, shared by flash_bwd_kernel (BAND = false: causal /
+// q_offset) and local_bwd_kernel (BAND = true: the band of `window`).
+template <int D, bool BAND>
+__device__ __forceinline__ void bwd_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                         const CUtensorMap* tm_v, const CUtensorMap* tm_do,
+                                         const int* __restrict__ mask,
+                                         const float* __restrict__ lse2,
+                                         const float* __restrict__ delta,
+                                         float* __restrict__ dq_accum,
+                                         __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv,
+                                         int B, int Tq, int Tk, int Hq, int Hkv, int Tq_pad,
+                                         long long dk_sb, long long dk_st, long long dk_sh,
+                                         long long dv_sb, long long dv_st, long long dv_sh,
+                                         int causal, int q_offset, int window, float scale,
+                                         float scale_log2) {
   using S = Smem<D>;
   constexpr int KB = D / 64;                 // 64-column boxes per row
   extern __shared__ uint8_t smem_raw[];
@@ -537,9 +166,12 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = (int)(blockIdx.x % per) / Hkv, hk = (int)(blockIdx.x % per) % Hkv;
   const int group = Hq / Hkv;
   const int k0 = kt * BN;
-  const int q_lo = causal ? max(0, k0 - q_offset) : 0;    // the first query that sees k0
+  // the q rows that can see a key of the tile: from the first that sees
+  // k0 (causal) to Tq, or the band's [k0 - window, last key + window]
+  const int q_lo = BAND ? max(0, k0 - window) : causal ? max(0, k0 - q_offset) : 0;
+  const int q_end = BAND ? min(Tq, min(k0 + BN, Tk) + window) : Tq;
   const int qt0 = q_lo / BM;
-  const int nq = max(0, (Tq + BM - 1) / BM - qt0);
+  const int nq = max(0, (q_end + BM - 1) / BM - qt0);
   const int n_iter = group * nq;                           // (q head, q tile) pairs
 
   if (threadIdx.x == 0) {
@@ -559,8 +191,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::mbar_arrive_expect_tx(kv_full, 2 * BN * D * 2);
 #pragma unroll
       for (int i = 0; i < KB; ++i) {
-        sm90::tma_load_4d(sm + S::K + i * BN * 128, &tm_k, kv_full, 64 * i, hk, k0, b);
-        sm90::tma_load_4d(sm + S::V + i * BN * 128, &tm_v, kv_full, 64 * i, hk, k0, b);
+        sm90::tma_load_4d(sm + S::K + i * BN * 128, tm_k, kv_full, 64 * i, hk, k0, b);
+        sm90::tma_load_4d(sm + S::V + i * BN * 128, tm_v, kv_full, 64 * i, hk, k0, b);
       }
       for (int it = 0; it < n_iter; ++it) {
         const int s = it % STAGES;
@@ -571,8 +203,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         uint8_t* dos = sm + S::DO + s * BM * D * 2;
 #pragma unroll
         for (int i = 0; i < KB; ++i) {
-          sm90::tma_load_4d(qs + i * BM * 128, &tm_q, &full[s], 64 * i, h, q0, b);
-          sm90::tma_load_4d(dos + i * BM * 128, &tm_do, &full[s], 64 * i, h, q0, b);
+          sm90::tma_load_4d(qs + i * BM * 128, tm_q, &full[s], 64 * i, h, q0, b);
+          sm90::tma_load_4d(dos + i * BM * 128, tm_do, &full[s], 64 * i, h, q0, b);
         }
         const long long row = ((long long)b * Hq + h) * Tq_pad + q0;
         float* ld = reinterpret_cast<float*>(sm + S::LD) + s * 2 * BM;
@@ -588,6 +220,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
     const int kl0 = 64 * cw + r0;            // this thread's keys in the tile: kl0, kl0 + 8
     const int kp0 = k0 + kl0, kp1 = kp0 + 8;
+    const int kw0 = k0 + 64 * cw + 16 * warp;    // this warp's first key
     const int* mb = mask ? mask + (long long)b * Tk : nullptr;
     const bool kval0 = kp0 < Tk && (mb == nullptr || mb[kp0] != 0);
     const bool kval1 = kp1 < Tk && (mb == nullptr || mb[kp1] != 0);
@@ -635,11 +268,13 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(dpt);
 
       // ---- P^T and dS^T = P^T * (dP^T - delta) -----------------------------
-      const bool need = !kval0 || !kval1 || q0 + BM > Tq || (causal && kp1 > q0 + q_offset);
-      if (need) p_and_ds<true>(st, dpt, lsd, dls, kval0, kval1, kp0, kp1, q0, c2, Tq, causal,
-                               q_offset, scale_log2);
-      else p_and_ds<false>(st, dpt, lsd, dls, kval0, kval1, kp0, kp1, q0, c2, Tq, causal,
-                           q_offset, scale_log2);
+      const bool need = !kval0 || !kval1 || q0 + BM > Tq ||
+                        (BAND ? q0 + BM - 1 - kw0 > window || kw0 + 15 - q0 > window
+                              : causal && kp1 > q0 + q_offset);
+      if (need) p_and_ds<true, BAND>(st, dpt, lsd, dls, kval0, kval1, kp0, kp1, q0, c2, Tq,
+                                     causal, q_offset, window, scale_log2);
+      else p_and_ds<false, BAND>(st, dpt, lsd, dls, kval0, kval1, kp0, kp1, q0, c2, Tq, causal,
+                                 q_offset, window, scale_log2);
       uint32_t pa[BM / 16][4], dsa[BM / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk) {
@@ -741,6 +376,42 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const int* __restrict__ mask, const float* __restrict__ lse2,
+                 const float* __restrict__ delta, float* __restrict__ dq_accum,
+                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                 int B, int Tq, int Tk, int Hq, int Hkv, int Tq_pad,
+                 long long dk_sb, long long dk_st, long long dk_sh,
+                 long long dv_sb, long long dv_st, long long dv_sh,
+                 int causal, int q_offset, float scale, float scale_log2) {
+  bwd_body<D, false>(&tm_q, &tm_k, &tm_v, &tm_do, mask, lse2, delta, dq_accum, dk, dv, B, Tq,
+                     Tk, Hq, Hkv, Tq_pad, dk_sb, dk_st, dk_sh, dv_sb, dv_st, dv_sh, causal,
+                     q_offset, 0, scale, scale_log2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+local_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const int* __restrict__ mask, const float* __restrict__ lse2,
+                 const float* __restrict__ delta, float* __restrict__ dq_accum,
+                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                 int B, int T, int Hq, int Hkv, int T_pad,
+                 long long dk_sb, long long dk_st, long long dk_sh,
+                 long long dv_sb, long long dv_st, long long dv_sh,
+                 int window, float scale, float scale_log2) {
+  bwd_body<D, true>(&tm_q, &tm_k, &tm_v, &tm_do, mask, lse2, delta, dq_accum, dk, dv, B, T, T,
+                    Hq, Hkv, T_pad, dk_sb, dk_st, dk_sh, dv_sb, dv_st, dv_sh, 0, 0, window,
+                    scale, scale_log2);
+}
+
 // delta = rowsum(dO * O) and lse * log2(e) into [B*Hq, Tq_pad] (0 past Tq),
 // and dq_accum's rows zeroed: one block of 128 threads per 64 rows of a
 // (batch, head), two threads a row.
@@ -819,15 +490,19 @@ flash_bwd_convert_kernel(const float* __restrict__ dq_accum, __nv_bfloat16* __re
   }
 }
 
-template <int D>
+// Launches the prep pass, flash_bwd_kernel (BAND = false) or
+// local_bwd_kernel (BAND = true; Tq == Tk) and the dq convert pass on
+// `stream`; returns the first non-zero cudaError.
+template <int D, bool BAND>
 int launch(const void* q, const void* k, const void* v, const int* mask, const void* o,
            const float* lse, const void* dout, __nv_bfloat16* dq, __nv_bfloat16* dk,
            __nv_bfloat16* dv, float* lse2, float* delta, float* dq_accum, int B, int Tq,
-           int Tk, int Hq, int Hkv, const long long* st, int causal, int q_offset, float scale,
-           cudaStream_t stream) {
+           int Tk, int Hq, int Hkv, const long long* st, int causal, int q_offset, int window,
+           float scale, cudaStream_t stream) {
   // st: q, k, v, o, do, dq, dk, dv strides, (b, t, h) each
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::ALLOC);
+      BAND ? (const void*)local_bwd_kernel<D> : (const void*)flash_bwd_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::ALLOC);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap mq, mk, mv, mdo;
   int rc = sm90_host::make_map(&mq, q, B, Tq, Hq, D, st[0], st[1], st[2], BM);
@@ -846,9 +521,14 @@ int launch(const void* q, const void* k, const void* v, const int* mask, const v
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  flash_bwd_kernel<D><<<(unsigned)grid, NTHREADS, Smem<D>::ALLOC, stream>>>(
-      mq, mk, mv, mdo, mask, lse2, delta, dq_accum, dk, dv, B, Tq, Tk, Hq, Hkv, Tq_pad,
-      st[18], st[19], st[20], st[21], st[22], st[23], causal, q_offset, scale, scale * LOG2E);
+  if constexpr (BAND)
+    local_bwd_kernel<D><<<(unsigned)grid, NTHREADS, Smem<D>::ALLOC, stream>>>(
+        mq, mk, mv, mdo, mask, lse2, delta, dq_accum, dk, dv, B, Tq, Hq, Hkv, Tq_pad,
+        st[18], st[19], st[20], st[21], st[22], st[23], window, scale, scale * LOG2E);
+  else
+    flash_bwd_kernel<D><<<(unsigned)grid, NTHREADS, Smem<D>::ALLOC, stream>>>(
+        mq, mk, mv, mdo, mask, lse2, delta, dq_accum, dk, dv, B, Tq, Tk, Hq, Hkv, Tq_pad,
+        st[18], st[19], st[20], st[21], st[22], st[23], causal, q_offset, scale, scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -858,6 +538,30 @@ int launch(const void* q, const void* k, const void* v, const int* mask, const v
   flash_bwd_convert_kernel<<<blocks, 256, 0, stream>>>(dq_accum, dq, Hq, Tq, Tq_pad, D, st[15],
                                                        st[16], st[17], scale, n_chunks);
   return (int)cudaGetLastError();
+}
+
+template <bool BAND>
+int launch_d(const void* q, const void* k, const void* v, const void* mask, const void* o,
+             const void* lse, const void* dout, void* dq, void* dk, void* dv, void* lse_log2,
+             void* delta, void* dq_accum, int B, int Tq, int Tk, int Hq, int Hkv, int D,
+             const long long* strides, int causal, int q_offset, int window, float scale,
+             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* mp = static_cast<const int*>(mask);
+  const auto* lp = static_cast<const float*>(lse);
+  auto* dqp = static_cast<__nv_bfloat16*>(dq);
+  auto* dkp = static_cast<__nv_bfloat16*>(dk);
+  auto* dvp = static_cast<__nv_bfloat16*>(dv);
+  auto* l2 = static_cast<float*>(lse_log2);
+  auto* dl = static_cast<float*>(delta);
+  auto* acc = static_cast<float*>(dq_accum);
+  if (D == 64)
+    return launch<64, BAND>(q, k, v, mp, o, lp, dout, dqp, dkp, dvp, l2, dl, acc, B, Tq, Tk, Hq,
+                            Hkv, strides, causal, q_offset, window, scale, st);
+  if (D == 128)
+    return launch<128, BAND>(q, k, v, mp, o, lp, dout, dqp, dkp, dvp, l2, dl, acc, B, Tq, Tk,
+                             Hq, Hkv, strides, causal, q_offset, window, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace fa3b
@@ -876,56 +580,24 @@ extern "C" int flash_bwd_bf16(
     const long long* strides, int causal, int q_offset, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* mp = static_cast<const int*>(mask);
-  const auto* lp = static_cast<const float*>(lse);
-  auto* dqp = static_cast<__nv_bfloat16*>(dq);
-  auto* dkp = static_cast<__nv_bfloat16*>(dk);
-  auto* dvp = static_cast<__nv_bfloat16*>(dv);
-  auto* l2 = static_cast<float*>(lse_log2);
-  auto* dl = static_cast<float*>(delta);
-  auto* acc = static_cast<float*>(dq_accum);
-  if (D == 64)
-    return fa3b::launch<64>(q, k, v, mp, o, lp, dout, dqp, dkp, dvp, l2, dl, acc, B, Tq, Tk,
-                            Hq, Hkv, strides, causal, q_offset, scale, st);
-  if (D == 128)
-    return fa3b::launch<128>(q, k, v, mp, o, lp, dout, dqp, dkp, dvp, l2, dl, acc, B, Tq, Tk,
-                             Hq, Hkv, strides, causal, q_offset, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return fa3b::launch_d<false>(q, k, v, mask, o, lse, dout, dq, dk, dv, lse_log2, delta,
+                               dq_accum, B, Tq, Tk, Hq, Hkv, D, strides, causal, q_offset, 0,
+                               scale, stream);
 }
 
-// Plain C entry point of the banded backward (loaded with ctypes): q, k, v,
-// mask, o, lse, do as for flash_bwd_bf16, then dq, dk, dv and delta
-// [B, Hq, T] fp32 scratch (written by the dq kernel, read by the dk/dv
-// kernel), Tq == Tk == T, the 24 strides as for flash_bwd_bf16, and
-// `window`; key j is visible to query i iff |i - j| <= window and mask[j].
-// Launches the dq kernel, then the dk/dv kernel, on `stream`; returns the
-// first non-zero cudaError (0 = success).
+// Plain C entry point of the banded backward (loaded with ctypes): the
+// arguments of flash_bwd_bf16 with Tq == Tk == T and `window` in place of
+// causal / q_offset; key j is visible to query i iff |i - j| <= window and
+// mask[j]. Launches the prep pass, local_bwd_kernel and the dq convert pass
+// on `stream`; returns the first non-zero cudaError (0 = success).
 extern "C" int local_bwd_bf16(
     const void* q, const void* k, const void* v, const void* mask, const void* o,
-    const void* lse, const void* dout, void* dq, void* dk, void* dv, void* delta,
-    int B, int T, int Hq, int Hkv, int D, const long long* strides, int window,
-    float scale, void* stream) {
-  if (B <= 0 || T <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
-      (long long)B * Hq > 65535)
+    const void* lse, const void* dout, void* dq, void* dk, void* dv, void* lse_log2,
+    void* delta, void* dq_accum, int B, int T, int Hq, int Hkv, int D,
+    const long long* strides, int window, float scale, void* stream) {
+  if (B <= 0 || T <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* mp = static_cast<const int*>(mask);
-  const auto* op = static_cast<const __nv_bfloat16*>(o);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* dop = static_cast<const __nv_bfloat16*>(dout);
-  auto* dqp = static_cast<__nv_bfloat16*>(dq);
-  auto* dkp = static_cast<__nv_bfloat16*>(dk);
-  auto* dvp = static_cast<__nv_bfloat16*>(dv);
-  auto* dlp = static_cast<float*>(delta);
-  if (D == 64)
-    return launch_band<64>(qp, kp, vp, mp, op, lp, dop, dqp, dkp, dvp, dlp, B, T, Hq, Hkv,
-                           strides, window, scale, st);
-  if (D == 128)
-    return launch_band<128>(qp, kp, vp, mp, op, lp, dop, dqp, dkp, dvp, dlp, B, T, Hq, Hkv,
-                            strides, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return fa3b::launch_d<true>(q, k, v, mask, o, lse, dout, dq, dk, dv, lse_log2, delta, dq_accum,
+                              B, T, T, Hq, Hkv, D, strides, 0, 0, window < T ? window : T, scale,
+                              stream);
 }

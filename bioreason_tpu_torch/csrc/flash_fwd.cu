@@ -1,24 +1,39 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 accumulate.
+// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 accumulate:
+// one design, two kernels, told apart by the body's BAND switch.
 //
-// flash_fwd_kernel replaces the two Pallas forward kernels of
+// flash_fwd_kernel (BAND = false) replaces the two Pallas forward kernels of
 // bioreason_tpu/ops/flash_attention.py:
 //   _fwd_kernel        (:60)  tiled online-softmax forward, out + fp32 LSE
 //   _fwd_single_kernel (:239) whole-sequence forward with causal row groups
 // Both compute the same function; on this card one tiled kernel covers both,
 // and its causal tile skip is what the TPU kernel's row groups do.
 //
+// local_fwd_kernel (BAND = true) replaces the banded forward of
+// bioreason_tpu/ops/local_attention.py:
+//   _fwd_kernel        (:46)  key j visible to query i iff |i - j| <= window
+//                             and mask[j]; self-attention, Tq == Tk
+// The TPU kernel's grid is 2R+1 key blocks wide with the block index clamped
+// to the band; here each 128-row q tile walks only the 128-key tiles that
+// meet [q0 - window, last row + window], so the work is O(T * window). Its
+// own __global__ name and C entry (local_fwd_bf16) keep it apart from
+// flash_fwd in a profile.
+//
 // Function: q [B,Tq,Hq,D], k/v [B,Tk,Hkv,D] (any strides with a unit last
 // stride, strides and base 16-byte aligned), optional key-padding mask
 // [B,Tk] int32 (nonzero = valid) -> o [B,Tq,Hq,D] bf16 (its own strides) and
 // lse [B,Hq,Tq] fp32. GQA reads kv head h / (Hq/Hkv); K/V are never
 // repeated. Causal: key j is visible to query i iff j <= i + q_offset.
-// A query row with no visible key gives o = 0 and lse = -1e30.
+// Band: iff |i - j| <= window. A query row with no visible key gives o = 0
+// and lse = -1e30.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 4*D flops per
 // visible (query, key) pair against 2*D bytes per row of q, k, v and o. At
 // the long-DNA decoder (causal T=4480, D=128) that is ~1,100 flops per byte
 // and at the served prefill ~320: tensor-core bound; the encoder shapes
-// (D=64, T <= 2048, bidirectional) sit near the ridge (~295).
+// (D=64, T <= 2048, bidirectional) sit near the ridge (~295). The band's
+// ~2W+1 visible keys per query give ~64 flops per byte at the long-DNA
+// encoder (D=64, W=256): bytes-bound, far below the ridge, so there the
+// design's job is to keep the tiles it loads busy and to waste no tile.
 //
 // Design (FlashAttention-3's forward, written with the PTX of sm90.cuh):
 //   * one CTA of three warpgroups per 128-row q tile: warpgroup 0 is the
@@ -31,6 +46,10 @@
 //     its softmax; V: each consumer warpgroup after the P V that read it).
 //     The producer issues K first, then builds the tile's key validity
 //     (mask and ragged edge) as 128 bits with warp ballots while K flies;
+//   * the ring walks key tiles kt0 .. kt0 + n_kt - 1: kt0 = 0 and the
+//     causal reach for flash, the band's first tile for local. Stages and
+//     barrier phases count the ring's own index `it` from 0, the TMA and
+//     the predicate take key (kt0 + it) * 128;
 //   * S = Q K^T by wgmma m64n128k16 with Q and K K-major in shared memory;
 //     P rounded to bf16 is the register A operand of O += P V, with V as the
 //     MN-major B operand (the transpose bit);
@@ -39,13 +58,20 @@
 //     of products. So it is kept lean: the predicate is compiled out of
 //     tiles whose pairs are all visible (P is selected to 0 on invalid
 //     pairs, never multiplied by a mask), the output rows are rescaled only
-//     when a row maximum moved, and exp2 skips exp2f's range handling;
+//     when a row maximum moved, and exp2 skips exp2f's range handling. The
+//     band's predicate cannot ride in the producer's key bits (it depends
+//     on the query): it is one unsigned compare a pair, |i - j| <= W as
+//     (j - i + W) <= 2W, in the tiles where some pair of a warp's 16 rows
+//     falls off the band; interior tiles of a wide band (W >= T covers
+//     every tile) take the path without it;
 //   * and it is overlapped with the products two ways: within a warpgroup,
 //     S of tile j and P V of tile j-1 are issued together and the softmax of
-//     tile j runs while P V does (tile 0's S is peeled off, so no wgmma sits
-//     under a branch); across warpgroups, named barriers make the two take
-//     turns to issue, so one's softmax overlaps the other's products;
-//   * key tiles wholly above the causal diagonal are never loaded;
+//     tile j runs while P V does (the first tile's S is peeled off, so no
+//     wgmma sits under a branch); across warpgroups, named barriers make the
+//     two take turns to issue, so one's softmax overlaps the other's
+//     products;
+//   * key tiles wholly above the causal diagonal or outside the band are
+//     never loaded;
 //   * heavy causal tiles go first: the grid is linear and walks the q tiles
 //     from the last (most keys) to the first, so the light ones fill the
 //     tail; a linear grid also lifts the 65,535 limit on B * Hq;
@@ -55,263 +81,8 @@
 // through the runtime's driver entry point) and passed as __grid_constant__
 // parameters. `python3 -m bioreason_tpu_torch.tools.kernel_variants` times
 // each of these choices against its alternative.
-//
-// local_fwd_kernel (fwd_body: mma.sync, no load pipeline) replaces the
-// banded forward of
-// bioreason_tpu/ops/local_attention.py:
-//   _fwd_kernel        (:46)  key j visible to query i iff |i - j| <= window
-//                             and mask[j]; self-attention, Tq == Tk
-// The TPU kernel's grid is 2R+1 key blocks wide with the block index clamped
-// to the band; here each 64-row q tile loops only over the 64-key tiles that
-// meet [q0 - window, q0 + 63 + window], so the work is O(T * window). Its own
-// __global__ name and C entry (local_fwd_bf16) keep it apart from flash_fwd
-// in a profile. Bound: the band's visible pairs are ~2W+1 per query, so at
-// the long-DNA encoder (D=64, W=256) it does ~64 flops per byte of q, k, v
-// and o: bytes-bound, far below the card's ridge. It loads without a
-// pipeline and multiplies with mma.sync m16n8k16 (P in registers as the A
-// operand, V through ldmatrix.trans); its redesign on the machinery above
-// is later work.
 
 #include "sm90.cuh"
-
-namespace {
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int NTHREADS = 128; // 4 warps x 16 rows
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed on the way into registers.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-using sm90::pack_bf16;
-
-// The banded forward's body: key j is visible to query i iff
-// |i - j| <= window (array indices) and mask[j].
-template <int D>
-__device__ __forceinline__ void
-fwd_body(const __nv_bfloat16* __restrict__ q,
-         const __nv_bfloat16* __restrict__ k,
-         const __nv_bfloat16* __restrict__ v,
-         const int* __restrict__ mask,
-         __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-         int Tq, int Tk, int Hq, int Hkv,
-         long long q_sb, long long q_st, long long q_sh,
-         long long k_sb, long long k_st, long long k_sh,
-         long long v_sb, long long v_st, long long v_sh,
-         long long o_sb, long long o_st, long long o_sh,
-         int window, float scale) {
-  constexpr int RP = D + 8;     // padded smem row (elements)
-  constexpr int CH = D / 8;     // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * RP];   // stages Q first
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * RP];
-  __shared__ int kvalid[BK];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * BQ;
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-  const int* mb = mask ? mask + (long long)b * Tk : nullptr;
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-
-  // ---- Q tile -> smem (zero past Tq) -> this warp's A fragments ----------
-  for (int i = tid; i < BQ * CH; i += NTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = zero4;
-    if (q0 + r < Tq)
-      val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * q_st + c);
-    *reinterpret_cast<uint4*>(&ks[r * RP + c]) = val;
-  }
-  __syncthreads();
-  const int r0 = warp * 16 + g;          // this thread's rows: r0 and r0 + 8
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(&ks[r0 * RP + c]);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(&ks[(r0 + 8) * RP + c]);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(&ks[r0 * RP + c + 8]);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(&ks[(r0 + 8) * RP + c + 8]);
-  }
-  __syncthreads();                       // ks is overwritten by K below
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};
-  // absolute positions of this thread's two rows among the keys
-  const int qpos0 = q0 + r0;
-  const int qpos1 = qpos0 + 8;
-
-  // the first and last key any row of this tile can see: only the key tiles
-  // that meet the band are loaded
-  const int last_row = min(q0 + BQ, Tq) - 1;
-  const int k_begin = max(0, q0 - window) / BK * BK;
-  const int k_end = min(Tk, last_row + window + 1);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    // ---- K and V tiles -> smem (zero past Tk), key validity -> smem -----
-    for (int i = tid; i < BK * CH; i += NTHREADS) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 kv = zero4, vv = zero4;
-      if (k0 + r < Tk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * k_st + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)(k0 + r) * v_st + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * RP + c]) = kv;
-      *reinterpret_cast<uint4*>(&vs[r * RP + c]) = vv;
-    }
-    if (tid < BK) {
-      const int kp = k0 + tid;
-      kvalid[tid] = (kp < Tk) && (mb == nullptr || mb[kp] != 0);
-    }
-    __syncthreads();
-
-    // ---- S = Q K^T: 16 rows x 64 keys per warp ---------------------------
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = &ks[(n * 8 + g) * RP + 2 * t];
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_16816(s[n], qf[kk], b0, b1);
-      }
-    }
-
-    // ---- mask, scale, online softmax (rows r0: e=0,1; r0+8: e=2,3) ------
-    float mx0 = m_r[0], mx1 = m_r[1];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = n * 8 + 2 * t + (e & 1);
-        const int qp = (e < 2) ? qpos0 : qpos1;
-        const bool ok = kvalid[kc] && abs(k0 + kc - qp) <= window;
-        const float x = ok ? s[n][e] * scale : NEG_INF;
-        s[n][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    }
-    // the four threads of a quad share rows
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float alpha0 = __expf(m_r[0] - mx0);
-    const float alpha1 = __expf(m_r[1] - mx1);
-    m_r[0] = mx0;
-    m_r[1] = mx1;
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = n * 8 + 2 * t + (e & 1);
-        const int qp = (e < 2) ? qpos0 : qpos1;
-        const bool ok = kvalid[kc] && abs(k0 + kc - qp) <= window;
-        const float p = ok ? __expf(s[n][e] - ((e < 2) ? mx0 : mx1)) : 0.f;
-        s[n][e] = p;
-        if (e < 2) rs0 += p; else rs1 += p;
-      }
-    }
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-    l_r[0] = l_r[0] * alpha0 + rs0;
-    l_r[1] = l_r[1] * alpha1 + rs1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha0; acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1; acc[n][3] *= alpha1;
-    }
-
-    // ---- O += P V: P (bf16) straight from the S registers ----------------
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // lanes 0-15: keys kk*16 + (lane & 15), columns n*8..; lanes 16-31 the
-      // next 8 columns: matrices {0,1} feed d-tile n, {2,3} d-tile n+1
-      const __nv_bfloat16* vrow =
-          &vs[(kk * 16 + (lane & 15)) * RP + (lane >> 4) * 8];
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vrow + n * 8);
-        mma_16816(acc[n], a, bf[0], bf[1]);
-        mma_16816(acc[n + 1], a, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();                     // before the next tile overwrites smem
-  }
-
-  // ---- finalize: o = acc / l, lse = m + log(l); empty rows -> 0, -1e30 ---
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = q0 + r0 + half * 8;
-    if (qi >= Tq) continue;
-    const float l = l_r[half];
-    const float inv = (l == 0.f) ? 0.f : 1.f / l;
-    __nv_bfloat16* orow = o + b * o_sb + (long long)qi * o_st + h * o_sh + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
-    }
-    if (t == 0)
-      lse[(long long)bh * Tq + qi] = (l == 0.f) ? NEG_INF : m_r[half] + logf(l);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-local_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ mask,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int T, int Hq, int Hkv,
-                 long long q_sb, long long q_st, long long q_sh,
-                 long long k_sb, long long k_st, long long k_sh,
-                 long long v_sb, long long v_st, long long v_sh,
-                 long long o_sb, long long o_st, long long o_sh,
-                 int window, float scale) {
-  fwd_body<D>(q, k, v, mask, o, lse, T, T, Hq, Hkv, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-              v_sb, v_st, v_sh, o_sb, o_st, o_sh, window, scale);
-}
-
-}  // namespace
-
 
 namespace fa3 {
 
@@ -365,11 +136,12 @@ __device__ __forceinline__ void pv_product(float (&acc)[D / 2], const uint32_t (
 // exp2(s * scale_log2 - m * scale_log2), one FFMA and one MUFU an element.
 // Returns the factors that rescale the output rows (alpha). NEED = false
 // (every pair of the tile visible) compiles without the per-pair predicate;
-// `kv` holds the tile's key validity, bit kc % 32 of word kc / 32.
+// `kv` holds the tile's key validity, bit kc % 32 of word kc / 32; BAND
+// checks |key - query| <= window in place of the causal reach.
 // d[4j+e] is row r0 for e < 2, r0 + 8 otherwise; key column 8j + c2 + (e&1).
-template <bool NEED>
+template <bool NEED, bool BAND>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const uint4 kv, int causal,
-                                             int k0, int qpos0, int qpos1, int c2,
+                                             int k0, int qpos0, int qpos1, int c2, int window,
                                              float scale_log2, float (&m)[2], float (&l)[2],
                                              float (&alpha)[2]) {
   float mx0 = m[0], mx1 = m[1];
@@ -381,8 +153,10 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const uint4 kv
       if (NEED) {
         const int kc = 8 * j + c2 + (e & 1);
         const uint32_t word = (j < 4) ? kv.x : (j < 8) ? kv.y : (j < 12) ? kv.z : kv.w;
+        const int qpos = (e < 2) ? qpos0 : qpos1;
         const bool ok = ((word >> (kc & 31)) & 1u) &&
-                        (!causal || k0 + kc <= ((e < 2) ? qpos0 : qpos1));
+                        (BAND ? (unsigned)(k0 + kc - qpos + window) <= (unsigned)(2 * window)
+                              : (!causal || k0 + kc <= qpos));
         x = ok ? x : NEG_INF;
         sc[4 * j + e] = x;
       }
@@ -419,26 +193,33 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const uint4 kv
 }
 
 // softmax_tile with the predicate only where the tile has an invalid pair:
-// a masked or ragged key, or a key past some row's causal reach.
+// a masked or ragged key, a key past some row's causal reach (wq0: the
+// warpgroup's first row) or, with BAND, a pair of the warp's 16 rows from
+// wr0 on that lies off the band.
+template <bool BAND>
 __device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], const uint4 kv, int causal,
-                                               int k0, int wq0, int q_offset, int qpos0,
-                                               int qpos1, int c2, float scale_log2,
+                                               int k0, int wq0, int wr0, int q_offset, int qpos0,
+                                               int qpos1, int c2, int window, float scale_log2,
                                                float (&m)[2], float (&l)[2], float (&alpha)[2]) {
   const bool need = (kv.x & kv.y & kv.z & kv.w) != 0xffffffffu ||
-                    (causal && k0 + BN - 1 > wq0 + q_offset);
-  if (need) softmax_tile<true>(sc, kv, causal, k0, qpos0, qpos1, c2, scale_log2, m, l, alpha);
-  else softmax_tile<false>(sc, kv, causal, k0, qpos0, qpos1, c2, scale_log2, m, l, alpha);
+                    (BAND ? k0 + BN - 1 - wr0 > window || wr0 + 15 - k0 > window
+                          : causal && k0 + BN - 1 > wq0 + q_offset);
+  if (need) softmax_tile<true, BAND>(sc, kv, causal, k0, qpos0, qpos1, c2, window, scale_log2,
+                                     m, l, alpha);
+  else softmax_tile<false, BAND>(sc, kv, causal, k0, qpos0, qpos1, c2, window, scale_log2, m,
+                                 l, alpha);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                 const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v,
-                 const int* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int B, int Tq, int Tk, int Hq, int Hkv,
-                 long long o_sb, long long o_st, long long o_sh,
-                 int causal, int q_offset, float scale_log2) {
+// The forward's body, shared by flash_fwd_kernel (BAND = false: causal /
+// q_offset) and local_fwd_kernel (BAND = true: the band of `window`).
+template <int D, bool BAND>
+__device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                         const CUtensorMap* tm_v, const int* __restrict__ mask,
+                                         __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                                         int B, int Tq, int Tk, int Hq, int Hkv,
+                                         long long o_sb, long long o_st, long long o_sh,
+                                         int causal, int q_offset, int window,
+                                         float scale_log2) {
   using S = Smem<D>;
   constexpr int KB = D / 64;                 // 64-column boxes per row
   constexpr int TILE = BN * D * 2;           // bytes of one K or V tile
@@ -459,9 +240,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = (int)(blockIdx.x % per), b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
   const int q0 = qt * BM;
-  // the keys any row of the tile can see (causal tile skip)
-  const int k_end = causal ? min(Tk, min(q0 + BM, Tq) + q_offset) : Tk;
-  const int n_kt = k_end > 0 ? (k_end + BN - 1) / BN : 0;
+  // the key tiles kt0 .. kt0 + n_kt - 1 that any row of the tile can see:
+  // the causal tile skip, or the band's [q0 - window, last row + window]
+  const int kt0 = BAND ? max(0, q0 - window) / BN : 0;
+  const int k_end = BAND ? min(Tk, min(q0 + BM, Tq) + window)
+                         : causal ? min(Tk, min(q0 + BM, Tq) + q_offset) : Tk;
+  const int n_kt = k_end > 0 ? (k_end + BN - 1) / BN - kt0 : 0;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -484,18 +268,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         sm90::mbar_arrive_expect_tx(q_full, BM * D * 2);
 #pragma unroll
         for (int i = 0; i < KB; ++i)
-          sm90::tma_load_4d(sm + S::Q + i * BM * 128, &tm_q, q_full, 64 * i, h, q0, b);
+          sm90::tma_load_4d(sm + S::Q + i * BM * 128, tm_q, q_full, 64 * i, h, q0, b);
       }
       const int* mb = mask ? mask + (long long)b * Tk : nullptr;
       for (int it = 0; it < n_kt; ++it) {
         const int s = it % STAGES, ph = ((it / STAGES) & 1) ^ 1;
-        const int k0 = it * BN;
+        const int k0 = (kt0 + it) * BN;
         mbar_wait(&empty_k[s], ph);
         if (lane == 0) {                     // K first: its flight hides the mask read
           sm90::mbar_expect_tx(&full_k[s], TILE);
 #pragma unroll
           for (int i = 0; i < KB; ++i)
-            sm90::tma_load_4d(sm + S::K + s * TILE + i * BN * 128, &tm_k, &full_k[s], 64 * i, hk,
+            sm90::tma_load_4d(sm + S::K + s * TILE + i * BN * 128, tm_k, &full_k[s], 64 * i, hk,
                               k0, b);
         }
         // key k0 + 32 w + lane is bit `lane` of word w
@@ -512,7 +296,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           sm90::mbar_arrive_expect_tx(&full_v[s], TILE);
 #pragma unroll
           for (int i = 0; i < KB; ++i)
-            sm90::tma_load_4d(sm + S::V + s * TILE + i * BN * 128, &tm_v, &full_v[s], 64 * i, hk,
+            sm90::tma_load_4d(sm + S::V + s * TILE + i * BN * 128, tm_v, &full_v[s], 64 * i, hk,
                               k0, b);
         }
       }
@@ -527,6 +311,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int ct = threadIdx.x % 128, warp = ct / 32, lane = ct % 32;
     const int r0 = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
     const int wq0 = q0 + 64 * cw;            // this warpgroup's first row
+    const int wr0 = wq0 + 16 * warp;         // this warp's first row
     const int row0 = wq0 + r0;               // this thread's rows: row0, row0 + 8
     const int qpos0 = row0 + q_offset, qpos1 = qpos0 + 8;
     const uint8_t* qs = sm + S::Q + cw * 64 * 128;
@@ -546,7 +331,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     mbar_wait(q_full, 0);
     if (n_kt > 0) {
-      // tile 0: S and its softmax
+      // the first tile: S and its softmax
       mbar_wait(&full_k[0], 0);
       sm90::named_barrier(turn, 256);
       sm90::wgmma_fence();
@@ -555,8 +340,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::named_barrier_arrive(other, 256);
       sm90::wgmma_wait<0>();
       fence_regs(sc);
-      online_softmax(sc, kvalid[0], causal, 0, wq0, q_offset, qpos0, qpos1, c2, scale_log2, m, l,
-                     alpha);
+      online_softmax<BAND>(sc, kvalid[0], causal, kt0 * BN, wq0, wr0, q_offset, qpos0, qpos1, c2,
+                           window, scale_log2, m, l, alpha);
       if (lane == 0) mbar_arrive(&empty_k[0]);
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) sm90::pack_a<BN>(pa[kk], sc, kk);
@@ -565,7 +350,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       // S of tile it and P V of tile it - 1 on the tensor cores; the softmax
       // of tile it starts when S is done
       const int s = it % STAGES, sp = (it - 1) % STAGES;
-      const int k0 = it * BN;
+      const int k0 = (kt0 + it) * BN;
       mbar_wait(&full_k[s], (it / STAGES) & 1);
       mbar_wait(&full_v[sp], ((it - 1) / STAGES) & 1);
       sm90::named_barrier(turn, 256);
@@ -577,8 +362,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::named_barrier_arrive(other, 256);
       sm90::wgmma_wait<1>();
       fence_regs(sc);
-      online_softmax(sc, kvalid[s], causal, k0, wq0, q_offset, qpos0, qpos1, c2, scale_log2, m,
-                     l, alpha);
+      online_softmax<BAND>(sc, kvalid[s], causal, k0, wq0, wr0, q_offset, qpos0, qpos1, c2,
+                           window, scale_log2, m, l, alpha);
       if (lane == 0) mbar_arrive(&empty_k[s]);
       sm90::wgmma_wait<0>();
       fence_regs(acc);
@@ -630,15 +415,44 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const int* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int B, int Tq, int Tk, int Hq, int Hkv,
+                 long long o_sb, long long o_st, long long o_sh,
+                 int causal, int q_offset, float scale_log2) {
+  fwd_body<D, false>(&tm_q, &tm_k, &tm_v, mask, o, lse, B, Tq, Tk, Hq, Hkv, o_sb, o_st, o_sh,
+                     causal, q_offset, 0, scale_log2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+local_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const int* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int B, int T, int Hq, int Hkv,
+                 long long o_sb, long long o_st, long long o_sh,
+                 int window, float scale_log2) {
+  fwd_body<D, true>(&tm_q, &tm_k, &tm_v, mask, o, lse, B, T, T, Hq, Hkv, o_sb, o_st, o_sh, 0, 0,
+                    window, scale_log2);
+}
+
+// Encodes the tensor maps and launches flash_fwd_kernel (BAND = false) or
+// local_fwd_kernel (BAND = true; Tq == Tk) on `stream`.
+template <int D, bool BAND>
 int launch(const void* q, const void* k, const void* v, const int* mask, __nv_bfloat16* o,
            float* lse, int B, int Tq, int Tk, int Hq, int Hkv,
            long long q_sb, long long q_st, long long q_sh,
            long long k_sb, long long k_st, long long k_sh,
            long long v_sb, long long v_st, long long v_sh,
            long long o_sb, long long o_st, long long o_sh,
-           int causal, int q_offset, float scale, cudaStream_t stream) {
+           int causal, int q_offset, int window, float scale, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::ALLOC);
+      BAND ? (const void*)local_fwd_kernel<D> : (const void*)flash_fwd_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::ALLOC);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap mq, mk, mv;
   int rc = sm90_host::make_map(&mq, q, B, Tq, Hq, D, q_sb, q_st, q_sh, BM);
@@ -647,10 +461,38 @@ int launch(const void* q, const void* k, const void* v, const int* mask, __nv_bf
   if (rc != 0) return rc;
   const long long grid = (long long)((Tq + BM - 1) / BM) * B * Hq;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_fwd_kernel<D><<<(unsigned)grid, NTHREADS, Smem<D>::ALLOC, stream>>>(
-      mq, mk, mv, mask, o, lse, B, Tq, Tk, Hq, Hkv, o_sb, o_st, o_sh, causal, q_offset,
-      scale * 1.4426950408889634f);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if constexpr (BAND)
+    local_fwd_kernel<D><<<(unsigned)grid, NTHREADS, Smem<D>::ALLOC, stream>>>(
+        mq, mk, mv, mask, o, lse, B, Tq, Hq, Hkv, o_sb, o_st, o_sh, window, scale_log2);
+  else
+    flash_fwd_kernel<D><<<(unsigned)grid, NTHREADS, Smem<D>::ALLOC, stream>>>(
+        mq, mk, mv, mask, o, lse, B, Tq, Tk, Hq, Hkv, o_sb, o_st, o_sh, causal, q_offset,
+        scale_log2);
   return (int)cudaGetLastError();
+}
+
+template <bool BAND>
+int launch_d(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
+             int B, int Tq, int Tk, int Hq, int Hkv, int D,
+             long long q_sb, long long q_st, long long q_sh,
+             long long k_sb, long long k_st, long long k_sh,
+             long long v_sb, long long v_st, long long v_sh,
+             long long o_sb, long long o_st, long long o_sh,
+             int causal, int q_offset, int window, float scale, void* stream) {
+  const auto* mp = static_cast<const int*>(mask);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch<64, BAND>(q, k, v, mp, op, lp, B, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh, k_sb,
+                            k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, q_offset,
+                            window, scale, st);
+  if (D == 128)
+    return launch<128, BAND>(q, k, v, mp, op, lp, B, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh, k_sb,
+                             k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, q_offset,
+                             window, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace fa3
@@ -668,25 +510,15 @@ extern "C" int flash_fwd_bf16(
     int causal, int q_offset, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* mp = static_cast<const int*>(mask);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  auto* lp = static_cast<float*>(lse);
-  if (D == 64)
-    return fa3::launch<64>(q, k, v, mp, op, lp, B, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh, k_sb,
-                           k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, q_offset,
-                           scale, st);
-  if (D == 128)
-    return fa3::launch<128>(q, k, v, mp, op, lp, B, Tq, Tk, Hq, Hkv, q_sb, q_st, q_sh, k_sb,
-                            k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, q_offset,
-                            scale, st);
-  return (int)cudaErrorInvalidValue;
+  return fa3::launch_d<false>(q, k, v, mask, o, lse, B, Tq, Tk, Hq, Hkv, D, q_sb, q_st, q_sh,
+                              k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal,
+                              q_offset, 0, scale, stream);
 }
 
 // Plain C entry point of the banded forward (loaded with ctypes): q [B,T,Hq,D],
 // k/v [B,T,Hkv,D], mask [B,T] or null, o [B,T,Hq,D], lse [B,Hq,T]; key j is
-// visible to query i iff |i - j| <= window and mask[j]. Returns
-// cudaGetLastError() of the launch (0 = success).
+// visible to query i iff |i - j| <= window and mask[j]. Encodes the tensor
+// maps and launches local_fwd_kernel on `stream`; returns 0 or a cudaError.
 extern "C" int local_fwd_bf16(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     void* lse, int B, int T, int Hq, int Hkv, int D,
@@ -695,27 +527,9 @@ extern "C" int local_fwd_bf16(
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
     int window, float scale, void* stream) {
-  if (B <= 0 || T <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
-      (long long)B * Hq > 65535)
+  if (B <= 0 || T <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + BQ - 1) / BQ, B * Hq);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* mp = static_cast<const int*>(mask);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  auto* lp = static_cast<float*>(lse);
-  if (D == 64) {
-    local_fwd_kernel<64><<<grid, NTHREADS, 0, st>>>(
-        qp, kp, vp, mp, op, lp, T, Hq, Hkv, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-        v_sb, v_st, v_sh, o_sb, o_st, o_sh, window, scale);
-  } else if (D == 128) {
-    local_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(
-        qp, kp, vp, mp, op, lp, T, Hq, Hkv, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-        v_sb, v_st, v_sh, o_sb, o_st, o_sh, window, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return fa3::launch_d<true>(q, k, v, mask, o, lse, B, T, T, Hq, Hkv, D, q_sb, q_st, q_sh, k_sb,
+                             k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, 0, 0,
+                             window < T ? window : T, scale, stream);
 }

@@ -17,8 +17,8 @@
 //     is the distance between two 64-column boxes;
 //   * the f32 accumulator of wgmma m64nNk16 gives thread t of the warpgroup
 //     rows 16 * (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4)
-//     (+ 1): d[4 j + 2 i + c] is (row + 8 i, 8 j + 2 (t % 4) + c), the
-//     mma.sync m16n8 layout repeated over j. Two accumulator column blocks
+//     (+ 1): d[4 j + 2 i + c] is (row + 8 i, 8 j + 2 (t % 4) + c), one
+//     warp's 16 x 8 accumulator layout repeated over j. Two accumulator column blocks
 //     j = 2 kk, 2 kk + 1, rounded to bf16 pairs, are the register A fragment
 //     of k16 step kk of the next product (pack_a).
 

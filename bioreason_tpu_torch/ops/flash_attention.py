@@ -21,8 +21,9 @@ wrapper counts its launches (`flash_attention.launches`,
 `flash_bwd.launches`).
 
 The two sources also hold the banded kernels of ops/local_attention.py
-(C entries `local_fwd_bf16`, `local_bwd_bf16`): one library per source,
-`kernel_fn(entry)` finds an entry in its library.
+(C entries `local_fwd_bf16`, `local_bwd_bf16`: the same bodies with the
+band's tile range and predicate): one library per source, `kernel_fn(entry)`
+finds an entry in its library.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ _ARGTYPES = {
                   _LL, _LL, _LL, _LL, _LL, _LL,           # v, o strides
                   _I, ctypes.c_float, _P],                # window scale stream
     "local_bwd": [_P, _P, _P, _P, _P, _P, _P,             # q k v mask o lse do
-                  _P, _P, _P, _P,                         # dq dk dv delta
+                  _P, _P, _P, _P, _P, _P,                 # dq dk dv lse_log2 delta dq_accum
                   _I, _I, _I, _I, _I,                     # B T Hq Hkv D
                   ctypes.POINTER(_LL),                    # 24 strides
                   _I, ctypes.c_float, _P],                # window scale stream
@@ -250,6 +251,16 @@ def _forward(q, k, v, kv_mask, causal, q_offset):
     return out, lse
 
 
+def bwd_workspace(b, hq, tq, d, device):
+    """The backward kernels' fp32 scratch, filled by their prep pass:
+    (dq_accum [B, Hq, Tq_pad, D], lse * log2(e) [B*Hq, Tq_pad], delta
+    [B*Hq, Tq_pad]), flat views of one allocation (Tq_pad = Tq rounded up
+    to 64)."""
+    rows = b * hq * (-(-tq // 64) * 64)
+    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=device)
+    return ws[:rows * d], ws[rows * d:rows * (d + 1)], ws[rows * (d + 1):]
+
+
 def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
     """Gradients (dq, dk, dv) of `flash_attention` given the forward's out
     and lse and the output gradient dout. Launches `csrc/flash_bwd.cu` on
@@ -283,11 +294,7 @@ def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
     dv = torch.empty((b, tk, hkv, d), dtype=v.dtype, device=q.device)
     if b == 0 or tq == 0 or tk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # fp32 scratch, filled by the prep pass: dq_accum [B, Hq, Tq_pad, D],
-    # lse * log2(e) and delta [B*Hq, Tq_pad] (Tq_pad = Tq rounded up to 64)
-    rows = b * hq * (-(-tq // 64) * 64)
-    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
-    dq_accum, lse_log2, delta = ws[:rows * d], ws[rows * d:rows * (d + 1)], ws[rows * (d + 1):]
+    dq_accum, lse_log2, delta = bwd_workspace(b, hq, tq, d, q.device)
     mask = _mask_i32(kv_mask)
     strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, out, dout, dq, dk, dv)
                                          for s in x.stride()[:3]))

@@ -5,11 +5,13 @@ bioreason_tpu/ops/local_attention.py).
 Query i sees key j iff |i - j| <= window and kv_mask[j], on array indices,
 so the work is O(T * window) instead of O(T^2). Self-attention only
 (Tq == Tk). `local_attention` launches `local_fwd` (the C entry
-`local_fwd_bf16` of csrc/flash_fwd.cu: an mma.sync body with the band's
-tile range and predicate) on CUDA tensors, for the Pallas
-`_fwd_kernel`. When autograd records, it runs through `LocalAttention`, a
-`torch.autograd.Function` whose backward is `local_bwd` (`local_bwd_bf16`
-of csrc/flash_bwd.cu) for the Pallas `_dq_kernel` and `_dkv_kernel`.
+`local_fwd_bf16` of csrc/flash_fwd.cu: `local_fwd_kernel`, the TMA + wgmma
+body of flash_fwd with the band's tile range and predicate) on CUDA tensors,
+for the Pallas `_fwd_kernel`. When autograd records, it runs through
+`LocalAttention`, a `torch.autograd.Function` whose backward is `local_bwd`
+(`local_bwd_bf16` of csrc/flash_bwd.cu: flash_bwd's prep pass,
+`local_bwd_kernel` and its convert pass) for the Pallas `_dq_kernel` and
+`_dkv_kernel`.
 
 The kernels read the [B, T, H, D] layout through strides and the [B, T]
 key mask as it is and mask ragged edges themselves, so the TPU wrapper's
@@ -123,10 +125,13 @@ def _forward(q, k, v, kv_mask, window):
 
 def local_bwd(q, k, v, window, kv_mask, out, lse, dout):
     """Gradients (dq, dk, dv) of `local_attention` given the forward's out
-    and lse and the output gradient dout. Launches the banded pair of
-    csrc/flash_bwd.cu on CUDA tensors (delta = rowsum(dO * O) folded into
-    the dq kernel, the GQA group summed in the dk/dv kernel's registers) and
-    computes `local_attention_bwd_ref` on CPU tensors."""
+    and lse and the output gradient dout. Launches `local_bwd_bf16` of
+    csrc/flash_bwd.cu on CUDA tensors (a prep pass for delta = rowsum(dO *
+    O), the banded kernel with the GQA group summed in registers and dq added
+    into an fp32 scratch, a convert pass for dq; one launch to the count) and
+    computes `local_attention_bwd_ref` on CPU tensors. On the card dq is
+    summed by the TMA unit's fp32 reduce-adds in no fixed order, so it is
+    not bitwise reproducible."""
     _check(q, k, v, window, kv_mask)
     if not q.is_cuda:
         return local_attention_bwd_ref(q, k, v, window, kv_mask, out, lse, dout)
@@ -152,7 +157,7 @@ def local_bwd(q, k, v, window, kv_mask, out, lse, dout):
     dv = torch.empty((b, t, hkv, d), dtype=v.dtype, device=q.device)
     if b == 0 or t == 0:
         return dq, dk, dv
-    delta = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    dq_accum, lse_log2, delta = FA.bwd_workspace(b, hq, t, d, q.device)
     mask = FA._mask_i32(kv_mask)
     strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, out, dout, dq, dk, dv)
                                          for s in x.stride()[:3]))
@@ -160,7 +165,8 @@ def local_bwd(q, k, v, window, kv_mask, out, lse, dout):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse_log2.data_ptr(), delta.data_ptr(), dq_accum.data_ptr(),
         b, t, hq, hkv, d, strides, min(window, t), float(d ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

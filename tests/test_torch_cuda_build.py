@@ -63,9 +63,10 @@ def test_library_name_follows_source_and_headers(library, tmp_path):
 @pytest.mark.parametrize("entry,variant", sorted(kernel_variants.VARIANTS))
 def test_kernel_variant_applies_to_the_source(entry, variant):
     """Every text change of the design-variant timer still finds its text in
-    the source it changes (it replaces each occurrence), and each entry has
+    the source it changes (the one that holds the entry's C function, found
+    through `_LIBRARY_OF`; it replaces each occurrence), and each entry has
     a shape to time."""
-    text = (cuda_build.CSRC_DIR / f"{entry}.cu").read_text()
+    text = (cuda_build.CSRC_DIR / f"{tfa._LIBRARY_OF[entry]}.cu").read_text()
     for old, _ in kernel_variants.VARIANTS[entry, variant]:
         assert old in text, (entry, variant, old)
     assert kernel_variants.SHAPES[entry]

@@ -63,7 +63,7 @@ def jax_forward(q, k, v, window, mask, block):
 
 
 # (name, B, T, Hq, Hkv, D, window, block, mask kind): the cases of
-# tests/test_local_attention.py:51-88
+# tests/test_local_attention.py:51-88, then the band predicate at its edges
 FWD_CASES = [
     ("band_narrower_than_block", 2, 64, 4, 4, 8, 8, 16, "none"),
     ("band_equals_block", 2, 64, 4, 4, 8, 16, 16, "none"),
@@ -72,6 +72,14 @@ FWD_CASES = [
     ("window_covers_all", 2, 32, 4, 4, 8, 100, 16, "none"),
     ("gqa_left_right_pads", 2, 64, 8, 2, 8, 10, 16, "pads"),
     ("fully_masked", 1, 32, 2, 2, 8, 4, 16, "empty"),
+    # the diagonal alone
+    ("window_0", 2, 64, 4, 4, 8, 0, 16, "none"),
+    # the band's edge on a block boundary
+    ("edge_on_block_T200_W64", 1, 200, 2, 2, 8, 64, 64, "none"),
+    # every pair but the two corners visible
+    ("window_t_minus_1", 2, 50, 4, 4, 8, 49, 16, "none"),
+    # GQA, left pads longer than the band: rows that see no valid key
+    ("gqa_left_pads_w63", 2, 200, 8, 2, 8, 63, 64, "left"),
 ]
 
 
@@ -82,6 +90,9 @@ def make_mask(kind, b, t):
     if kind == "pads":
         mask[0, :9] = 0                        # left padding
         mask[1, -5:] = 0                       # right padding
+    elif kind == "left":
+        mask[0, :70] = 0                       # rows 0-6 see no valid key at W=63
+        mask[1, :5] = 0
     else:
         mask[:] = 0
     return mask
@@ -110,7 +121,7 @@ def test_ref_matches_pallas_forward(case):
     np.testing.assert_allclose(out.numpy(), ref_out, atol=FWD_TOL, rtol=FWD_TOL)
     np.testing.assert_allclose(lse.numpy(), ref_lse, atol=FWD_TOL, rtol=FWD_TOL)
     empty = ~visible(b, t, window, mask).any(-1)                   # [B, T]
-    assert empty.any() == (mkind == "empty")
+    assert empty.any() == (mkind in ("empty", "left"))
     assert np.all(out.numpy()[empty] == 0.0)
     assert np.all(lse.numpy().transpose(0, 2, 1)[empty] == tla.NEG_INF)
 
@@ -123,6 +134,14 @@ BWD_CASES = [
     ("fully_masked_rows", 2, 64, 4, 2, 8, 4, 16, 20),
     # the band covers everything; ragged T
     ("window_covers_all", 1, 50, 2, 1, 8, 100, 16, 0),
+    # the diagonal alone, with a masked prefix (its rows see no key)
+    ("window_0", 2, 64, 4, 2, 8, 0, 16, 7),
+    # the band's edge on a block boundary
+    ("edge_on_block_T200_W64", 1, 200, 2, 2, 8, 64, 64, 0),
+    # every pair but the two corners visible
+    ("window_t_minus_1", 1, 50, 2, 1, 8, 49, 16, 3),
+    # GQA, left pads longer than the band
+    ("gqa_left_pads_w63", 2, 200, 8, 2, 8, 63, 64, 70),
 ]
 
 
@@ -145,7 +164,7 @@ def test_bwd_ref_matches_pallas_vjp(case):
     for port, ref in ((dq, jdq), (dk, jdk), (dv, jdv)):
         np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=BWD_TOL, rtol=BWD_TOL)
     empty = ~visible(b, t, window, mask).any(-1)
-    assert empty.any() == (prefix > 2 * window)
+    assert empty.any() == (prefix > window)     # row 0 sees keys 0..window
     assert np.all(dq.numpy()[empty] == 0.0)
 
 
