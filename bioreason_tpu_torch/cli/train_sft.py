@@ -16,7 +16,10 @@ and local_bwd in every encoder layer):
       --data_dir <dir of KEGG .json/.jsonl>
 
 Each step prints one JSON line of metrics; the final trainable parameters,
-optimizer state and step go to <checkpoint_dir>/sft_final. Pretrained
+optimizer state and step go to <checkpoint_dir>/sft_final, with what draws
+the frozen base again (--seed, the presets, --dna_attention, the vocabulary,
+the LoRA rank), so that `reason --sft_checkpoint` can rebuild the model
+(train/checkpoint.py:load_sft_for_grpo). Pretrained
 checkpoints, sequence parallelism (`--sp_dna`, `--dna_attention sp`,
 `sp_pallas`, `sp_local:<W>`), probes, sampling, generative tests, profiling
 and wandb come with later slices: `main` refuses their flags.
@@ -29,7 +32,6 @@ import dataclasses
 import functools
 import json
 import os
-import time
 
 import numpy as np
 
@@ -102,6 +104,7 @@ def main(argv=None):
     from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
     from bioreason_tpu_torch.data.collate import sft_collate
     from bioreason_tpu_torch.train.dataflow import batch_iterator, prefetch
+    from bioreason_tpu_torch.train.metrics import StepTimer
     from bioreason_tpu_torch.train.sft import SFTTrainer
 
     tok = ByteTextTokenizer()
@@ -129,6 +132,7 @@ def main(argv=None):
         seed=args.seed)
     trainer = SFTTrainer(fusion_cfg, sft_cfg, device=args.device)
     trainer.history = []
+    presets = {"decoder": args.decoder, "encoder": args.encoder}
     state_path = os.path.join(args.checkpoint_dir, "sft_state")
     if args.resume and os.path.exists(state_path):
         trainer.restore(state_path)
@@ -139,11 +143,12 @@ def main(argv=None):
                                 max_length_dna=args.max_length_dna, bucket=args.bucket,
                                 supervise_eos=args.supervise_eos)
     step = 0
+    timer = StepTimer()
     for batch in prefetch(batch_iterator(train_items, collate, args.batch_size,
                                          seed=args.seed, epochs=args.num_epochs)):
-        t0 = time.perf_counter()
+        timer.start()
         metrics = trainer.train_step(batch)
-        metrics["step_time"] = time.perf_counter() - t0
+        metrics["step_time"] = timer.stop()
         metrics["examples_per_sec"] = args.batch_size / metrics["step_time"]
         step += 1
         if args.eval_every and step % args.eval_every == 0 and val_items:
@@ -154,12 +159,11 @@ def main(argv=None):
         trainer.history.append(metrics)
         print(json.dumps({"step": trainer.step, **metrics}), flush=True)
         if args.save_every and step % args.save_every == 0:
-            trainer.save(state_path)
+            trainer.save(state_path, presets)
         if args.max_steps and step >= args.max_steps:
             break
 
-    final = trainer.save(os.path.join(args.checkpoint_dir, "sft_final"),
-                         {"decoder": args.decoder, "encoder": args.encoder})
+    final = trainer.save(os.path.join(args.checkpoint_dir, "sft_final"), presets)
     print(f"saved checkpoint to {final}", flush=True)
     return trainer
 

@@ -1,5 +1,5 @@
-"""Configuration dataclasses of the port (the serving and SFT subset of
-bioreason_tpu/config.py, with the same field names and presets).
+"""Configuration dataclasses of the port (the serving, SFT and GRPO subset
+of bioreason_tpu/config.py, with the same field names and presets).
 
 Presets mirror the reference model zoo: the Qwen3-0.6B decoder and the
 NT-v2-500M encoder at their published widths, plus `tiny` test sizes.
@@ -155,3 +155,46 @@ class SFTConfig:
             raise NotImplementedError(
                 "SFTConfig.frozen_dtype='int8': int8 frozen weights are not ported yet "
                 "(ROADMAP.md, queue 1, slice 6: quantization)")
+
+
+@dataclass(frozen=True)
+class GRPOConfig:
+    num_generations: int = 8         # G (grpo_config.py:170)
+    max_prompt_length: Optional[int] = None  # keep LAST N prompt tokens
+                                     # (grpo_config.py:174-177; TRL slices
+                                     # prompt_ids[:, -N:]). Raises if it would
+                                     # cut <|dna_pad|> tokens (splice check).
+    max_completion_length: int = 800
+    num_iterations: int = 1          # mu (grpo_config.py:298)
+    beta: float = 0.04               # KL coeff (grpo_config.py:291)
+    epsilon: float = 0.2             # clip (grpo_config.py:302)
+    epsilon_high: Optional[float] = None  # DAPO asymmetric clip (grpo_config.py:304-312)
+    reward_weights: Optional[Tuple[float, ...]] = None
+    guided_decoding_regex: Optional[str] = None   # not ported yet: raises
+    rollout_int8: bool = False                    # not ported yet: raises
+    rollout_kv_int8: bool = False                 # not ported yet: raises
+    sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    batch_size: int = 8              # prompts*G per step (must be divisible by G)
+    # each step() is a micro-step of batch_size rollouts; the optimizer
+    # applies once every grad_accum_steps calls with the running-mean
+    # gradient, and each accumulation slot keeps its own rollout buffer
+    # (grpo_trainer.py:399-403)
+    grad_accum_steps: int = 1
+    frozen_dtype: str = "bfloat16"   # "int8" is not ported yet: raises
+    optim: OptimConfig = field(default_factory=lambda: OptimConfig(learning_rate=5e-6))
+    lora: Optional[LoRAConfig] = field(default_factory=LoRAConfig)
+    # TR-DPO-style ref sync (grpo_config.py:320-341)
+    sync_ref_model: bool = False
+    ref_model_mixup_alpha: float = 0.6
+    ref_model_sync_steps: int = 512
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.rollout_int8 or self.rollout_kv_int8 or self.frozen_dtype == "int8":
+            raise NotImplementedError(
+                "GRPOConfig rollout_int8 / rollout_kv_int8 / frozen_dtype='int8': int8 "
+                "weights and KV are not ported yet (ROADMAP.md, queue 1: quantization)")
+        if self.guided_decoding_regex:
+            raise NotImplementedError(
+                "GRPOConfig.guided_decoding_regex: guided decoding is not ported yet "
+                "(ROADMAP.md, queue 1: continuous serving)")

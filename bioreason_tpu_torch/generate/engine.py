@@ -7,12 +7,15 @@
 * decode runs one token per step through the grouped plain attention over
   the cache, samples, writes the cache in place, and stops early once every
   row has emitted EOS;
-* like the reference path, it returns COMPLETION ids only.
+* like the reference path, it returns COMPLETION ids only;
+* with `group_size` G > 1 (GRPO rollouts) each prompt is prefilled ONCE
+  into a cache of P slots, and its G completions decode against that shared
+  prompt cache plus a per-completion cache of decode slots
+  (`qwen3.decoder_decode_step_grouped`); output rows are group-contiguous.
 
 The JAX engine jits prefill and a `lax.while_loop`; here PyTorch runs
 eagerly and the loop is a Python loop whose exit test is the one host sync
-per step. Guided decoding, `group_size > 1` and the device mesh come with
-later slices.
+per step. Guided decoding and the device mesh come with later slices.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch.nn.functional as F
 from bioreason_tpu_torch.config import FusionConfig, SamplingConfig
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.fusion import FusionModel, fused_input_embeddings
-from bioreason_tpu_torch.models.qwen3 import decoder_forward, init_cache
+from bioreason_tpu_torch.models.qwen3 import (decoder_decode_step_grouped, decoder_forward,
+                                              init_cache)
 from bioreason_tpu_torch.ops.sampling import completion_mask_from_eos, sample_logits
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
@@ -79,15 +83,19 @@ class GenerationEngine:
                  dna_input_ids=None, dna_attention_mask=None,
                  sampling: SamplingConfig = SamplingConfig(),
                  max_new_tokens: Optional[int] = None, greedy: bool = False,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None, group_size: int = 1
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """Returns (completion_ids [B, max_new], completion_mask [B, max_new])
-        as numpy int arrays; ids after the first EOS are the pad id."""
+        """Returns (completion_ids [B*G, max_new], completion_mask [B*G,
+        max_new]) as numpy int arrays, G = `group_size`; ids after the first
+        EOS are the pad id. With G > 1 each input row is one GRPO prompt,
+        prefilled once, whose G completions fill rows g*G .. g*G + G - 1."""
         mnt = max_new_tokens if max_new_tokens is not None else sampling.max_new_tokens
         cfg = self.cfg.decoder
         input_ids, attention_mask = self._put(input_ids), self._put(attention_mask)
         dna_input_ids, dna_attention_mask = self._put(dna_input_ids), self._put(dna_attention_mask)
         b, p = input_ids.shape
+        grouped = group_size > 1
+        bg = b * group_size
 
         bad = torch.zeros((), dtype=torch.int64, device=self.device)
 
@@ -97,25 +105,39 @@ class GenerationEngine:
                                  sampling.top_p, greedy, generator)
 
         t0 = time.perf_counter()
+        # grouped: the prompt cache holds the P prompt slots only; the decode
+        # slots live per completion in `dec_cache`
         last_logits, cache, cache_mask = self.prefill(
-            model, input_ids, attention_mask, dna_input_ids, dna_attention_mask, mnt)
+            model, input_ids, attention_mask, dna_input_ids, dna_attention_mask,
+            0 if grouped else mnt)
         prompt_lens = attention_mask.sum(-1)
-        out = torch.full((b, mnt), self.pad_token_id, dtype=torch.int64, device=self.device)
+        if grouped:
+            last_logits = last_logits.repeat_interleave(group_size, dim=0)
+            prompt_lens = prompt_lens.repeat_interleave(group_size)
+            dec_cache = init_cache(cfg, bg, mnt, torch_dtype(cfg.dtype), self.device)
+            dec_mask = torch.zeros((bg, mnt), dtype=torch.int32, device=self.device)
+        out = torch.full((bg, mnt), self.pad_token_id, dtype=torch.int64, device=self.device)
         tok = sample(last_logits)
         out[:, 0] = tok
         done = tok == self.eos_token_id
         all_done = bool(done.all())             # host sync: prefill has finished
         t1 = time.perf_counter()
-        ones = torch.ones((b, 1), dtype=torch.int32, device=self.device)
+        ones = torch.ones((bg, 1), dtype=torch.int32, device=self.device)
 
         step = 1
         while step < mnt and not all_done:
-            slot = p + step - 1
-            cache_mask[:, slot] = 1
-            logits, cache = decoder_forward(
-                model.decoder, cfg, input_ids=out[:, step - 1:step], attention_mask=ones,
-                positions=(prompt_lens + step - 1)[:, None], cache=cache,
-                cache_index=slot, cache_mask=cache_mask)
+            positions = (prompt_lens + step - 1)[:, None]
+            if grouped:
+                dec_mask[:, step - 1] = 1
+                logits, dec_cache = decoder_decode_step_grouped(
+                    model.decoder, cfg, out[:, step - 1:step], positions, cache,
+                    attention_mask, dec_cache, step - 1, dec_mask, group_size)
+            else:
+                slot = p + step - 1
+                cache_mask[:, slot] = 1
+                logits, cache = decoder_forward(
+                    model.decoder, cfg, input_ids=out[:, step - 1:step], attention_mask=ones,
+                    positions=positions, cache=cache, cache_index=slot, cache_mask=cache_mask)
             tok = torch.where(done, self.pad_token_id, sample(logits[:, 0]))
             out[:, step] = tok
             done |= tok == self.eos_token_id
@@ -126,8 +148,9 @@ class GenerationEngine:
         out = torch.where(mask.bool(), out, self.pad_token_id)
         ids, mask = out.cpu().numpy(), mask.cpu().numpy()
         t2 = time.perf_counter()
-        self.nonfinite_rows += int(bad)
-        self.last_stats = {"batch": b, "prompt_len": p, "steps": step,
-                           "prefill_s": t1 - t0, "decode_s": t2 - t1,
-                           "decode_tokens": b * (step - 1)}
+        bad = int(bad)
+        self.nonfinite_rows += bad
+        self.last_stats = {"batch": bg, "group_size": group_size, "prompt_len": p,
+                           "steps": step, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+                           "decode_tokens": bg * (step - 1), "nonfinite_rows": bad}
         return ids, mask

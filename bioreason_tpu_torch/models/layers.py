@@ -154,6 +154,13 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched `mm_f32`: [N, m, k] @ [N, k, n] -> fp32 [N, m, n]."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def rmsnorm(norm: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm computed in fp32, returned in the input dtype."""
     x32 = x.float()

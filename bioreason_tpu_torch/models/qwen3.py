@@ -5,8 +5,12 @@ RMSNorm before RoPE, SwiGLU MLP and tied embeddings.
 The KV cache is a list of per-layer {k, v} [B, S, Hkv, D] buffers written in
 place (`cache[i]["k"][:, idx:idx+t] = k`), never reallocated per step; the
 JAX package gets the same effect from donated buffers and
-dynamic_update_slice. The int8 cache and the grouped GRPO decode come with
-later slices.
+dynamic_update_slice. The int8 cache comes with a later slice.
+
+GRPO's grouped decode (`decoder_decode_step_grouped`): G completions share
+one prompt KV cache [B_u, P] written by a prefill of the unique prompts;
+only the decode slots live per completion, [B_u*G, N]. The prompt cache is
+never repeated G-fold: each decode step reads it once per group.
 
 Training runs the same layers with autograd: each layer may be recomputed in
 backward (`cfg.remat`, `layers.remat`) and draws its LoRA dropout masks from
@@ -168,6 +172,87 @@ def decoder_forward(
     h = L.rmsnorm(dec.final_norm, h, cfg.rms_norm_eps)
     out = h if return_hidden else L.lm_logits(dec, h)
     return out, cache
+
+
+def _grouped_decode_attention(q, pk, pv, prompt_mask, dk, dv, dec_mask, group: int):
+    """q [B_u*G, 1, Hq, D]; pk/pv [B_u, P, Hkv, D] (shared by each group's
+    G rows); dk/dv [B_u*G, N, Hkv, D]; prompt_mask [B_u, P]; dec_mask
+    [B_u*G, N]. Returns [B_u*G, 1, Hq, D] in q's dtype.
+
+    Logits come out fp32 from q-dtype operands (the JAX einsums'
+    preferred_element_type=float32) and both blocks share ONE softmax; the
+    probabilities are cast to q's dtype for the value products, as the JAX
+    function does. The prompt block is one product per (prompt, kv head)
+    over the group's G * r query rows (r = Hq / Hkv), so each prompt key is
+    read once per group; K/V are never repeated and never upcast to fp32
+    (the batched products take a transposed copy of the cache in its own
+    dtype)."""
+    bg, _, hq, d = q.shape
+    bu, p_len, hkv, _ = pk.shape
+    n = dk.shape[1]
+    r = hq // hkv
+    dtype = q.dtype
+    scale = d ** -0.5
+    neg = torch.finfo(torch.float32).min
+
+    # prompt block: [B_u*Hkv, G*r, D] @ [B_u*Hkv, D, P]
+    qp = q.reshape(bu, group, hkv, r, d).permute(0, 2, 1, 3, 4).reshape(bu * hkv, group * r, d)
+    kp = pk.to(dtype).permute(0, 2, 3, 1).reshape(bu * hkv, d, p_len)
+    lp = L.bmm_f32(qp, kp).reshape(bu, hkv, group, r, p_len) * scale
+    lp = lp.masked_fill(~prompt_mask.bool()[:, None, None, None, :], neg)
+    lp = lp.permute(0, 2, 1, 3, 4).reshape(bg, hkv, r, p_len)
+    # decode block: [B_u*G*Hkv, r, D] @ [B_u*G*Hkv, D, N]
+    qd = q.reshape(bg * hkv, r, d)
+    kd = dk.to(dtype).permute(0, 2, 3, 1).reshape(bg * hkv, d, n)
+    ld = L.bmm_f32(qd, kd).reshape(bg, hkv, r, n) * scale
+    ld = ld.masked_fill(~dec_mask.bool()[:, None, None, :], neg)
+
+    probs = torch.softmax(torch.cat([lp, ld], dim=-1), dim=-1).to(dtype)
+    pp = (probs[..., :p_len].reshape(bu, group, hkv, r, p_len).permute(0, 2, 1, 3, 4)
+          .reshape(bu * hkv, group * r, p_len))
+    vp = pv.to(dtype).permute(0, 2, 1, 3).reshape(bu * hkv, p_len, d)
+    op = (torch.bmm(pp, vp).reshape(bu, hkv, group, r, d).permute(0, 2, 1, 3, 4)
+          .reshape(bg, hkv, r, d))
+    pd = probs[..., p_len:].reshape(bg * hkv, r, n)
+    vd = dv.to(dtype).permute(0, 2, 1, 3).reshape(bg * hkv, n, d)
+    od = torch.bmm(pd, vd).reshape(bg, hkv, r, d)
+    return (op + od).reshape(bg, 1, hq, d)
+
+
+def decoder_decode_step_grouped(dec: Qwen3Decoder, cfg: DecoderConfig,
+                                input_ids: torch.Tensor, positions: torch.Tensor,
+                                prompt_cache: List[Dict[str, torch.Tensor]],
+                                prompt_mask: torch.Tensor,
+                                dec_cache: List[Dict[str, torch.Tensor]], dec_index: int,
+                                dec_mask: torch.Tensor, group: int):
+    """One decode step for B_u*G rows sharing B_u prompt caches.
+
+    input_ids [B_u*G, 1]; positions [B_u*G, 1]; prompt_cache: per-layer
+    {k, v} [B_u, P, Hkv, D] (read, never written); dec_cache: per-layer
+    {k, v} [B_u*G, N, Hkv, D], written in place at `dec_index`; dec_mask
+    [B_u*G, N] marks the valid decode slots INCLUDING the one being written.
+    Returns (fp32 logits [B_u*G, 1, V], dec_cache)."""
+    dtype = torch_dtype(cfg.dtype)
+    h = L.embed(dec.embed, input_ids, dtype)
+    bg, t, _ = h.shape
+    for lp, pe, de in zip(dec.layers, prompt_cache, dec_cache):
+        x = L.rmsnorm(lp.ln1, h, cfg.rms_norm_eps)
+        q, k, v = L.qkv_proj(lp.attn, x, dtype)
+        q = q.reshape(bg, t, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(bg, t, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(bg, t, cfg.num_kv_heads, cfg.head_dim)
+        q = L.rmsnorm(lp.attn.q_norm, q, cfg.rms_norm_eps)
+        k = L.rmsnorm(lp.attn.k_norm, k, cfg.rms_norm_eps)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        cache_entry_update(de, k, v, dec_index)
+        a = _grouped_decode_attention(q, pe["k"], pe["v"], prompt_mask, de["k"], de["v"],
+                                      dec_mask, group)
+        h = h + L.dense(lp.attn.o, a.reshape(bg, t, -1), dtype)
+        x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
+        h = h + L.swiglu(lp.mlp, x, dtype)
+    h = L.rmsnorm(dec.final_norm, h, cfg.rms_norm_eps)
+    return L.lm_logits(dec, h), dec_cache
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

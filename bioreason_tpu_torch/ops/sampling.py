@@ -39,12 +39,25 @@ def top_k_top_p_filter(logits: torch.Tensor, temperature: float = 1.0,
 def sample_logits(logits: torch.Tensor, temperature: float = 1.0, top_k: int = 0,
                   top_p: float = 1.0, greedy: bool = False,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """logits [B, V] -> sampled token ids [B] (int64)."""
+    """logits [B, V] -> sampled token ids [B] (int64).
+
+    Total on non-finite rows, without a host sync: a row whose kept
+    probabilities are not finite (a NaN logit, or every logit -inf) draws
+    from a one-hot in place of its softmax, so `torch.multinomial` never
+    sees it (it raises on the CPU and may assert on the card), and returns
+    the argmax of its logits with NaN read as -inf: id 0 for an all-NaN or
+    an all -inf row, the id `jax.random.categorical` gives there. Finite rows
+    keep their draws: multinomial draws each row independently."""
     if greedy or temperature == 0.0:
         return logits.argmax(dim=-1)
     vals, idx = top_k_top_p_filter(logits, temperature, top_k, top_p)
-    choice = torch.multinomial(torch.softmax(vals, dim=-1), 1, generator=generator)
-    return idx.gather(-1, choice)[:, 0]
+    probs = torch.softmax(vals, dim=-1)
+    ok = torch.isfinite(probs).all(dim=-1, keepdim=True)                # [B, 1]
+    first = torch.zeros_like(probs)
+    first[:, 0] = 1.0
+    choice = torch.multinomial(torch.where(ok, probs, first), 1, generator=generator)
+    fallback = torch.nan_to_num(logits, nan=float("-inf")).argmax(dim=-1, keepdim=True)
+    return torch.where(ok, idx.gather(-1, choice), fallback)[:, 0]
 
 
 def completion_mask_from_eos(tokens: torch.Tensor, eos_token_id: int) -> torch.Tensor:

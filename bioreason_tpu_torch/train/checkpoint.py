@@ -2,6 +2,14 @@
 step, in one `torch.save` file (the resumable subset of
 bioreason_tpu/train/checkpoint.py; frozen weights are not written, since
 they come from the seed or the import that built the model).
+
+A checkpoint of a model drawn from a seed records in its metadata what
+draws the same frozen base again (`BASE_KEYS`: the seed, the device type
+that drew it, the presets, the DNA attention, the vocabulary, the LoRA
+rank and the frozen weights' storage dtype): `load_sft_model` rebuilds the
+SFT model from it and refuses any mismatch with the caller's configuration,
+since adapters paired with another base would load without complaint and
+mean nothing.
 """
 
 from __future__ import annotations
@@ -10,6 +18,9 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+BASE_KEYS = ("seed", "init_device", "decoder", "encoder", "dna_attention", "vocab_size",
+             "lora_r", "lora_alpha", "frozen_dtype")
 
 FILE = "state.pt"
 
@@ -31,3 +42,67 @@ def save_checkpoint(path: str, trainable: Dict[str, torch.Tensor], opt_state: Di
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """The dict `save_checkpoint` wrote, tensors on the CPU."""
     return torch.load(os.path.join(path, FILE), map_location="cpu", weights_only=True)
+
+
+@torch.no_grad()
+def load_sft_model(path: str, fusion_cfg, seed: int, decoder: str, encoder: str, device=None):
+    """The model of the SFT trainer that wrote `path` (an `sft_final` or
+    `sft_state` of the port), parameter for parameter: the base drawn again
+    from the recorded seed on the recorded device type, the SFT adapters
+    attached and every trained parameter loaded (fp32), the other float
+    parameters of two or more dimensions stored in the recorded frozen dtype.
+
+    Raises ValueError when the checkpoint does not record `BASE_KEYS`, or
+    records another seed, preset (`decoder`, `encoder`: the CLI preset
+    names), DNA attention or vocabulary size than `fusion_cfg` and the
+    arguments ask for."""
+    from bioreason_tpu_torch.config import LoRAConfig
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.train.lora import attach_lora
+    from bioreason_tpu_torch.utils.devices import resolve_device
+
+    state = load_checkpoint(path)
+    meta = state["metadata"]
+    missing = [k for k in BASE_KEYS if k not in meta]
+    if missing:
+        raise ValueError(
+            f"{path}: its metadata lacks {missing}, so the frozen base it was trained on "
+            f"cannot be drawn again (a checkpoint written before the port recorded them, "
+            f"or of a model that was not drawn from a seed); train it again")
+    want = {"seed": seed, "decoder": decoder, "encoder": encoder,
+            "dna_attention": fusion_cfg.encoder.attention_impl,
+            "vocab_size": fusion_cfg.decoder.vocab_size}
+    wrong = {k: (meta[k], v) for k, v in want.items() if meta[k] != v}
+    if wrong:
+        raise ValueError(f"{path} was trained on another base: (checkpoint, asked) {wrong}")
+    device = resolve_device(device)
+    model = init_fusion(fusion_cfg, seed=meta["seed"], device=meta["init_device"]).to(device)
+    if meta["lora_r"] is not None:
+        attach_lora(model, LoRAConfig(r=meta["lora_r"], alpha=meta["lora_alpha"]))
+    trained = state["trainable"]
+    low = getattr(torch, meta["frozen_dtype"]) if meta["frozen_dtype"] else None
+    params = dict(model.named_parameters())
+    for name in trained:
+        if name not in params or params[name].shape != trained[name].shape:
+            raise ValueError(f"{path}: {name} {tuple(trained[name].shape)} does not fit "
+                             f"the model")
+    for name, p in params.items():
+        if name in trained:
+            p.data = trained[name].to(device)
+        elif low is not None and p.is_floating_point() and p.dim() >= 2:
+            p.data = p.data.to(low)
+    return model
+
+
+@torch.no_grad()
+def load_sft_for_grpo(path: str, fusion_cfg, lora_cfg, seed: int, decoder: str, encoder: str,
+                      device=None, generator: Optional[torch.Generator] = None):
+    """The SFT model of `path` (`load_sft_model`, which raises on a
+    mismatch) ready for GRPO, as JAX `sft_to_grpo_params` makes it: its
+    adapters merged (`merge_lora`) and fresh adapters of `lora_cfg` attached,
+    drawn from `generator` (none with `lora_cfg` None)."""
+    from bioreason_tpu_torch.train.lora import attach_lora, merge_lora
+    model = merge_lora(load_sft_model(path, fusion_cfg, seed, decoder, encoder, device))
+    if lora_cfg is not None:
+        attach_lora(model, lora_cfg, generator)
+    return model

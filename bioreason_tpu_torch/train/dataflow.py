@@ -1,5 +1,6 @@
-"""Host-side input pipeline: shuffled epoch batching over in-memory items and
-a background prefetch (the port's copy of bioreason_tpu/train/dataflow.py)."""
+"""Host-side input pipeline: shuffled epoch batching over in-memory items, a
+background prefetch and GRPO's repeat sampler (the port's copy of
+bioreason_tpu/train/dataflow.py)."""
 
 from __future__ import annotations
 
@@ -74,3 +75,15 @@ def prefetch(it: Iterator[Any], depth: int = 2) -> Iterator[Any]:
                 q.get_nowait()
             except queue.Empty:
                 break
+
+
+def repeat_random_indices(n_items: int, batch_prompts: int, num_generations: int,
+                          seed: int, epoch: int) -> Iterator[List[int]]:
+    """Per-step index lists in which each prompt index appears
+    `num_generations` times contiguously (RepeatRandomSampler semantics), in
+    the order of random.Random(seed + epoch); a short last step is dropped."""
+    order = list(range(n_items))
+    random.Random(seed + epoch).shuffle(order)
+    for start in range(0, len(order) - batch_prompts + 1, batch_prompts):
+        prompts = order[start:start + batch_prompts]
+        yield [i for i in prompts for _ in range(num_generations)]

@@ -54,12 +54,19 @@ def _drop(lin: nn.Linear) -> None:
 
 
 @torch.no_grad()
+def merged_weight(lin: nn.Linear) -> torch.Tensor:
+    """The weight with its adapter folded in, as JAX `_fold` computes it:
+    W + ((A @ B) * scale)^T, the fp32 delta cast to W's dtype first."""
+    delta = (lin.lora_a @ lin.lora_b) * lin.lora_scale
+    return lin.weight + delta.t().to(lin.weight.dtype)
+
+
+@torch.no_grad()
 def merge_lora(model: nn.Module) -> nn.Module:
-    """Fold every adapter into its weight ([out, in] += ((A @ B) * scale)^T,
-    in fp32, stored in the weight's dtype) and drop the adapters."""
+    """Fold every adapter into its weight (`merged_weight`) and drop the
+    adapters."""
     for lin in list(_adapted(model)):
-        delta = (lin.lora_a @ lin.lora_b) * lin.lora_scale
-        lin.weight.copy_((lin.weight.float() + delta.t()).to(lin.weight.dtype))
+        lin.weight.copy_(merged_weight(lin))
         _drop(lin)
     return model
 

@@ -72,6 +72,8 @@ class AdamW:
         self.notfinite_count = 0       # consecutive non-finite steps
         self.total_notfinite = 0
         self.last_finite = True
+        self._acc: Optional[List[torch.Tensor]] = None   # running gradient sum
+        self._micro = 0                                  # micro-steps in it
 
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> float:
@@ -107,6 +109,23 @@ class AdamW:
         if cfg.weight_decay:
             torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
+        return norm
+
+    @torch.no_grad()
+    def accumulate(self, grads: Sequence[Optional[torch.Tensor]], k: int) -> float:
+        """One micro-step of optax.MultiSteps: with k <= 1 this is `step`;
+        otherwise `grads` join a running sum and every k-th call applies its
+        mean through `step`. Returns the global norm of this micro-step's
+        raw gradients."""
+        if k <= 1:
+            return self.step(grads)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        norm = float(global_norm(grads))
+        self._acc = grads if self._acc is None else torch._foreach_add(self._acc, grads)
+        self._micro += 1
+        if self._micro == k:
+            self.step(torch._foreach_div(self._acc, float(k)))
+            self._acc, self._micro = None, 0
         return norm
 
     def state_dict(self) -> Dict:

@@ -17,7 +17,7 @@ stored in `cfg.frozen_dtype`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -29,7 +29,7 @@ from bioreason_tpu_torch.ops.fused_ce import gather_label_positions
 from bioreason_tpu_torch.train import trainable as T
 from bioreason_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from bioreason_tpu_torch.train.lora import attach_lora, has_lora
-from bioreason_tpu_torch.train.optim import AdamW, global_norm
+from bioreason_tpu_torch.train.optim import AdamW
 from bioreason_tpu_torch.utils.devices import resolve_device
 
 BATCH_KEYS = ("input_ids", "attention_mask", "dna_input_ids", "dna_attention_mask",
@@ -44,8 +44,18 @@ class SFTTrainer:
         model carries some already. Runs on `device` (CUDA unless "cpu")."""
         self.fusion_cfg, self.cfg = fusion_cfg, cfg
         self.device = resolve_device(device)
+        # what draws the frozen base again (checkpoint.BASE_KEYS, with the
+        # presets the caller adds), for a model drawn from the seed only
+        self.base_metadata: Optional[Dict[str, Any]] = None
         if model is None:
             model = init_fusion(fusion_cfg, seed=cfg.seed, device=self.device)
+            self.base_metadata = {
+                "seed": cfg.seed, "init_device": self.device.type,
+                "dna_attention": fusion_cfg.encoder.attention_impl,
+                "vocab_size": fusion_cfg.decoder.vocab_size,
+                "lora_r": cfg.lora.r if cfg.lora is not None else None,
+                "lora_alpha": cfg.lora.alpha if cfg.lora is not None else None,
+                "frozen_dtype": cfg.frozen_dtype}
         self.model = model.to(self.device)
         if cfg.lora is not None:
             if not has_lora(model):
@@ -61,8 +71,6 @@ class SFTTrainer:
         self.opt = AdamW(self.params, cfg.optim)
         self.step = 0
         self._dropout_gen = torch.Generator().manual_seed(cfg.seed + 2)   # per-step seeds
-        self._acc: Optional[List[torch.Tensor]] = None                    # grad accumulation
-        self._micro = 0
 
     def _loss(self, db: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
         cfg = self.cfg
@@ -96,18 +104,7 @@ class SFTTrainer:
         micro-step's raw gradients) and the schedule's lr at the new step."""
         loss = self._loss(self._device_batch(batch), train=True)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        k = self.cfg.grad_accum_steps
-        if k <= 1:
-            grad_norm = self.opt.step(grads)
-        else:
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(self.params, grads)]
-            grad_norm = float(global_norm(grads))
-            self._acc = grads if self._acc is None else torch._foreach_add(self._acc, grads)
-            self._micro += 1
-            if self._micro == k:
-                self.opt.step(torch._foreach_div(self._acc, float(k)))
-                self._acc, self._micro = None, 0
+        grad_norm = self.opt.accumulate(grads, self.cfg.grad_accum_steps)
         self.step += 1
         return {"loss": float(loss.detach()), "grad_norm": grad_norm,
                 "lr": self.opt.schedule(self.step)}
@@ -121,9 +118,11 @@ class SFTTrainer:
         return dict(zip(self.names, self.params))
 
     def save(self, path: str, metadata: Optional[Dict] = None) -> str:
-        """Trainable parameters, optimizer state and step to `path`."""
+        """Trainable parameters, optimizer state and step to `path`, with
+        `base_metadata` (when the model was drawn from the seed) and
+        `metadata` in its metadata."""
         return save_checkpoint(path, self.trainable_state(), self.opt.state_dict(),
-                               self.step, metadata)
+                               self.step, {**(self.base_metadata or {}), **(metadata or {})})
 
     @torch.no_grad()
     def restore(self, path: str) -> "SFTTrainer":

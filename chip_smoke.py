@@ -66,6 +66,28 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               gradient of the kernel route against the plain route (the
               band through `local_attention_ref`, patched into this process's
               dispatch); one step profiled.
+  8. grpo     GRPO at bench_grpo.py's shape (Qwen3-0.6B widths at the byte
+              tokenizer's vocabulary, remat full; NT-v2-500M; 4 synthetic
+              KEGG prompts of 2 x 600 bp x G = 4, 64 new tokens sampled,
+              max_length_dna 128, beta 0.04, LoRA r32/a64, bf16 frozen
+              weights from seed 0): the GRPOTrainer for 1 + 3 timed steps
+              with phase timers, rewarded by xmlcount, correctness and the
+              share of ACGT characters (which random weights vary on),
+              (completions/s, seconds per phase, flash_fwd
+              and flash_bwd launches per step, checked exactly, peak
+              memory), one step profiled (busy share, top kernels, device
+              time of the rollout, its grouped decode attention, the ref
+              logps and the update), finite losses, kl and rewards, the
+              LoRA B leaves moved, greedy grouped rollouts identical within
+              each group, one update loss + gradient through the kernels
+              against the plain route on the same rollout buffer, the
+              sampler on a NaN and an all -inf row on the card, flash_fwd
+              and flash_bwd against their plain versions at the step's own
+              shapes and masks (the grouped prefill's P-slot prompt cache,
+              the encoder, the logp passes' forward and the update's
+              backward, with completions that end early as at an EOS); then
+              `python -m bioreason_tpu_torch.cli.reason` for 2 steps from the
+              sft_final that phase 6's train_sft CLI wrote.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -850,30 +872,80 @@ def phase_serve(torch, card, max_new):
 
 def phase_profile(torch, card, server, items, max_new):
     """torch.profiler over one prefill and over one engine call of
-    `max_new` tokens of the 8-request batch: device time by kernel and the
-    device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
+    `max_new` tokens of the 8-request batch (`profile_step`): device time
+    by kernel and the device's busy share."""
     from bioreason_tpu_torch.serve import prepare_batch
     args = [torch.as_tensor(a, device="cuda")
             for a in prepare_batch(server.processor, server.cfg, items)]
     eng = server.engine
-    for name, fn in (("prefill", lambda: eng.prefill(server.model, *args, max_new)),
-                     ("generate", lambda: eng.generate(server.model, *args,
-                                                       max_new_tokens=max_new, greedy=True))):
+    profile_step(torch, card, "prefill", lambda: eng.prefill(server.model, *args, max_new),
+                 ("flash_fwd",))
+    profile_step(torch, card, "generate",
+                 lambda: eng.generate(server.model, *args, max_new_tokens=max_new, greedy=True),
+                 ("flash_fwd",))
+
+
+def profile_step(torch, card, label, step, names, ranges=()):
+    """One step under torch.profiler, read from its raw events (a GRPO step
+    makes ~300k launches, and building the profiler's per-op tables for them
+    takes minutes). Prints the wall, the device busy time and share (every
+    device event that is not a user range), the launches, the top kernels,
+    the share of the kernels whose names hold each of `names`, and the
+    device time of the kernels launched inside each `record_function` range
+    named in `ranges` (a kernel belongs to a range when the host op that
+    launched it started inside it)."""
+    import bisect
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        n_launch = sum(e.count for e in kernels)
-        log(f"profile [{card}] {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-            f"({100 * busy_ms / wall_ms:.1f}%), {n_launch} kernel launches")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = {r: [] for r in ranges}
+    op_start, kernels = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            if e.is_user_annotation():
+                if e.name() in spans:
+                    spans[e.name()].append((e.start_ns(), e.end_ns()))
+            else:
+                op_start[e.correlation_id()] = e.start_ns()
+        elif not e.is_user_annotation():
+            kernels.append((e.name(), e.duration_ns(), e.linked_correlation_id()))
+    busy_ms = sum(k[1] for k in kernels) / 1e6
+    by_name = {}
+    for name, dur, _ in kernels:
+        n, t = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, t + dur)
+    share = {n: sum(t for k, (_, t) in by_name.items() if n in k) / 1e6 for n in names}
+    log(f"profile [{card}] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel launches; "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / max(busy_ms, 1e-9):.1f}% of device time)"
+                    for k, v in share.items()))
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"  {t / 1e6:9.3f} ms {n:6d}x  {name[:90]}")
+    parts = {}
+    for r, iv in spans.items():
+        iv.sort()
+        starts = [a for a, _ in iv]
+        total = 0
+        for _, dur, corr in kernels:
+            t = op_start.get(corr)
+            if t is None:
+                continue
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t < iv[i][1]:
+                total += dur
+        parts[r] = (len(iv), total / 1e6)
+    if not ranges:
+        return busy_ms, wall_ms, parts
+    linked = sum(1 for k in kernels if k[2] in op_start)
+    log(f"profile [{card}] {label} parts (device ms of the kernels launched inside each "
+        f"range, share of busy; {linked} of {len(kernels)} kernels linked to a host op): "
+        + ", ".join(f"{r} x{n} {ms:.3f} ({100 * ms / max(busy_ms, 1e-9):.1f}%)"
+                    for r, (n, ms) in parts.items()))
+    return busy_ms, wall_ms, parts
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -912,29 +984,7 @@ def counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def profile_step(torch, card, label, step, names):
-    """One training step under torch.profiler: device busy share and the
-    share of device time of the kernels whose names hold each of `names`."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    share = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
-             for name in names}
-    log(f"profile [{card}] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernel launches; "
-        + ", ".join(f"{k} {v:.3f} ms ({100 * v / max(busy_ms, 1e-9):.1f}% of device time)"
-                    for k, v in share.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
-
-
-def phase_train(torch, card):
+def phase_train(torch, card, ckpt):
     import torch.nn.functional as F
     from bioreason_tpu_torch.cli import train_sft
     from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
@@ -945,18 +995,13 @@ def phase_train(torch, card):
     per_step_fwd = ENCODER_LAYERS + DECODER_LAYERS
 
     # (a) the CLI, end to end: collate, labels, gathered CE, optimizer. Its
-    # presets keep remat on, so each decoder layer's forward runs twice.
-    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
-    os.makedirs(build_dir, exist_ok=True)
-    ckpt = tempfile.mkdtemp(prefix="smoke_sft_", dir=build_dir)
-    try:
-        reset_counts()
-        t0 = time.perf_counter()
-        trainer = train_sft.main(["--max_steps", "4", "--seed", "0", "--checkpoint_dir", ckpt])
-        secs = time.perf_counter() - t0
-        fwd, bwd = fa.flash_attention.launches, fa.flash_bwd.launches
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    # presets keep remat on, so each decoder layer's forward runs twice. Its
+    # sft_final stays for phase 8's reason CLI; main removes `ckpt`.
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_sft.main(["--max_steps", "4", "--seed", "0", "--checkpoint_dir", ckpt])
+    secs = time.perf_counter() - t0
+    fwd, bwd = fa.flash_attention.launches, fa.flash_bwd.launches
     losses = [m["loss"] for m in trainer.history]
     log(f"train (cli) [{card}]: 4 steps in {secs:.1f} s (build and data included), losses "
         f"{[round(x, 4) for x in losses]}, step ms "
@@ -1176,6 +1221,270 @@ def phase_train_long(torch, card):
     return got
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+GRPO_PROMPTS, GRPO_G, GRPO_NEW = 4, 4, 64
+
+
+def grpo_setup():
+    """bench_grpo.py's configuration (bench_grpo.py:54-84): the fusion
+    config, the GRPOConfig, the processor and the G-repeated items."""
+    from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
+                                            GRPOConfig, LoRAConfig, OptimConfig, SamplingConfig)
+    from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
+    from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only, synthetic_kegg_items
+    tok = ByteTextTokenizer()
+    cfg = FusionConfig(
+        decoder=dataclasses.replace(DecoderConfig.qwen3_0_6b(vocab_size=tok.vocab_size),
+                                    remat=True, remat_policy="full"),
+        encoder=dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False),
+        dna_pad_token_id=tok.dna_pad_id, max_length_text=512, max_length_dna=128)
+    gcfg = GRPOConfig(num_generations=GRPO_G, batch_size=GRPO_PROMPTS * GRPO_G, beta=0.04,
+                      max_completion_length=GRPO_NEW,
+                      sampling=SamplingConfig(max_new_tokens=GRPO_NEW),
+                      optim=OptimConfig(learning_rate=5e-6, total_steps=100),
+                      lora=LoRAConfig(r=32, alpha=64), seed=0)
+    items = [format_kegg_prompt_only(it)
+             for it in synthetic_kegg_items(GRPO_PROMPTS, seq_len=600, seed=0)]
+    return cfg, gcfg, BioProcessor(tok, KmerTokenizer()), [x for x in items for _ in range(GRPO_G)]
+
+
+def acgt_share_reward(prompts, completions, **kw):
+    """The share of A, C, G and T among a completion's characters. With
+    random weights the registry's rewards are 0 for every completion, so the
+    advantages, the gradient and the update would be 0: this one varies."""
+    return [sum(c in "ACGT" for c in x) / max(len(x), 1) for x in completions]
+
+
+def grpo_kernel_cases(torch, trainer, items):
+    """flash_fwd and flash_bwd at the shapes and masks one GRPO step of
+    `trainer` gives them, from its own prompts and last rollout buffer: the
+    grouped prefill (causal, Tq = Tk = P: the prompt cache has no decode
+    slots, the prompts' left pads), the encoder as the rollout runs it (the
+    unique prompts' DNA rows) and as the logp passes run it (the G-repeated
+    rows), the logp passes' forward and the update's
+    backward (causal over the prompt and its completion). Random weights
+    never stop a completion at EOS, so half the rows get the completion
+    mask an EOS gives (ones up to it, zeros after) at drawn lengths, the
+    shortest 1."""
+    dec, enc = trainer.fusion_cfg.decoder, trainer.fusion_cfg.encoder
+    hq, hkv, d = dec.num_heads, dec.num_kv_heads, dec.head_dim
+    out, _ = trainer._prepare_prompts(items[::GRPO_G])
+    pmask = torch.as_tensor(np.asarray(out.attention_mask), dtype=torch.int32, device="cuda")
+    bu, p = pmask.shape
+    buf = trainer._buffers[0]["batch"]
+    full = buf["full_mask"].to(torch.int32).clone()
+    b, t = full.shape
+    ends = np.random.default_rng(41).integers(1, t - p, b // 2)
+    ends[0] = 1
+    for i, e in zip(range(0, b, 2), ends):
+        full[i, p + int(e):] = 0
+    dna_u = torch.as_tensor(np.asarray(out.dna_attention_mask), dtype=torch.int32,
+                            device="cuda")
+    dna = buf["dna_attention_mask"].to(torch.int32)
+    log(f"grpo kernels: prefill B={bu} P={p}; logps and update B={b} T={t}, completion "
+        f"lengths {full[:, p:].sum(-1).tolist()}; encoder {list(dna_u.shape)} (rollout), "
+        f"{list(dna.shape)} (logps)")
+    rows = [kernel_case(torch, f"grpo_prefill_P{p}", bu, p, p, hq, hkv, d, True, 0, pmask, 41),
+            *(kernel_case(torch, f"grpo_{part}_encoder_T{m.shape[1]}", m.shape[0], m.shape[1],
+                          m.shape[1], enc.num_heads, enc.num_heads, enc.head_dim, False, None,
+                          m, seed)
+              for part, m, seed in (("rollout", dna_u, 45), ("logps", dna, 42))),
+            kernel_case(torch, f"grpo_logps_T{t}_eos", b, t, t, hq, hkv, d, True, None, full,
+                        43)]
+    bwd_rows = [bwd_case(torch, f"grpo_update_T{t}_eos", b, t, t, hq, hkv, d, True, 0, full,
+                         44)]
+    return rows, bwd_rows
+
+
+def phase_grpo(torch, card, sft_final):
+    """GRPO through the port's trainer and CLI (module docstring, phase 8)."""
+    import torch.nn.functional as F
+    from torch.profiler import record_function
+    from bioreason_tpu_torch.cli import reason
+    from bioreason_tpu_torch.models import qwen3
+    from bioreason_tpu_torch.ops.sampling import sample_logits
+    from bioreason_tpu_torch.train import grpo as grpo_mod
+    from bioreason_tpu_torch.train.grpo import GRPOTrainer
+    from bioreason_tpu_torch.train.rewards import get_reward_funcs
+    t_phase = time.perf_counter()
+    cfg, gcfg, proc, items = grpo_setup()
+    n = len(items)
+    trainer = GRPOTrainer(cfg, gcfg, proc,
+                          get_reward_funcs(["xmlcount", "correctness"]) + [acgt_share_reward])
+    b_leaves = {k: p.detach().clone() for k, p in trainer.trainable_state().items()
+                if k.endswith("lora_b")}
+    # per step: the rollout's encoder and prefill, the ref pass's encoder and
+    # decoder, the update's encoder and its decoder twice (remat), one
+    # backward per decoder layer; decode steps (Tq = 1) take the plain
+    # grouped attention
+    per_step = {"flash_fwd": 3 * ENCODER_LAYERS + 4 * DECODER_LAYERS,
+                "flash_bwd": DECODER_LAYERS}
+    log(f"grpo: trainer built in {time.perf_counter() - t_phase:.1f} s")
+    t_sub = time.perf_counter()
+    history = [trainer.step(items)]                      # warm-up
+    torch.cuda.synchronize()
+    log(f"grpo: warm-up step {time.perf_counter() - t_sub:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    trainer.timers = {}
+    steps = 3
+    # --- the main path: counts from 0 just before, read just after ---------
+    reset_counts()
+    t0 = time.perf_counter()
+    history += [trainer.step(items) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counts()
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    tm = trainer.timers
+    trainer.timers = None
+    stats = trainer.engine.last_stats
+    log(f"grpo [{card}]: {GRPO_PROMPTS} prompts x G={GRPO_G}, P={stats['prompt_len']}, "
+        f"{GRPO_NEW} new tokens, LoRA r32/a64, beta 0.04, remat full: "
+        f"{n * steps / dt:.3f} completions/s, {dt / steps * 1e3:.1f} ms per step over {steps} "
+        f"steps; seconds per phase {', '.join(f'{k} {tm[k]:.3f}' for k in ('prep', 'rollout', 'logps_dispatch', 'rewards', 'update'))} "
+        f"({tm['steps']} steps); torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"grpo: launches {got} ({', '.join(f'{k} {v / steps:g}' for k, v in got.items())} "
+        f"per step); last rollout decode {stats['steps'] - 1} steps in "
+        f"{stats['decode_s'] * 1e3:.1f} ms, prefill {stats['prefill_s'] * 1e3:.1f} ms; "
+        f"nonfinite_rows {[m['nonfinite_rows'] for m in history]}")
+    log("grpo: per step " + "; ".join(
+        f"loss {m['loss']:.5g} kl {m['kl']:.4g} clip {m['clip_ratio']:.3g} grad_norm "
+        f"{m['grad_norm']:.4g} reward {m['reward']:.3g} length {m['completion_length']:.1f}"
+        for m in history))
+    if any(not math.isfinite(m[k]) for m in history for k in ("loss", "kl", "reward")):
+        fail(f"non-finite GRPO loss, kl or reward: {history}")
+    want = {k: steps * per_step.get(k, 0) for k in got}
+    if got != want:
+        fail(f"GRPO launched {got} in {steps} steps, expected {want}")
+    state = trainer.trainable_state()
+    still = [k for k, b0 in b_leaves.items() if torch.equal(state[k].detach(), b0)]
+    log(f"grpo: {len(b_leaves) - len(still)} of {len(b_leaves)} LoRA B leaves moved")
+    if still:
+        fail(f"GRPO LoRA B leaves did not move: {still[:4]}")
+
+    # one step profiled, with the device time of its parts
+    t_sub = time.perf_counter()
+    ranges = {"rollout": (trainer.engine, "generate"),
+              "update": (trainer, "_update"),
+              "grouped_decode_attention": (qwen3, "_grouped_decode_attention")}
+    saved = {name: getattr(obj, attr) for name, (obj, attr) in ranges.items()}
+    real_logps = grpo_mod.per_token_logps
+
+    def labelled(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    def logps(model, *a, **kw):
+        with record_function("ref_logps" if model is trainer.ref_model else "policy_logps"):
+            return real_logps(model, *a, **kw)
+    try:
+        for name, (obj, attr) in ranges.items():
+            setattr(obj, attr, labelled(name, saved[name]))
+        grpo_mod.per_token_logps = logps
+        profile_step(torch, card, "grpo step", lambda: trainer.step(items),
+                     ("flash_fwd", "flash_bwd"), (*ranges, "ref_logps", "policy_logps"))
+    finally:
+        for name, (obj, attr) in ranges.items():
+            setattr(obj, attr, saved[name])
+        grpo_mod.per_token_logps = real_logps
+    log(f"grpo: profiled step and its reading took {time.perf_counter() - t_sub:.1f} s")
+    t_sub = time.perf_counter()
+
+    # greedy grouped rollouts: identical within each group
+    out, _ = trainer._prepare_prompts(items[::GRPO_G])
+    ids, _ = trainer.engine.generate(trainer.model, out.input_ids, out.attention_mask,
+                                     out.dna_input_ids, out.dna_attention_mask, greedy=True,
+                                     max_new_tokens=16, group_size=GRPO_G)
+    groups = ids.reshape(GRPO_PROMPTS, GRPO_G, -1)
+    if not (groups == groups[:, :1]).all():
+        fail("greedy grouped rollouts differ within a group")
+    log(f"grpo: greedy grouped rollouts [{ids.shape[0]}, {ids.shape[1]}] identical within "
+        f"each of {GRPO_PROMPTS} groups ({time.perf_counter() - t_sub:.1f} s)")
+    t_sub = time.perf_counter()
+
+    # one update loss + gradient through the kernels against the plain route
+    buf = trainer._buffers[0]
+
+    def loss_and_grad(c):
+        trainer.fusion_cfg = c
+        try:
+            loss, kl, _ = trainer._loss(buf["batch"], buf["completion_len"])
+            grads = torch.autograd.grad(loss, trainer.params, allow_unused=True)
+        finally:
+            trainer.fusion_cfg = cfg
+        flat = torch.cat([(torch.zeros_like(p) if g is None else g).float().flatten()
+                          for p, g in zip(trainer.params, grads)])
+        return float(loss.detach()), float(kl.detach()), flat
+    reset_counts()
+    lk, kk, gk = loss_and_grad(cfg)
+    kernel_counts = counts()
+    plain = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, attention_impl="xla"),
+        encoder=dataclasses.replace(cfg.encoder, attention_impl="xla"))
+    reset_counts()
+    lp, kp, gp = loss_and_grad(plain)
+    if any(counts().values()) or not kernel_counts["flash_bwd"]:
+        fail(f"the routes launched {kernel_counts} (kernel) and {counts()} (plain)")
+    cos = float(F.cosine_similarity(gk, gp, dim=0))
+    log(f"grpo: kernel vs plain route, one update loss + gradient on the last rollout buffer: "
+        f"loss {lk:.6g} vs {lp:.6g}, kl {kk:.6g} vs {kp:.6g}, cosine of the {gk.numel()} "
+        f"trainable gradients {cos:.6f}, norms {float(gk.norm()):.4g} vs "
+        f"{float(gp.norm()):.4g} ({time.perf_counter() - t_sub:.1f} s)")
+    if not (math.isfinite(lk) and math.isfinite(lp)) or cos < 0.99:
+        fail(f"kernel and plain routes disagree in the GRPO update (cosine {cos:.4f})")
+    del gk, gp
+
+    # the sampler on non-finite rows, on the card
+    bad = torch.randn((4, cfg.decoder.vocab_size), device="cuda")
+    bad[1] = float("nan")
+    bad[2] = float("-inf")
+    ids_bad = sample_logits(bad, 0.6, 20, 0.95,
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    if ids_bad[1:3].tolist() != [0, 0] or not bool(((ids_bad >= 0) & (
+            ids_bad < cfg.decoder.vocab_size)).all()):
+        fail(f"sample_logits on a NaN and an all -inf row gave {ids_bad.tolist()}")
+    log(f"grpo: sample_logits on the card, rows finite / NaN / all -inf / finite: "
+        f"{ids_bad.tolist()}")
+    t_sub = time.perf_counter()
+    rows, bwd_rows = grpo_kernel_cases(torch, trainer, items)
+    log(f"grpo: kernels at the step's shapes checked in {time.perf_counter() - t_sub:.1f} s")
+    secs_trainer = time.perf_counter() - t_phase
+    del trainer, buf
+    torch.cuda.empty_cache()
+
+    # the reason CLI from phase 6's sft_final
+    run_dir = os.path.dirname(sft_final)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli = reason.main(["--sft_checkpoint", sft_final, "--seed", "0", "--max_steps", "2",
+                       "--num_generations", str(GRPO_G), "--batch_size",
+                       str(GRPO_PROMPTS * GRPO_G), "--max_completion_length", str(GRPO_NEW),
+                       "--max_length_dna", "128", "--checkpoint_dir", run_dir,
+                       "--log_dir", os.path.join(run_dir, "logs")])
+    secs = time.perf_counter() - t0
+    cli_counts = counts()
+    hist = cli.metrics_history
+    log(f"grpo (reason cli) [{card}]: 2 steps from {os.path.basename(sft_final)} in "
+        f"{secs:.1f} s (model rebuild included): losses {[round(m['loss'], 6) for m in hist]}, "
+        f"kl {[round(m['kl'], 6) for m in hist]}, rewards {[m['reward'] for m in hist]}; "
+        f"launches {cli_counts}")
+    if len(hist) != 2 or not all(math.isfinite(m["loss"]) and math.isfinite(m["reward"])
+                                 for m in hist):
+        fail(f"reason.main did not run 2 finite steps: {hist}")
+    if not os.path.isfile(os.path.join(run_dir, "grpo_final", "state.pt")):
+        fail("reason.main wrote no grpo_final")
+    del cli
+    torch.cuda.empty_cache()
+    log(f"grpo: phase done in {time.perf_counter() - t_phase:.1f} s (trainer part "
+        f"{secs_trainer:.1f} s)")
+    return got, rows, bwd_rows
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -1195,11 +1504,22 @@ def main():
     phase_profile(torch, card, server, items, max_new=8)
     del server
     torch.cuda.empty_cache()
-    train = phase_train(torch, card)
-    torch.cuda.empty_cache()
-    long = phase_train_long(torch, card)
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_sft_", dir=build_dir)
+    try:
+        train = phase_train(torch, card, ckpt)
+        torch.cuda.empty_cache()
+        long = phase_train_long(torch, card)
+        torch.cuda.empty_cache()
+        grpo, grpo_rows, grpo_bwd_rows = phase_grpo(torch, card,
+                                                    os.path.join(ckpt, "sft_final"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
+    rows += grpo_rows
+    bwd_rows += grpo_bwd_rows
     # the served prefill: the kernel's largest call
     served = next(r for r in rows if r["shape"].startswith("prefill_served"))
     fwd_entry = {"name": "flash_fwd", "route": "cuda",
@@ -1207,7 +1527,7 @@ def main():
                  "replaces": "bioreason_tpu/ops/flash_attention.py:60",
                  "also_replaces": ["bioreason_tpu/ops/flash_attention.py:239"],
                  "launches": launches, "train_launches": train["fwd_launches"],
-                 "long_launches": long["flash_fwd"],
+                 "long_launches": long["flash_fwd"], "grpo_launches": grpo["flash_fwd"],
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -1221,6 +1541,7 @@ def main():
                  "also_replaces": ["bioreason_tpu/ops/flash_attention.py:160",
                                    "bioreason_tpu/ops/flash_attention.py:271"],
                  "launches": train["bwd_launches"], "long_launches": long["flash_bwd"],
+                 "grpo_launches": grpo["flash_bwd"],
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],

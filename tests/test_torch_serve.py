@@ -231,7 +231,9 @@ training = {{"bioreason_tpu_torch.ops.fused_ce", "bioreason_tpu_torch.train.lora
             "bioreason_tpu_torch.train.sft", "bioreason_tpu_torch.train.checkpoint",
             "bioreason_tpu_torch.train.dataflow", "bioreason_tpu_torch.data.collate",
             "bioreason_tpu_torch.data.utils", "bioreason_tpu_torch.data.loaders",
-            "bioreason_tpu_torch.cli.common", "bioreason_tpu_torch.cli.train_sft"}}
+            "bioreason_tpu_torch.cli.common", "bioreason_tpu_torch.cli.train_sft",
+            "bioreason_tpu_torch.train.grpo", "bioreason_tpu_torch.train.rewards",
+            "bioreason_tpu_torch.train.metrics", "bioreason_tpu_torch.cli.reason"}}
 assert training <= set(names), sorted(training - set(names))
 for n in names:
     importlib.import_module(n)
