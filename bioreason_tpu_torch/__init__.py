@@ -7,17 +7,20 @@ a kernel written by hand for `sm_90a` (sources under `csrc/`, built with
 `nvcc` at first use); everything else is plain PyTorch.
 
 Layering (bottom-up):
-  data/      byte text tokenizer, k-mer DNA tokenizer, chat template,
-             bi-modal processor, KEGG formatting and loading, SFT collation
+  data/      byte text tokenizer, k-mer and char (Evo2) DNA tokenizers, chat
+             template, bi-modal processor, KEGG formatting and loading, SFT
+             collation
   ops/       flash attention forward and backward (CUDA kernels + plain
              versions), vocab-chunked cross-entropy, sampling
-  models/    layers (with LoRA), attention dispatch, NT-v2 encoder, Qwen3
-             decoder, fusion (with the training forward)
+  models/    layers (with LoRA), attention dispatch, NT-v2 encoder, Evo2
+             (StripedHyena-2) tower, Qwen3 decoder, fusion (with the
+             training forward)
   generate/  prefill + decode generation engine
   train/     LoRA, trainable selection, AdamW + schedule, SFT trainer,
              checkpoints, batching
   serve.py   micro-batching HTTP inference server
-  cli/       train_sft (the SFT entry point)
+  cli/       train_sft (SFT) and reason (GRPO) entry points
+  utils/     devices, the Evo2 checkpoint importer
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; asking
 for CUDA where there is none raises.

@@ -1,16 +1,35 @@
-"""Shared CLI plumbing: model-size presets and dataset loading (the port's
-counterpart of bioreason_tpu/cli/common.py, KEGG only)."""
+"""Shared CLI plumbing: model-size presets, the DNA tower's config and
+dataset loading (the port's counterpart of bioreason_tpu/cli/common.py,
+KEGG only)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from bioreason_tpu_torch.config import DecoderConfig, EncoderConfig
+from bioreason_tpu_torch.config import DecoderConfig, EncoderConfig, HyenaConfig
+from bioreason_tpu_torch.data.char_tokenizer import CharDNATokenizer
 from bioreason_tpu_torch.data.kegg import format_kegg_for_dna_llm, synthetic_kegg_items
+from bioreason_tpu_torch.data.nt_tokenizer import KmerTokenizer
 from bioreason_tpu_torch.data.utils import split_dataset, truncate_dna
 
 DECODER_PRESETS = {"tiny": DecoderConfig.tiny, "qwen3-0.6b": DecoderConfig.qwen3_0_6b}
 ENCODER_PRESETS = {"tiny": EncoderConfig.tiny, "nt-500m": EncoderConfig.nt_v2_500m}
+HYENA_PRESETS = {"evo2-tiny": HyenaConfig.tiny, "evo2-1b": HyenaConfig.evo2_1b}
+
+
+def build_encoder_config(name: str, dna_embedding_layer: int = -1):
+    """(encoder_kind, EncoderConfig, HyenaConfig or None, DNA tokenizer) of
+    a DNA tower preset (common.py:32-50). An Evo2 preset brings the char
+    tokenizer, the named-layer embedding tap `dna_embedding_layer` when it
+    is >= 0 (reference --dna_embedding_layer, dna_llm.py:127-146) and an
+    unused tiny EncoderConfig, as the JAX package builds it."""
+    if name in HYENA_PRESETS:
+        hy = HYENA_PRESETS[name]()
+        if dna_embedding_layer >= 0:
+            hy = dataclasses.replace(hy, embedding_tap_layer=dna_embedding_layer)
+        return "evo2", EncoderConfig.tiny(), hy, CharDNATokenizer()
+    return "nt", ENCODER_PRESETS[name](), None, KmerTokenizer()
 
 
 def load_items(data_dir: Optional[str], n_synthetic: int, truncate_per_side: int,

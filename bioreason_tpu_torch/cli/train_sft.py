@@ -9,6 +9,10 @@ On the card (the default device), at Qwen3-0.6B + NT-v2-500M width with
 weights drawn from --seed:
   python -m bioreason_tpu_torch.cli.train_sft --max_steps 4
 
+With the Evo2 DNA tower (Evo2-1B width, byte tokens; --dna_model_finetune
+trains it too, its attention blocks through flash_fwd / flash_bwd):
+  python -m bioreason_tpu_torch.cli.train_sft --encoder evo2-1b --max_steps 4
+
 Long DNA with the encoder trained, through the banded kernels (local_fwd
 and local_bwd in every encoder layer):
   python -m bioreason_tpu_torch.cli.train_sft --dna_attention local:256 \
@@ -17,9 +21,10 @@ and local_bwd in every encoder layer):
 
 Each step prints one JSON line of metrics; the final trainable parameters,
 optimizer state and step go to <checkpoint_dir>/sft_final, with what draws
-the frozen base again (--seed, the presets, --dna_attention, the vocabulary,
-the LoRA rank), so that `reason --sft_checkpoint` can rebuild the model
-(train/checkpoint.py:load_sft_for_grpo). Pretrained
+the frozen base again (--seed, the presets, --dna_attention,
+--dna_embedding_layer, the vocabulary, the LoRA rank), so that `reason
+--sft_checkpoint` can rebuild the model (train/checkpoint.py:
+load_sft_for_grpo). Pretrained
 checkpoints, sequence parallelism (`--sp_dna`, `--dna_attention sp`,
 `sp_pallas`, `sp_local:<W>`), probes, sampling, generative tests, profiling
 and wandb come with later slices: `main` refuses their flags.
@@ -41,11 +46,14 @@ LATER_FLAGS = ("hf_llm_dir", "hf_dna_dir", "evo2_dir", "sp_dna",
 
 
 def parse_args(argv=None):
-    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS
+    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS, HYENA_PRESETS
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--decoder", default="qwen3-0.6b", choices=sorted(DECODER_PRESETS))
-    p.add_argument("--encoder", default="nt-500m", choices=sorted(ENCODER_PRESETS))
+    p.add_argument("--encoder", default="nt-500m",
+                   choices=sorted(ENCODER_PRESETS) + sorted(HYENA_PRESETS))
+    p.add_argument("--dna_embedding_layer", type=int, default=-1,
+                   help="Evo2 named-layer embedding tap (block index)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--data_dir", default=None, help="KEGG JSON dir; synthetic corpus if unset")
     p.add_argument("--n_synthetic", type=int, default=64)
@@ -63,8 +71,9 @@ def parse_args(argv=None):
     p.add_argument("--no_lora", action="store_true", help="full finetune of the decoder")
     p.add_argument("--dna_attention", default=None,
                    help="encoder attention override: xla | pallas | local:<W> (banded, "
-                        "|i-j| <= W, O(T*W) for long DNA); sp, sp_pallas and sp_local:<W> "
-                        "are not ported yet (raise)")
+                        "|i-j| <= W, O(T*W) for long DNA; NT only: the Evo2 tower's "
+                        "attention is causal); sp, sp_pallas and sp_local:<W> are not "
+                        "ported yet (raise)")
     p.add_argument("--dna_model_finetune", action="store_true",
                    help="train the DNA encoder too")
     p.add_argument("--supervise_eos", action="store_true",
@@ -93,29 +102,36 @@ def parse_args(argv=None):
     if impl is not None and impl not in ("xla", "pallas") and not (
             impl.startswith("local:") and impl[6:].isdigit()):
         p.error(f"--dna_attention {impl!r}: expected xla, pallas or local:<W>")
+    if impl is not None and impl.startswith("local") and args.encoder in HYENA_PRESETS:
+        p.error("the Evo2 tower's striped attention is causal; banded local kernels "
+                "(local:/sp_local:) are bidirectional-only — use xla, pallas, sp or "
+                "sp_pallas")
     return args
 
 
 def main(argv=None):
     """Train; returns the trainer, with `trainer.history` the per-step metrics."""
     args = parse_args(argv)
-    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS, load_items
+    from bioreason_tpu_torch.cli.common import (DECODER_PRESETS, build_encoder_config,
+                                                load_items)
     from bioreason_tpu_torch.config import FusionConfig, LoRAConfig, OptimConfig, SFTConfig
-    from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
+    from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer
     from bioreason_tpu_torch.data.collate import sft_collate
     from bioreason_tpu_torch.train.dataflow import batch_iterator, prefetch
     from bioreason_tpu_torch.train.metrics import StepTimer
     from bioreason_tpu_torch.train.sft import SFTTrainer
 
     tok = ByteTextTokenizer()
-    encoder = ENCODER_PRESETS[args.encoder]()
-    if args.dna_attention:
+    kind, encoder, hyena, dna_tok = build_encoder_config(args.encoder, args.dna_embedding_layer)
+    if args.dna_attention and kind == "evo2":
+        hyena = dataclasses.replace(hyena, attention_impl=args.dna_attention)
+    elif args.dna_attention:
         encoder = dataclasses.replace(encoder, attention_impl=args.dna_attention)
     fusion_cfg = FusionConfig(
         decoder=DECODER_PRESETS[args.decoder](vocab_size=tok.vocab_size),
-        encoder=encoder, dna_pad_token_id=tok.dna_pad_id,
+        encoder=encoder, hyena=hyena, encoder_kind=kind, dna_pad_token_id=tok.dna_pad_id,
         max_length_text=args.max_length_text, max_length_dna=args.max_length_dna)
-    proc = BioProcessor(tok, KmerTokenizer())
+    proc = BioProcessor(tok, dna_tok)
     train_items, val_items, _ = load_items(args.data_dir, args.n_synthetic,
                                            args.truncate_dna_per_side, args.seed)
 

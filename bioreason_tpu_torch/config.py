@@ -1,8 +1,9 @@
 """Configuration dataclasses of the port (the serving, SFT and GRPO subset
 of bioreason_tpu/config.py, with the same field names and presets).
 
-Presets mirror the reference model zoo: the Qwen3-0.6B decoder and the
-NT-v2-500M encoder at their published widths, plus `tiny` test sizes.
+Presets mirror the reference model zoo: the Qwen3-0.6B decoder and the two
+DNA towers, NT-v2-500M and Evo2-1B, at their published widths, plus `tiny`
+test sizes.
 """
 
 from __future__ import annotations
@@ -79,6 +80,59 @@ class EncoderConfig:
 
 
 @dataclass(frozen=True)
+class HyenaConfig:
+    """Evo2/StripedHyena-2-style hybrid DNA tower (models/evo2.py).
+
+    Non-attention layers cycle through the three hyena flavors (short
+    explicit / medium regularized / long implicit); an attention block
+    replaces every `attn_every`-th layer (the striped pattern).
+    `layer_flavors` pins the per-layer operators of a real checkpoint (the
+    importer derives them from the weight keys)."""
+    vocab_size: int = 512
+    hidden_size: int = 1920
+    intermediate_size: int = 5120
+    num_layers: int = 25
+    num_heads: int = 15
+    short_filter_len: int = 3        # depthwise conv on the fused projection
+    se_filter_len: int = 7           # hyena_se explicit filter
+    medium_filter_len: int = 128     # hyena_mr explicit filter (decay-modulated)
+    li_order: int = 16               # hyena_li modal order (poles/residues)
+    attn_every: int = 7              # attention block every Nth layer
+    flavor_cycle: Tuple[str, ...] = ("se", "mr", "li")
+    layer_flavors: Optional[Tuple[str, ...]] = None   # explicit per-layer override
+    mlp_activation: str = "gelu"     # vortex ParallelGatedMLP default
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    attention_impl: str = "auto"     # 'auto' | 'xla' | 'pallas'; causal, so no 'local:'
+    remat: bool = True
+    dtype: str = "bfloat16"
+    embedding_tap_layer: int = -1    # named-layer embedding tap (dna_llm.py:127-146)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def flavor(self, layer_idx: int) -> str:
+        """Operator of layer `layer_idx`: 'attn' | 'se' | 'mr' | 'li'."""
+        if self.layer_flavors is not None:
+            return self.layer_flavors[layer_idx]
+        if (layer_idx + 1) % self.attn_every == 0:
+            return "attn"
+        n_prior_attn = layer_idx // self.attn_every
+        return self.flavor_cycle[(layer_idx - n_prior_attn) % len(self.flavor_cycle)]
+
+    @classmethod
+    def tiny(cls) -> "HyenaConfig":
+        return cls(hidden_size=64, intermediate_size=128, num_layers=4, num_heads=4,
+                   attn_every=4, li_order=4, medium_filter_len=16,
+                   remat=False, attention_impl="xla", dtype="float32")
+
+    @classmethod
+    def evo2_1b(cls) -> "HyenaConfig":
+        return cls(hidden_size=1920, intermediate_size=5120, num_layers=25, num_heads=15)
+
+
+@dataclass(frozen=True)
 class FusionConfig:
     """DNA-LLM fusion model (reference DNALLMModel, dna_llm.py:18-101)."""
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
@@ -86,8 +140,16 @@ class FusionConfig:
     dna_pad_token_id: int = 260       # ByteTextTokenizer's <|dna_pad|>
     max_length_dna: int = 2048
     max_length_text: int = 512
+    encoder_kind: str = "nt"          # 'nt' | 'evo2': which DNA tower runs
+    hyena: Optional[HyenaConfig] = None   # the Evo2 tower's config ('evo2')
     ce_save_logits: bool = False      # keep bf16 chunk logits for the CE backward
                                       # (ops/fused_ce.py) instead of recomputing
+
+    @property
+    def dna_tower(self):
+        """The config of the DNA tower that runs: `hyena` for 'evo2', else
+        `encoder` (an Evo2 config still carries an unused `encoder`)."""
+        return self.hyena if self.encoder_kind == "evo2" else self.encoder
 
     @classmethod
     def tiny(cls, text_vocab: int = 300, dna_pad_token_id: int = 260) -> "FusionConfig":

@@ -23,6 +23,7 @@ from torch import nn
 
 from bioreason_tpu_torch.config import FusionConfig
 from bioreason_tpu_torch.models import layers as L
+from bioreason_tpu_torch.models.evo2 import HyenaTower, hyena_forward, init_filters_
 from bioreason_tpu_torch.models.nt_encoder import NTEncoder, encoder_forward
 from bioreason_tpu_torch.models.qwen3 import Qwen3Decoder, decoder_forward
 from bioreason_tpu_torch.ops import fused_ce as CE
@@ -30,25 +31,32 @@ from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
 
 class FusionModel(nn.Module):
-    """Encoder, decoder and the DNA projection (nn.Linear with bias,
-    reference dna_llm.py:97). The projection is always trained, so it is
-    stored as an fp32 master and cast to the decoder dtype on every call."""
+    """The DNA tower that `cfg.encoder_kind` names (an `NTEncoder`, or the
+    Evo2 `HyenaTower` for 'evo2'), the decoder and the DNA projection
+    (nn.Linear with bias, reference dna_llm.py:97) from the tower's width.
+    The projection is always trained, so it is stored as an fp32 master and
+    cast to the decoder dtype on every call."""
 
     def __init__(self, cfg: FusionConfig, device=None):
         super().__init__()
-        self.encoder = NTEncoder(cfg.encoder, device, torch_dtype(cfg.encoder.dtype))
+        tower = cfg.dna_tower
+        kind = HyenaTower if cfg.encoder_kind == "evo2" else NTEncoder
+        self.encoder = kind(tower, device, torch_dtype(tower.dtype))
         self.decoder = Qwen3Decoder(cfg.decoder, device, torch_dtype(cfg.decoder.dtype))
-        self.dna_projection = L.linear(cfg.encoder.hidden_size, cfg.decoder.hidden_size,
+        self.dna_projection = L.linear(tower.hidden_size, cfg.decoder.hidden_size,
                                        True, device, torch.float32)
 
 
 def init_fusion(cfg: FusionConfig, seed: int = 0, device=None) -> FusionModel:
     """Random weights drawn from a `torch.Generator` seeded with `seed`, with
     the distributions of the JAX init (layers.py:17-28,126-127,165-166,
-    fusion.py:39-57), stored in each tower's dtype."""
+    fusion.py:39-57, evo2.py:146-195), stored in each tower's dtype."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return L.init_normal_(FusionModel(cfg, device), gen)
+    model = L.init_normal_(FusionModel(cfg, device), gen)
+    if cfg.encoder_kind == "evo2":
+        init_filters_(model.encoder, gen)
+    return model
 
 
 def encode_dna(model: FusionModel, cfg: FusionConfig, dna_input_ids,
@@ -57,8 +65,12 @@ def encode_dna(model: FusionModel, cfg: FusionConfig, dna_input_ids,
     Unless `train_encoder`, the tower runs without autograd (the JAX
     stop_gradient): no activation of it is kept for a backward."""
     with torch.set_grad_enabled(train_encoder and torch.is_grad_enabled()):
-        hidden = encoder_forward(model.encoder, cfg.encoder, dna_input_ids,
-                                 dna_attention_mask)
+        if cfg.encoder_kind == "evo2":
+            hidden = hyena_forward(model.encoder, cfg.hyena, dna_input_ids,
+                                   dna_attention_mask)
+        else:
+            hidden = encoder_forward(model.encoder, cfg.encoder, dna_input_ids,
+                                     dna_attention_mask)
     return L.dense(model.dna_projection, hidden, torch_dtype(cfg.decoder.dtype))
 
 

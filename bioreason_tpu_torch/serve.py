@@ -13,6 +13,8 @@ Endpoints:
 
 Run (on the card; `--device cpu` for the CPU):
   python -m bioreason_tpu_torch.serve --decoder tiny --encoder tiny --port 8787
+With the Evo2 DNA tower (byte tokens, 2048 per sequence at 2 kb):
+  python -m bioreason_tpu_torch.serve --encoder evo2-1b
 
 Continuous batching, KV depth tiers, int8 weights and activations, fused
 projections and guided decoding come with later slices; `main` refuses
@@ -31,11 +33,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS
+from bioreason_tpu_torch.cli.common import (DECODER_PRESETS, ENCODER_PRESETS, HYENA_PRESETS,
+                                            build_encoder_config)
 from bioreason_tpu_torch.config import FusionConfig, SamplingConfig
 from bioreason_tpu_torch.data.chat_template import render_chat
 from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only
-from bioreason_tpu_torch.data.nt_tokenizer import KmerTokenizer
 from bioreason_tpu_torch.data.processor import BioProcessor
 from bioreason_tpu_torch.data.text_tokenizer import ByteTextTokenizer
 from bioreason_tpu_torch.generate.engine import GenerationEngine
@@ -209,11 +211,14 @@ def make_http_server(server: InferenceServer, port: int = 8787,
 def build_config(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
                  max_length_dna: int = 2048):
     """(FusionConfig, BioProcessor) of a preset pair, with the byte text
-    tokenizer and the k-mer DNA tokenizer."""
+    tokenizer and the DNA tower's tokenizer (k-mers for NT, bytes for Evo2;
+    `cli.common.build_encoder_config`)."""
     tok = ByteTextTokenizer()
-    cfg = FusionConfig(decoder=DECODER_PRESETS[decoder](), encoder=ENCODER_PRESETS[encoder](),
-                       dna_pad_token_id=tok.dna_pad_id, max_length_dna=max_length_dna)
-    return cfg, BioProcessor(tok, KmerTokenizer())
+    kind, enc, hyena, dna_tok = build_encoder_config(encoder)
+    cfg = FusionConfig(decoder=DECODER_PRESETS[decoder](), encoder=enc, hyena=hyena,
+                       encoder_kind=kind, dna_pad_token_id=tok.dna_pad_id,
+                       max_length_dna=max_length_dna)
+    return cfg, BioProcessor(tok, dna_tok)
 
 
 def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
@@ -230,7 +235,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--decoder", default="qwen3-0.6b", choices=sorted(DECODER_PRESETS))
-    p.add_argument("--encoder", default="nt-500m", choices=sorted(ENCODER_PRESETS))
+    p.add_argument("--encoder", default="nt-500m",
+                   choices=sorted(ENCODER_PRESETS) + sorted(HYENA_PRESETS))
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--max_batch", type=int, default=8)
     p.add_argument("--max_new_tokens", type=int, default=256)

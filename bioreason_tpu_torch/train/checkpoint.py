@@ -5,11 +5,11 @@ they come from the seed or the import that built the model).
 
 A checkpoint of a model drawn from a seed records in its metadata what
 draws the same frozen base again (`BASE_KEYS`: the seed, the device type
-that drew it, the presets, the DNA attention, the vocabulary, the LoRA
-rank and the frozen weights' storage dtype): `load_sft_model` rebuilds the
-SFT model from it and refuses any mismatch with the caller's configuration,
-since adapters paired with another base would load without complaint and
-mean nothing.
+that drew it, the presets, the attention and embedding tap of the DNA tower
+that runs, the vocabulary, the LoRA rank and the frozen weights' storage
+dtype): `load_sft_model` rebuilds the SFT model from it and refuses any
+mismatch with the caller's configuration, since adapters paired with
+another base would load without complaint and mean nothing.
 """
 
 from __future__ import annotations
@@ -19,10 +19,20 @@ from typing import Any, Dict, Optional
 
 import torch
 
-BASE_KEYS = ("seed", "init_device", "decoder", "encoder", "dna_attention", "vocab_size",
-             "lora_r", "lora_alpha", "frozen_dtype")
+BASE_KEYS = ("seed", "init_device", "decoder", "encoder", "dna_attention",
+             "dna_embedding_layer", "vocab_size", "lora_r", "lora_alpha", "frozen_dtype")
 
 FILE = "state.pt"
+
+
+def model_keys(fusion_cfg) -> Dict[str, Any]:
+    """The `BASE_KEYS` that `fusion_cfg` fixes, read from the DNA tower
+    that runs (`FusionConfig.dna_tower`: an Evo2 config also carries an
+    unused NT `encoder`); the NT tower has no embedding tap (-1)."""
+    evo2 = fusion_cfg.encoder_kind == "evo2"
+    return {"dna_attention": fusion_cfg.dna_tower.attention_impl,
+            "dna_embedding_layer": fusion_cfg.hyena.embedding_tap_layer if evo2 else -1,
+            "vocab_size": fusion_cfg.decoder.vocab_size}
 
 
 def save_checkpoint(path: str, trainable: Dict[str, torch.Tensor], opt_state: Dict,
@@ -54,8 +64,8 @@ def load_sft_model(path: str, fusion_cfg, seed: int, decoder: str, encoder: str,
 
     Raises ValueError when the checkpoint does not record `BASE_KEYS`, or
     records another seed, preset (`decoder`, `encoder`: the CLI preset
-    names), DNA attention or vocabulary size than `fusion_cfg` and the
-    arguments ask for."""
+    names), DNA attention, embedding tap or vocabulary size than
+    `fusion_cfg` and the arguments ask for."""
     from bioreason_tpu_torch.config import LoRAConfig
     from bioreason_tpu_torch.models.fusion import init_fusion
     from bioreason_tpu_torch.train.lora import attach_lora
@@ -69,9 +79,7 @@ def load_sft_model(path: str, fusion_cfg, seed: int, decoder: str, encoder: str,
             f"{path}: its metadata lacks {missing}, so the frozen base it was trained on "
             f"cannot be drawn again (a checkpoint written before the port recorded them, "
             f"or of a model that was not drawn from a seed); train it again")
-    want = {"seed": seed, "decoder": decoder, "encoder": encoder,
-            "dna_attention": fusion_cfg.encoder.attention_impl,
-            "vocab_size": fusion_cfg.decoder.vocab_size}
+    want = {"seed": seed, "decoder": decoder, "encoder": encoder, **model_keys(fusion_cfg)}
     wrong = {k: (meta[k], v) for k, v in want.items() if meta[k] != v}
     if wrong:
         raise ValueError(f"{path} was trained on another base: (checkpoint, asked) {wrong}")

@@ -9,10 +9,12 @@ with the vocab-chunked CE -> backward (the decoder's attention through
 non-finite guard). As in the reference: LoRA over the text tower (all its
 linear layers; embeddings and lm_head excluded), frozen DNA tower, trainable
 projection. `freeze_encoder=False` (the CLI's --dna_model_finetune) trains
-the DNA tower too (JAX train/sft.py:66-67), through `flash_bwd` or, on
-`attention_impl="local:<W>"`, the banded `local_bwd`. Trainable parameters
-are fp32 masters; frozen float parameters of two or more dimensions are
-stored in `cfg.frozen_dtype`.
+the DNA tower too (JAX train/sft.py:66-67), NT or Evo2, through `flash_bwd`
+or, on NT's `attention_impl="local:<W>"`, the banded `local_bwd`. Trainable
+parameters are fp32 masters; frozen float parameters of two or more
+dimensions are stored in `cfg.frozen_dtype`, the Evo2 tower's filter leaves
+(li poles and residues, mr taps, short filters) included, as JAX stores
+them (train/sft.py:88-99).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from bioreason_tpu_torch.models.fusion import FusionModel, fusion_forward, init_
     validate_splice
 from bioreason_tpu_torch.ops.fused_ce import gather_label_positions
 from bioreason_tpu_torch.train import trainable as T
-from bioreason_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from bioreason_tpu_torch.train.checkpoint import load_checkpoint, model_keys, \
+    save_checkpoint
 from bioreason_tpu_torch.train.lora import attach_lora, has_lora
 from bioreason_tpu_torch.train.optim import AdamW
 from bioreason_tpu_torch.utils.devices import resolve_device
@@ -50,9 +53,7 @@ class SFTTrainer:
         if model is None:
             model = init_fusion(fusion_cfg, seed=cfg.seed, device=self.device)
             self.base_metadata = {
-                "seed": cfg.seed, "init_device": self.device.type,
-                "dna_attention": fusion_cfg.encoder.attention_impl,
-                "vocab_size": fusion_cfg.decoder.vocab_size,
+                "seed": cfg.seed, "init_device": self.device.type, **model_keys(fusion_cfg),
                 "lora_r": cfg.lora.r if cfg.lora is not None else None,
                 "lora_alpha": cfg.lora.alpha if cfg.lora is not None else None,
                 "frozen_dtype": cfg.frozen_dtype}

@@ -88,6 +88,30 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               backward, with completions that end early as at an EOS); then
               `python -m bioreason_tpu_torch.cli.reason` for 2 steps from the
               sft_final that phase 6's train_sft CLI wrote.
+  9. evo2     the committed vortex fixtures (tests/assets) through the port's
+              importer on the card, fp32, held to their goldens with cuDNN's
+              TF32 off and on; Evo2-1B + Qwen3-0.6B served at full width
+              (bf16, weights from seed 0): the kernel vs plain route on one
+              request, 8 concurrent greedy requests of 2 x 2048 bp twice
+              (identical repeats), exact flash_fwd launches per engine call
+              (3 tower attention blocks + 28 prefill layers), prefill latency,
+              decode tokens/s, peak memory, one profiled prefill split into
+              hyena convolutions / FFT, filter materialization, tower
+              attention, decoder attention, GEMMs and the rest, and the
+              tower's output with its filter leaves stored in bf16 (as a
+              frozen SFT tower stores them) against fp32; then flash_fwd and
+              flash_bwd against their plain versions at the path's own shapes
+              and masks (the tower [16, 2048, 15/15, 128] causal with mixed
+              left pads, the served Evo2 prefill, the finetune step's tower
+              backward [4, 2048, 15/15, 128]).
+ 10. evo2-train  `train_sft --encoder evo2-1b` for 3 steps with the tower
+              frozen and 3 with --dna_model_finetune (B=2, 16 synthetic KEGG
+              items of 2 x 2048 bp in a .jsonl), exact flash_fwd / flash_bwd
+              launches per step, the frozen filter leaves stored in bf16, every
+              trained tower leaf moved; the finetune trainer for 1 + 3 timed
+              steps (ms, memory held between steps and peak), one profiled
+              step, one loss + gradient through the kernels against the plain
+              route (all trainable gradients, and the tower's alone).
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -735,6 +759,46 @@ def phase_kernels(torch, max_new):
 
 # -- phase 4 -----------------------------------------------------------------
 
+def burst(server, reqs, max_new):
+    """Send `reqs` to `server` at once, one thread each, greedy; the
+    results in request order."""
+    results = [None] * len(reqs)
+
+    def one(i):
+        results[i] = server.generate(reqs[i], max_new_tokens=max_new, greedy=True)
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(reqs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return results
+
+
+def record_engine_calls(server):
+    """Wrap `server.engine.generate` so each call appends ((ids, mask),
+    its last_stats) to the returned list; `restore` undoes the wrap. With
+    random weights most greedy ids lie past the byte tokenizer's 266 ids
+    and decode to "", so repeats are compared on ids, not only on texts."""
+    calls, engine_generate = [], server.engine.generate
+
+    def recording_generate(*args, **kw):
+        out = engine_generate(*args, **kw)
+        calls.append((out, dict(server.engine.last_stats)))
+        return out
+    server.engine.generate = recording_generate
+
+    def restore():
+        server.engine.generate = engine_generate
+    return calls, restore
+
+
+def completion_rows(calls):
+    """Completion rows of recorded engine calls as a sorted multiset (the
+    batch order follows the requests' arrival, which threads do not fix)."""
+    return sorted(tuple(ids[i][mask[i].astype(bool)].tolist())
+                  for (ids, mask), _ in calls for i in range(ids.shape[0]))
+
+
 def phase_serve(torch, card, max_new):
     from bioreason_tpu_torch.generate.engine import GenerationEngine
     from bioreason_tpu_torch.ops import flash_attention as fa
@@ -784,43 +848,15 @@ def phase_serve(torch, card, max_new):
         fail(f"kernel and plain routes disagree at full width (cosine {cos:.4f})")
 
     server.start()
-    # record what each engine call returns: with random weights most greedy
-    # ids lie past the byte tokenizer's 266 ids and decode to "", so the
-    # repeat check compares token ids, not only texts
-    calls_out = []
-    engine_generate = server.engine.generate
-
-    def recording_generate(*args, **kw):
-        ids_mask = engine_generate(*args, **kw)
-        calls_out.append((ids_mask, dict(server.engine.last_stats)))
-        return ids_mask
-    server.engine.generate = recording_generate
-
-    def burst(reqs):
-        results = [None] * len(reqs)
-
-        def one(i):
-            results[i] = server.generate(reqs[i], max_new_tokens=max_new, greedy=True)
-        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(reqs))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        return results
-
-    def rows_of(calls):
-        """Completion rows of a burst as a sorted multiset (the batch order
-        follows the requests' arrival, which threads do not fix)."""
-        return sorted(tuple(ids[i][mask[i].astype(bool)].tolist())
-                      for (ids, mask), _ in calls for i in range(ids.shape[0]))
+    calls_out, restore = record_engine_calls(server)
 
     # --- the main path: counts from 0 just before, read just after ---------
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
     calls0 = server.engine_calls
-    first = burst(items)
+    first = burst(server, items, max_new)
     n_first = len(calls_out)
-    second = burst(items)
+    second = burst(server, items, max_new)
     httpd = make_http_server(server, port=0, host="127.0.0.1")
     http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     http_thread.start()
@@ -840,14 +876,15 @@ def phase_serve(torch, card, max_new):
     httpd.shutdown()
     httpd.server_close()
     server.stop()
-    server.engine.generate = engine_generate
+    restore()
     # -----------------------------------------------------------------------
 
     answered = [r for r in first + second if r and set(r) == {"completion", "answer"}]
     if len(answered) != 16 or http_status != 200 or set(http_result) != {"completion", "answer"}:
         fail(f"not every request was answered: {first} {second} {http_result}")
-    first_rows = rows_of(calls_out[:n_first])
-    if len(first_rows) != 8 or first_rows != rows_of(calls_out[n_first:-1]) or first != second:
+    first_rows = completion_rows(calls_out[:n_first])
+    if (len(first_rows) != 8 or first_rows != completion_rows(calls_out[n_first:-1])
+            or first != second):
         fail(f"greedy repeats of the same 8 requests differ (engine call batch sizes "
              f"{[ids.shape[0] for (ids, _), _ in calls_out]})")
     if server.engine.nonfinite_rows:
@@ -893,7 +930,9 @@ def profile_step(torch, card, label, step, names, ranges=()):
     the share of the kernels whose names hold each of `names`, and the
     device time of the kernels launched inside each `record_function` range
     named in `ranges` (a kernel belongs to a range when the host op that
-    launched it started inside it)."""
+    launched it started inside it). Returns the busy and wall ms, the parts
+    and each kernel as (name, duration ns, the ranges it belongs to, device
+    start ns)."""
     import bisect
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -912,10 +951,11 @@ def profile_step(torch, card, label, step, names, ranges=()):
             else:
                 op_start[e.correlation_id()] = e.start_ns()
         elif not e.is_user_annotation():
-            kernels.append((e.name(), e.duration_ns(), e.linked_correlation_id()))
+            kernels.append((e.name(), e.duration_ns(), e.linked_correlation_id(),
+                            e.start_ns()))
     busy_ms = sum(k[1] for k in kernels) / 1e6
     by_name = {}
-    for name, dur, _ in kernels:
+    for name, dur, *_ in kernels:
         n, t = by_name.get(name, (0, 0))
         by_name[name] = (n + 1, t + dur)
     share = {n: sum(t for k, (_, t) in by_name.items() if n in k) / 1e6 for n in names}
@@ -925,27 +965,30 @@ def profile_step(torch, card, label, step, names, ranges=()):
                     for k, v in share.items()))
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"  {t / 1e6:9.3f} ms {n:6d}x  {name[:90]}")
-    parts = {}
+    parts, in_ranges = {}, [set() for _ in kernels]
     for r, iv in spans.items():
         iv.sort()
         starts = [a for a, _ in iv]
         total = 0
-        for _, dur, corr in kernels:
+        for k, (_, dur, corr, _) in enumerate(kernels):
             t = op_start.get(corr)
             if t is None:
                 continue
             i = bisect.bisect_right(starts, t) - 1
             if i >= 0 and t < iv[i][1]:
                 total += dur
+                in_ranges[k].add(r)
         parts[r] = (len(iv), total / 1e6)
+    by_kernel = [(name, dur, frozenset(rs), start)
+                 for (name, dur, _, start), rs in zip(kernels, in_ranges)]
     if not ranges:
-        return busy_ms, wall_ms, parts
+        return busy_ms, wall_ms, parts, by_kernel
     linked = sum(1 for k in kernels if k[2] in op_start)
     log(f"profile [{card}] {label} parts (device ms of the kernels launched inside each "
         f"range, share of busy; {linked} of {len(kernels)} kernels linked to a host op): "
         + ", ".join(f"{r} x{n} {ms:.3f} ({100 * ms / max(busy_ms, 1e-9):.1f}%)"
                     for r, (n, ms) in parts.items()))
-    return busy_ms, wall_ms, parts
+    return busy_ms, wall_ms, parts, by_kernel
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1485,6 +1528,457 @@ def phase_grpo(torch, card, sft_final):
     return got, rows, bwd_rows
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+EVO2_BLOCKS, EVO2_ATTN = 25, (6, 13, 20)     # Evo2-1B: attention in 3 of 25 blocks
+EVO2_BP = 2048                               # 2 x 2 kb per KEGG item, one byte token per bp
+# the committed fixtures (tests/assets) and their goldens' tolerance: 2e-5
+# for the 4-block tower; the 25-block one's goldens carry fp32 rounding of
+# their own beyond 2e-5 (an fp64 evaluation misses them by up to 3.50e-5,
+# tests/test_torch_evo2.py), so 1e-4 there
+EVO2_FIXTURES = (("evo2_tiny", 1, (2, 12), ((None, "evo2_tiny_out"), (2, "evo2_tiny_tap")),
+                  2e-5),
+                 ("evo2_1b_depth_tiny", 5, (2, 24),
+                  ((None, "evo2_1b_depth_out"), (20, "evo2_1b_depth_tap20")), 1e-4))
+
+
+def evo2_served_inputs(n: int = 8):
+    """The 8-request batch phase 9 serves, as `prepare_batch` hands it to
+    the engine: KEGG-shaped items of 2 x 2048 bp, byte-tokenized."""
+    from bioreason_tpu_torch.data.kegg import synthetic_kegg_items
+    from bioreason_tpu_torch.serve import build_config, prepare_batch
+    items = synthetic_kegg_items(n=n, seq_len=EVO2_BP, seed=0)
+    cfg, processor = build_config("qwen3-0.6b", "evo2-1b", max_length_dna=EVO2_BP)
+    return items, prepare_batch(processor, cfg, items)
+
+
+def phase_evo2_goldens(torch):
+    """The committed vortex fixtures through the port's importer on the
+    card, fp32, the plain attention of their own configs: held to their
+    goldens with cuDNN's TF32 off (this script's setting) and on (PyTorch's
+    default), so the depthwise convolutions' precision is measured."""
+    from bioreason_tpu_torch.models.evo2 import hyena_forward
+    from bioreason_tpu_torch.utils.pretrained import load_pretrained_evo2
+    assets = os.path.join(REPO, "tests", "assets")
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    worst = 0.0
+    for name, seed, shape, outs, tol in EVO2_FIXTURES:
+        tmp = tempfile.mkdtemp(prefix="smoke_evo2_", dir=build_dir)
+        try:
+            shutil.copy(os.path.join(assets, f"{name}.pt"), tmp)
+            cfg, tower = load_pretrained_evo2(tmp, device="cuda", dtype="float32",
+                                              attention_impl="xla", remat=False)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        ids = torch.as_tensor(np.random.default_rng(seed).integers(0, 32, shape),
+                              dtype=torch.int32, device="cuda")
+        for tap, golden in outs:
+            want = np.load(os.path.join(assets, f"{golden}.npy"))
+            errs = {}
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = tf32
+                try:
+                    with torch.no_grad():
+                        got = hyena_forward(tower, cfg, ids, tap_layer=tap).cpu().numpy()
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                err = np.abs(got - want)
+                errs[tf32] = (float(err.max()), float((err / (tol + tol * np.abs(want))).max()))
+            log(f"evo2 goldens: {name} {golden} on the card, fp32: max abs err {errs[False][0]:.3g} "
+                f"({errs[False][1]:.3f} of the tolerance {tol:g} abs + rel) with cuDNN TF32 off, "
+                f"{errs[True][0]:.3g} ({errs[True][1]:.3f}) with it on")
+            if max(errs[False][1], errs[True][1]) > 1.0:
+                fail(f"the {name} fixture misses its golden {golden} on the card: {errs}")
+            worst = max(worst, errs[False][0], errs[True][0])
+    return worst
+
+
+def phase_evo2_serve(torch, card, max_new):
+    """Evo2-1B + Qwen3-0.6B served at full width (module docstring, phase 9)."""
+    from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.models.evo2 import hyena_forward
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    from bioreason_tpu_torch.serve import build_server, prepare_batch
+
+    t_phase = time.perf_counter()
+    server = build_server("qwen3-0.6b", "evo2-1b", max_length_dna=EVO2_BP, seed=0,
+                          max_batch=8, batch_window_ms=500.0, max_new_tokens=max_new,
+                          greedy_default=True)
+    cfg = server.cfg
+    hy, dec = cfg.hyena, cfg.decoder
+    attn_blocks = tuple(i for i in range(hy.num_layers) if hy.flavor(i) == "attn")
+    if (cfg.encoder_kind, hy.num_layers, hy.hidden_size, hy.num_heads, hy.head_dim,
+            hy.intermediate_size, attn_blocks) != ("evo2", EVO2_BLOCKS, 1920, 15, 128, 5120,
+                                                   EVO2_ATTN):
+        fail(f"the DNA tower is not Evo2-1B: {cfg.encoder_kind} {hy}")
+    if (dec.num_layers, dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.vocab_size) != (
+            DECODER_LAYERS, 1024, 16, 8, 151936):
+        fail(f"decoder is not at Qwen3-0.6B width: {dec}")
+    n_tower = sum(p.numel() for p in server.model.encoder.parameters())
+    n_all = sum(p.numel() for p in server.model.parameters())
+    items, (ids, mask, dna, dmask) = evo2_served_inputs()
+    flavors = "".join(hy.flavor(i)[0] for i in range(hy.num_layers))
+    log(f"evo2 serve: model of {n_all / 1e6:.1f} M parameters ({n_tower / 1e6:.1f} M in the "
+        f"Evo2 tower, flavors {flavors}), seed 0, built in {time.perf_counter() - t_phase:.2f} s; the served batch: B="
+        f"{ids.shape[0]} P={ids.shape[1]} text tokens, DNA {list(dna.shape)} "
+        f"({int(dmask.sum())} valid)")
+
+    # the kernel route against the plain route on one request at full width
+    one = [torch.as_tensor(a, device="cuda")
+           for a in prepare_batch(server.processor, cfg, items[:1])]
+    plain_cfg = dataclasses.replace(cfg, hyena=dataclasses.replace(hy, attention_impl="xla"),
+                                    decoder=dataclasses.replace(dec, attention_impl="xla"))
+    eos = server.processor.text_tokenizer.eos_token_id
+    before = fa.flash_attention.launches
+    k_logits = server.engine.prefill(server.model, *one, max_new)[0]
+    if fa.flash_attention.launches - before != len(EVO2_ATTN) + DECODER_LAYERS:
+        fail("the kernel route did not launch flash_fwd once per tower attention block and "
+             "prefill layer")
+    p_logits = GenerationEngine(plain_cfg, eos).prefill(server.model, *one, max_new)[0]
+    if not (bool(torch.isfinite(k_logits).all()) and bool(torch.isfinite(p_logits).all())):
+        fail("non-finite Evo2 prefill logits")
+    cos = float(torch.nn.functional.cosine_similarity(k_logits, p_logits, dim=-1).min())
+    log(f"evo2 serve: kernel vs plain route, last-column prefill logits of one request "
+        f"(P={one[0].shape[1]}): min cosine {cos:.6f}, max abs diff "
+        f"{float((k_logits - p_logits).abs().max()):.4g}, same argmax "
+        f"{bool((k_logits.argmax(-1) == p_logits.argmax(-1)).all())}")
+    if cos < 0.99:
+        fail(f"kernel and plain routes disagree on the Evo2 path (cosine {cos:.4f})")
+    del k_logits, p_logits
+
+    server.start()
+    calls_out, restore = record_engine_calls(server)
+
+    # --- the main path: counts from 0 just before, read just after ---------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    calls0 = server.engine_calls
+    first = burst(server, items, max_new)
+    n_first = len(calls_out)
+    second = burst(server, items, max_new)
+    got = counts()
+    calls = server.engine_calls - calls0
+    peak = torch.cuda.max_memory_allocated()
+    server.stop()
+    restore()
+    # -----------------------------------------------------------------------
+
+    answered = [r for r in first + second if r and set(r) == {"completion", "answer"}]
+    if len(answered) != 16:
+        fail(f"not every Evo2 request was answered: {first} {second}")
+    rows = [completion_rows(calls_out[:n_first]), completion_rows(calls_out[n_first:])]
+    if len(rows[0]) != 8 or rows[0] != rows[1] or first != second:
+        fail("greedy repeats of the same 8 Evo2 requests differ")
+    per_call = len(EVO2_ATTN) + DECODER_LAYERS
+    if got["flash_fwd"] != per_call * calls or any(v for k, v in got.items() if k != "flash_fwd"):
+        fail(f"the Evo2 server launched {got} in {calls} engine calls, expected "
+             f"{per_call} flash_fwd per call ({len(EVO2_ATTN)} tower attention blocks + "
+             f"{DECODER_LAYERS} prefill layers)")
+    log(f"evo2 serve: 16 requests answered in {calls} engine calls ({n_first} for the first "
+        f"8); flash_fwd launches {got['flash_fwd']} = {got['flash_fwd'] // max(calls, 1)} per "
+        f"call; greedy repeats identical")
+    for name, (_, st) in (("first 8", calls_out[n_first - 1]), ("same 8 again", calls_out[-1])):
+        tps = st["decode_tokens"] / st["decode_s"] if st["decode_s"] else 0.0
+        log(f"evo2 serve [{card}] {name}: B={st['batch']} P={st['prompt_len']}: prefill "
+            f"(tower + splice + prefill + first token) {st['prefill_s'] * 1e3:.1f} ms; decode "
+            f"{tps:.1f} tokens/s over {st['steps'] - 1} steps "
+            f"({st['decode_s'] / max(st['steps'] - 1, 1) * 1e3:.2f} ms per step)")
+    log(f"evo2 serve [{card}]: torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
+
+    # one profiled prefill, its device time split by part
+    args = [torch.as_tensor(a, device="cuda") for a in (ids, mask, dna, dmask)]
+    evo2_profile(torch, card, "evo2 prefill",
+                 lambda: server.engine.prefill(server.model, *args, max_new),
+                 tower_attention_first=len(EVO2_ATTN))
+
+    # the frozen-dtype question (ROADMAP 3): the tower's output with its
+    # filter leaves stored in bf16, as a frozen SFT tower stores them,
+    # against fp32 storage, same seed, on the served DNA
+    tower = server.model.encoder
+    d_ids, d_mask = args[2], args[3]
+    with torch.no_grad():
+        ref = hyena_forward(tower, hy, d_ids, d_mask)
+        saved = {n: p.detach().clone() for n, p in tower.named_parameters()
+                 if ".hyena." in n and p.dtype == torch.float32 and p.dim() >= 2}
+        for which in ("poles", "all"):
+            for n, p in tower.named_parameters():
+                if n in saved and (which == "all" or n.endswith("filter.poles")):
+                    p.copy_(saved[n].to(torch.bfloat16))
+            out = hyena_forward(tower, hy, d_ids, d_mask)
+            v = d_mask.bool()
+            diff = (out.float() - ref.float())[v]
+            rel = float(diff.norm() / ref.float()[v].norm())
+            cosr = float(torch.nn.functional.cosine_similarity(out.float()[v], ref.float()[v],
+                                                               dim=-1).min())
+            log(f"evo2 frozen storage [{card}]: tower output [{list(ref.shape)}] with "
+                f"{'the li poles' if which == 'poles' else 'every filter leaf of ndim >= 2'} "
+                f"stored in bf16 against fp32: max abs diff {float(diff.abs().max()):.4g} "
+                f"(max |out| {float(ref.float()[v].abs().max()):.4g}), relative norm "
+                f"{rel:.4g}, min row cosine {cosr:.6f}")
+            for n, p in tower.named_parameters():
+                if n in saved:
+                    p.copy_(saved[n])
+    del saved, ref
+    log(f"evo2 serve: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return got, (ids, mask, dna, dmask)
+
+
+EVO2_PARTS = ("hyena_conv", "hyena_filters", "evo2_tower")
+
+
+def evo2_profile(torch, card, label, step, tower_attention_first=0):
+    """`profile_step` over `step` with the tower and its hyena parts in
+    `record_function` ranges; prints the device time of the tower and of
+    the rest, each split into hyena convolutions / FFT (with their fp32
+    casts and copies), filter materialization, attention, GEMMs and the
+    rest (elementwise and copy kernels). A flash kernel, launched from its
+    C entry, may link to no host op: with `tower_attention_first` = n, the
+    first n flash kernels on the device are the tower's (a prefill runs the
+    tower before the decoder). Kernels of a backward run outside the ranges
+    (autograd launches them after the forward), so in a training step the
+    tower's parts count its forward and none of its backward."""
+    from torch.profiler import record_function
+    from bioreason_tpu_torch.models import evo2 as evo2_mod
+    from bioreason_tpu_torch.models import fusion as fusion_mod
+    targets = {"hyena_conv": [(evo2_mod, "depthwise_causal_conv"), (evo2_mod, "fft_causal_conv")],
+               "hyena_filters": [(evo2_mod, "materialize_mr_filter"),
+                                 (evo2_mod, "materialize_li_filter")],
+               "evo2_tower": [(fusion_mod, "hyena_forward")]}
+    saved = {(m, a): getattr(m, a) for pairs in targets.values() for m, a in pairs}
+
+    def labelled(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+    try:
+        for name, pairs in targets.items():
+            for m, a in pairs:
+                setattr(m, a, labelled(name, saved[(m, a)]))
+        busy, wall, _, kernels = profile_step(torch, card, label, step,
+                                              ("flash_fwd", "flash_bwd"), EVO2_PARTS)
+    finally:
+        for (m, a), fn in saved.items():
+            setattr(m, a, fn)
+    kinds = ("hyena convolutions / FFT", "hyena filter materialization", "attention", "GEMMs",
+             "rest")
+    split = {part: dict.fromkeys(kinds, 0.0) for part in ("tower", "outside the tower")}
+    gemm = ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "splitk")
+    flash = sorted((start, k) for k, (name, _, _, start) in enumerate(kernels)
+                   if "flash_" in name)
+    tower_flash = {k for _, k in flash[:tower_attention_first]}
+    for k, (name, dur, rs, _) in enumerate(kernels):
+        low = name.lower()
+        part = "tower" if "evo2_tower" in rs or k in tower_flash else "outside the tower"
+        if "hyena_conv" in rs:
+            kind = "hyena convolutions / FFT"
+        elif "hyena_filters" in rs:
+            kind = "hyena filter materialization"
+        elif "flash_" in low:
+            kind = "attention"
+        elif any(g in low for g in gemm):
+            kind = "GEMMs"
+        else:
+            kind = "rest"
+        split[part][kind] += dur / 1e6
+    for part, row in split.items():
+        total = sum(row.values())
+        log(f"profile [{card}] {label} split, {part}: {total:.3f} device ms "
+            f"({100 * total / max(busy, 1e-9):.1f}% of busy {busy:.2f} ms): "
+            + ", ".join(f"{k} {v:.3f} ({100 * v / max(busy, 1e-9):.1f}%)"
+                        for k, v in row.items()))
+    return split
+
+
+# -- phase 10 ----------------------------------------------------------------
+
+def evo2_kernel_cases(torch, served):
+    """flash_fwd and flash_bwd at the Evo2 path's own shapes and masks: the
+    tower's attention [16, 2048, 15/15, 128] causal as served (2 kb
+    sequences: all valid) and with left pads of mixed lengths, the decoder
+    prefill of the served batch (causal, a cache of P +
+    64 slots, its left pads), and the finetune step's tower backward
+    [4, 2048, 15/15, 128] causal with mixed left pads."""
+    g = torch.Generator(device="cuda").manual_seed(51)
+    ids, mask, dna, _ = served
+    b, p = ids.shape
+    cmask = torch.as_tensor(np.pad(mask, ((0, 0), (0, 64))), device="cuda")
+    rows = [kernel_case(torch, "evo2_tower_T2048", 16, EVO2_BP, EVO2_BP, 15, 15, 128, True, 0,
+                        torch.as_tensor(served[3], device="cuda"), 50),
+            kernel_case(torch, "evo2_tower_T2048_leftpad", 16, EVO2_BP, EVO2_BP, 15, 15, 128,
+                        True, 0, left_padded(torch, 16, EVO2_BP, 0, 1500, g), 51),
+            kernel_case(torch, f"evo2_prefill_P{p}", b, p, p + 64, 16, 8, 128, True, 0,
+                        cmask, 52)]
+    bwd_rows = [bwd_case(torch, "evo2_tower_T2048_leftpad_bwd", 4, EVO2_BP, EVO2_BP, 15, 15,
+                         128, True, 0, left_padded(torch, 4, EVO2_BP, 0, 1500, g), 53)]
+    return rows, bwd_rows
+
+
+def evo2_train_items():
+    """16 KEGG-shaped items of 2 x 2048 bp for the Evo2 SFT phase."""
+    from bioreason_tpu_torch.data.kegg import synthetic_kegg_items
+    return synthetic_kegg_items(n=16, seq_len=EVO2_BP, seed=1)
+
+
+def phase_evo2_train(torch, card):
+    """Evo2 SFT at full width through the CLI, frozen and finetuned (module
+    docstring, phase 10)."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.cli import train_sft
+    from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer
+    from bioreason_tpu_torch.data.char_tokenizer import CharDNATokenizer
+    from bioreason_tpu_torch.data.collate import sft_collate
+    from bioreason_tpu_torch.data.kegg import format_kegg_for_dna_llm
+    from bioreason_tpu_torch.models.fusion import fusion_forward, init_fusion
+    t_phase = time.perf_counter()
+    n_attn = len(EVO2_ATTN)
+    # the decoder keeps remat on (its preset): each of its layers runs its
+    # forward twice a step; the frozen tower runs without autograd (no
+    # remat), the trained one with remat (its preset): forward twice, and
+    # one backward per attention block
+    per_step = {"frozen": {"flash_fwd": n_attn + 2 * DECODER_LAYERS,
+                           "flash_bwd": DECODER_LAYERS},
+                "finetune": {"flash_fwd": 2 * n_attn + 2 * DECODER_LAYERS,
+                             "flash_bwd": n_attn + DECODER_LAYERS}}
+    items = evo2_train_items()
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_evo2_", dir=build_dir)
+    steps = 3
+    out = {}
+    try:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        with open(os.path.join(data_dir, "kegg_2kb.jsonl"), "w", encoding="utf-8") as fh:
+            fh.write("\n".join(json.dumps(x) for x in items))
+        for mode in ("frozen", "finetune"):
+            argv = ["--decoder", "qwen3-0.6b", "--encoder", "evo2-1b", "--max_steps", str(steps),
+                    "--seed", "0",
+                    "--checkpoint_dir", os.path.join(tmp, mode), "--max_length_dna",
+                    str(EVO2_BP), "--truncate_dna_per_side", "0", "--data_dir", data_dir]
+            if mode == "finetune":
+                argv.append("--dna_model_finetune")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # --- the main path: counts from 0 just before, read just after ---
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = train_sft.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = counts()
+            # -----------------------------------------------------------------
+            peak = torch.cuda.max_memory_allocated()
+            losses = [m["loss"] for m in trainer.history]
+            want = {k: steps * per_step[mode].get(k, 0) for k in got}
+            log(f"evo2 train (cli, {mode}) [{card}]: {steps} steps in {secs:.1f} s (model, data "
+                f"and checkpoint included), losses {[round(x, 4) for x in losses]}, step ms "
+                f"{[round(m['step_time'] * 1e3, 1) for m in trainer.history]}, "
+                f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; launches {got}")
+            if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+                fail(f"train_sft --encoder evo2-1b ({mode}) did not run {steps} finite steps")
+            if got != want:
+                fail(f"train_sft --encoder evo2-1b ({mode}) launched {got}, expected {want}")
+            tower = trainer.model.encoder
+            poles = tower.blocks[2].hyena.filter.poles
+            if poles.dtype != (torch.bfloat16 if mode == "frozen" else torch.float32):
+                fail(f"{mode}: the li poles are stored in {poles.dtype}")
+            out[mode] = {"launches": got, "step_ms": [m["step_time"] * 1e3
+                                                      for m in trainer.history],
+                         "peak_gib": peak / 2**30}
+            if mode == "frozen":
+                del trainer, tower, poles
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # every leaf of the trained tower moved from its seeded init
+    init = init_fusion(trainer.fusion_cfg, seed=0, device="cuda")
+    state = trainer.trainable_state()
+    enc = list(init.encoder.named_parameters())
+    still = [n for n, p in enc if torch.equal(state[f"encoder.{n}"].detach(), p.float())]
+    log(f"evo2 train (cli, finetune): {len(enc) - len(still)} of {len(enc)} tower leaves "
+        f"moved")
+    if still:
+        fail(f"Evo2 tower leaves did not move: {still[:4]}")
+    del init, enc, state
+
+    # the finetune trainer on one batch: timed steps, memory, profile, cosine
+    proc = BioProcessor(ByteTextTokenizer(), CharDNATokenizer())
+    batch = sft_collate([format_kegg_for_dna_llm(x) for x in items[:2]], proc,
+                        max_length_text=512, max_length_dna=EVO2_BP, bucket=128)
+    b, t = np.asarray(batch["input_ids"]).shape
+    s_, t_dna = np.asarray(batch["dna_input_ids"]).shape
+    n_train = sum(p.numel() for p in trainer.params)
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # --- the main path: counts from 0 just before, read just after ---------
+    reset_counts()
+    step_ms = []
+    for _ in range(steps):
+        ts = time.perf_counter()
+        trainer.train_step(batch)                # ends in a host sync (loss, norm)
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    got = counts()
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    log(f"evo2 train (trainer, finetune) [{card}]: B={b} T={t}, tower {s_} x {t_dna} byte "
+        f"tokens, {n_train / 1e6:.1f} M trainable parameters (LoRA r32 + projection + the "
+        f"tower, fp32 masters), remat on: step ms {[round(x, 1) for x in step_ms]} "
+        f"({b * steps / (sum(step_ms) / 1e3):.3f} examples/s); held between steps "
+        f"{held / 2**30:.2f} GiB (weights, masters, AdamW moments), "
+        f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; launches {got}")
+    if got != {k: steps * per_step["finetune"].get(k, 0) for k in got}:
+        fail(f"the Evo2 finetune trainer launched {got} in {steps} steps")
+    out["trainer"] = {"step_ms": step_ms, "peak_gib": peak / 2**30, "held_gib": held / 2**30,
+                      "launches": got}
+    evo2_profile(torch, card, "evo2 finetune step", lambda: trainer.train_step(batch))
+
+    # one loss + gradient through the kernels against the plain route
+    db = trainer._device_batch(batch)
+    cfg = trainer.fusion_cfg
+
+    def loss_and_grad(c):
+        _, loss = fusion_forward(trainer.model, c, db["input_ids"], db["attention_mask"],
+                                 db["dna_input_ids"], db["dna_attention_mask"],
+                                 label_positions=db["label_positions"],
+                                 label_targets=db["label_targets"],
+                                 label_valid=db["label_valid"], train_encoder=True)
+        grads = torch.autograd.grad(loss, trainer.params)
+        return float(loss.detach()), torch.cat([g.float().flatten() for g in grads])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lk, gk = loss_and_grad(cfg)
+    log(f"evo2 train: forward + backward alone (the gradients returned, no optimizer) "
+        f"peaks at {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    plain = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, attention_impl="xla"),
+        hyena=dataclasses.replace(cfg.hyena, attention_impl="xla"))
+    reset_counts()
+    lp, gp = loss_and_grad(plain)
+    if any(counts().values()):
+        fail(f"the plain route launched kernels: {counts()}")
+    cos = float(F.cosine_similarity(gk, gp, dim=0))
+    # the tower's parameters come first in the trainable list
+    n_tower = sum(p.numel() for n, p in zip(trainer.names, trainer.params)
+                  if n.startswith("encoder."))
+    cos_tower = float(F.cosine_similarity(gk[:n_tower], gp[:n_tower], dim=0))
+    log(f"evo2 train: kernel vs plain route, one loss + gradient (tower trained): loss "
+        f"{lk:.6f} vs {lp:.6f} (diff {abs(lk - lp):.3g}), cosine of the {gk.numel()} trainable "
+        f"gradients {cos:.6f}, of the tower's {n_tower} {cos_tower:.6f}; norms "
+        f"{float(gk.norm()):.4g} vs {float(gp.norm()):.4g}")
+    if not (math.isfinite(lk) and math.isfinite(lp)) or min(cos, cos_tower) < 0.99:
+        fail(f"kernel and plain routes disagree in Evo2 training (cosine {cos:.4f})")
+    del gk, gp, trainer
+    torch.cuda.empty_cache()
+    log(f"evo2 train: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -1516,10 +2010,19 @@ def main():
                                                     os.path.join(ckpt, "sft_final"))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    golden_err = phase_evo2_goldens(torch)
+    evo2_serve, evo2_batch = phase_evo2_serve(torch, card, max_new)
+    torch.cuda.empty_cache()
+    evo2_rows, evo2_bwd_rows = evo2_kernel_cases(torch, evo2_batch)
+    evo2_train = phase_evo2_train(torch, card)
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    rows += grpo_rows
-    bwd_rows += grpo_bwd_rows
+    rows += grpo_rows + evo2_rows
+    bwd_rows += grpo_bwd_rows + evo2_bwd_rows
+    evo2_launches = {"serve": evo2_serve["flash_fwd"],
+                     **{mode: evo2_train[mode]["launches"]
+                        for mode in ("frozen", "finetune", "trainer")}}
     # the served prefill: the kernel's largest call
     served = next(r for r in rows if r["shape"].startswith("prefill_served"))
     fwd_entry = {"name": "flash_fwd", "route": "cuda",
@@ -1528,6 +2031,8 @@ def main():
                  "also_replaces": ["bioreason_tpu/ops/flash_attention.py:239"],
                  "launches": launches, "train_launches": train["fwd_launches"],
                  "long_launches": long["flash_fwd"], "grpo_launches": grpo["flash_fwd"],
+                 "evo2_launches": {k: v if isinstance(v, int) else v["flash_fwd"]
+                                   for k, v in evo2_launches.items()},
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -1542,6 +2047,8 @@ def main():
                                    "bioreason_tpu/ops/flash_attention.py:271"],
                  "launches": train["bwd_launches"], "long_launches": long["flash_bwd"],
                  "grpo_launches": grpo["flash_bwd"],
+                 "evo2_launches": {k: v["flash_bwd"] for k, v in evo2_launches.items()
+                                   if not isinstance(v, int)},
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],
@@ -1566,6 +2073,7 @@ def main():
             "library_ms": at["library_ms"], "at_shape": at["shape"],
             "build": {fn: r for fn, r in built.items() if f"local_{kind}_kernel" in fn},
             "shapes": mine})
+    log(f"evo2 goldens: largest error on the card {golden_err:.3g}")
     log(json.dumps({"kernels": [fwd_entry, bwd_entry, *local_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,493 @@
+"""The port's Evo2 slice against the JAX package: the char tokenizer, the
+hyena filter primitives, the tower, the vortex importer on the committed
+checkpoint fixtures, fusion and serving with `--encoder evo2-tiny`, two SFT
+steps with the tower frozen and trained, and the SFT checkpoint's rebuild.
+
+Tiny configs in fp32 on the CPU; inputs made once from a numpy seed and fed
+to both packages, parameters carried across by `from_jax_params`. JAX
+references are compiled whole with `jax.jit` and cached, as the other port
+tests do. Valid rows only wherever pads exist: a left pad is a fully masked
+query row of the tower's causal attention, where the plain route gives the
+mean of V and the flash route 0, and no valid row reads it.
+"""
+
+import dataclasses
+import functools
+import math
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bioreason_tpu import config as JC
+from bioreason_tpu.data.char_tokenizer import CharDNATokenizer as JChar
+from bioreason_tpu.data.text_tokenizer import ByteTextTokenizer as JByte
+from bioreason_tpu.generate.engine import GenerationEngine as JEngine
+from bioreason_tpu.models import evo2 as JE
+from bioreason_tpu.models import fusion as JF
+from bioreason_tpu.parallel import make_mesh
+from bioreason_tpu.train.sft import SFTTrainer as JTrainer
+from bioreason_tpu_torch import config as TC
+from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer
+from bioreason_tpu_torch.data import collate as TD
+from bioreason_tpu_torch.data import kegg as TK
+from bioreason_tpu_torch.data.char_tokenizer import CharDNATokenizer
+from bioreason_tpu_torch.generate.engine import GenerationEngine as TEngine
+from bioreason_tpu_torch.models import evo2 as TE
+from bioreason_tpu_torch.serve import InferenceServer, build_config, prepare_batch
+from bioreason_tpu_torch.train.sft import SFTTrainer
+from bioreason_tpu_torch.utils.pretrained import load_pretrained_evo2
+from bioreason_tpu_torch.weights import from_jax_params
+
+ASSETS = os.path.join(os.path.dirname(__file__), "assets")
+TOK = ByteTextTokenizer()
+PROC = BioProcessor(TOK, CharDNATokenizer())
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def jcfg_evo2(**hyena_kw):
+    """The JAX tiny fusion config with the tiny Evo2 tower, and the port's
+    (the tiny decoder at its preset vocabulary, as `serve.build_config`
+    builds it)."""
+    cfgs = []
+    for C in (JC, TC):
+        hy = dataclasses.replace(C.HyenaConfig.tiny(), **hyena_kw)
+        cfgs.append(C.FusionConfig(
+            decoder=C.DecoderConfig.tiny(), encoder=C.EncoderConfig.tiny(),
+            hyena=hy, encoder_kind="evo2", dna_pad_token_id=TOK.dna_pad_id))
+    return tuple(cfgs)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fusion_params(seed=3):
+    jcfg, _ = jcfg_evo2()
+    params = jax.jit(JF.init_fusion, static_argnums=1)(jax.random.PRNGKey(seed), jcfg)
+    return jax.tree.map(np.asarray, params)
+
+
+def left_padded_ids(seed, b=3, t_=24, pads=(0, 5, 11)):
+    """Byte DNA ids (vocab 512) with left pads of the given lengths."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(2, 512, (b, t_)).astype(np.int32)
+    mask = np.ones((b, t_), np.int32)
+    for i, p in enumerate(pads):
+        ids[i, :p], mask[i, :p] = 1, 0
+    return ids, mask
+
+
+# -- the char tokenizer -------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [{}, {"max_length": 7}, {"pad_to": 20},
+                                {"padding_side": "right"}, {"padding": False},
+                                {"max_length": 5, "truncation": False}])
+def test_char_tokenizer_matches_jax(kw):
+    seqs = ["ACGTNNACGT", "AC", "acgtx", "", "ünï"]
+    a, b = CharDNATokenizer()(seqs, **kw), JChar()(seqs, **kw)
+    for key in ("input_ids", "attention_mask"):
+        assert [list(map(int, r)) for r in a[key]] == [list(map(int, r)) for r in b[key]]
+    assert CharDNATokenizer().decode(a["input_ids"][0]) == JChar().decode(b["input_ids"][0])
+
+
+def test_processor_with_the_char_tokenizer_matches_jax():
+    from bioreason_tpu.data.processor import BioProcessor as JProc
+    items = [TK.format_kegg_prompt_only(it) for it in TK.synthetic_kegg_items(3, 30, seed=1)]
+    text = [f"q {i} <|dna_start|><|dna_pad|><|dna_end|> and <|dna_start|><|dna_pad|><|dna_end|>"
+            for i in range(3)]
+    dna = [it["dna_sequences"] for it in items]
+    dna[2] = [dna[2][0][:9], dna[2][1]]
+    a = PROC(text, dna, max_length_dna=24)
+    b = JProc(JByte(), JChar())(text, dna, max_length_dna=24)
+    for key in ("input_ids", "attention_mask", "dna_input_ids", "dna_attention_mask"):
+        np.testing.assert_array_equal(getattr(a, key), getattr(b, key))
+    assert (a.input_ids == TOK.dna_pad_id).sum() == (a.dna_input_ids != 1).sum()
+
+
+# -- the filter primitives ------------------------------------------------------
+
+def test_filter_primitives_match_jax():
+    """depthwise_causal_conv (K=3 and 7), fft_causal_conv (a short and a
+    full-length filter), the mr filter from a [C] rate and from a [C, L]
+    envelope, and the li filter; fp32, atol 1e-5 on values of size ~1."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 37, 12)).astype(np.float32)
+    for k in (3, 7):
+        filt = rng.standard_normal((12, k)).astype(np.float32)
+        np.testing.assert_allclose(TE.depthwise_causal_conv(t(x), t(filt)).numpy(),
+                                   np.asarray(jax.jit(JE._depthwise_causal_conv)(x, filt)),
+                                   atol=1e-5, rtol=0)
+    for length in (16, 37):
+        h = rng.standard_normal((12, length)).astype(np.float32) * 0.3
+        np.testing.assert_allclose(TE.fft_causal_conv(t(x), t(h)).numpy(),
+                                   np.asarray(jax.jit(JE._fft_causal_conv)(x, h)),
+                                   atol=1e-5, rtol=0)
+    h = rng.standard_normal((12, 16)).astype(np.float32)
+    for decay in (rng.standard_normal(12).astype(np.float32),
+                  rng.uniform(0, 1, (12, 16)).astype(np.float32)):
+        np.testing.assert_allclose(
+            TE.materialize_mr_filter(t(h), t(decay)).numpy(),
+            np.asarray(jax.jit(JE._materialize_mr_filter)({"h": h, "decay": decay})),
+            atol=1e-5, rtol=0)
+    poles = np.stack([rng.standard_normal((12, 4)), rng.standard_normal((12, 4)) * 0.3],
+                     -1).astype(np.float32)
+    residues = rng.standard_normal((12, 4, 2)).astype(np.float32) * 0.2
+    want = jax.jit(JE._materialize_li_filter, static_argnums=1)(
+        {"poles": poles, "residues": residues}, 64)
+    np.testing.assert_allclose(TE.materialize_li_filter(t(poles), t(residues), 64).numpy(),
+                               np.asarray(want), atol=1e-5, rtol=0)
+
+
+# -- the tower ----------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def jax_tower(tap):
+    """JAX hyena_forward and the gradient of the sum of its valid rows with
+    respect to the tower's parameters, compiled once per tap (remat changes
+    what is stored, not the values, so the port's remat on and off are both
+    held to it)."""
+    jcfg, _ = jcfg_evo2()
+
+    def f(params, ids, mask):
+        out = JE.hyena_forward(params, jcfg.hyena, ids, mask, tap_layer=tap)
+        return (out * mask[..., None]).sum(), out
+    return jax.jit(jax.value_and_grad(f, has_aux=True))
+
+
+@pytest.mark.parametrize("remat,tap", [(False, None), (True, None), (False, 2), (True, 2)])
+def test_tower_and_its_gradient_match_hyena_forward(remat, tap):
+    """All four flavors (se, mr, li, attn), left pads, the tap and remat:
+    valid rows at atol 1e-5 (values of size ~3), and the gradient of their
+    sum with respect to every tower parameter at 1e-5 of that gradient's
+    largest magnitude (up to ~1e3 for the embedding; remat recomputes each
+    block in the backward, torch.utils.checkpoint against jax.checkpoint)."""
+    params = jax_fusion_params()
+    _, tcfg = jcfg_evo2(remat=remat)
+    assert [tcfg.hyena.flavor(i) for i in range(4)] == ["se", "mr", "li", "attn"]
+    ids, mask = left_padded_ids(1)
+    (_, jout), jgrad = jax_tower(tap)(params["encoder"], ids, mask)
+    model = from_jax_params(params, tcfg, device="cpu")
+    tower = model.encoder
+    out = TE.hyena_forward(tower, tcfg.hyena, t(ids), t(mask), tap_layer=tap)
+    valid = mask.astype(bool)
+    np.testing.assert_allclose(out.detach().numpy()[valid], np.asarray(jout)[valid],
+                               atol=1e-5, rtol=0)
+    (out * t(mask)[..., None]).sum().backward()
+    n = 0
+    for name, p in tower.named_parameters():
+        ref = jax_leaf(jgrad, name)
+        if p.grad is None:                   # blocks past the tap take no gradient
+            assert tap is not None and not np.any(ref), name
+            continue
+        np.testing.assert_allclose(p.grad.numpy(), ref, atol=1e-5 * np.abs(ref).max(), rtol=0,
+                                   err_msg=name)
+        n += 1
+    assert n >= 8 * (tap + 1 if tap is not None else 4)
+
+
+def test_valid_rows_do_not_depend_on_the_left_pads():
+    """The same sequences behind 0, 5 and 40 left pads: the FFT length and
+    the padded width change, the valid rows do not (atol 1e-5)."""
+    _, tcfg = jcfg_evo2()
+    tower = from_jax_params(jax_fusion_params(), tcfg, device="cpu").encoder
+    ids, _ = left_padded_ids(2, b=2, t_=20, pads=(0, 0))
+    outs = []
+    with torch.no_grad():
+        for pad in (0, 5, 40):
+            pid = np.concatenate([np.ones((2, pad), np.int32), ids], 1)
+            pm = np.concatenate([np.zeros((2, pad), np.int32), np.ones_like(ids)], 1)
+            outs.append(TE.hyena_forward(tower, tcfg.hyena, t(pid), t(pm))[:, pad:].numpy())
+    for o in outs[1:]:
+        np.testing.assert_allclose(o, outs[0], atol=1e-5, rtol=0)
+
+
+def test_init_hyena_draws_the_jax_distributions():
+    """Seeded, reproducible, every leaf finite; the filter leaves follow the
+    JAX init: zero D skip and mr rate, li poles' logits ~N(0, 1) and phases
+    ~N(0, 0.01), residues at scale 0.1 / li_order, conv filters decaying."""
+    cfg = dataclasses.replace(TC.HyenaConfig.tiny(), hidden_size=256, num_heads=4)
+    a, b = (TE.init_hyena(cfg, seed=5, device="cpu").requires_grad_(False) for _ in range(2))
+    for (n, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(p, q) and bool(torch.isfinite(p).all()), n
+    li, mr, se = a.blocks[2].hyena.filter, a.blocks[1].hyena.filter, a.blocks[0].hyena.filter
+    assert float(li.poles[..., 0].std()) == pytest.approx(1.0, rel=0.15)
+    assert float(li.poles[..., 1].std()) == pytest.approx(0.1, rel=0.15)
+    assert float(li.residues.std()) == pytest.approx(0.1 / cfg.li_order, rel=0.15)
+    assert not mr.decay.any() and not a.blocks[0].hyena.filter_bias.any()
+    assert float(se.h[:, 0].std()) == pytest.approx(0.02, rel=0.2)
+    assert float(se.h[:, -1].abs().mean()) < float(se.h[:, 0].abs().mean())
+    w = a.blocks[3].attn.q.weight
+    assert float(w.std()) == pytest.approx(256 ** -0.5, rel=0.1)
+
+
+# -- the committed vortex fixtures ---------------------------------------------
+
+def load_fixture(tmp_path, name):
+    """The port's loader and importer on a committed .pt file (complex
+    poles, [C, L] decay envelopes, fused Wqkv), the config from the shapes."""
+    shutil.copy(os.path.join(ASSETS, f"{name}.pt"), tmp_path / f"{name}.pt")
+    return load_pretrained_evo2(str(tmp_path), device="cpu", dtype="float32",
+                                attention_impl="xla", remat=False)
+
+
+# the 25-block fixture's goldens are fp32 outputs of one implementation, and
+# their own rounding error through 25 blocks exceeds 2e-5: an fp64
+# evaluation of the same imported weights misses them by up to 2.19e-5
+# (out) and 3.50e-5 (tap20), 0.96 and 1.54 times the 2e-5 tolerance; the
+# port's fp32 by 2.72e-5 and 4.39e-5. They are held at 1e-4, and every block
+# of that fixture at 2e-5 on the JAX block's own input (below).
+@pytest.mark.parametrize("name,tap,golden,tol", [
+    ("evo2_tiny", None, "evo2_tiny_out", 2e-5), ("evo2_tiny", 2, "evo2_tiny_tap", 2e-5),
+    ("evo2_1b_depth_tiny", None, "evo2_1b_depth_out", 1e-4),
+    ("evo2_1b_depth_tiny", 20, "evo2_1b_depth_tap20", 1e-4)])
+def test_importer_reproduces_the_committed_goldens(tmp_path, name, tap, golden, tol):
+    """The committed goldens through the port's own importer, the config
+    derived from the weights' shapes (tests/test_import_fixtures.py holds
+    the JAX package, which wrote them, at 2e-5)."""
+    cfg, tower = load_fixture(tmp_path, name)
+    if name == "evo2_tiny":
+        seed, shape = 1, (2, 12)
+        assert cfg.layer_flavors == ("se", "mr", "li", "attn")
+        assert (cfg.hidden_size, cfg.num_heads, cfg.se_filter_len, cfg.medium_filter_len,
+                cfg.li_order, cfg.short_filter_len) == (16, 2, 5, 8, 3, 3)
+    else:
+        seed, shape = 5, (2, 24)
+        assert [i for i, f in enumerate(cfg.layer_flavors) if f == "attn"] == [6, 13, 20]
+        assert cfg.layer_flavors == tuple(TC.HyenaConfig.evo2_1b().flavor(i) for i in range(25))
+        assert (cfg.medium_filter_len, cfg.li_order, cfg.se_filter_len) == (128, 16, 7)
+    ids = np.random.default_rng(seed).integers(0, 32, shape).astype(np.int32)
+    with torch.no_grad():
+        got = TE.hyena_forward(tower, cfg, t(ids), tap_layer=tap)
+    np.testing.assert_allclose(got.numpy(), np.load(os.path.join(ASSETS, f"{golden}.npy")),
+                               atol=tol, rtol=tol)
+
+
+def test_every_block_of_the_depth_fixture_matches_jax_on_its_input(tmp_path):
+    """Each of the 25 blocks of evo2_1b_depth_tiny.pt, imported by each
+    package's own importer, given the JAX tower's input to that block (the
+    golden run's ids): the port's block output at atol 2e-5 (values up to
+    ~13), so no operator or imported leaf differs beyond rounding."""
+    from bioreason_tpu.utils.hf_import import import_evo2 as j_import
+    cfg, tower = load_fixture(tmp_path, "evo2_1b_depth_tiny")
+    sd = torch.load(os.path.join(ASSETS, "evo2_1b_depth_tiny.pt"), map_location="cpu",
+                    weights_only=True)
+    params, flavors = j_import({k: (v.numpy() if v.is_complex() else v.float().numpy())
+                                for k, v in sd.items()})
+    jcfg = JC.HyenaConfig(**{f.name: getattr(cfg, f.name)
+                             for f in dataclasses.fields(JC.HyenaConfig)})
+    ids = np.random.default_rng(5).integers(0, 32, (2, 24)).astype(np.int32)
+    mask = np.ones_like(ids)
+    pos = np.broadcast_to(np.arange(24, dtype=np.int32), ids.shape).copy()
+
+    @functools.partial(jax.jit, static_argnums=2)
+    def jax_block(block, h, flavor):
+        if flavor == "attn":
+            h = JE._attn_mixer(block, h, jcfg, mask, pos)
+        else:
+            h = JE._hyena_mixer(block, h, jcfg, flavor, mask)
+        return JE._gated_mlp(block, h, jcfg)[0]
+
+    h = np.asarray(params["embed"]["embedding"])[ids]
+    for i, flavor in enumerate(flavors):
+        want = np.asarray(jax_block(params["blocks"][i], h, flavor))
+        with torch.no_grad():
+            got, _ = TE._block_forward(tower.blocks[i], t(h), cfg, t(mask), t(pos))
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0, err_msg=f"block {i}")
+        h = want
+
+
+def test_importer_keeps_complex_poles_and_refuses_another_layout(tmp_path):
+    from bioreason_tpu_torch.utils.evo2_import import import_evo2, load_state_dict
+    shutil.copy(os.path.join(ASSETS, "evo2_tiny.pt"), tmp_path / "w.pt")
+    state = load_state_dict(str(tmp_path))
+    raw = state["blocks.2.filter.poles"]
+    assert raw.is_complex()
+    cfg, tower = load_pretrained_evo2(str(tmp_path), device="cpu", dtype="float32")
+    stored = tower.blocks[2].hyena.filter.poles.detach()
+    back = torch.sigmoid(stored[..., 0]) * torch.exp(1j * stored[..., 1])
+    np.testing.assert_allclose(back.numpy(), raw.reshape(16, 3).numpy(), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="operators"):
+        import_evo2(state, dataclasses.replace(cfg, layer_flavors=("se", "se", "li", "attn")),
+                    device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        import_evo2(state, dataclasses.replace(cfg, li_order=4), device="cpu")
+
+
+# -- fusion and serving ----------------------------------------------------------
+
+def serve_batch(cfg, processor):
+    items = TK.synthetic_kegg_items(n=3, seq_len=40, seed=2)
+    return items, prepare_batch(processor, cfg, items)
+
+
+def test_serve_evo2_tiny_greedy_matches_jax_engine():
+    """`serve.build_config(encoder="evo2-tiny")` (byte DNA tokens, the tiny
+    tower) with the JAX fusion weights: the engine's greedy completions equal
+    the JAX engine's token for token, and the server answers with their
+    text."""
+    tcfg, processor = build_config("tiny", "evo2-tiny", max_length_dna=64)
+    assert tcfg.encoder_kind == "evo2" and isinstance(processor.dna_tokenizer, CharDNATokenizer)
+    jcfg, _ = jcfg_evo2()
+    params = jax_fusion_params()
+    model = from_jax_params(params, tcfg, device="cpu")
+    items, args = serve_batch(tcfg, processor)
+    assert args[2].shape == (6, 40)
+    jids, jmask = JEngine(jcfg, eos_token_id=TOK.eos_token_id).generate(
+        jax.tree.map(jnp.asarray, params), *args, greedy=True, max_new_tokens=8)
+    tids, tmask = TEngine(tcfg, eos_token_id=TOK.eos_token_id, device="cpu").generate(
+        model, *args, greedy=True, max_new_tokens=8)
+    np.testing.assert_array_equal(tids, np.asarray(jids))
+    np.testing.assert_array_equal(tmask, np.asarray(jmask))
+    server = InferenceServer(model, tcfg, processor, max_new_tokens=8, greedy_default=True,
+                             batch_window_ms=200.0, device="cpu").start()
+    try:
+        results = [server.generate(it) for it in items[:1]]
+    finally:
+        server.stop()
+    one = TEngine(tcfg, eos_token_id=TOK.eos_token_id, device="cpu").generate(
+        model, *prepare_batch(processor, tcfg, items[:1]), greedy=True, max_new_tokens=8)
+    want = TOK.decode(one[0][0][one[1][0].astype(bool)], skip_special_tokens=True)
+    assert results[0]["completion"] == want
+
+
+def test_serve_main_accepts_the_evo2_presets():
+    from bioreason_tpu_torch.serve import main
+    with pytest.raises(NotImplementedError):      # parsed, then refused for --int8
+        main(["--decoder", "tiny", "--encoder", "evo2-tiny", "--device", "cpu", "--int8"])
+    with pytest.raises(SystemExit):
+        main(["--encoder", "evo2-7b", "--device", "cpu"])
+
+
+# -- SFT ------------------------------------------------------------------------
+
+def sft_items(seed):
+    exs = [TK.format_kegg_for_dna_llm(it) for it in TK.synthetic_kegg_items(2, 40, seed=seed)]
+    return TD.sft_collate(exs, PROC, 512, 64, bucket=None)
+
+
+def sft_cfgs(freeze_encoder):
+    out = []
+    for C in (TC, JC):
+        out.append(C.SFTConfig(
+            batch_size=2, max_length_dna=64, bucket=None, frozen_dtype="bfloat16",
+            freeze_encoder=freeze_encoder, lora=C.LoRAConfig(r=4, alpha=8, dropout=0.0),
+            optim=C.OptimConfig(learning_rate=1e-2, total_steps=20, warmup_ratio=0.0,
+                                eps=1e-3)))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_sft_run(freeze_encoder):
+    """The JAX SFTTrainer on a one-device mesh with the tiny Evo2 tower: its
+    initial parameters (frozen leaves as it stores them) and the metrics and
+    parameters after each of two steps."""
+    jcfg, _ = jcfg_evo2()
+    _, jsft = sft_cfgs(freeze_encoder)
+    trainer = JTrainer(jcfg, jsft, mesh=make_mesh(JC.MeshConfig(data=1),
+                                                  devices=jax.devices()[:1]))
+    init = jax.tree.map(np.asarray, trainer.params)
+    metrics = [trainer.train_step(sft_items(s)) for s in (30, 31)]
+    return init, metrics, jax.tree.map(np.asarray, trainer.params)
+
+
+def jax_leaf(tree, name):
+    """The JAX leaf of the port parameter `name` (dots; nn.Linear `weight`
+    transposed) in the nested tree: stacked `[L, ...]` layers, the Evo2
+    tower's list of blocks."""
+    parts = name.split(".")
+    node, layer, k = tree, None, 0
+    while k < len(parts) - 1:
+        if isinstance(node, list):
+            node = node[int(parts[k])]
+        elif parts[k] == "layers":
+            node, layer = node["layers"], int(parts[k + 1])
+            k += 1
+        else:
+            node = node[parts[k]]
+        k += 1
+    key = parts[-1]
+    if key == "weight":
+        key = "embedding" if "embedding" in node else "kernel"
+    ref = np.asarray(node[key])
+    ref = ref if layer is None else ref[layer]
+    return ref.T if key == "kernel" else ref
+
+
+@pytest.mark.parametrize("freeze_encoder", [True, False])
+def test_sft_two_steps_match_the_jax_trainer(freeze_encoder):
+    """Two steps with the Evo2 tower frozen (stored as JAX stores it: every
+    frozen fp32 leaf of two or more dimensions in bf16, the li poles and
+    residues, mr taps and short filters included) and trained
+    (`--dna_model_finetune`: every tower leaf an fp32 master that moves).
+    Loss and grad norm at rel 1e-5; every trainable parameter after two
+    steps at atol 1e-5, with AdamW eps 1e-3 on both sides (ROADMAP,
+    "known about the reference", note 7)."""
+    init, jmetrics, jfinal = jax_sft_run(freeze_encoder)
+    _, tcfg = jcfg_evo2()
+    tsft, _ = sft_cfgs(freeze_encoder)
+    trainer = SFTTrainer(tcfg, tsft, model=from_jax_params(init, tcfg, device="cpu"),
+                         device="cpu")
+    # the tower's leaves are stored as JAX stores them (its blocks are a list,
+    # so per-block leaves have the same ndim in both packages; the decoder's
+    # stacked [L, D] norm scales are 2-D in JAX, 1-D here)
+    for name, p in trainer.model.encoder.named_parameters():
+        jdtype = str(jax_leaf(init["encoder"], name).dtype)
+        assert str(p.dtype) == f"torch.{jdtype}", name
+    assert trainer.model.encoder.blocks[2].hyena.filter.poles.dtype == (
+        torch.bfloat16 if freeze_encoder else torch.float32)
+    enc = [n for n in trainer.names if n.startswith("encoder.")]
+    assert len(enc) == (0 if freeze_encoder else len(list(trainer.model.encoder.parameters())))
+    before = {n: p.detach().clone() for n, p in trainer.trainable_state().items()}
+    for s, jm in zip((30, 31), jmetrics):
+        m = trainer.train_step(sft_items(s))
+        assert m["loss"] == pytest.approx(jm["loss"], rel=1e-5)
+        assert m["grad_norm"] == pytest.approx(jm["grad_norm"], rel=1e-5)
+    state = trainer.trainable_state()
+    for name, p in state.items():
+        np.testing.assert_allclose(p.detach().numpy(), jax_leaf(jfinal, name), atol=1e-5,
+                                   rtol=0, err_msg=name)
+    assert all(not torch.equal(state[n].detach(), before[n]) for n in enc)
+
+
+def test_cli_evo2_trains_and_its_sft_final_rebuilds(tmp_path):
+    """`train_sft --encoder evo2-tiny --dna_embedding_layer 2
+    --dna_model_finetune`: 2 finite steps; its sft_final records the tower's
+    attention and tap, `load_sft_model` rebuilds the SFT model parameter for
+    parameter, and refuses another tap or another attention."""
+    from bioreason_tpu_torch.cli import train_sft
+    from bioreason_tpu_torch.train.checkpoint import load_checkpoint, load_sft_model
+    trainer = train_sft.main(["--decoder", "tiny", "--encoder", "evo2-tiny", "--device", "cpu",
+                              "--dna_embedding_layer", "2", "--dna_model_finetune",
+                              "--dna_attention", "xla", "--max_steps", "2",
+                              "--max_length_dna", "64", "--n_synthetic", "16",
+                              "--batch_size", "2", "--checkpoint_dir", str(tmp_path)])
+    cfg = trainer.fusion_cfg
+    assert cfg.encoder_kind == "evo2" and cfg.hyena.embedding_tap_layer == 2
+    assert len(trainer.history) == 2 and all(math.isfinite(m["loss"]) for m in trainer.history)
+    path = str(tmp_path / "sft_final")
+    meta = load_checkpoint(path)["metadata"]
+    assert (meta["encoder"], meta["dna_attention"], meta["dna_embedding_layer"]) == (
+        "evo2-tiny", "xla", 2)
+    model = load_sft_model(path, cfg, 42, "tiny", "evo2-tiny", device="cpu")
+    got, want = dict(model.named_parameters()), dict(trainer.model.named_parameters())
+    assert sorted(got) == sorted(want)
+    for n, p in want.items():
+        assert got[n].dtype == p.dtype and torch.equal(got[n].detach(), p.detach()), n
+    for other in (dataclasses.replace(cfg.hyena, embedding_tap_layer=-1),
+                  dataclasses.replace(cfg.hyena, attention_impl="auto")):
+        with pytest.raises(ValueError, match="another base"):
+            load_sft_model(path, dataclasses.replace(cfg, hyena=other), 42, "tiny",
+                           "evo2-tiny", device="cpu")
+
+
+def test_cli_refuses_a_band_on_the_evo2_tower():
+    from bioreason_tpu_torch.cli import train_sft
+    with pytest.raises(SystemExit):
+        train_sft.parse_args(["--encoder", "evo2-tiny", "--dna_attention", "local:64"])
+    args = train_sft.parse_args(["--encoder", "evo2-1b", "--dna_attention", "pallas"])
+    assert args.device == "cuda" and args.dna_attention == "pallas"

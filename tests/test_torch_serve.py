@@ -233,7 +233,9 @@ training = {{"bioreason_tpu_torch.ops.fused_ce", "bioreason_tpu_torch.train.lora
             "bioreason_tpu_torch.data.utils", "bioreason_tpu_torch.data.loaders",
             "bioreason_tpu_torch.cli.common", "bioreason_tpu_torch.cli.train_sft",
             "bioreason_tpu_torch.train.grpo", "bioreason_tpu_torch.train.rewards",
-            "bioreason_tpu_torch.train.metrics", "bioreason_tpu_torch.cli.reason"}}
+            "bioreason_tpu_torch.train.metrics", "bioreason_tpu_torch.cli.reason",
+            "bioreason_tpu_torch.models.evo2", "bioreason_tpu_torch.data.char_tokenizer",
+            "bioreason_tpu_torch.utils.evo2_import", "bioreason_tpu_torch.utils.pretrained"}}
 assert training <= set(names), sorted(training - set(names))
 for n in names:
     importlib.import_module(n)
@@ -245,4 +247,4 @@ assert not bad, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 33
+    assert int(proc.stdout.split()[0]) >= 37
