@@ -1,10 +1,13 @@
 """GRPO training CLI of the port (the counterpart of bioreason_tpu/cli/reason.py;
 reference entry point reason.py:596-610).
 
-Loads an SFT checkpoint of the port (`train_sft`'s sft_final: the base drawn
-again from its recorded seed, its LoRA merged, fresh adapters attached;
-train/checkpoint.py:load_sft_for_grpo), then runs group-relative policy
-optimization with rule-based rewards over the KEGG prompts, each step's
+Starts from an SFT checkpoint: the port's own `sft_final` (its base built
+again from what it records, a seed or pretrained HF directories, its LoRA
+merged, fresh adapters attached; train/checkpoint.py:load_sft_for_grpo),
+or a REFERENCE BioReason torch checkpoint (a Lightning / DeepSpeed
+container or a raw `DNALLMModel.state_dict()`, file or directory; its LoRA
+merged into the base it is loaded over, utils/ref_ckpt.py), then runs
+group-relative policy optimization with rule-based rewards, each step's
 prompts drawn by `repeat_random_indices`.
 
 Synthetic smoke run on the CPU:
@@ -18,13 +21,17 @@ On the card (the default device), from an SFT run of the same --seed:
       --sft_checkpoint checkpoints/sft_final --num_generations 4 --batch_size 16 \\
       --max_completion_length 64 --max_steps 2
 
+From local HF checkpoints and a reference checkpoint:
+  python -m bioreason_tpu_torch.cli.reason --hf_llm_dir <qwen3> \\
+      --hf_dna_dir <nt-v2> --sft_checkpoint <reference .pt or dir>
+
 Metrics go to <log_dir>/metrics.jsonl and stdout; the trainable parameters,
 optimizer state and step to <checkpoint_dir>/grpo_state every --save_every
 steps (read back by --resume) and to <checkpoint_dir>/grpo_final at the end.
 `--use_vllm` is accepted and ignored, as the JAX CLI and the reference do:
-rollouts always run through the port's engine. Pretrained HF weights,
-reference torch checkpoints, the device mesh, wandb, int8 rollouts and
-guided decoding come with later slices: `main` refuses their flags.
+rollouts always run through the port's engine. The device mesh, wandb,
+NaN debugging, int8 rollouts and guided decoding come with later slices:
+`main` refuses their flags.
 """
 
 from __future__ import annotations
@@ -34,21 +41,31 @@ import dataclasses
 import os
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("hf_llm_dir", "hf_dna_dir", "mesh", "cpu_devices", "wandb", "rollout_int8",
-               "guided_decoding_regex", "dtype", "dna_kmer", "debug_nans")
+LATER_FLAGS = ("mesh", "cpu_devices", "wandb", "rollout_int8", "guided_decoding_regex",
+               "debug_nans")
 
 
 def parse_args(argv=None):
-    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS
+    from bioreason_tpu_torch.cli.common import DATASET_TYPES, DECODER_PRESETS, ENCODER_PRESETS
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--decoder", default="qwen3-0.6b", choices=sorted(DECODER_PRESETS))
     p.add_argument("--encoder", default="nt-500m", choices=sorted(ENCODER_PRESETS))
+    p.add_argument("--hf_llm_dir", default=None,
+                   help="local HF Qwen3 directory (weights + tokenizer.json); overrides "
+                        "--decoder (reference dna_llm.py:64-74)")
+    p.add_argument("--hf_dna_dir", default=None,
+                   help="local HF NT-v2 / ESM directory; overrides --encoder")
+    p.add_argument("--dtype", default=None,
+                   help="compute dtype of both towers; must be the SFT run's")
+    p.add_argument("--dna_kmer", type=int, default=6,
+                   help="k-mer size of the NT path's DNA tokenizer (the SFT run's)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--dataset_type", default="kegg", choices=DATASET_TYPES)
     p.add_argument("--dna_attention", default=None,
                    help="encoder attention override: xla | pallas | local:<W>; must be the "
                         "SFT run's when continuing from --sft_checkpoint")
-    p.add_argument("--data_dir", default=None, help="KEGG JSON dir; synthetic corpus if unset")
+    p.add_argument("--data_dir", default=None, help="JSON dir; synthetic KEGG corpus if unset")
     p.add_argument("--n_synthetic", type=int, default=64)
     p.add_argument("--truncate_dna_per_side", type=int, default=1024)
     p.add_argument("--max_length_text", type=int, default=512)
@@ -60,7 +77,8 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint_dir", default="checkpoints")
     p.add_argument("--log_dir", default="logs")
     p.add_argument("--sft_checkpoint", default=None,
-                   help="the port's sft_final (or sft_state) directory")
+                   help="the port's sft_final (or sft_state) directory, or a reference "
+                        "BioReason torch checkpoint (file or directory)")
     p.add_argument("--max_prompt_length", type=int, default=None,
                    help="keep the last N prompt tokens (reference grpo_config.py:174-177)")
     p.add_argument("--reward_funcs", nargs="+",
@@ -85,11 +103,8 @@ def parse_args(argv=None):
     asked = [f"--{f}" for f in LATER_FLAGS if getattr(args, f) is not None]
     if asked:
         raise NotImplementedError(f"{', '.join(asked)}: not ported to bioreason_tpu_torch yet")
-    ckpt = args.sft_checkpoint
-    if ckpt and not os.path.isfile(os.path.join(ckpt, "state.pt")):
-        raise NotImplementedError(
-            f"--sft_checkpoint {ckpt}: only the port's own checkpoints (a directory holding "
-            f"state.pt) are read; reference torch checkpoints are not ported yet")
+    if args.hf_llm_dir and not args.hf_dna_dir:
+        p.error("--hf_llm_dir requires --hf_dna_dir")
     impl = args.dna_attention
     if impl is not None and impl not in ("xla", "pallas") and not (
             impl.startswith("local:") and impl[6:].isdigit()):
@@ -102,47 +117,91 @@ def main(argv=None):
     per-step metrics."""
     args = parse_args(argv)
     import torch
-    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS
+    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS, load_items
     from bioreason_tpu_torch.config import (FusionConfig, GRPOConfig, LoRAConfig, OptimConfig,
                                             SamplingConfig)
     from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
     from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only, synthetic_kegg_items
     from bioreason_tpu_torch.data.utils import split_dataset, truncate_dna
-    from bioreason_tpu_torch.train.checkpoint import load_sft_for_grpo
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.train.checkpoint import (is_pretrained, load_checkpoint,
+                                                      load_sft_for_grpo)
     from bioreason_tpu_torch.train.dataflow import repeat_random_indices
+    from bioreason_tpu_torch.train.eval import prompt_messages
     from bioreason_tpu_torch.train.grpo import GRPOTrainer
+    from bioreason_tpu_torch.train.lora import attach_lora
     from bioreason_tpu_torch.train.metrics import MetricsLogger
     from bioreason_tpu_torch.train.rewards import get_reward_funcs
     from bioreason_tpu_torch.utils.devices import resolve_device
-
-    tok = ByteTextTokenizer()
-    proc = BioProcessor(tok, KmerTokenizer())
-    encoder = ENCODER_PRESETS[args.encoder]()
-    if args.dna_attention:
-        encoder = dataclasses.replace(encoder, attention_impl=args.dna_attention)
-    fusion_cfg = FusionConfig(
-        decoder=DECODER_PRESETS[args.decoder](vocab_size=tok.vocab_size), encoder=encoder,
-        dna_pad_token_id=tok.dna_pad_id, max_length_text=args.max_length_text,
-        max_length_dna=args.max_length_dna)
+    from bioreason_tpu_torch.utils.ref_ckpt import is_reference_checkpoint, load_reference_sft
 
     device = resolve_device(args.device)
     lora_cfg = LoRAConfig(r=args.lora_r, alpha=args.lora_alpha)
-    model = None
-    if args.sft_checkpoint:
-        model = load_sft_for_grpo(
-            args.sft_checkpoint, fusion_cfg, lora_cfg, args.seed, args.decoder, args.encoder,
-            device=device, generator=torch.Generator(device=device).manual_seed(args.seed + 2))
-        print(f"loaded {args.sft_checkpoint}: SFT adapters merged, fresh adapters "
-              f"r{args.lora_r}/a{args.lora_alpha} attached", flush=True)
-
-    if args.data_dir:
-        from bioreason_tpu_torch.data.loaders import load_local_dataset
-        raw = load_local_dataset(args.data_dir)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    ckpt = args.sft_checkpoint
+    reference = bool(ckpt) and is_reference_checkpoint(ckpt)
+    base = None
+    if args.hf_llm_dir:
+        from bioreason_tpu_torch.utils.pretrained import load_pretrained_fusion
+        fusion_cfg, base, tok, dna_tok = load_pretrained_fusion(
+            args.hf_llm_dir, args.hf_dna_dir, args.max_length_text, args.max_length_dna,
+            seed=args.seed, dtype=args.dtype or "bfloat16", device=device)
+        proc = BioProcessor(tok, dna_tok)
     else:
-        raw = synthetic_kegg_items(args.n_synthetic, seq_len=512, seed=args.seed)
-    raw = [truncate_dna(dict(x), args.truncate_dna_per_side) for x in raw]
-    train_items, _, _ = split_dataset(raw, seed=args.seed)
-    prompts = [format_kegg_prompt_only(x) for x in train_items]
+        tok = ByteTextTokenizer()
+        proc = BioProcessor(tok, KmerTokenizer(kmer=args.dna_kmer))
+        decoder = DECODER_PRESETS[args.decoder](vocab_size=tok.vocab_size)
+        encoder = ENCODER_PRESETS[args.encoder]()
+        if args.dtype:
+            decoder = dataclasses.replace(decoder, dtype=args.dtype)
+            encoder = dataclasses.replace(encoder, dtype=args.dtype)
+        fusion_cfg = FusionConfig(
+            decoder=decoder, encoder=encoder, dna_pad_token_id=tok.dna_pad_id,
+            max_length_text=args.max_length_text, max_length_dna=args.max_length_dna)
+    if args.dna_attention:
+        fusion_cfg = dataclasses.replace(fusion_cfg, encoder=dataclasses.replace(
+            fusion_cfg.encoder, attention_impl=args.dna_attention))
+
+    model = None
+    if reference:
+        # a reference checkpoint over the pretrained (or seeded) base: the
+        # components it holds replace the base's, its LoRA merged
+        model = base if base is not None else init_fusion(fusion_cfg, seed=args.seed,
+                                                          device=device)
+        comps = load_reference_sft(ckpt, model)
+        attach_lora(model, lora_cfg, gen)
+        print(f"ingested reference checkpoint {ckpt} (components: {comps}), fresh adapters "
+              f"r{args.lora_r}/a{args.lora_alpha} attached", flush=True)
+    elif ckpt:
+        meta = load_checkpoint(ckpt)["metadata"]
+        if is_pretrained(meta) and args.hf_llm_dir:
+            asked = {"hf_llm_dir": os.path.abspath(args.hf_llm_dir),
+                     "hf_dna_dir": os.path.abspath(args.hf_dna_dir)}
+            wrong = {k: (meta[k], v) for k, v in asked.items() if meta[k] != v}
+            if wrong:
+                raise ValueError(f"{ckpt} was trained on another base: (checkpoint, asked) "
+                                 f"{wrong}")
+        del base                              # the checkpoint's base is built again
+        model = load_sft_for_grpo(ckpt, fusion_cfg, lora_cfg, args.seed, args.decoder,
+                                  args.encoder, device=device, generator=gen)
+        print(f"loaded {ckpt}: SFT adapters merged, fresh adapters "
+              f"r{args.lora_r}/a{args.lora_alpha} attached", flush=True)
+    elif base is not None:
+        model = base                          # GRPOTrainer attaches fresh adapters
+
+    if args.dataset_type == "kegg":
+        if args.data_dir:
+            from bioreason_tpu_torch.data.loaders import load_local_dataset
+            raw = load_local_dataset(args.data_dir)
+        else:
+            raw = synthetic_kegg_items(args.n_synthetic, seq_len=512, seed=args.seed)
+        raw = [truncate_dna(dict(x), args.truncate_dna_per_side) for x in raw]
+        train_items, _, _ = split_dataset(raw, seed=args.seed)
+        prompts = [format_kegg_prompt_only(x) for x in train_items]
+    else:
+        train_items, _, _ = load_items(args.dataset_type, args.data_dir, args.n_synthetic,
+                                       args.truncate_dna_per_side, args.seed)
+        prompts = [{**ex, "prompt": prompt_messages(ex)} for ex in train_items]
 
     steps = args.max_steps or 100
     cfg = GRPOConfig(

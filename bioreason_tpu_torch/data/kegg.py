@@ -4,7 +4,8 @@ copy of bioreason_tpu/data/kegg.py:42-196).
 `format_kegg_prompt_only` is the GRPO/serving prompt mapping (reference
 reason.py:128-148): two DNA content parts (reference + variant) followed by
 the question. `format_kegg_for_dna_llm` is the SFT example: the same user
-turn and an assistant turn with the reasoning trace and `Answer: ...`.
+turn and an assistant turn with the reasoning trace and `Answer: ...`;
+`format_kegg_for_llm` pastes the sequences into the question instead.
 `process_kegg_item` normalizes a raw KEGG record. `synthetic_kegg_items`
 makes deterministic KEGG-shaped items for tests and the chip smoke run (no
 dataset is downloaded).
@@ -45,6 +46,32 @@ def format_kegg_for_dna_llm(example: Dict[str, Any]) -> Dict[str, Any]:
             },
         ],
         "dna_sequences": [example["reference_sequence"], example["variant_sequence"]],
+        "answer": example["answer"],
+    }
+
+
+def format_kegg_for_llm(example: Dict[str, Any]) -> Dict[str, Any]:
+    """The LLM-only SFT example (`--llm_only`): the sequences pasted into the
+    question text, empty DNA strings (reference kegg.py:190-220)."""
+    question = (f"Reference sequence: {example['reference_sequence']}\n"
+                f"Variant sequence: {example['variant_sequence']}\n"
+                f"Question: {example['question']}")
+    return {
+        "prompt": [
+            {
+                "role": "user",
+                "content": [
+                    *({"type": "dna", "text": None} for _ in range(2)),
+                    {"type": "text", "text": question.strip()},
+                ],
+            },
+            {
+                "role": "assistant",
+                "reasoning_content": example["reasoning"].strip(),
+                "content": [{"type": "text", "text": f"Answer: {example['answer'].strip()}"}],
+            },
+        ],
+        "dna_sequences": ["", ""],
         "answer": example["answer"],
     }
 

@@ -52,6 +52,14 @@ class KmerTokenizer:
         # longest-match candidate lengths, descending (k-mer first, then chars)
         self._lengths = sorted({len(t) for t in self.vocab if t not in _SPECIALS}, reverse=True)
 
+    @classmethod
+    def from_vocab_file(cls, path: str, **kw) -> "KmerTokenizer":
+        """The vocabulary of a checkpoint's `vocab.txt`, one token per line
+        in id order (NT-v2-500M: 4,107 tokens)."""
+        with open(path, encoding="utf-8") as f:
+            vocab = [line.strip() for line in f if line.strip()]
+        return cls(vocab=vocab, **kw)
+
     @property
     def vocab_size(self) -> int:
         return len(self.vocab)

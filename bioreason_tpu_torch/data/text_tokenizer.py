@@ -108,3 +108,22 @@ class ByteTextTokenizer:
                 input_ids[r, :len(e)] = e
                 attention_mask[r, :len(e)] = 1
         return {"input_ids": input_ids, "attention_mask": attention_mask}
+
+
+DNA_SPECIAL_TOKENS = ["<|dna_start|>", "<|dna_pad|>", "<|dna_end|>"]
+
+
+def load_hf_tokenizer(path: str):
+    """A local HF tokenizer directory (e.g. a Qwen3 download) through the
+    port's byte-level BPE (`data/bpe.py`), with the DNA special tokens
+    appended after the highest id as the reference adds them
+    (dna_llm.py:67-74; text_tokenizer.py:145-148). Where the JAX package
+    falls back to `transformers`, this raises `UnsupportedTokenizerError`
+    naming the feature the native loader lacks."""
+    from bioreason_tpu_torch.data.bpe import BPETokenizer
+    tok = BPETokenizer.from_dir(path)
+    tok.add_special_tokens(DNA_SPECIAL_TOKENS)
+    tok.dna_start_id = tok.convert_tokens_to_ids("<|dna_start|>")
+    tok.dna_pad_id = tok.convert_tokens_to_ids("<|dna_pad|>")
+    tok.dna_end_id = tok.convert_tokens_to_ids("<|dna_end|>")
+    return tok

@@ -15,6 +15,10 @@ Run (on the card; `--device cpu` for the CPU):
   python -m bioreason_tpu_torch.serve --decoder tiny --encoder tiny --port 8787
 With the Evo2 DNA tower (byte tokens, 2048 per sequence at 2 kb):
   python -m bioreason_tpu_torch.serve --encoder evo2-1b
+A trained model (the port's `sft_final` of `train_sft`: its base built
+again from what it records, seeded or pretrained HF directories with
+their tokenizers, and its LoRA merged into the frozen weights):
+  python -m bioreason_tpu_torch.serve --checkpoint checkpoints/sft_final
 
 Continuous batching, KV depth tiers, int8 weights and activations, fused
 projections and guided decoding come with later slices; `main` refuses
@@ -223,10 +227,20 @@ def build_config(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
 
 def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
                  max_length_dna: int = 2048, seed: int = 0, device=None,
-                 **server_kw) -> InferenceServer:
-    """Server over weights drawn from `seed` (no checkpoint is loaded yet)."""
-    cfg, processor = build_config(decoder, encoder, max_length_dna)
-    model = init_fusion(cfg, seed=seed, device=device)
+                 checkpoint: Optional[str] = None, **server_kw) -> InferenceServer:
+    """Server over the SFT model of `checkpoint` (the port's `sft_final`:
+    `train.checkpoint.rebuild_sft` builds its recorded base with its
+    tokenizers, and its LoRA is merged into the frozen weights; the presets
+    are not read then), else over the presets' weights drawn from `seed`."""
+    if checkpoint:
+        from bioreason_tpu_torch.train.checkpoint import rebuild_sft
+        from bioreason_tpu_torch.train.lora import merge_lora
+        cfg, model, tok, dna_tok = rebuild_sft(checkpoint, device, max_length_dna=max_length_dna)
+        model = merge_lora(model).requires_grad_(False)
+        processor = BioProcessor(tok, dna_tok)
+    else:
+        cfg, processor = build_config(decoder, encoder, max_length_dna)
+        model = init_fusion(cfg, seed=seed, device=device)
     return InferenceServer(model, cfg, processor, device=device, seed=seed, **server_kw)
 
 
@@ -242,6 +256,8 @@ def main(argv=None):
     p.add_argument("--max_new_tokens", type=int, default=256)
     p.add_argument("--max_length_dna", type=int, default=2048)
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--checkpoint", default=None,
+                   help="the port's sft_final (or sft_state) directory to serve")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     for flag in LATER_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
@@ -252,7 +268,7 @@ def main(argv=None):
         raise NotImplementedError(f"{', '.join(asked)}: not ported to bioreason_tpu_torch yet")
 
     server = build_server(args.decoder, args.encoder, args.max_length_dna, args.seed,
-                          args.device, max_batch=args.max_batch,
+                          args.device, args.checkpoint, max_batch=args.max_batch,
                           max_new_tokens=args.max_new_tokens).start()
     httpd = make_http_server(server, args.port)
     print(f"serving on :{args.port} (POST /generate, GET /healthz)")

@@ -1,38 +1,52 @@
 """Trainer checkpoints: the trainable parameters, the optimizer state and the
 step, in one `torch.save` file (the resumable subset of
 bioreason_tpu/train/checkpoint.py; frozen weights are not written, since
-they come from the seed or the import that built the model).
+they come from the seed or the checkpoint that built the model), and
+`TopKKeeper`, the k best checkpoints by validation loss.
 
-A checkpoint of a model drawn from a seed records in its metadata what
-draws the same frozen base again (`BASE_KEYS`: the seed, the device type
-that drew it, the presets, the attention and embedding tap of the DNA tower
-that runs, the vocabulary, the LoRA rank and the frozen weights' storage
-dtype): `load_sft_model` rebuilds the SFT model from it and refuses any
-mismatch with the caller's configuration, since adapters paired with
-another base would load without complaint and mean nothing.
+A checkpoint records in its metadata the frozen base its adapters belong
+to, since adapters paired with another base would load without complaint
+and mean nothing. A base drawn from a seed is recorded by what draws it
+again (`BASE_KEYS`: the seed, the device type that drew it, the presets,
+the attention and embedding tap of the DNA tower that runs, the
+vocabulary, the compute dtype, the LoRA rank and the frozen weights'
+storage dtype); a pretrained base by its directories and a fingerprint of
+each weights file (`PRETRAINED_KEYS`, `utils/pretrained.base_record`).
+`load_sft_model` rebuilds the SFT model from either and refuses any
+mismatch with the caller's configuration, and a pretrained base that is
+missing or changed: it never falls back to another base.
 """
 
 from __future__ import annotations
 
+import json
+import math
 import os
+import shutil
 from typing import Any, Dict, Optional
 
 import torch
 
 BASE_KEYS = ("seed", "init_device", "decoder", "encoder", "dna_attention",
-             "dna_embedding_layer", "vocab_size", "lora_r", "lora_alpha", "frozen_dtype")
+             "dna_embedding_layer", "vocab_size", "dtype", "lora_r", "lora_alpha",
+             "frozen_dtype")
+# a pretrained base: the seed still draws an LLM-only model's unused tiny
+# encoder (pretrained.load_pretrained_fusion)
+PRETRAINED_KEYS = ("hf_llm_dir", "hf_dna_dir", "evo2_dir", "base_files", "seed",
+                   "dna_attention", "dna_embedding_layer", "vocab_size", "dtype", "lora_r",
+                   "lora_alpha", "frozen_dtype")
 
 FILE = "state.pt"
 
 
 def model_keys(fusion_cfg) -> Dict[str, Any]:
-    """The `BASE_KEYS` that `fusion_cfg` fixes, read from the DNA tower
+    """The base keys that `fusion_cfg` fixes, read from the DNA tower
     that runs (`FusionConfig.dna_tower`: an Evo2 config also carries an
     unused NT `encoder`); the NT tower has no embedding tap (-1)."""
     evo2 = fusion_cfg.encoder_kind == "evo2"
     return {"dna_attention": fusion_cfg.dna_tower.attention_impl,
             "dna_embedding_layer": fusion_cfg.hyena.embedding_tap_layer if evo2 else -1,
-            "vocab_size": fusion_cfg.decoder.vocab_size}
+            "vocab_size": fusion_cfg.decoder.vocab_size, "dtype": fusion_cfg.decoder.dtype}
 
 
 def save_checkpoint(path: str, trainable: Dict[str, torch.Tensor], opt_state: Dict,
@@ -54,52 +68,145 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(os.path.join(path, FILE), map_location="cpu", weights_only=True)
 
 
-@torch.no_grad()
-def load_sft_model(path: str, fusion_cfg, seed: int, decoder: str, encoder: str, device=None):
-    """The model of the SFT trainer that wrote `path` (an `sft_final` or
-    `sft_state` of the port), parameter for parameter: the base drawn again
-    from the recorded seed on the recorded device type, the SFT adapters
-    attached and every trained parameter loaded (fp32), the other float
-    parameters of two or more dimensions stored in the recorded frozen dtype.
+def is_pretrained(meta: Dict[str, Any]) -> bool:
+    return "hf_llm_dir" in meta
 
-    Raises ValueError when the checkpoint does not record `BASE_KEYS`, or
-    records another seed, preset (`decoder`, `encoder`: the CLI preset
-    names), DNA attention, embedding tap or vocabulary size than
-    `fusion_cfg` and the arguments ask for."""
-    from bioreason_tpu_torch.config import LoRAConfig
-    from bioreason_tpu_torch.models.fusion import init_fusion
-    from bioreason_tpu_torch.train.lora import attach_lora
-    from bioreason_tpu_torch.utils.devices import resolve_device
 
-    state = load_checkpoint(path)
-    meta = state["metadata"]
-    missing = [k for k in BASE_KEYS if k not in meta]
+def _check_keys(path: str, meta: Dict[str, Any]) -> None:
+    keys = PRETRAINED_KEYS if is_pretrained(meta) else BASE_KEYS
+    missing = [k for k in keys if k not in meta]
     if missing:
         raise ValueError(
             f"{path}: its metadata lacks {missing}, so the frozen base it was trained on "
-            f"cannot be drawn again (a checkpoint written before the port recorded them, "
-            f"or of a model that was not drawn from a seed); train it again")
-    want = {"seed": seed, "decoder": decoder, "encoder": encoder, **model_keys(fusion_cfg)}
-    wrong = {k: (meta[k], v) for k, v in want.items() if meta[k] != v}
-    if wrong:
-        raise ValueError(f"{path} was trained on another base: (checkpoint, asked) {wrong}")
-    device = resolve_device(device)
-    model = init_fusion(fusion_cfg, seed=meta["seed"], device=meta["init_device"]).to(device)
+            f"cannot be built again (a checkpoint written before the port recorded them); "
+            f"train it again")
+
+
+def _pretrained_base(meta: Dict[str, Any], device, max_length_text: int = 512,
+                     max_length_dna: int = 2048):
+    """(FusionConfig, base model, text tokenizer, DNA tokenizer) of the
+    recorded pretrained base, after `pretrained.check_base` (which raises
+    on a missing or changed file), with the recorded DNA attention."""
+    import dataclasses
+
+    from bioreason_tpu_torch.utils.pretrained import check_base, load_pretrained_fusion
+    check_base(meta)
+    cfg, model, tok, dna_tok = load_pretrained_fusion(
+        meta["hf_llm_dir"], meta["hf_dna_dir"], max_length_text, max_length_dna,
+        seed=meta["seed"], dtype=meta["dtype"], evo2_dir=meta["evo2_dir"],
+        dna_embedding_layer=meta["dna_embedding_layer"], device=device)
+    impl = meta["dna_attention"]
+    if cfg.encoder_kind == "evo2":
+        cfg = dataclasses.replace(cfg, hyena=dataclasses.replace(cfg.hyena, attention_impl=impl))
+    else:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                                   attention_impl=impl))
+    return cfg, model, tok, dna_tok
+
+
+@torch.no_grad()
+def _load_trained(path: str, state: Dict[str, Any], model, device):
+    """The SFT adapters attached to the base `model`, every trained
+    parameter loaded (fp32) and the frozen ones stored as the trainer
+    stored them (`trainable.frozen_cast`)."""
+    from bioreason_tpu_torch.config import LoRAConfig
+    from bioreason_tpu_torch.train.lora import attach_lora
+    from bioreason_tpu_torch.train.trainable import frozen_cast
+    meta = state["metadata"]
+    model = model.to(device)
     if meta["lora_r"] is not None:
         attach_lora(model, LoRAConfig(r=meta["lora_r"], alpha=meta["lora_alpha"]))
     trained = state["trainable"]
-    low = getattr(torch, meta["frozen_dtype"]) if meta["frozen_dtype"] else None
     params = dict(model.named_parameters())
     for name in trained:
         if name not in params or params[name].shape != trained[name].shape:
             raise ValueError(f"{path}: {name} {tuple(trained[name].shape)} does not fit "
                              f"the model")
+    low = getattr(torch, meta["frozen_dtype"]) if meta["frozen_dtype"] else None
     for name, p in params.items():
         if name in trained:
             p.data = trained[name].to(device)
-        elif low is not None and p.is_floating_point() and p.dim() >= 2:
+        elif low is not None and frozen_cast(name, p):
             p.data = p.data.to(low)
     return model
+
+
+@torch.no_grad()
+def load_sft_model(path: str, fusion_cfg, seed: int, decoder: str, encoder: str, device=None):
+    """The model of the SFT trainer that wrote `path` (an `sft_final` or
+    `sft_state` of the port), parameter for parameter: the frozen base
+    built again (drawn from the recorded seed on the recorded device type,
+    or loaded from the recorded pretrained directories), the SFT adapters
+    attached and every trained parameter loaded (fp32), the frozen
+    parameters stored as the trainer stored them.
+
+    Raises ValueError when the checkpoint does not record its base, or
+    records another base than `fusion_cfg` and the arguments ask for: for
+    a seeded base another seed or preset (`decoder`, `encoder`: the CLI
+    preset names), DNA attention, embedding tap, vocabulary size or dtype;
+    for a pretrained one, a `fusion_cfg` of another vocabulary, DNA
+    attention, tap or dtype (seed and presets are not asked of it). A
+    recorded pretrained directory or file that is gone or changed raises
+    too (`pretrained.check_base`)."""
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.utils.devices import resolve_device
+
+    state = load_checkpoint(path)
+    meta = state["metadata"]
+    _check_keys(path, meta)
+    device = resolve_device(device)
+    want = model_keys(fusion_cfg)
+    if not is_pretrained(meta):
+        want.update(seed=seed, decoder=decoder, encoder=encoder)
+    wrong = {k: (meta[k], v) for k, v in want.items() if meta[k] != v}
+    if wrong:
+        raise ValueError(f"{path} was trained on another base: (checkpoint, asked) {wrong}")
+    if is_pretrained(meta):
+        _, model, _, _ = _pretrained_base(meta, device, fusion_cfg.max_length_text,
+                                          fusion_cfg.max_length_dna)
+    else:
+        model = init_fusion(fusion_cfg, seed=meta["seed"], device=meta["init_device"])
+    return _load_trained(path, state, model, device)
+
+
+def rebuild_sft(path: str, device=None, max_length_text: int = 512, max_length_dna: int = 2048):
+    """Everything a server needs from an SFT checkpoint alone:
+    (FusionConfig, the SFT model, text tokenizer, DNA tokenizer), the base
+    built from what the metadata records (a pretrained base from its
+    directories, after `pretrained.check_base`; a seeded one from its seed
+    and presets with the byte tokenizer)."""
+    import dataclasses
+
+    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, build_encoder_config
+    from bioreason_tpu_torch.config import FusionConfig
+    from bioreason_tpu_torch.data.text_tokenizer import ByteTextTokenizer
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.utils.devices import resolve_device
+
+    state = load_checkpoint(path)
+    meta = state["metadata"]
+    _check_keys(path, meta)
+    device = resolve_device(device)
+    if is_pretrained(meta):
+        cfg, model, tok, dna_tok = _pretrained_base(meta, device, max_length_text,
+                                                    max_length_dna)
+    else:
+        tok = ByteTextTokenizer()
+        kind, enc, hyena, dna_tok = build_encoder_config(meta["encoder"],
+                                                         meta["dna_embedding_layer"])
+        dec = DECODER_PRESETS[meta["decoder"]](vocab_size=meta["vocab_size"])
+        # a --dtype run set both towers' dtype
+        dt = {} if meta["dtype"] == dec.dtype else {"dtype": meta["dtype"]}
+        dec = dataclasses.replace(dec, **dt)
+        if kind == "evo2":
+            hyena = dataclasses.replace(hyena, attention_impl=meta["dna_attention"], **dt)
+        else:
+            enc = dataclasses.replace(enc, attention_impl=meta["dna_attention"], **dt)
+        cfg = FusionConfig(decoder=dec, encoder=enc, hyena=hyena, encoder_kind=kind,
+                           dna_pad_token_id=tok.dna_pad_id, max_length_text=max_length_text,
+                           max_length_dna=max_length_dna)
+        model = init_fusion(cfg, seed=meta["seed"], device=meta["init_device"])
+    return cfg, _load_trained(path, state, model, device), tok, dna_tok
 
 
 @torch.no_grad()
@@ -114,3 +221,52 @@ def load_sft_for_grpo(path: str, fusion_cfg, lora_cfg, seed: int, decoder: str, 
     if lora_cfg is not None:
         attach_lora(model, lora_cfg, generator)
     return model
+
+
+class TopKKeeper:
+    """The k best checkpoints by a monitored value (the port of JAX
+    checkpoint.py:154; reference ModelCheckpoint top-2 on val_loss_epoch,
+    train_dna_qwen.py:962-971). `update(value, save_fn, step)` after each
+    validation writes `<root>/best-step<N>` when `value` ranks in the top k
+    and removes the one it pushes out; `<root>/index.json` records the
+    ranking, so `best_path()` finds the winner after a restart."""
+
+    def __init__(self, root: str, k: int = 2, mode: str = "min"):
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode {mode!r}: expected 'min' or 'max'")
+        self.root = os.path.abspath(root)
+        self.k = k
+        self.mode = mode
+        self._kept: list = []                  # [(value, step, path)], best first
+        os.makedirs(self.root, exist_ok=True)
+        idx = os.path.join(self.root, "index.json")
+        if os.path.exists(idx):                # resume: adopt the surviving dirs
+            with open(idx) as f:
+                for value, step, path in json.load(f)["kept"]:
+                    if os.path.isdir(path):
+                        self._kept.append((value, step, path))
+
+    def _better(self, a: float, b: float) -> bool:
+        return a < b if self.mode == "min" else a > b
+
+    def update(self, value: float, save_fn, step: int) -> Optional[str]:
+        """`save_fn(path)` writes the checkpoint. Returns the path when
+        `value` made the top k, else None (nothing written). A non-finite
+        value is never kept."""
+        value = float(value)
+        if not math.isfinite(value):
+            return None
+        if len(self._kept) >= self.k and not self._better(value, self._kept[-1][0]):
+            return None
+        path = os.path.join(self.root, f"best-step{step}")
+        save_fn(path)
+        self._kept.append((value, step, path))
+        self._kept.sort(key=lambda t: t[0], reverse=(self.mode == "max"))
+        while len(self._kept) > self.k:
+            shutil.rmtree(self._kept.pop()[2], ignore_errors=True)
+        with open(os.path.join(self.root, "index.json"), "w") as f:
+            json.dump({"monitor_mode": self.mode, "k": self.k, "kept": self._kept}, f)
+        return path
+
+    def best_path(self) -> Optional[str]:
+        return self._kept[0][2] if self._kept else None

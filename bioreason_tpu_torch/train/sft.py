@@ -11,9 +11,10 @@ linear layers; embeddings and lm_head excluded), frozen DNA tower, trainable
 projection. `freeze_encoder=False` (the CLI's --dna_model_finetune) trains
 the DNA tower too (JAX train/sft.py:66-67), NT or Evo2, through `flash_bwd`
 or, on NT's `attention_impl="local:<W>"`, the banded `local_bwd`. Trainable
-parameters are fp32 masters; frozen float parameters of two or more
-dimensions are stored in `cfg.frozen_dtype`, the Evo2 tower's filter leaves
-(li poles and residues, mr taps, short filters) included, as JAX stores
+parameters are fp32 masters; frozen fp32 parameters that are two or more
+dimensional in the JAX package's tree (`trainable.frozen_cast`: the
+per-layer norms and biases JAX stacks [L, ...] among them, and the Evo2
+tower's filter leaves) are stored in `cfg.frozen_dtype`, as JAX stores
 them (train/sft.py:88-99).
 """
 
@@ -41,22 +42,29 @@ BATCH_KEYS = ("input_ids", "attention_mask", "dna_input_ids", "dna_attention_mas
 
 class SFTTrainer:
     def __init__(self, fusion_cfg: FusionConfig, cfg: SFTConfig,
-                 model: Optional[FusionModel] = None, device=None):
-        """`model`: weights to fine-tune (e.g. `weights.from_jax_params`);
-        default: drawn from `cfg.seed`. Adapters are attached unless the
-        model carries some already. Runs on `device` (CUDA unless "cpu")."""
+                 model: Optional[FusionModel] = None, device=None,
+                 base: Optional[Dict[str, Any]] = None):
+        """`model`: weights to fine-tune (e.g. `pretrained.load_pretrained_fusion`
+        or `weights.from_jax_params`); default: drawn from `cfg.seed`.
+        `base`: the `pretrained.base_record` of the checkpoints `model` was
+        loaded from, recorded in every checkpoint. Adapters are attached
+        unless the model carries some already. Runs on `device` (CUDA unless
+        "cpu")."""
         self.fusion_cfg, self.cfg = fusion_cfg, cfg
         self.device = resolve_device(device)
-        # what draws the frozen base again (checkpoint.BASE_KEYS, with the
-        # presets the caller adds), for a model drawn from the seed only
+        # what builds the frozen base again (checkpoint.BASE_KEYS, with the
+        # presets the caller adds, or checkpoint.PRETRAINED_KEYS); None for a
+        # model the trainer cannot name the base of
         self.base_metadata: Optional[Dict[str, Any]] = None
+        recorded = {"seed": cfg.seed, **model_keys(fusion_cfg),
+                    "lora_r": cfg.lora.r if cfg.lora is not None else None,
+                    "lora_alpha": cfg.lora.alpha if cfg.lora is not None else None,
+                    "frozen_dtype": cfg.frozen_dtype}
         if model is None:
             model = init_fusion(fusion_cfg, seed=cfg.seed, device=self.device)
-            self.base_metadata = {
-                "seed": cfg.seed, "init_device": self.device.type, **model_keys(fusion_cfg),
-                "lora_r": cfg.lora.r if cfg.lora is not None else None,
-                "lora_alpha": cfg.lora.alpha if cfg.lora is not None else None,
-                "frozen_dtype": cfg.frozen_dtype}
+            self.base_metadata = {"init_device": self.device.type, **recorded}
+        elif base is not None:
+            self.base_metadata = {**base, **recorded}
         self.model = model.to(self.device)
         if cfg.lora is not None:
             if not has_lora(model):
@@ -120,8 +128,8 @@ class SFTTrainer:
 
     def save(self, path: str, metadata: Optional[Dict] = None) -> str:
         """Trainable parameters, optimizer state and step to `path`, with
-        `base_metadata` (when the model was drawn from the seed) and
-        `metadata` in its metadata."""
+        `base_metadata` (when the trainer knows the base) and `metadata` in
+        its metadata."""
         return save_checkpoint(path, self.trainable_state(), self.opt.state_dict(),
                                self.step, {**(self.base_metadata or {}), **(metadata or {})})
 

@@ -1,6 +1,6 @@
 """Import vortex-format Evo2 / StripedHyena-2 checkpoints into the port's
-`HyenaTower` (the port of bioreason_tpu/utils/hf_import.py:27-53 for `.pt`
-files, and of its `import_evo2`, :233-320).
+`HyenaTower` (the port of bioreason_tpu/utils/hf_import.py's `import_evo2`,
+:233-320; `utils/hf_import.load_hf_state_dict` reads the `.pt` files).
 
 The reference binds to the `evo2` package (dna_llm.py:86-90), whose
 inference stack (vortex) names weights `blocks.N.{pre_norm, projections,
@@ -15,7 +15,6 @@ residues as (re, im) pairs.
 
 from __future__ import annotations
 
-import os
 from typing import Dict, Tuple
 
 import torch
@@ -23,24 +22,6 @@ import torch
 from bioreason_tpu_torch.config import HyenaConfig
 from bioreason_tpu_torch.models.evo2 import HyenaTower
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
-
-
-def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """All tensors of the `.pt` files in the directory `path` (a
-    `{"state_dict": ...}` wrapper unwrapped), on the CPU: complex tensors
-    stay complex (a float cast would drop the imaginary part), the others
-    become fp32."""
-    files = sorted(f for f in os.listdir(path) if f.endswith(".pt"))
-    if not files:
-        raise FileNotFoundError(f"no .pt weights in {path}")
-    tensors: Dict[str, torch.Tensor] = {}
-    for f in files:
-        sd = torch.load(os.path.join(path, f), map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "state_dict" in sd:
-            sd = sd["state_dict"]
-        for k, v in sd.items():
-            tensors[k] = v if v.is_complex() else v.float()
-    return tensors
 
 
 def _key(state: Dict[str, torch.Tensor], k: str):

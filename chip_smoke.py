@@ -68,7 +68,8 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               dispatch); one step profiled.
   8. grpo     GRPO at bench_grpo.py's shape (Qwen3-0.6B widths at the byte
               tokenizer's vocabulary, remat full; NT-v2-500M; 4 synthetic
-              KEGG prompts of 2 x 600 bp x G = 4, 64 new tokens sampled,
+              KEGG prompts of 2 x 600 bp x G = 4, 32 new tokens sampled
+              (64 in bench_grpo.py and before phase 11 came),
               max_length_dna 128, beta 0.04, LoRA r32/a64, bf16 frozen
               weights from seed 0): the GRPOTrainer for 1 + 3 timed steps
               with phase timers, rewarded by xmlcount, correctness and the
@@ -112,6 +113,32 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               steps (ms, memory held between steps and peak), one profiled
               step, one loss + gradient through the kernels against the plain
               route (all trainable gradients, and the tower's alone).
+ 11. pretrained  the port on HF-layout checkpoints at full width: a
+              Qwen3-0.6B directory (config.json with the published values,
+              bf16 safetensors from seed 0 with non-unit norm scales, a
+              Qwen2-style byte-level tokenizer.json of 151,643 BPE tokens
+              with Qwen's Split regex and the added tokens at Qwen3's ids)
+              and an NT-v2-500M one (ESM config.json, vocab.txt, fp32
+              safetensors with non-zero biases), written by the port's
+              own writer (~3.2 GB; write and load times and GB/s);
+              `load_pretrained_fusion` on the card with every imported
+              leaf held bit for bit to what was written after its dtype
+              cast; `train_sft --hf_llm_dir --hf_dna_dir --dataset_type
+              variant_effect_coding` for 4 steps on 16 items of 2 x 2048 bp
+              with --eval_every 2 --keep_top_k 1 --test_generative (exact
+              flash_fwd / flash_bwd launches: per step, per eval batch, per
+              test call; LoRA B moved; step ms, peak memory); `reason
+              --hf_llm_dir --hf_dna_dir --sft_checkpoint <.pt>` for 2 GRPO
+              steps from a reference-format file that `export_reference_sft`
+              wrote from that SFT model (the first GRPO at the 151,936
+              vocabulary on the card: completions/s, peak memory, finite
+              loss, kl, rewards); `serve --checkpoint <sft_final>`: its
+              merged prefill logits held to the unmerged SFT model's, 8
+              concurrent greedy requests of 2 x 2048 bp twice, identical,
+              exactly 57 flash_fwd per engine call; `train_sft
+              --hf_llm_dir --evo2_dir` for 2 steps over the committed
+              25-block Evo2 fixture (its head_dim of 8 takes the plain
+              route; the decoder's launches counted).
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -1266,7 +1293,14 @@ def phase_train_long(torch, card):
 
 # -- phase 8 -----------------------------------------------------------------
 
-GRPO_PROMPTS, GRPO_G, GRPO_NEW = 4, 4, 64
+# bench_grpo.py samples 64 new tokens; this phase samples 32, half the
+# decode depth, so that the script with phase 11 keeps the time it took
+# before it: the rollout's decode loop is host-bound (~60 ms a step) and its
+# profiled step alone took 31.8 s at 64. The towers keep their full depth:
+# at a quarter of it the update's kernel vs plain cosine fell to 0.81 on
+# gradients 1000x smaller (norm 1.2e-3 against 1.28), a check the cut made
+# meaningless, not a kernel fault
+GRPO_PROMPTS, GRPO_G, GRPO_NEW = 4, 4, 32
 
 
 def grpo_setup():
@@ -1979,6 +2013,465 @@ def phase_evo2_train(torch, card):
     return out
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+# the published configurations (Qwen3-0.6B config.json; NT-v2-500M's ESM
+# config), written as HF directories with weights drawn from a seed
+QWEN3_0_6B_HF = {"architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+                 "vocab_size": 151936, "hidden_size": 1024, "intermediate_size": 3072,
+                 "num_hidden_layers": 28, "num_attention_heads": 16, "num_key_value_heads": 8,
+                 "head_dim": 128, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+                 "tie_word_embeddings": True, "torch_dtype": "bfloat16"}
+NT_V2_500M_HF = {"architectures": ["EsmForMaskedLM"], "model_type": "esm", "vocab_size": 4107,
+                 "hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 29,
+                 "num_attention_heads": 16, "position_embedding_type": "rotary",
+                 "layer_norm_eps": 1e-12, "add_bias_fnn": False, "token_dropout": False,
+                 "mask_token_id": 2, "pad_token_id": 1, "max_position_embeddings": 2050}
+QWEN_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
+              r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+QWEN_BPE_TOKENS = 151643                   # ids 0..151642; the added tokens follow
+PRETRAINED_BP = 2048                       # 2 x 2 kb per variant-effect item
+# serve --checkpoint against the SFT model in memory with LoRA unmerged: the
+# merge folds the fp32 delta into bf16 weights (one rounding of W + delta
+# where the unmerged path adds x @ A @ B in bf16), so the two prefills
+# differ by bf16 rounding: min cosine and max |diff| / max |logit|
+MERGED_COS, MERGED_REL = 0.999, 2e-2
+
+
+def write_qwen_tokenizer(path):
+    """A Qwen2-style byte-level `tokenizer.json` with Qwen's Split regex,
+    NFC, 151,643 BPE tokens (the byte alphabet, every pair of it, then
+    pairs with a third byte; one merge per token) and the added tokens at
+    Qwen3's ids: <|endoftext|> 151643, <|im_start|> 151644, <|im_end|>
+    151645, placeholders to 151666, <think> / </think> 151667-151668, so
+    the DNA tokens land at 151669-151671 as they do with the real file."""
+    from bioreason_tpu_torch.data.bpe import byte_encoder
+    alphabet = sorted(byte_encoder().values())
+    vocab = {c: i for i, c in enumerate(alphabet)}
+    merges = []
+    for a in alphabet:
+        for b in alphabet:
+            vocab[a + b] = len(vocab)
+            merges.append([a, b])
+    pairs = list(merges)
+    for a, b in pairs:
+        for c in alphabet:
+            if len(vocab) == QWEN_BPE_TOKENS:
+                break
+            vocab[a + b + c] = len(vocab)
+            merges.append([a + b, c])
+        if len(vocab) == QWEN_BPE_TOKENS:
+            break
+    added = (["<|endoftext|>", "<|im_start|>", "<|im_end|>"]
+             + [f"<|placeholder_{i}|>" for i in range(21)] + ["<think>", "</think>"])
+    added_tokens = [{"id": QWEN_BPE_TOKENS + i, "content": t, "single_word": False,
+                     "lstrip": False, "rstrip": False, "normalized": False,
+                     "special": t not in ("<think>", "</think>")} for i, t in enumerate(added)]
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added_tokens,
+            "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": QWEN_SPLIT}, "behavior": "Isolated",
+                 "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                 "use_regex": False}]},
+            "post_processor": None,
+            "decoder": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                        "use_regex": False},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>"}, f)
+
+
+def pretrained_states(torch, seed=0):
+    """HF-named weights drawn on the card from `seed`: Qwen3-0.6B in bf16
+    (dense N(0, 1/in), embedding N(0, 0.02^2), norm scales 1 + N(0, 0.1^2):
+    non-unit), NT-v2-500M in fp32 (the fused gated `intermediate.dense`
+    [8192, 1024] without bias, q/k/v/o biases and layer-norm shifts
+    N(0, 0.02^2): non-zero, scales non-unit)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(shape, std, dtype, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(dtype)
+    q, n = QWEN3_0_6B_HF, NT_V2_500M_HF
+    bf, hd = torch.bfloat16, q["head_dim"]
+    h, hq, hkv = q["hidden_size"], q["num_attention_heads"] * hd, q["num_key_value_heads"] * hd
+    qwen = {"model.embed_tokens.weight": rand((q["vocab_size"], h), 0.02, bf),
+            "model.norm.weight": rand((h,), 0.1, bf, 1.0)}
+    for i in range(q["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        for name, (o, k) in (("self_attn.q_proj", (hq, h)), ("self_attn.k_proj", (hkv, h)),
+                             ("self_attn.v_proj", (hkv, h)), ("self_attn.o_proj", (h, hq)),
+                             ("mlp.gate_proj", (q["intermediate_size"], h)),
+                             ("mlp.up_proj", (q["intermediate_size"], h)),
+                             ("mlp.down_proj", (h, q["intermediate_size"]))):
+            qwen[p + name + ".weight"] = rand((o, k), k ** -0.5, bf)
+        for name, d in (("self_attn.q_norm", hd), ("self_attn.k_norm", hd),
+                        ("input_layernorm", h), ("post_attention_layernorm", h)):
+            qwen[p + name + ".weight"] = rand((d,), 0.1, bf, 1.0)
+    f32, d, inter = torch.float32, n["hidden_size"], n["intermediate_size"]
+    nt = {"esm.embeddings.word_embeddings.weight": rand((n["vocab_size"], d), 0.02, f32),
+          "esm.encoder.emb_layer_norm_after.weight": rand((d,), 0.1, f32, 1.0),
+          "esm.encoder.emb_layer_norm_after.bias": rand((d,), 0.02, f32)}
+    for i in range(n["num_hidden_layers"]):
+        p = f"esm.encoder.layer.{i}."
+        for name in ("attention.self.query", "attention.self.key", "attention.self.value",
+                     "attention.output.dense"):
+            nt[p + name + ".weight"] = rand((d, d), d ** -0.5, f32)
+            nt[p + name + ".bias"] = rand((d,), 0.02, f32)
+        for name in ("attention.LayerNorm", "LayerNorm"):
+            nt[p + name + ".weight"] = rand((d,), 0.1, f32, 1.0)
+            nt[p + name + ".bias"] = rand((d,), 0.02, f32)
+        nt[p + "intermediate.dense.weight"] = rand((2 * inter, d), d ** -0.5, f32)
+        nt[p + "output.dense.weight"] = rand((d, inter), inter ** -0.5, f32)
+        ehd = d // n["num_attention_heads"]
+        nt[p + "attention.self.rotary_embeddings.inv_freq"] = 1.0 / (
+            10000.0 ** (torch.arange(0, ehd, 2, device="cuda", dtype=f32) / ehd))
+    return qwen, nt
+
+
+def variant_items(n, bp, seed=0):
+    """Coding variant-effect records as data/variant_effect.py reads them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        ref = "".join(rng.choice(list("ACGT"), bp))
+        pos = int(rng.integers(0, bp))
+        alt = "ACGT"[("ACGT".index(ref[pos]) + 1 + int(rng.integers(0, 3))) % 4]
+        out.append({"question": f"Variant at position {pos} of this coding sequence: is it "
+                                f"benign or pathogenic?",
+                    "answer": "Pathogenic; ClinVar" if k % 2 else "Benign",
+                    "reference_sequence": ref,
+                    "variant_sequence": ref[:pos] + alt + ref[pos + 1:]})
+    return out
+
+
+def phase_pretrained(torch, card, max_new):
+    """The port on HF-layout checkpoints at full width (module docstring,
+    phase 11)."""
+    import copy
+
+    from bioreason_tpu_torch.cli import reason, train_sft
+    from bioreason_tpu_torch.data import BioProcessor
+    from bioreason_tpu_torch.data.nt_tokenizer import KmerTokenizer
+    from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.serve import build_server, prepare_batch
+    from bioreason_tpu_torch.train import grpo as grpo_mod
+    from bioreason_tpu_torch.train.lora import merge_lora
+    from bioreason_tpu_torch.utils import pretrained as P
+    from bioreason_tpu_torch.utils.hf_import import export_decoder_to_hf, export_encoder_to_hf
+    from bioreason_tpu_torch.utils.ref_ckpt import export_reference_sft
+    from bioreason_tpu_torch.utils.safetensors_io import save_file
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_pretrained_", dir=build_dir)
+    out = {}
+    try:
+        qwen_dir, nt_dir = os.path.join(tmp, "qwen3-0.6b"), os.path.join(tmp, "nt-v2-500m")
+        os.makedirs(qwen_dir)
+        os.makedirs(nt_dir)
+        # (1) the two directories, written by the port's own writer
+        t0 = time.perf_counter()
+        write_qwen_tokenizer(qwen_dir)
+        t_tok = time.perf_counter() - t0
+        qwen, nt = pretrained_states(torch)
+        written = {}
+        for path, state, cfg in ((qwen_dir, qwen, QWEN3_0_6B_HF), (nt_dir, nt, NT_V2_500M_HF)):
+            with open(os.path.join(path, "config.json"), "w") as f:
+                json.dump(cfg, f)
+            t0 = time.perf_counter()
+            save_file(state, os.path.join(path, "model.safetensors"), {"format": "pt"})
+            written[path] = (os.path.getsize(os.path.join(path, "model.safetensors")),
+                             time.perf_counter() - t0)
+        with open(os.path.join(nt_dir, "vocab.txt"), "w") as f:
+            f.write("\n".join(KmerTokenizer().vocab))
+        log(f"pretrained: wrote tokenizer.json (151,643 BPE tokens + 26 added) in {t_tok:.2f} s; "
+            f"Qwen3-0.6B bf16 {written[qwen_dir][0] / 1e9:.3f} GB in {written[qwen_dir][1]:.2f} s, "
+            f"NT-v2-500M fp32 {written[nt_dir][0] / 1e9:.3f} GB in {written[nt_dir][1]:.2f} s")
+
+        # load times and rates, then (2) the whole fusion, held leaf by leaf
+        # to what was written after the cast to each parameter's dtype
+        for name, loader, path in (("Qwen3-0.6B", P.load_pretrained_decoder, qwen_dir),
+                                   ("NT-v2-500M", P.load_pretrained_encoder, nt_dir)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, module = loader(path, "cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            size = written[path][0]
+            log(f"pretrained [{card}]: load_pretrained_{'decoder' if 'Qwen' in name else 'encoder'}"
+                f"({name}) onto the card in {dt:.2f} s, {size / dt / 1e9:.2f} GB/s of "
+                f"safetensors (the file just written: page cache warm)")
+            out[f"load_{name}_GBps"] = size / dt / 1e9
+            del module
+        t0 = time.perf_counter()
+        cfg, model, tok, dna_tok = P.load_pretrained_fusion(qwen_dir, nt_dir, device="cuda")
+        torch.cuda.synchronize()
+        log(f"pretrained: load_pretrained_fusion in {time.perf_counter() - t0:.2f} s "
+            f"(tokenizer included); DNA ids {tok.dna_start_id}, {tok.dna_pad_id}, "
+            f"{tok.dna_end_id}; vocab {cfg.decoder.vocab_size}; encoder swiglu "
+            f"{cfg.encoder.use_swiglu}, mlp_bias {cfg.encoder.mlp_bias}")
+        if (tok.dna_start_id, tok.dna_pad_id, tok.dna_end_id) != (151669, 151670, 151671):
+            fail(f"the DNA tokens landed at {tok.dna_start_id}..{tok.dna_end_id}")
+        d, e, qc, nc = cfg.decoder, cfg.encoder, QWEN3_0_6B_HF, NT_V2_500M_HF
+        if ((d.num_layers, d.hidden_size, d.num_heads, d.num_kv_heads, d.head_dim,
+             d.vocab_size, d.rope_theta) != tuple(qc[k] for k in (
+                 "num_hidden_layers", "hidden_size", "num_attention_heads",
+                 "num_key_value_heads", "head_dim", "vocab_size", "rope_theta"))
+                or (e.num_layers, e.hidden_size, e.num_heads, e.intermediate_size,
+                    e.vocab_size) != tuple(nc[k] for k in (
+                        "num_hidden_layers", "hidden_size", "num_attention_heads",
+                        "intermediate_size", "vocab_size"))
+                or not e.use_swiglu or e.mlp_bias or not e.attn_bias):
+            fail(f"configs from config.json: {cfg}")
+        checked, wrong = 0, []
+        for exported, state in ((export_decoder_to_hf(model.decoder), qwen),
+                                (export_encoder_to_hf(model.encoder), nt)):
+            for k, v in exported.items():
+                checked += 1
+                if k not in state or not torch.equal(v, state[k].to(v.dtype)):
+                    wrong.append(k)
+        ignored = sorted(set(nt) - set(export_encoder_to_hf(model.encoder)))
+        log(f"pretrained: {checked} leaves equal to the written tensors after the cast to "
+            f"their parameter's dtype (bf16 weights, fp32 norms) bit for bit: "
+            f"{checked - len(wrong)}; not imported: {len(ignored)} rotary buffers")
+        if wrong or any("rotary" not in k for k in ignored):
+            fail(f"imported leaves differ from the written ones: {wrong[:6]} {ignored[:6]}")
+        # the BPE on the served prompts (host time)
+        items = variant_items(8, PRETRAINED_BP, seed=1)
+        t0 = time.perf_counter()
+        prepare_batch(BioProcessor(tok, dna_tok), cfg, items)
+        tok_ms = (time.perf_counter() - t0) * 1e3
+        log(f"pretrained: prepare_batch of 8 requests (chat render, BPE on 151,643 tokens, "
+            f"6-mers of 2 x {PRETRAINED_BP} bp) {tok_ms:.1f} ms of host time (cold BPE cache)")
+        out["tokenize_8_ms"] = tok_ms
+        del model, qwen, nt
+        torch.cuda.empty_cache()
+
+        # (3) train_sft from the two directories on the coding variant-effect
+        # task: 4 steps, eval every 2 with top-1 kept, the generative test
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        with open(os.path.join(data_dir, "variant_effect_coding.jsonl"), "w") as f:
+            f.write("\n".join(json.dumps(x) for x in variant_items(16, PRETRAINED_BP)))
+        from bioreason_tpu_torch.cli.common import load_items
+        train_items, val_items, test_items = load_items("variant_effect_coding", data_dir, 0, 0,
+                                                        0)
+        steps, bs = 4, 2
+        evals = steps // 2
+        val_batches = -(-len(val_items) // bs)
+        test_calls = -(-len(test_items) // bs)
+        # a training step: the frozen encoder once (no autograd), each
+        # decoder layer's forward twice (remat) and its backward once; an
+        # eval batch: encoder and decoder once; a test batch: one prefill
+        # (encoder + decoder; decode steps are plain)
+        per_step = {"flash_fwd": ENCODER_LAYERS + 2 * DECODER_LAYERS, "flash_bwd": DECODER_LAYERS}
+        per_eval = ENCODER_LAYERS + DECODER_LAYERS
+        want = {"flash_fwd": steps * per_step["flash_fwd"]
+                + (evals * val_batches + test_calls) * per_eval,
+                "flash_bwd": steps * per_step["flash_bwd"]}
+        ck = os.path.join(tmp, "ck")
+        argv = ["--hf_llm_dir", qwen_dir, "--hf_dna_dir", nt_dir, "--dataset_type",
+                "variant_effect_coding", "--data_dir", data_dir, "--max_steps", str(steps),
+                "--batch_size", str(bs), "--eval_every", "2", "--keep_top_k", "1",
+                "--test_generative", "--max_new_tokens", "16", "--truncate_dna_per_side", "0",
+                "--seed", "0", "--checkpoint_dir", ck]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # --- the main path: counts from 0 just before, read just after -------
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_sft.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counts()
+        # ---------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        hist = trainer.history
+        res = trainer.test_result
+        log(f"pretrained train_sft [{card}]: {steps} steps (variant_effect_coding, "
+            f"{len(train_items)}/{len(val_items)}/{len(test_items)} items, B={bs}, vocab "
+            f"151,936) in {secs:.1f} s (load, data, eval, test and checkpoints included): losses "
+            f"{[round(m['loss'], 4) for m in hist]}, val_loss "
+            f"{[round(m['val_loss'], 4) for m in hist if 'val_loss' in m]}, step ms "
+            f"{[round(m['step_time'] * 1e3, 1) for m in hist]}, "
+            f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; test {res.total} items "
+            f"{res.summary()}; launches {got} (expected {want}: {per_step} a step, "
+            f"{per_eval} per eval batch x {evals * val_batches} and per test call x "
+            f"{test_calls})")
+        if len(hist) != steps or not all(math.isfinite(m["loss"]) for m in hist):
+            fail(f"train_sft from HF dirs did not run {steps} finite steps")
+        if got != {k: want.get(k, 0) for k in got}:
+            fail(f"train_sft from HF dirs launched {got}, expected {want}")
+        if res is None or res.total != len(test_items):
+            fail("the generative test did not score the test split")
+        best = os.listdir(os.path.join(ck, "best"))
+        if sorted(best)[-1] != "index.json" or len(best) != 2:
+            fail(f"--keep_top_k 1 kept {best}")
+        b_leaves = [p for n, p in trainer.trainable_state().items() if n.endswith("lora_b")]
+        moved = sum(bool(p.detach().any()) for p in b_leaves)
+        log(f"pretrained train_sft: {moved} of {len(b_leaves)} LoRA B leaves moved; "
+            f"per-layer norm scales stored in "
+            f"{trainer.model.decoder.layers[0].ln1.scale.dtype}, final norm in "
+            f"{trainer.model.decoder.final_norm.scale.dtype}")
+        if moved != len(b_leaves):
+            fail("LoRA B leaves did not move")
+        if trainer.model.decoder.layers[0].ln1.scale.dtype != torch.bfloat16:
+            fail("frozen per-layer norm scales are not stored in bf16")
+        out["sft"] = {"step_ms": [m["step_time"] * 1e3 for m in hist], "peak_gib": peak / 2**30,
+                      "launches": got}
+        sft_model = trainer.model
+
+        # (4) reason from a reference-format .pt exported from that model
+        ref = os.path.join(tmp, "reference_sft.pt")
+        t0 = time.perf_counter()
+        torch.save(export_reference_sft(merge_lora(copy.deepcopy(sft_model))), ref)
+        log(f"pretrained: export_reference_sft of the merged SFT model, "
+            f"{os.path.getsize(ref) / 1e9:.3f} GB in {time.perf_counter() - t0:.1f} s")
+        del trainer
+        torch.cuda.empty_cache()
+        step_s = []
+        real_step = grpo_mod.GRPOTrainer.step
+
+        def timed_step(self, *a, **kw):
+            t = time.perf_counter()
+            m = real_step(self, *a, **kw)
+            step_s.append(time.perf_counter() - t)
+            return m
+        g, n_gen, new = 4, 8, 32
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        grpo_mod.GRPOTrainer.step = timed_step
+        try:
+            t0 = time.perf_counter()
+            cli = reason.main(["--hf_llm_dir", qwen_dir, "--hf_dna_dir", nt_dir,
+                               "--sft_checkpoint", ref, "--dataset_type",
+                               "variant_effect_coding", "--data_dir", data_dir,
+                               "--truncate_dna_per_side", "0", "--num_generations", str(g),
+                               "--batch_size", str(n_gen), "--max_completion_length", str(new),
+                               "--max_steps", "2", "--seed", "0", "--checkpoint_dir",
+                               os.path.join(tmp, "grpo"), "--log_dir",
+                               os.path.join(tmp, "grpo_logs")])
+            secs = time.perf_counter() - t0
+        finally:
+            grpo_mod.GRPOTrainer.step = real_step
+        peak = torch.cuda.max_memory_allocated()
+        hist = cli.metrics_history
+        stats = cli.engine.last_stats
+        log(f"pretrained reason [{card}]: 2 GRPO steps from the reference .pt at the 151,936 "
+            f"vocabulary ({n_gen // g} prompts x G={g}, P={stats['prompt_len']}, {new} new "
+            f"tokens) in {secs:.1f} s (load included): step s "
+            f"{[round(x, 2) for x in step_s]}, {n_gen / min(step_s):.3f} completions/s "
+            f"(fastest step), torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; losses "
+            f"{[m['loss'] for m in hist]}, kl {[m['kl'] for m in hist]}, rewards "
+            f"{[m['reward'] for m in hist]}; launches {counts()}")
+        if len(hist) != 2 or any(not math.isfinite(m[k]) for m in hist
+                                 for k in ("loss", "kl", "reward")):
+            fail(f"reason from a reference checkpoint: {hist}")
+        # a GRPO step: the rollout's encoder and prefill, the reference
+        # pass's encoder and decoder, the update's encoder and its decoder
+        # twice (remat), one backward per decoder layer (as phase 8)
+        want = {"flash_fwd": 2 * (3 * ENCODER_LAYERS + 4 * DECODER_LAYERS),
+                "flash_bwd": 2 * DECODER_LAYERS}
+        if counts() != {k: want.get(k, 0) for k in counts()}:
+            fail(f"reason launched {counts()} in 2 steps, expected {want}")
+        out["grpo"] = {"step_s": step_s, "completions_per_s": n_gen / min(step_s),
+                       "peak_gib": peak / 2**30, "launches": counts()}
+        del cli
+        torch.cuda.empty_cache()
+
+        # (5) serve --checkpoint <sft_final>: 8 concurrent greedy requests twice
+        t0 = time.perf_counter()
+        server = build_server(checkpoint=os.path.join(ck, "sft_final"), max_length_dna=2048,
+                              max_batch=8, batch_window_ms=500.0, max_new_tokens=max_new,
+                              greedy_default=True)
+        log(f"pretrained serve: the sft_final's base rebuilt and its LoRA merged in "
+            f"{time.perf_counter() - t0:.1f} s")
+        reqs = variant_items(8, PRETRAINED_BP, seed=2)
+        batch = [torch.as_tensor(a, device="cuda")
+                 for a in prepare_batch(server.processor, server.cfg, reqs[:1])]
+        served = server.engine.prefill(server.model, *batch, max_new)[0]
+        unmerged = GenerationEngine(server.cfg, tok.eos_token_id).prefill(sft_model, *batch,
+                                                                          max_new)[0]
+        cos = float(torch.nn.functional.cosine_similarity(served, unmerged, dim=-1).min())
+        rel = float((served - unmerged).abs().max() / unmerged.abs().max())
+        log(f"pretrained serve: merged (served) vs unmerged (the SFT model) last-column prefill "
+            f"logits [1, {served.shape[-1]}]: cosine {cos:.6f}, max |diff| / max |logit| "
+            f"{rel:.3g} (tolerance: cosine >= {MERGED_COS}, relative <= {MERGED_REL}: bf16 "
+            f"merge rounding)")
+        if not bool(torch.isfinite(served).all()) or cos < MERGED_COS or rel > MERGED_REL:
+            fail("served merged model and the SFT model disagree")
+        del sft_model, unmerged
+        torch.cuda.empty_cache()
+        server.start()
+        calls_out, restore = record_engine_calls(server)
+        torch.cuda.reset_peak_memory_stats()
+        # --- the main path: counts from 0 just before, read just after -------
+        reset_counts()
+        calls0 = server.engine_calls
+        first = burst(server, reqs, max_new)
+        n_first = len(calls_out)
+        second = burst(server, reqs, max_new)
+        got = counts()
+        calls = server.engine_calls - calls0
+        # ---------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        server.stop()
+        restore()
+        if (len(completion_rows(calls_out[:n_first])) != 8 or first != second
+                or completion_rows(calls_out[:n_first]) != completion_rows(calls_out[n_first:])):
+            fail("serve --checkpoint: greedy repeats differ")
+        per_call = ENCODER_LAYERS + DECODER_LAYERS
+        st = calls_out[-1][1]
+        tps = st["decode_tokens"] / st["decode_s"] if st["decode_s"] else 0.0
+        log(f"pretrained serve [{card}]: 16 requests in {calls} engine calls, flash_fwd "
+            f"{got['flash_fwd']} = {got['flash_fwd'] / max(calls, 1):g} per call (expected "
+            f"{per_call}); B={st['batch']} P={st['prompt_len']}: prefill "
+            f"{st['prefill_s'] * 1e3:.1f} ms, decode {tps:.1f} tokens/s; "
+            f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; e.g. "
+            f"{first[0]['completion'][:60]!r}")
+        if got != {k: (per_call * calls if k == "flash_fwd" else 0) for k in got}:
+            fail(f"serve --checkpoint launched {got} in {calls} engine calls")
+        out["serve"] = {"launches": got["flash_fwd"], "calls": calls,
+                        "prefill_ms": st["prefill_s"] * 1e3, "decode_tps": tps,
+                        "peak_gib": peak / 2**30}
+        del server
+        torch.cuda.empty_cache()
+
+        # (6) train_sft --hf_llm_dir with --evo2_dir over the committed
+        # 25-block fixture (head_dim 8: its attention takes the plain route)
+        evo2_dir = os.path.join(tmp, "evo2")
+        os.makedirs(evo2_dir)
+        shutil.copy(os.path.join(REPO, "tests", "assets", "evo2_1b_depth_tiny.pt"), evo2_dir)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_sft.main(["--hf_llm_dir", qwen_dir, "--evo2_dir", evo2_dir,
+                                  "--dna_attention", "xla", "--max_steps", "2", "--seed", "0",
+                                  "--max_length_dna", "256", "--n_synthetic", "16",
+                                  "--checkpoint_dir", os.path.join(tmp, "evo2_ck")])
+        got = counts()
+        hist = trainer.history
+        want = {"flash_fwd": 2 * 2 * DECODER_LAYERS, "flash_bwd": 2 * DECODER_LAYERS}
+        log(f"pretrained train_sft --evo2_dir [{card}]: 2 steps in "
+            f"{time.perf_counter() - t0:.1f} s, losses {[round(m['loss'], 4) for m in hist]}, "
+            f"launches {got} (expected {want})")
+        if len(hist) != 2 or not all(math.isfinite(m["loss"]) for m in hist):
+            fail("train_sft --evo2_dir did not run 2 finite steps")
+        if got != {k: want.get(k, 0) for k in got}:
+            fail(f"train_sft --evo2_dir launched {got}, expected {want}")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"pretrained: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -1990,24 +2483,37 @@ def main():
     sys.path.insert(0, REPO)
 
     t_start = time.perf_counter()
+    seconds, last = {}, [t_start]
+
+    def mark(name):
+        """The script's clock since the previous mark, under `name`."""
+        now = time.perf_counter()
+        seconds[name] = round(now - last[0], 1)
+        last[0] = now
     max_new = 64
     card = phase_device(torch)
     built = phase_build()
+    mark("device, build")
     rows, bwd_rows, band_rows = phase_kernels(torch, max_new)
+    mark("kernels")
     launches, server, items = phase_serve(torch, card, max_new)
     phase_profile(torch, card, server, items, max_new=8)
     del server
     torch.cuda.empty_cache()
+    mark("serve, profile")
     build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
     os.makedirs(build_dir, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="smoke_sft_", dir=build_dir)
     try:
         train = phase_train(torch, card, ckpt)
         torch.cuda.empty_cache()
+        mark("train")
         long = phase_train_long(torch, card)
         torch.cuda.empty_cache()
+        mark("train-long")
         grpo, grpo_rows, grpo_bwd_rows = phase_grpo(torch, card,
                                                     os.path.join(ckpt, "sft_final"))
+        mark("grpo")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2015,7 +2521,13 @@ def main():
     evo2_serve, evo2_batch = phase_evo2_serve(torch, card, max_new)
     torch.cuda.empty_cache()
     evo2_rows, evo2_bwd_rows = evo2_kernel_cases(torch, evo2_batch)
+    mark("evo2")
     evo2_train = phase_evo2_train(torch, card)
+    torch.cuda.empty_cache()
+    mark("evo2-train")
+    pretrained = phase_pretrained(torch, card, max_new)
+    mark("pretrained")
+    log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows += grpo_rows + evo2_rows
@@ -2033,6 +2545,9 @@ def main():
                  "long_launches": long["flash_fwd"], "grpo_launches": grpo["flash_fwd"],
                  "evo2_launches": {k: v if isinstance(v, int) else v["flash_fwd"]
                                    for k, v in evo2_launches.items()},
+                 "pretrained_launches": {"sft": pretrained["sft"]["launches"]["flash_fwd"],
+                                         "reason": pretrained["grpo"]["launches"]["flash_fwd"],
+                                         "serve": pretrained["serve"]["launches"]},
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -2049,6 +2564,8 @@ def main():
                  "grpo_launches": grpo["flash_bwd"],
                  "evo2_launches": {k: v["flash_bwd"] for k, v in evo2_launches.items()
                                    if not isinstance(v, int)},
+                 "pretrained_launches": {"sft": pretrained["sft"]["launches"]["flash_bwd"],
+                                         "reason": pretrained["grpo"]["launches"]["flash_bwd"]},
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],

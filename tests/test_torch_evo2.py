@@ -302,9 +302,10 @@ def test_every_block_of_the_depth_fixture_matches_jax_on_its_input(tmp_path):
 
 
 def test_importer_keeps_complex_poles_and_refuses_another_layout(tmp_path):
-    from bioreason_tpu_torch.utils.evo2_import import import_evo2, load_state_dict
+    from bioreason_tpu_torch.utils.evo2_import import import_evo2
+    from bioreason_tpu_torch.utils.hf_import import load_hf_state_dict
     shutil.copy(os.path.join(ASSETS, "evo2_tiny.pt"), tmp_path / "w.pt")
-    state = load_state_dict(str(tmp_path))
+    state = load_hf_state_dict(str(tmp_path))
     raw = state["blocks.2.filter.poles"]
     assert raw.is_complex()
     cfg, tower = load_pretrained_evo2(str(tmp_path), device="cpu", dtype="float32")

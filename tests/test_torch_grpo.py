@@ -539,9 +539,9 @@ def test_an_sft_final_without_the_base_keys_is_refused(tmp_path):
         load_sft_for_grpo(str(tmp_path), tcfg, None, 0, "tiny", "tiny", device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["--hf_llm_dir=x", "--hf_dna_dir=x", "--mesh=1,1,1",
+@pytest.mark.parametrize("flag", ["--debug_nans", "--mesh=1,1,1",
                                   "--cpu_devices=2", "--wandb", "--rollout_int8",
-                                  "--guided_decoding_regex=A.*", "--sft_checkpoint=ref.pt"])
+                                  "--guided_decoding_regex=A.*"])
 def test_reason_cli_refuses_later_slices(flag):
     from bioreason_tpu_torch.cli import reason
     with pytest.raises(NotImplementedError):

@@ -218,7 +218,9 @@ def test_cuda_asked_for_and_absent_raises():
 def test_port_imports_no_jax_and_nothing_of_bioreason_tpu(tmp_path):
     """Every module of the port, imported in a fresh interpreter, leaves
     `jax`, `bioreason_tpu` and `bioreason_tpu.*` out of sys.modules (the
-    port's own name shares the prefix, so names are matched exactly)."""
+    port's own name shares the prefix, so names are matched exactly), and
+    `transformers`, `tokenizers`, `safetensors` and `regex` too: the card's
+    machine has none of them."""
     import pathlib
     repo = pathlib.Path(__file__).resolve().parent.parent
     code = f"""
@@ -235,16 +237,21 @@ training = {{"bioreason_tpu_torch.ops.fused_ce", "bioreason_tpu_torch.train.lora
             "bioreason_tpu_torch.train.grpo", "bioreason_tpu_torch.train.rewards",
             "bioreason_tpu_torch.train.metrics", "bioreason_tpu_torch.cli.reason",
             "bioreason_tpu_torch.models.evo2", "bioreason_tpu_torch.data.char_tokenizer",
-            "bioreason_tpu_torch.utils.evo2_import", "bioreason_tpu_torch.utils.pretrained"}}
+            "bioreason_tpu_torch.utils.evo2_import", "bioreason_tpu_torch.utils.pretrained",
+            "bioreason_tpu_torch.utils.safetensors_io", "bioreason_tpu_torch.utils.hf_import",
+            "bioreason_tpu_torch.utils.ref_ckpt", "bioreason_tpu_torch.utils.profiling",
+            "bioreason_tpu_torch.data.bpe", "bioreason_tpu_torch.data.variant_effect",
+            "bioreason_tpu_torch.train.eval"}}
 assert training <= set(names), sorted(training - set(names))
 for n in names:
     importlib.import_module(n)
+banned = ("jax", "jaxlib", "bioreason_tpu", "transformers", "tokenizers", "safetensors", "regex")
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "bioreason_tpu") or m.startswith(("jax.", "jaxlib.", "bioreason_tpu.")))
+             if m in banned or m.startswith(tuple(b + "." for b in banned)))
 print(len(names), bad)
 assert not bad, bad
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 37
+    assert int(proc.stdout.split()[0]) >= 44

@@ -499,9 +499,12 @@ def test_trainer_attaches_adapters_and_trains_on_its_own():
     frozen = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
               if not p.requires_grad}
     assert all(p.dtype == torch.float32 for p in trainer.params)
-    # bf16 storage of frozen >= 2-D leaves, fp32 norms
+    # bf16 storage of the frozen leaves JAX stores in bf16: those of >= 2
+    # dims and the per-layer norms (2-D [L, D] in JAX's stacked tree); the
+    # final norm stays fp32
     assert trainer.model.decoder.layers[0].mlp.up.weight.dtype == torch.bfloat16
-    assert trainer.model.decoder.layers[0].ln1.scale.dtype == torch.float32
+    assert trainer.model.decoder.layers[0].ln1.scale.dtype == torch.bfloat16
+    assert trainer.model.decoder.final_norm.scale.dtype == torch.float32
     batch = collated(2, 12)
     losses = [trainer.train_step(batch)["loss"] for _ in range(4)]
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
@@ -558,9 +561,9 @@ def test_cli_rejects_an_unknown_dna_attention():
         train_sft.parse_args(["--dna_attention", "local:x"])
 
 
-@pytest.mark.parametrize("flag", ["--hf_llm_dir=x", "--sp_dna", "--dna_attention=sp_local:64",
-                                  "--dna_attention=sp", "--sample_every=5",
-                                  "--test_generative", "--wandb"])
+@pytest.mark.parametrize("flag", ["--debug_nans", "--sp_dna", "--dna_attention=sp_local:64",
+                                  "--dna_attention=sp", "--mesh=1,1,1",
+                                  "--cpu_devices=2", "--wandb"])
 def test_cli_refuses_later_slices(flag):
     from bioreason_tpu_torch.cli import train_sft
     with pytest.raises(NotImplementedError):
