@@ -29,9 +29,10 @@ Metrics go to <log_dir>/metrics.jsonl and stdout; the trainable parameters,
 optimizer state and step to <checkpoint_dir>/grpo_state every --save_every
 steps (read back by --resume) and to <checkpoint_dir>/grpo_final at the end.
 `--use_vllm` is accepted and ignored, as the JAX CLI and the reference do:
-rollouts always run through the port's engine. The device mesh, wandb,
-NaN debugging, int8 rollouts and guided decoding come with later slices:
-`main` refuses their flags.
+rollouts always run through the port's engine. `--guided_decoding_regex`
+constrains every rollout to a regex (generate/guided.py). The device mesh,
+wandb, NaN debugging and int8 rollouts come with later slices: `main`
+refuses their flags.
 """
 
 from __future__ import annotations
@@ -41,8 +42,7 @@ import dataclasses
 import os
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("mesh", "cpu_devices", "wandb", "rollout_int8", "guided_decoding_regex",
-               "debug_nans")
+LATER_FLAGS = ("mesh", "cpu_devices", "wandb", "rollout_int8", "debug_nans")
 
 
 def parse_args(argv=None):
@@ -93,6 +93,9 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=0)
     p.add_argument("--resume", action="store_true",
                    help="resume from <checkpoint_dir>/grpo_state if present")
+    p.add_argument("--guided_decoding_regex", default=None,
+                   help="constrain every rollout completion to match this regex "
+                        "(vllm_guided_decoding_regex, grpo_config.py:278-280)")
     p.add_argument("--use_vllm", default=None,
                    help="accepted for reference-CLI compatibility and ignored "
                         "(sh_reason.sh:53): rollouts run through the port's engine")
@@ -211,7 +214,7 @@ def main(argv=None):
         max_prompt_length=args.max_prompt_length,
         sampling=SamplingConfig(max_new_tokens=args.max_completion_length),
         optim=OptimConfig(learning_rate=args.learning_rate or 5e-6, total_steps=steps),
-        lora=lora_cfg, seed=args.seed)
+        lora=lora_cfg, guided_decoding_regex=args.guided_decoding_regex, seed=args.seed)
     trainer = GRPOTrainer(fusion_cfg, cfg, proc, get_reward_funcs(args.reward_funcs),
                           model=model, device=device)
     state_path = os.path.join(args.checkpoint_dir, "grpo_state")

@@ -232,7 +232,9 @@ class GRPOConfig:
     epsilon: float = 0.2             # clip (grpo_config.py:302)
     epsilon_high: Optional[float] = None  # DAPO asymmetric clip (grpo_config.py:304-312)
     reward_weights: Optional[Tuple[float, ...]] = None
-    guided_decoding_regex: Optional[str] = None   # not ported yet: raises
+    # regex every completion must match (vLLM guided decoding,
+    # grpo_config.py:278-280), compiled once by the trainer (generate/guided.py)
+    guided_decoding_regex: Optional[str] = None
     rollout_int8: bool = False                    # not ported yet: raises
     rollout_kv_int8: bool = False                 # not ported yet: raises
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
@@ -256,7 +258,3 @@ class GRPOConfig:
             raise NotImplementedError(
                 "GRPOConfig rollout_int8 / rollout_kv_int8 / frozen_dtype='int8': int8 "
                 "weights and KV are not ported yet (ROADMAP.md, queue 1: quantization)")
-        if self.guided_decoding_regex:
-            raise NotImplementedError(
-                "GRPOConfig.guided_decoding_regex: guided decoding is not ported yet "
-                "(ROADMAP.md, queue 1: continuous serving)")

@@ -15,7 +15,10 @@
 
 The JAX engine jits prefill and a `lax.while_loop`; here PyTorch runs
 eagerly and the loop is a Python loop whose exit test is the one host sync
-per step. Guided decoding and the device mesh come with later slices.
+per step. With `guided` (generate/guided.py) each row carries a DFA state on
+the device: its logits are masked before sampling and the state advances
+after, frozen once the row has finished. The device mesh comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from bioreason_tpu_torch.config import FusionConfig, SamplingConfig
+from bioreason_tpu_torch.generate import guided as G
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.fusion import FusionModel, fused_input_embeddings
 from bioreason_tpu_torch.models.qwen3 import (decoder_decode_step_grouped, decoder_forward,
@@ -83,12 +87,16 @@ class GenerationEngine:
                  dna_input_ids=None, dna_attention_mask=None,
                  sampling: SamplingConfig = SamplingConfig(),
                  max_new_tokens: Optional[int] = None, greedy: bool = False,
-                 generator: Optional[torch.Generator] = None, group_size: int = 1
-                 ) -> Tuple[np.ndarray, np.ndarray]:
+                 generator: Optional[torch.Generator] = None, group_size: int = 1,
+                 guided: Optional[G.GuidedSpec] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (completion_ids [B*G, max_new], completion_mask [B*G,
         max_new]) as numpy int arrays, G = `group_size`; ids after the first
         EOS are the pad id. With G > 1 each input row is one GRPO prompt,
-        prefilled once, whose G completions fill rows g*G .. g*G + G - 1."""
+        prefilled once, whose G completions fill rows g*G .. g*G + G - 1.
+
+        `guided`: regex-constrained decoding (engine.py:123-146); every
+        completion matches the pattern, or is a prefix of a match where
+        max_new_tokens ends it first. Its tables must be on this device."""
         mnt = max_new_tokens if max_new_tokens is not None else sampling.max_new_tokens
         cfg = self.cfg.decoder
         input_ids, attention_mask = self._put(input_ids), self._put(attention_mask)
@@ -99,10 +107,21 @@ class GenerationEngine:
 
         bad = torch.zeros((), dtype=torch.int64, device=self.device)
 
+        gstate = torch.zeros((bg,), dtype=torch.int32, device=self.device)
+
         def sample(logits):
             bad.add_((~torch.isfinite(logits).all(-1)).sum())
+            if guided is not None:
+                logits = G.mask_logits(logits, gstate, guided)
             return sample_logits(logits, sampling.temperature, sampling.top_k,
                                  sampling.top_p, greedy, generator)
+
+        def advance(tok, done_prev=None):
+            """The rows' next DFA states; frozen where `done_prev`."""
+            if guided is None:
+                return gstate
+            nxt = G.advance(gstate, tok, guided)
+            return nxt if done_prev is None else torch.where(done_prev, gstate, nxt)
 
         t0 = time.perf_counter()
         # grouped: the prompt cache holds the P prompt slots only; the decode
@@ -119,6 +138,7 @@ class GenerationEngine:
         out = torch.full((bg, mnt), self.pad_token_id, dtype=torch.int64, device=self.device)
         tok = sample(last_logits)
         out[:, 0] = tok
+        gstate = advance(tok)
         done = tok == self.eos_token_id
         all_done = bool(done.all())             # host sync: prefill has finished
         t1 = time.perf_counter()
@@ -138,7 +158,9 @@ class GenerationEngine:
                 logits, cache = decoder_forward(
                     model.decoder, cfg, input_ids=out[:, step - 1:step], attention_mask=ones,
                     positions=positions, cache=cache, cache_index=slot, cache_mask=cache_mask)
-            tok = torch.where(done, self.pad_token_id, sample(logits[:, 0]))
+            tok = sample(logits[:, 0])
+            gstate = advance(tok, done)
+            tok = torch.where(done, self.pad_token_id, tok)
             out[:, step] = tok
             done |= tok == self.eos_token_id
             step += 1

@@ -1,13 +1,26 @@
-"""Inference serving: HTTP server over the generation engine, in window
-micro-batch mode (the port of bioreason_tpu/serve.py).
+"""Inference serving: HTTP server over the generation engine (the port of
+bioreason_tpu/serve.py).
 
-Concurrent requests arriving within `batch_window_ms` are padded into one
-batch (prompt width bucketed to 128) and generated in one engine call.
+Two modes:
+  * window micro-batching (the default): concurrent requests arriving
+    within `batch_window_ms` are padded into one batch (prompt width
+    bucketed to 128) and generated in one engine call per guided pattern;
+  * continuous batching (`--continuous`): the slot scheduler of
+    generate/continuous.py; requests join the running decode at token
+    boundaries and short completions free their slot at once. `--tiers
+    CAPxLEN,...` builds one batcher per KV depth class and routes each
+    request to the shallowest class its prompt fits; `--decode_window k`
+    decodes k tokens per host round trip.
+
+`--guided_regex` constrains every completion to a regex
+(generate/guided.py); micro-batch mode also takes a per-request
+"guided_regex" (requests are grouped by pattern per batch), continuous mode
+only the server's own.
 
 Endpoints:
   POST /generate  {"question": str, "reference_sequence": str,
                    "variant_sequence": str, "max_new_tokens"?: int,
-                   "greedy"?: bool}
+                   "greedy"?: bool, "guided_regex"?: str}
               ->  {"completion": str, "answer": str}
   GET  /healthz ->  {"status": "ok"}
 
@@ -19,10 +32,12 @@ A trained model (the port's `sft_final` of `train_sft`: its base built
 again from what it records, seeded or pretrained HF directories with
 their tokenizers, and its LoRA merged into the frozen weights):
   python -m bioreason_tpu_torch.serve --checkpoint checkpoints/sft_final
+Continuous batching over two depth classes, every answer constrained:
+  python -m bioreason_tpu_torch.serve --continuous --tiers 8x512,8x1024 \
+      --decode_window 8 --guided_regex '<answer>(yes|no)</answer>'
 
-Continuous batching, KV depth tiers, int8 weights and activations, fused
-projections and guided decoding come with later slices; `main` refuses
-their flags.
+int8 weights, activations and KV, and fused projections come with a later
+slice (ROADMAP.md, queue 1, item 7); `main` refuses their flags.
 """
 
 from __future__ import annotations
@@ -48,12 +63,32 @@ from bioreason_tpu_torch.generate.engine import GenerationEngine
 from bioreason_tpu_torch.models.fusion import FusionModel, init_fusion
 from bioreason_tpu_torch.train.rewards import extract_answer
 
-# flags of the JAX server whose paths are not ported yet
-LATER_FLAGS = ("continuous", "tiers", "int8", "fuse", "w8a8", "guided_regex")
+# flags of the JAX server whose paths are not ported yet (all ROADMAP.md,
+# queue 1, item 7)
+LATER_FLAGS = ("int8", "kv_int8", "fuse", "w8a8")
+ITEM7 = "not ported yet (ROADMAP.md, queue 1, item 7: quantization and fused projections)"
 
 
 def _bucket(n: int, multiple: int = 128) -> int:
     return ((max(n, 1) + multiple - 1) // multiple) * multiple
+
+
+def _parse_tiers(spec: Optional[str]):
+    """'96x640,40x2048' -> [(96, 640), (40, 2048)], sorted by depth.
+
+    KV depth classes for continuous serving: each class is a
+    ContinuousBatcher pool of `cap` slots x `len` prompt tokens; requests
+    route to the shallowest class that fits. Pool memory scales with
+    sum(cap_i * (len_i + max_new)) instead of C * (P_max + max_new)."""
+    if not spec:
+        return None
+    tiers = []
+    for part in spec.split(","):
+        cap, _, mlen = part.strip().partition("x")
+        tiers.append((int(cap), int(mlen)))
+    if not tiers:
+        return None
+    return sorted(tiers, key=lambda t: t[1])
 
 
 def prepare_batch(processor: BioProcessor, cfg: FusionConfig, items: List[Dict[str, Any]]):
@@ -76,16 +111,41 @@ def prepare_batch(processor: BioProcessor, cfg: FusionConfig, items: List[Dict[s
     return input_ids, attention_mask, out.dna_input_ids, out.dna_attention_mask
 
 
+def prepare_request(processor: BioProcessor, cfg: FusionConfig, item: Dict[str, Any]):
+    """One KEGG item -> the continuous batcher's numpy inputs (input_ids,
+    attention_mask [1, n], dna_input_ids, dna_attention_mask): the
+    prompt-only chat rendering through the bi-modal processor, unpadded
+    (the batcher buckets and left-pads at admission; serve.py:183-214)."""
+    ex = format_kegg_prompt_only(item)
+    out = processor(text=[render_chat(ex["prompt"], add_generation_prompt=True)],
+                    batch_dna_sequences=[ex["dna_sequences"]],
+                    max_length_text=cfg.max_length_text, max_length_dna=cfg.max_length_dna,
+                    padding_side="left")
+    return out.input_ids, out.attention_mask, out.dna_input_ids, out.dna_attention_mask
+
+
 class InferenceServer:
     def __init__(self, model: FusionModel, fusion_cfg: FusionConfig,
                  processor: BioProcessor,
                  sampling: SamplingConfig = SamplingConfig(),
                  max_batch: int = 8, batch_window_ms: float = 20.0,
                  max_new_tokens: int = 256, greedy_default: bool = False,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, continuous: bool = False,
+                 slot_len: int = 2048, guided_regex: Optional[str] = None,
+                 kv_int8: bool = False, decode_window: int = 1,
+                 tiers: Optional[str] = None):
         """`device`: CUDA unless the caller passes "cpu"; `model` must live
         there. Sampled (non-greedy) batches draw from a generator seeded with
-        `seed` plus the batch count."""
+        `seed` plus the batch count.
+
+        `continuous=True` serves through the slot scheduler
+        (generate/continuous.py): `max_batch` slots of `slot_len` prompt
+        tokens and `max_new_tokens` decode columns, or one pool per class of
+        `tiers` ("CAPxLEN,CAPxLEN,..."), `decode_window` tokens per host
+        round trip. `guided_regex`: a pattern every completion must match
+        (generate/guided.py). `kv_int8` is not ported yet and raises."""
+        if kv_int8:
+            raise NotImplementedError(f"kv_int8: {ITEM7}")
         self.model = model
         self.cfg = fusion_cfg
         self.processor = processor
@@ -95,13 +155,27 @@ class InferenceServer:
         self.max_new_tokens = max_new_tokens
         self.greedy_default = greedy_default
         self.seed = seed
+        self.continuous = continuous
+        self.slot_len = slot_len
+        self.tiers = _parse_tiers(tiers)
+        # decode steps per host round trip in continuous mode: > 1 spreads
+        # the host's scheduling over k tokens, at up to k - 1 steps of
+        # admission latency for queued requests
+        self.decode_window = max(1, decode_window)
         self.engine = GenerationEngine(
             fusion_cfg, eos_token_id=processor.text_tokenizer.eos_token_id,
             device=device)
         self.engine_calls = 0
+        self.guided_regex = guided_regex
+        self._guided_cache: Dict[str, Any] = {}
+        # continuous mode: the batchers (one per depth class, built by the
+        # worker) and the requests routed to each
+        self.batchers: List[Any] = []
+        self.routed: List[int] = []
         self._queue: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._batch_loop, daemon=True)
+        self._worker = threading.Thread(
+            target=self._continuous_loop if continuous else self._batch_loop, daemon=True)
 
     # -- batching worker ------------------------------------------------
 
@@ -136,7 +210,109 @@ class InferenceServer:
                     req["error"] = f"{type(e).__name__}: {e}"
                     req["event"].set()
 
+    def _continuous_loop(self):
+        from bioreason_tpu_torch.generate.continuous import ContinuousBatcher, Request
+        tok = self.processor.text_tokenizer
+        cbs = [ContinuousBatcher(self.model, self.cfg, eos_token_id=tok.eos_token_id,
+                                 capacity=cap, max_len=mlen, max_new=self.max_new_tokens,
+                                 sampling=self.sampling, guided=self._spec_for(self.guided_regex),
+                                 device=self.engine.device, seed=self.seed + i)
+               for i, (cap, mlen) in enumerate(self.tiers or [(self.max_batch, self.slot_len)])]
+        # the decode window is hit at once and shared by every request;
+        # admission shapes depend on the prompts and warm up on first use
+        for cb in cbs:
+            cb.warmup([], windows=(self.decode_window,))
+        self.batchers = cbs
+        self.routed = [0] * len(cbs)
+        pending: Dict[int, List[Any]] = {i: [] for i in range(len(cbs))}
+        rid = 0
+        by_rid: Dict[int, Dict[str, Any]] = {}
+
+        def route(r) -> int:
+            """Shallowest depth class whose prompt pool fits this prompt's
+            bucketed width."""
+            plen = r.input_ids.shape[1]
+            for i, cb in enumerate(cbs):
+                if cb._bucketed(plen) <= cb.max_len:
+                    return i
+            raise ValueError(f"prompt length {plen} exceeds every tier "
+                             f"({[cb.max_len for cb in cbs]})")
+
+        def to_request(req: Dict[str, Any]):
+            """(the tier's index, the batcher's Request) of a queued request."""
+            nonlocal rid
+            if req.get("guided_regex") and req["guided_regex"] != self.guided_regex:
+                raise ValueError(
+                    "continuous mode supports a server-level --guided_regex only (the "
+                    "slots share one table); use micro-batch mode for per-request patterns")
+            r = Request(rid + 1, *prepare_request(self.processor, self.cfg, req["item"]),
+                        max_new_tokens=min(req.get("max_new_tokens") or self.max_new_tokens,
+                                           self.max_new_tokens),
+                        greedy=req.get("greedy", self.greedy_default))
+            i = route(r)
+            rid += 1
+            by_rid[rid] = req
+            return i, r
+
+        def deliver(r):
+            req = by_rid.pop(r.rid)
+            text = tok.decode(list(r.tokens), skip_special_tokens=True)
+            req["result"] = {"completion": text, "answer": extract_answer(text)}
+            req["event"].set()
+
+        while not self._stop.is_set():
+            while True:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                try:
+                    i, r = to_request(req)
+                except Exception as e:       # a bad request: fail it, keep serving
+                    req["error"] = f"{type(e).__name__}: {e}"
+                    req["event"].set()
+                    continue
+                pending[i].append(r)
+                self.routed[i] += 1
+            try:
+                for i, cb in enumerate(cbs):
+                    for r in cb.admit_many(pending[i]):   # shape-grouped prefill
+                        if r.done:
+                            deliver(r)
+                    if cb.active.any():
+                        for r in cb.step_window(self.decode_window):
+                            deliver(r)
+            except Exception as e:       # fail every request in flight, keep serving
+                for req in by_rid.values():
+                    req["error"] = f"{type(e).__name__}: {e}"
+                    req["event"].set()
+                by_rid.clear()
+                for lst in pending.values():
+                    lst.clear()
+            if not any(cb.active.any() for cb in cbs) and not any(pending.values()):
+                time.sleep(0.005)
+
+    def _spec_for(self, pattern: Optional[str]):
+        """The guided spec of `pattern` on the serving device, as wide as the
+        decoder's head; compiled once per pattern."""
+        if not pattern:
+            return None
+        if pattern not in self._guided_cache:
+            from bioreason_tpu_torch.generate.guided import guided_spec_for
+            self._guided_cache[pattern] = guided_spec_for(
+                self.processor.text_tokenizer, pattern,
+                vocab_size=self.cfg.decoder.vocab_size, device=self.engine.device)
+        return self._guided_cache[pattern]
+
     def _run_batch(self, reqs: List[Dict[str, Any]]):
+        # one engine call per distinct constraint pattern (usually one group)
+        by_regex: Dict[Optional[str], List[Dict[str, Any]]] = {}
+        for r in reqs:
+            by_regex.setdefault(r.get("guided_regex") or self.guided_regex, []).append(r)
+        for pattern, group in by_regex.items():
+            self._run_group(group, self._spec_for(pattern))
+
+    def _run_group(self, reqs: List[Dict[str, Any]], guided=None):
         input_ids, attention_mask, dna_ids, dna_mask = prepare_batch(
             self.processor, self.cfg, [r["item"] for r in reqs])
         mnt = max(r.get("max_new_tokens") or self.max_new_tokens for r in reqs)
@@ -146,7 +322,8 @@ class InferenceServer:
             self.seed + self.engine_calls)
         ids, mask = self.engine.generate(
             self.model, input_ids, attention_mask, dna_ids, dna_mask,
-            sampling=self.sampling, max_new_tokens=mnt, greedy=greedy, generator=gen)
+            sampling=self.sampling, max_new_tokens=mnt, greedy=greedy, generator=gen,
+            guided=guided)
         tok = self.processor.text_tokenizer
         for i, req in enumerate(reqs):
             text = tok.decode(ids[i][mask[i].astype(bool)], skip_special_tokens=True)
@@ -156,10 +333,11 @@ class InferenceServer:
     # -- public sync API (used by the HTTP handler and tests) ------------
 
     def generate(self, item: Dict[str, Any], max_new_tokens: Optional[int] = None,
-                 greedy: Optional[bool] = None, timeout: float = 600.0) -> Dict[str, str]:
+                 greedy: Optional[bool] = None, timeout: float = 600.0,
+                 guided_regex: Optional[str] = None) -> Dict[str, str]:
         req = {"item": item, "max_new_tokens": max_new_tokens,
                "greedy": self.greedy_default if greedy is None else greedy,
-               "event": threading.Event()}
+               "guided_regex": guided_regex, "event": threading.Event()}
         self._queue.put(req)
         if not req["event"].wait(timeout):
             raise TimeoutError("generation timed out")
@@ -204,7 +382,8 @@ def make_http_server(server: InferenceServer, port: int = 8787,
                 }
                 result = server.generate(item,
                                          max_new_tokens=payload.get("max_new_tokens"),
-                                         greedy=payload.get("greedy"))
+                                         greedy=payload.get("greedy"),
+                                         guided_regex=payload.get("guided_regex"))
                 self._send(200, result)
             except Exception as e:
                 self._send(400, {"error": str(e)})
@@ -259,17 +438,33 @@ def main(argv=None):
     p.add_argument("--checkpoint", default=None,
                    help="the port's sft_final (or sft_state) directory to serve")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--continuous", action="store_true",
+                   help="vLLM-style continuous batching (slot scheduler) instead of "
+                        "window micro-batching")
+    p.add_argument("--slot_len", type=int, default=2048,
+                   help="per-slot prompt KV length (continuous mode)")
+    p.add_argument("--tiers", default=None,
+                   help="continuous-mode KV depth classes 'CAPxLEN,CAPxLEN' (e.g. "
+                        "'96x640,40x2048'): one slot pool per class, each request routed "
+                        "to the shallowest that fits")
+    p.add_argument("--decode_window", type=int, default=1,
+                   help="continuous mode: decode steps per host round trip")
+    p.add_argument("--guided_regex", default=None,
+                   help="constrain every completion to match this regex (per-request "
+                        "'guided_regex' also accepted in micro-batch mode)")
     for flag in LATER_FLAGS:
-        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
-                       help="not ported yet (raises)")
+        p.add_argument(f"--{flag}", nargs="?", const=True, default=None, help=ITEM7)
     args = p.parse_args(argv)
     asked = [f"--{f}" for f in LATER_FLAGS if getattr(args, f) is not None]
     if asked:
-        raise NotImplementedError(f"{', '.join(asked)}: not ported to bioreason_tpu_torch yet")
+        raise NotImplementedError(f"{', '.join(asked)}: {ITEM7}")
 
     server = build_server(args.decoder, args.encoder, args.max_length_dna, args.seed,
                           args.device, args.checkpoint, max_batch=args.max_batch,
-                          max_new_tokens=args.max_new_tokens).start()
+                          max_new_tokens=args.max_new_tokens, continuous=args.continuous,
+                          slot_len=args.slot_len, tiers=args.tiers,
+                          guided_regex=args.guided_regex,
+                          decode_window=args.decode_window).start()
     httpd = make_http_server(server, args.port)
     print(f"serving on :{args.port} (POST /generate, GET /healthz)")
     httpd.serve_forever()

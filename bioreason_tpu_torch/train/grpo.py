@@ -1,12 +1,14 @@
 """GRPO trainer: grouped rollouts + the group-normalized clipped-surrogate
 loss (the port of bioreason_tpu/train/grpo.py, on one device: no mesh, no
-int8 rollouts, no guided decoding, no async save).
+int8 rollouts, no async save).
 
 One `step` is:
   rollout   - the prompts of `items` (each repeated G times contiguously,
               dataflow.repeat_random_indices) prefilled once per group, G
               completions sampled from the shared prompt cache by the LoRA
-              policy as it is (generate/engine.py, `group_size`);
+              policy as it is (generate/engine.py, `group_size`), constrained
+              to `guided_decoding_regex` when it is set (generate/guided.py:
+              the spec is compiled once, at construction);
   logps     - the reference policy's and, with num_iterations > 1, the
               current policy's per-token log-probs of the completions
               (`per_token_logps` under no_grad), queued on the card before
@@ -140,6 +142,14 @@ class GRPOTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.engine = GenerationEngine(fusion_cfg, processor.text_tokenizer.eos_token_id,
                                        device=self.device)
+        # the vLLM guided-decoding knob (grpo_config.py:278-280): compiled once,
+        # its tables as wide as the decoder's head (JAX train/grpo.py:193-200)
+        self.guided = None
+        if cfg.guided_decoding_regex:
+            from bioreason_tpu_torch.generate.guided import guided_spec_for
+            self.guided = guided_spec_for(processor.text_tokenizer, cfg.guided_decoding_regex,
+                                          vocab_size=fusion_cfg.decoder.vocab_size,
+                                          device=self.device)
         self.step_count = 0
         # one rollout buffer per accumulation slot (reference
         # _buffered_inputs[step % accum], grpo_trainer.py:399-403): slot s
@@ -270,7 +280,8 @@ class GRPOTrainer:
         completion_ids, completion_mask = self.engine.generate(
             self.model, out.input_ids, out.attention_mask, out.dna_input_ids,
             out.dna_attention_mask, sampling=cfg.sampling,
-            max_new_tokens=cfg.max_completion_length, generator=self.generator, group_size=g)
+            max_new_tokens=cfg.max_completion_length, generator=self.generator, group_size=g,
+            guided=self.guided)
         nonfinite = self.engine.last_stats["nonfinite_rows"]
         if tm is not None:
             t1 = clk()

@@ -139,6 +139,32 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               --hf_llm_dir --evo2_dir` for 2 steps over the committed
               25-block Evo2 fixture (its head_dim of 8 takes the plain
               route; the decoder's launches counted).
+ 12. continuous  continuous serving at Qwen3-0.6B + NT-v2-500M width (bf16,
+              weights from seed 0): (a) `tools/bench_serve.py` (64 slots,
+              128 requests here, 2 x capacity in place of its 3 x so the
+              phase keeps its budget: 256 text + 128 DNA tokens each,
+              128/64/32 new tokens sampled, windows of 16, pipelined):
+              decoded tokens/s, the admit / decode split, windows and mean
+              occupancy, prefill calls, pool GiB, peak memory, exactly 57
+              flash_fwd per prefill chunk and none in a decode window; (b)
+              the batcher against GenerationEngine on phase 4's 8 requests
+              (admitted 4, one window of 16, then 4; slot_len 1024): every
+              decode step's logits teacher-forced on the batcher's own
+              tokens (cosine >= 0.999 per row and step; the first token's
+              >= 0.9999), greedy repeats identical, greedy agreement with
+              the free-running engine and of a preempted, re-admitted
+              request reported (not gated: bf16 near-ties), one sampled
+              window with no host sync (torch's sync debug mode, against a
+              control that syncs) and no attention kernel launched; (c) a
+              continuous server with tiers 8x512,8x1024, decode window 8 and
+              --guided_regex over HTTP: 12 sampled requests of two prompt
+              lengths routed 6 and 6, every completion matching; the guided
+              spec over phase 11's BPE tokenizer (151,672 ids) under the
+              151,936-row head, its host time, the columns past the
+              tokenizer dead, 4 sampled engine requests matching; (d)
+              flash_fwd against its plain version at the admission prefill
+              [64,256,16/8,128] causal, the encoder [64,128,16,64] and (c)'s
+              mixed-width tier chunk with its left pads. At most 75 s.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -2472,6 +2498,331 @@ def phase_pretrained(torch, card, max_new):
     return out
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+GUIDED = r"<answer>(yes|no)</answer>"
+# teacher-forced batcher vs engine logits (bf16, two cache layouts and
+# attention routes): per row and step, and at the first token (one prefill
+# each, the flash kernel in both)
+CONT_STEP_COS, CONT_FIRST_COS = 0.999, 0.9999
+CONT_BUDGET_S = 75.0
+CONT_NEW, CONT_WINDOW = 24, 16
+# (a)'s requests: 2 x capacity, not the bench's 3 x, so that the phase keeps
+# its budget on a slower host (the queue stays: 128 requests over 64 slots)
+CONT_REQUESTS = 128
+
+
+def teacher_forced(torch, engine, model, batch, streams):
+    """The engine's logits [B, n, V] on given token streams [B, n]: its
+    prefill's last column, then one decode step of engine.generate's loop
+    per token, the token forced."""
+    from bioreason_tpu_torch.models.qwen3 import decoder_forward
+    ids, mask, dna, dmask = batch
+    b, p = ids.shape
+    n = streams.shape[1]
+    lens = mask.sum(-1)
+    ones = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        first, cache, cmask = engine.prefill(model, ids, mask, dna, dmask, n)
+        out = [first]
+        for j in range(1, n):
+            cmask[:, p + j - 1] = 1
+            lg, cache = decoder_forward(model.decoder, engine.cfg.decoder,
+                                        input_ids=streams[:, j - 1:j], attention_mask=ones,
+                                        positions=(lens + j - 1)[:, None], cache=cache,
+                                        cache_index=p + j - 1, cache_mask=cmask)
+            out.append(lg[:, 0])
+    return torch.stack(out, 1)
+
+
+def batcher_run(torch, cb, reqs, preempt=None):
+    """Phase 12(b)'s schedule on `cb`: the first 4 requests admitted, one
+    window, the other 4 (and, with `preempt`, that request evicted after
+    the first window and re-admitted with them), windows until all finish.
+    Returns {rid: {token index: fp32 logits [V]}} of every decode step,
+    recorded by patching `layers.lm_logits` during each window."""
+    from bioreason_tpu_torch.models import layers as L
+    orig, captured, logits = L.lm_logits, [], {}
+
+    def recording(dec, h):
+        out = orig(dec, h)
+        captured.append(out)
+        return out
+
+    def window():
+        pend = {id(r) for rec in cb._pending_first for r, _ in rec.req_src}
+        snap = [(s, r, len(r.tokens) + (id(r) in pend)) for s, r in enumerate(cb._by_slot)
+                if r is not None and cb.active[s]]
+        captured.clear()
+        L.lm_logits = recording
+        try:
+            cb.step_window(CONT_WINDOW)
+        finally:
+            L.lm_logits = orig
+        for s, r, base in snap:
+            for j, lg in enumerate(captured):
+                if base + j < r.max_new_tokens:          # the overrun is discarded
+                    logits.setdefault(r.rid, {})[base + j] = lg[s].flatten()
+    cb.admit_many(list(reqs[:4]))
+    window()
+    late = list(reqs[4:])
+    if preempt is not None:
+        late.append(cb.preempt(reqs[preempt].slot))
+    cb.admit_many(late)
+    while cb.active.any() or cb._pending_first:
+        window()
+    return logits
+
+
+def sync_warnings(torch, fn):
+    """The host syncs torch's sync debug mode ("warn") reports while fn()
+    runs, as their messages."""
+    import warnings
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in got if "called a synchronizing" in str(w.message)]
+
+
+def count_syncs(torch, cb, k):
+    """The host syncs that one k-step decode window's dispatch makes
+    (`_multi_step` alone), and those of a control that syncs once."""
+    real, seen = cb._multi_step, []
+
+    def counted(*a, **kw):
+        out = []
+        seen.extend(sync_warnings(torch, lambda: out.append(real(*a, **kw))))
+        return out[0]
+    cb._multi_step = counted
+    try:
+        cb.step_window(k)
+    finally:
+        del cb._multi_step
+    return seen, sync_warnings(torch, lambda: torch.ones(1, device="cuda").item())
+
+
+def phase_continuous(torch, card):
+    """Continuous serving at full width (module docstring, phase 12)."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.config import SamplingConfig
+    from bioreason_tpu_torch.data.kegg import synthetic_kegg_items
+    from bioreason_tpu_torch.data.text_tokenizer import load_hf_tokenizer
+    from bioreason_tpu_torch.generate import continuous as C
+    from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.generate.guided import guided_spec_for
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.serve import (InferenceServer, build_config, make_http_server,
+                                           prepare_request)
+    from bioreason_tpu_torch.tools import bench_serve
+    t_phase = time.perf_counter()
+    per_chunk = ENCODER_LAYERS + DECODER_LAYERS
+    out = {}
+
+    # (a) the serving bench, at its defaults but CONT_REQUESTS: the main
+    # path, counts from 0 just before and read just after (its warmup's one
+    # prefill included)
+    reset_counts()
+    res = bench_serve.main(["--probe", "--requests", str(CONT_REQUESTS)])
+    got = counts()
+    torch.cuda.empty_cache()
+    log(f"continuous bench [{card}]: {res['value']:.1f} decoded tokens/s ({res['decoded_tokens']} "
+        f"tokens, {res['requests']} requests over {res['capacity']} slots in "
+        f"{res['seconds']:.2f} s; host: admit {res['admit_s']:.2f} s, decode "
+        f"{res['decode_s']:.2f} s); {res['windows']} windows of {res['window']}, mean "
+        f"occupancy {res['mean_occupancy']:.3f}; {res['prefill_calls']} prefill calls, "
+        f"flash_fwd {res['flash_fwd_launches']} = {res['flash_fwd_per_prefill']:g} per prefill "
+        f"chunk; pools {res['pool_gib']:.3f} GiB, torch.cuda.max_memory_allocated "
+        f"{res['peak_gib']:.2f} GiB; launches with the warmup {got}")
+    if res["flash_fwd_launches"] != per_chunk * res["prefill_calls"]:
+        fail(f"the bench's {res['prefill_calls']} prefill chunks launched flash_fwd "
+             f"{res['flash_fwd_launches']} times, expected {per_chunk} each and none in a "
+             f"decode window")
+    if got != {k: (per_chunk * (res["prefill_calls"] + 1) if k == "flash_fwd" else 0)
+               for k in got}:
+        fail(f"the bench launched {got}: expected {per_chunk} flash_fwd per prefill chunk "
+             f"(and its warmup's one) and nothing else")
+    out["bench"] = {**res, "launches": got["flash_fwd"]}
+
+    # (b) the batcher against the engine at full width: phase 4's requests
+    cfg, processor = build_config("qwen3-0.6b", "nt-500m", max_length_dna=2048)
+    model = init_fusion(cfg, seed=0, device="cuda").requires_grad_(False)
+    items, padded = served_inputs()
+    arrays = [prepare_request(processor, cfg, it) for it in items]
+
+    def batcher(**kw):
+        return C.ContinuousBatcher(model, cfg, eos_token_id=-1, capacity=8, max_len=1024,
+                                   max_new=CONT_NEW, prompt_bucket=128, **kw)
+
+    def requests(greedy=True):
+        return [C.Request(i, *a, max_new_tokens=CONT_NEW, greedy=greedy)
+                for i, a in enumerate(arrays)]
+    batch = [torch.as_tensor(a, device="cuda") for a in padded]
+    engine = GenerationEngine(cfg, eos_token_id=-1)
+    cb = batcher()
+    first_b = cb._prefill(*batch)[1]           # the admission prefill, all 8 in one chunk
+    t0 = time.perf_counter()
+    runs, logits = [], []
+    for preempt in (None, None, 1):
+        reqs = requests()
+        logits.append(batcher_run(torch, batcher(), reqs, preempt))
+        runs.append([list(r.tokens) for r in reqs])
+    t_runs = time.perf_counter() - t0
+    if runs[1] != runs[0]:
+        fail("greedy repeats of the batcher differ")
+    if any(len(toks) != CONT_NEW for run in runs for toks in run):
+        fail(f"a request did not get its {CONT_NEW} tokens")
+    # teacher-forced on each run's own streams (run 3's preempted request
+    # follows its own after the re-admission)
+    cos_steps, refs = [], []
+    for run, lg in zip(runs[1:], logits[1:]):
+        refs.append(teacher_forced(torch, engine, model, batch, torch.tensor(run, device="cuda")))
+        for rid, steps in lg.items():
+            for j, row in steps.items():
+                cos_steps.append(float(F.cosine_similarity(row, refs[-1][rid, j], dim=0)))
+    cos_first = F.cosine_similarity(first_b, refs[0][:, 0], dim=-1)
+    n_steps = len(cos_steps)
+    ids, mask = engine.generate(model, *batch, greedy=True, max_new_tokens=CONT_NEW)
+    agree = [next((j for j, (a, b) in enumerate(zip(row, ref_row)) if a != b), CONT_NEW)
+             for row, ref_row in zip(runs[0], ids.tolist())]
+    cont_agree = next((j for j, (a, b) in enumerate(zip(runs[2][1], runs[0][1])) if a != b),
+                      CONT_NEW)
+    log(f"continuous vs engine [{card}]: 8 requests (P = {batch[0].shape[1]} in the engine's "
+        f"batch, slot_len 1024, window {CONT_WINDOW}), admitted 4 + 4; 3 batcher runs in "
+        f"{t_runs:.2f} s; teacher-forced logits cosine min {min(cos_steps):.6f} over "
+        f"{n_steps} (row, step) pairs (>= {CONT_STEP_COS}), first token min "
+        f"{float(cos_first.min()):.6f} (>= {CONT_FIRST_COS}); greedy repeats identical; "
+        f"free-running greedy tokens equal to the engine's for the first {agree} of "
+        f"{CONT_NEW} (not gated: bf16 near-ties at random weights); the request preempted "
+        f"after one window and re-admitted matches its uninterrupted tokens for "
+        f"{cont_agree} of {CONT_NEW}")
+    # every decode step of both runs, but the preempted request's token 17:
+    # its re-admission's prefill draws it
+    if n_steps != 2 * 8 * (CONT_NEW - 1) - 1 or min(cos_steps) < CONT_STEP_COS:
+        fail(f"batcher vs engine logits: {n_steps} steps, min cosine {min(cos_steps):.6f}")
+    if float(cos_first.min()) < CONT_FIRST_COS:
+        fail(f"batcher vs engine first-token logits: cosine {float(cos_first.min()):.6f}")
+    # no host sync inside a window: 4 sampled rows, their second window
+    cb = batcher(sampling=SamplingConfig(temperature=0.6, top_p=0.95, top_k=20))
+    cb.admit_many(requests(greedy=False)[:4])
+    cb.step_window(CONT_WINDOW)
+    reset_counts()
+    syncs, control = count_syncs(torch, cb, CONT_WINDOW)
+    window_launches = counts()
+    log(f"continuous: one sampled window of {CONT_WINDOW} steps: {len(syncs)} host syncs "
+        f"{syncs[:3]} (a control's .item(): {len(control)}); launches in one window "
+        f"{window_launches}")
+    if syncs or not control or any(window_launches.values()):
+        fail("a decode window synced with the host (or the check saw no sync in its "
+             "control), or launched an attention kernel")
+    out["engine"] = {"cos_min": min(cos_steps), "first_cos_min": float(cos_first.min()),
+                     "greedy_agree": agree, "preempt_agree": cont_agree}
+    del cb
+    torch.cuda.empty_cache()
+
+    # (c) tiers and guided decoding over HTTP, then the BPE tokenizer
+    prefills, orig_prefill = [], C.ContinuousBatcher._prefill
+
+    def recording_prefill(self, ids, mask, dna, dmask):
+        prefills.append((self.max_len, mask.clone()))
+        return orig_prefill(self, ids, mask, dna, dmask)
+    server = InferenceServer(model, cfg, processor, max_new_tokens=32, continuous=True,
+                             tiers="8x512,8x1024", decode_window=8, guided_regex=GUIDED)
+    C.ContinuousBatcher._prefill = recording_prefill
+    server.start()
+    httpd = make_http_server(server, port=0, host="127.0.0.1")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    http_items = [{**it, "question": it["question"] + " Explain briefly." * i}
+                  for bp, seed in ((2048, 3), (600, 4))
+                  for i, it in enumerate(synthetic_kegg_items(n=6, seq_len=bp, seed=seed))]
+    answers = [None] * len(http_items)
+
+    def post(i):
+        it = http_items[i]
+        body = json.dumps({k: it[k] for k in ("question", "reference_sequence",
+                                              "variant_sequence")}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            answers[i] = (r.status, json.loads(r.read()))
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(http_items))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        C.ContinuousBatcher._prefill = orig_prefill
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+    t_http = time.perf_counter() - t0
+    if any(a is None or a[0] != 200 for a in answers):
+        fail(f"not every request was answered: {answers}")
+    bad = [a[1]["completion"] for a in answers if not re.fullmatch(GUIDED, a[1]["completion"])]
+    tiers = [(cb.capacity, cb.max_len) for cb in server.batchers]
+    log(f"continuous serve [{card}]: tiers {tiers}, requests routed {server.routed}, "
+        f"{len(answers)} answered over HTTP in {t_http:.2f} s (sampled, decode window 8), "
+        f"{len(answers) - len(bad)} fullmatch {GUIDED!r}; e.g. {answers[0][1]['completion']!r}; "
+        f"{len(prefills)} prefill chunks {[tuple(m.shape) for _, m in prefills]}")
+    if bad or server.routed != [6, 6]:
+        fail(f"tiers or guided decoding: routed {server.routed}, not matching {bad}")
+    # the BPE tokenizer of phase 11 under the 151,936-row head
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_guided_", dir=build_dir)
+    try:
+        write_qwen_tokenizer(tmp)
+        tok = load_hf_tokenizer(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    spec = guided_spec_for(tok, GUIDED, vocab_size=cfg.decoder.vocab_size, device="cuda")
+    torch.cuda.synchronize()
+    t_spec = time.perf_counter() - t0
+    enc = tok([f"Question {i}: is this variant pathogenic?" * (i + 1) for i in range(4)],
+              padding_side="left")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids, mask = GenerationEngine(cfg, eos_token_id=tok.eos_token_id).generate(
+        model, enc["input_ids"], enc["attention_mask"], sampling=SamplingConfig(
+            temperature=0.6, top_p=0.95, top_k=20), max_new_tokens=32, generator=gen,
+        guided=spec)
+    texts = tok.batch_decode([r[m.astype(bool)] for r, m in zip(ids, mask)])
+    dead_tail = bool((spec.next_state[:, tok.vocab_size:] == spec.dead).all())
+    log(f"continuous guided BPE: the spec [{spec.next_state.shape[0]}, "
+        f"{spec.next_state.shape[1]}] over {tok.vocab_size} tokenizer ids built in "
+        f"{t_spec:.3f} s of host time, the columns past them dead: {dead_tail}; 4 sampled "
+        f"engine requests: {texts}")
+    if not dead_tail or not all(re.fullmatch(GUIDED, t) for t in texts):
+        fail(f"guided decoding over the BPE tokenizer: {texts}")
+    out["guided"] = {"spec_s": t_spec, "routed": server.routed, "http_s": t_http}
+    del server, spec
+
+    # (d) flash_fwd at this path's shapes
+    long_chunks = [m for mlen, m in prefills if mlen == 1024]
+    mixed = max(long_chunks, key=lambda m: (m.shape[0], len(set(m.sum(-1).tolist()))))
+    ones = lambda b, t: torch.ones((b, t), dtype=torch.int32, device="cuda")
+    rows = [kernel_case(torch, "continuous_prefill_K64_W256", 64, 256, 256, 16, 8, 128, True,
+                        0, ones(64, 256), 41),
+            kernel_case(torch, "continuous_encoder_K64_T128", 64, 128, 128, 16, 16, 64, False,
+                        None, ones(64, 128), 42),
+            kernel_case(torch, f"continuous_tier_K{mixed.shape[0]}_W{mixed.shape[1]}_leftpad",
+                        mixed.shape[0], mixed.shape[1], mixed.shape[1], 16, 8, 128, True, 0,
+                        mixed.to(torch.int32), 43)]
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"continuous: phase done in {out['seconds']:.1f} s (budget {CONT_BUDGET_S:g})")
+    if out["seconds"] > CONT_BUDGET_S:
+        fail(f"the continuous phase took {out['seconds']:.1f} s, over {CONT_BUDGET_S:g}")
+    return out, rows
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -2526,11 +2877,14 @@ def main():
     torch.cuda.empty_cache()
     mark("evo2-train")
     pretrained = phase_pretrained(torch, card, max_new)
+    torch.cuda.empty_cache()
     mark("pretrained")
+    continuous, cont_rows = phase_continuous(torch, card)
+    mark("continuous")
     log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    rows += grpo_rows + evo2_rows
+    rows += grpo_rows + evo2_rows + cont_rows
     bwd_rows += grpo_bwd_rows + evo2_bwd_rows
     evo2_launches = {"serve": evo2_serve["flash_fwd"],
                      **{mode: evo2_train[mode]["launches"]
@@ -2548,6 +2902,11 @@ def main():
                  "pretrained_launches": {"sft": pretrained["sft"]["launches"]["flash_fwd"],
                                          "reason": pretrained["grpo"]["launches"]["flash_fwd"],
                                          "serve": pretrained["serve"]["launches"]},
+                 "continuous_launches": {
+                     "bench": continuous["bench"]["launches"],
+                     "bench_prefill_chunks": continuous["bench"]["prefill_calls"] + 1,
+                     "per_prefill_chunk": ENCODER_LAYERS + DECODER_LAYERS,
+                     "per_decode_window": 0},
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],

@@ -90,8 +90,7 @@ def test_grpo_config_matches_and_refuses_later_slices():
     assert ([f.name for f in dataclasses.fields(TC.GRPOConfig)]
             == [f.name for f in dataclasses.fields(JC.GRPOConfig)])
     assert dataclasses.asdict(TC.GRPOConfig()) == dataclasses.asdict(JC.GRPOConfig())
-    for kw in ({"rollout_int8": True}, {"rollout_kv_int8": True}, {"frozen_dtype": "int8"},
-               {"guided_decoding_regex": "A.*"}):
+    for kw in ({"rollout_int8": True}, {"rollout_kv_int8": True}, {"frozen_dtype": "int8"}):
         with pytest.raises(NotImplementedError):
             TC.GRPOConfig(**kw)
 
@@ -540,8 +539,7 @@ def test_an_sft_final_without_the_base_keys_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--debug_nans", "--mesh=1,1,1",
-                                  "--cpu_devices=2", "--wandb", "--rollout_int8",
-                                  "--guided_decoding_regex=A.*"])
+                                  "--cpu_devices=2", "--wandb", "--rollout_int8"])
 def test_reason_cli_refuses_later_slices(flag):
     from bioreason_tpu_torch.cli import reason
     with pytest.raises(NotImplementedError):

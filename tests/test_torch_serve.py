@@ -9,9 +9,11 @@ last-column prefill logits agree to atol 1e-4 (fp32 through the encoder,
 the splice and two decoder layers)."""
 
 import json
+import re
 import subprocess
 import sys
 import threading
+import urllib.error
 import urllib.request
 
 import jax
@@ -197,11 +199,112 @@ def test_server_request_and_http_round_trip(slice_setup):
     assert server.engine_calls == 2
 
 
-@pytest.mark.parametrize("flag", ["--continuous", "--tiers=96x640", "--int8", "--fuse",
-                                  "--w8a8", "--guided_regex=A.*"])
+@pytest.mark.parametrize("flag", ["--int8", "--kv_int8", "--fuse", "--w8a8"])
 def test_main_refuses_later_slices(flag):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 7"):
         main(["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag])
+
+
+PATTERN = r"<answer>(yes|no)</answer>"
+
+
+def _post(port, item, **extra):
+    body = json.dumps({**{k: item[k] for k in ("question", "reference_sequence",
+                                               "variant_sequence")}, **extra}).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _serve(server):
+    server.start()
+    httpd = make_http_server(server, port=0, host="127.0.0.1")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+    def close():
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+    return httpd.server_address[1], close
+
+
+def test_continuous_tiers_and_guided_over_http(slice_setup):
+    """`--continuous --tiers --guided_regex --decode_window` on `tiny`: two
+    prompt lengths route to the two depth classes, every request is
+    answered over HTTP, every completion fullmatches the server's pattern,
+    greedy completions equal the micro-batch server's, and a request
+    asking for another pattern is refused without stopping the loop."""
+    _, _, tcfg, model, _, tok = slice_setup
+    items = [ITEMS[0], {**ITEMS[1], "question": "ok?"}, ITEMS[2], {**ITEMS[0], "question": "why"}]
+    kw = dict(max_new_tokens=24, greedy_default=True, device="cpu", guided_regex=PATTERN)
+    server = InferenceServer(model, tcfg, TProc(TByte(), TKmer()), continuous=True,
+                             tiers="2x256,2x128", decode_window=3, **kw)
+    assert server.tiers == [(2, 128), (2, 256)]
+    port, close = _serve(server)
+    try:
+        results = [None] * 6
+
+        def one(i):
+            results[i] = _post(port, items[i % 4])
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(6)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        refused = _post(port, items[0], guided_regex="(yes|no)")
+        after = _post(port, items[1])
+    finally:
+        close()
+    assert [code for code, _ in results] == [200] * 6 and after[0] == 200
+    assert refused[0] == 400 and "server-level" in refused[1]["error"]
+    assert server.routed == [4, 3]                  # short prompts to 2x128, long to 2x256
+    for _, out in results:
+        assert re.fullmatch(PATTERN, out["completion"]), out
+    micro = InferenceServer(model, tcfg, TProc(TByte(), TKmer()), **kw).start()
+    try:
+        for i, (_, out) in enumerate(results[:4]):
+            assert micro.generate(items[i]) == out
+    finally:
+        micro.stop()
+
+
+def test_micro_batch_per_request_guided_regex(slice_setup):
+    """Micro-batch mode groups a batch's requests by pattern: one engine
+    call per pattern, each completion matching its own."""
+    _, _, tcfg, model, _, tok = slice_setup
+    server = InferenceServer(model, tcfg, TProc(TByte(), TKmer()), max_new_tokens=24,
+                             greedy_default=False, batch_window_ms=300.0, device="cpu")
+    port, close = _serve(server)
+    try:
+        pats = [PATTERN, r"(yes|no){1,2}", PATTERN, None]
+        results = [None] * 4
+
+        def one(i):
+            extra = {} if pats[i] is None else {"guided_regex": pats[i]}
+            results[i] = _post(port, ITEMS[i % 3], **extra)
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        close()
+    assert [code for code, _ in results] == [200] * 4
+    for pat, (_, out) in zip(pats, results):
+        if pat is not None:
+            assert re.fullmatch(pat, out["completion"]), (pat, out)
+    assert server.engine_calls >= 3 and len(server._guided_cache) == 2
+
+
+def test_continuous_server_refuses_kv_int8(slice_setup):
+    _, _, tcfg, model, _, _ = slice_setup
+    with pytest.raises(NotImplementedError, match="item 7"):
+        InferenceServer(model, tcfg, TProc(TByte(), TKmer()), continuous=True, kv_int8=True,
+                        device="cpu")
 
 
 def test_cuda_asked_for_and_absent_raises():
@@ -241,7 +344,8 @@ training = {{"bioreason_tpu_torch.ops.fused_ce", "bioreason_tpu_torch.train.lora
             "bioreason_tpu_torch.utils.safetensors_io", "bioreason_tpu_torch.utils.hf_import",
             "bioreason_tpu_torch.utils.ref_ckpt", "bioreason_tpu_torch.utils.profiling",
             "bioreason_tpu_torch.data.bpe", "bioreason_tpu_torch.data.variant_effect",
-            "bioreason_tpu_torch.train.eval"}}
+            "bioreason_tpu_torch.train.eval", "bioreason_tpu_torch.generate.continuous",
+            "bioreason_tpu_torch.generate.guided", "bioreason_tpu_torch.tools.bench_serve"}}
 assert training <= set(names), sorted(training - set(names))
 for n in names:
     importlib.import_module(n)
@@ -254,4 +358,4 @@ assert not bad, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 44
+    assert int(proc.stdout.split()[0]) >= 47
