@@ -29,6 +29,11 @@ class DecoderConfig:
     remat: bool = True               # per-layer activation checkpointing in training
     remat_policy: str = "full"       # 'full' (torch.utils.checkpoint); 'dots' raises
     dtype: str = "bfloat16"          # compute dtype (frozen weights are stored in it)
+    # W8A8 serving mode: denses whose weights are int8 (train/quant.py)
+    # also quantize their activations per token and take an int8 x int8 ->
+    # int32 product (layers._w8a8_dot); float weights ignore it. Serving
+    # only; the grouped and the continuous decode steps turn it off
+    act_int8: bool = False
 
     @classmethod
     def tiny(cls, vocab_size: int = 300) -> "DecoderConfig":
@@ -63,6 +68,7 @@ class EncoderConfig:
     remat: bool = True
     remat_policy: str = "full"       # see DecoderConfig
     dtype: str = "bfloat16"
+    act_int8: bool = False           # W8A8 serving mode (see DecoderConfig)
 
     @property
     def head_dim(self) -> int:
@@ -215,8 +221,9 @@ class SFTConfig:
                 "(ROADMAP.md, queue 1: multi-device)")
         if self.frozen_dtype == "int8":
             raise NotImplementedError(
-                "SFTConfig.frozen_dtype='int8': int8 frozen weights are not ported yet "
-                "(ROADMAP.md, queue 1, slice 6: quantization)")
+                "SFTConfig.frozen_dtype='int8': int8 frozen weights in training (QLoRA) "
+                "are not ported yet (ROADMAP.md, queue 1, item 7b); train/quant.py "
+                "quantizes a serving model")
 
 
 @dataclass(frozen=True)
@@ -235,8 +242,8 @@ class GRPOConfig:
     # regex every completion must match (vLLM guided decoding,
     # grpo_config.py:278-280), compiled once by the trainer (generate/guided.py)
     guided_decoding_regex: Optional[str] = None
-    rollout_int8: bool = False                    # not ported yet: raises
-    rollout_kv_int8: bool = False                 # not ported yet: raises
+    rollout_int8: bool = False                    # not ported yet (item 7b): raises
+    rollout_kv_int8: bool = False                 # not ported yet (item 7b): raises
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     batch_size: int = 8              # prompts*G per step (must be divisible by G)
     # each step() is a micro-step of batch_size rollouts; the optimizer
@@ -257,4 +264,5 @@ class GRPOConfig:
         if self.rollout_int8 or self.rollout_kv_int8 or self.frozen_dtype == "int8":
             raise NotImplementedError(
                 "GRPOConfig rollout_int8 / rollout_kv_int8 / frozen_dtype='int8': int8 "
-                "weights and KV are not ported yet (ROADMAP.md, queue 1: quantization)")
+                "rollouts and QLoRA training are not ported yet (ROADMAP.md, queue 1, "
+                "item 7b)")

@@ -1,5 +1,6 @@
 """SFT batch collation (the port's copy of `sft_collate` and
-`mask_non_assistant_labels`, bioreason_tpu/data/collate.py:38-151; reference
+`mask_non_assistant_labels`, bioreason_tpu/data/collate.py:38-151, and of
+`classifier_collate`, :154-176, the DNA-only classifier's pairs; reference
 `qwen_dna_collate_fn`, bioreason/dataset/kegg.py:223-333).
 
 Render the chat, run the bi-modal processor with left padding, then set
@@ -123,3 +124,32 @@ def sft_collate(
     if return_answer:
         batch["answer"] = [ex["answer"].strip() for ex in examples]
     return batch
+
+
+def classifier_collate(
+    examples: Sequence[Dict[str, Any]],
+    dna_tokenizer,
+    label2id: Dict[str, int],
+    max_length: int = 2048,
+    bucket: Optional[int] = None,
+) -> Dict[str, Any]:
+    """(ref, alt) DNA pairs and their class ids for the DNA-only classifier
+    (bioreason_tpu/data/collate.py:154-176): both sides right-padded to one
+    width, the longest sequence (+1, its CLS) rounded up to `bucket` and
+    capped at `max_length`."""
+    ref = [ex["reference_sequence"] for ex in examples]
+    alt = [ex["variant_sequence"] for ex in examples]
+    pad_to = None
+    if bucket is not None:
+        longest = max(max(len(dna_tokenizer.encode(s)) + 1 for s in ref + alt), 1)
+        pad_to = _bucket(min(longest, max_length), bucket)
+    t_ref = dna_tokenizer(ref, max_length=max_length, padding=True, truncation=True, pad_to=pad_to)
+    t_alt = dna_tokenizer(alt, max_length=max_length, padding=True, truncation=True, pad_to=pad_to)
+    labels = np.asarray([label2id[ex["answer"]] for ex in examples], dtype=np.int32)
+    return {
+        "ref_ids": np.asarray(t_ref["input_ids"], dtype=np.int32),
+        "ref_attention_mask": np.asarray(t_ref["attention_mask"], dtype=np.int32),
+        "alt_ids": np.asarray(t_alt["input_ids"], dtype=np.int32),
+        "alt_attention_mask": np.asarray(t_alt["attention_mask"], dtype=np.int32),
+        "labels": labels,
+    }

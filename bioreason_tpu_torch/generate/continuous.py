@@ -41,7 +41,14 @@ they finish, so short completions free their slot for the queue at once:
   * `run_pipelined` keeps one window in flight: the host resolves window N
     while window N+1 runs on the card;
   * guided decoding (generate/guided.py): each slot threads its DFA state
-    through the window on the device.
+    through the window on the device;
+  * int8 pools (`kv_int8=True`): K/V int8 beside fp32 scales per (token,
+    head), [C, Hkv, S, 1]; admission quantizes the prefill's K/V on the way
+    in, and, as in the JAX package, a window keeps its own tokens' K/V in a
+    float window buffer (a third softmax tier) and writes them into the
+    decode pool, quantized, when it ends. The scales apply to the logits
+    and the probabilities; decode denses stay weight-only (cfg.act_int8 is
+    a prefill setting, JAX continuous.py:324-327).
 
 CUDA launches are asynchronous, so "no host sync" is literal: every host
 read of a device value goes through a copy into pinned memory enqueued at
@@ -61,12 +68,9 @@ from bioreason_tpu_torch.config import FusionConfig, SamplingConfig
 from bioreason_tpu_torch.generate import guided as G
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.fusion import FusionModel, fused_input_embeddings
-from bioreason_tpu_torch.models.qwen3 import decoder_forward, init_cache
+from bioreason_tpu_torch.models.qwen3 import _kv_quantize, decoder_forward, init_cache
 from bioreason_tpu_torch.ops.sampling import sample_logits
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
-
-KV_INT8_LATER = ("kv_int8: the int8 KV pools are not ported yet (ROADMAP.md, queue 1, "
-                 "item 7: quantization)")
 
 
 class Request:
@@ -135,13 +139,18 @@ class _Chunk:
                 for i, (r, _) in enumerate(self.req_src)]
 
 
-def slot_attention(q, pk, pv, pmask, dk, dv, dmask):
+def slot_attention(q, pk, pv, pmask, dk, dv, dmask, p_scales=None, d_scales=None,
+                   window=None):
     """One decode step's attention for C rows at mixed depths: one softmax
-    merged over the prompt pool and the decode pool.
+    merged over the prompt pool and the decode pool (and `window`).
 
     q [C, 1, Hq, D]; pk/pv [C, Hkv, P, D] and dk/dv [C, Hkv, N, D] in the
     cache's dtype (strided views of the head-major pools are fine);
     pmask [C, P], dmask [C, N] bool. Returns [C, 1, Hq, D] in q's dtype.
+    `p_scales` / `d_scales`: (k_scale, v_scale) [C, Hkv, S, 1] of an int8
+    pool, applied to its logits and probabilities (JAX continuous.py:
+    253-291). `window`: (wk, wv, wmask) [C, Hkv, k, D] and [C, k], a third
+    tier in q's dtype (the int8 batcher's window buffer).
 
     Logits are fp32 from products in q's dtype (the JAX einsums'
     preferred_element_type=float32); the probabilities are cast to q's
@@ -152,14 +161,22 @@ def slot_attention(q, pk, pv, pmask, dk, dv, dmask):
     scale = d ** -0.5
     neg = torch.finfo(torch.float32).min
     qg = q.reshape(c * hkv, r, d)
-    pk, pv, dk, dv = (x.flatten(0, 1) for x in (pk, pv, dk, dv))
-    lp = (L.bmm_f32(qg, pk.transpose(1, 2)) * scale).view(c, hkv, r, -1)
-    lp = lp.masked_fill(~pmask[:, None, None, :], neg)
-    ld = (L.bmm_f32(qg, dk.transpose(1, 2)) * scale).view(c, hkv, r, -1)
-    ld = ld.masked_fill(~dmask[:, None, None, :], neg)
-    p_len = lp.shape[-1]
-    probs = torch.softmax(torch.cat([lp, ld], dim=-1), dim=-1).to(q.dtype).flatten(0, 1)
-    out = torch.bmm(probs[..., :p_len], pv) + torch.bmm(probs[..., p_len:], dv)
+    tiers = [(pk, pv, pmask, p_scales), (dk, dv, dmask, d_scales)]
+    if window is not None:
+        tiers.append((*window, None))
+    logits = []
+    for k, _, mask, scales in tiers:
+        lg = (L.bmm_f32(qg, k.flatten(0, 1).to(q.dtype).transpose(1, 2)) * scale)
+        lg = lg.view(c, hkv, r, -1)
+        if scales is not None:
+            lg = lg * scales[0][..., 0][:, :, None, :]
+        logits.append(lg.masked_fill(~mask[:, None, None, :], neg))
+    probs = torch.softmax(torch.cat(logits, dim=-1), dim=-1)
+    out = 0
+    for (_, v, _, scales), p in zip(tiers, probs.split([x.shape[-1] for x in logits], -1)):
+        if scales is not None:
+            p = p * scales[1][..., 0][:, :, None, :]
+        out = out + torch.bmm(p.to(q.dtype).flatten(0, 1), v.flatten(0, 1).to(q.dtype))
     return out.reshape(c, 1, hq, d)
 
 
@@ -180,10 +197,10 @@ class ContinuousBatcher:
         slots' prompt KV keyed by prompt content; identical re-admissions
         skip the prefill. `device`: CUDA unless the caller passes "cpu";
         `model` must live there. Sampled rows draw from a generator on the
-        device seeded with `seed`."""
-        if kv_int8:
-            raise NotImplementedError(KV_INT8_LATER)
+        device seeded with `seed`. `kv_int8`: int8 prompt and decode pools
+        with per-(token, head) scales, half the pool bytes."""
         self.model = model
+        self.kv_int8 = kv_int8
         self.cfg = fusion_cfg
         self.eos = eos_token_id
         self.capacity = capacity
@@ -203,9 +220,16 @@ class ContinuousBatcher:
         dshape = (capacity, dec.num_kv_heads, max_new + 1, dec.head_dim)   # + the spare
 
         def pool(s):
-            return [{"k": torch.zeros(s, dtype=self.dtype, device=self.device),
-                     "v": torch.zeros(s, dtype=self.dtype, device=self.device)}
-                    for _ in range(dec.num_layers)]
+            kv = torch.int8 if kv_int8 else self.dtype
+            entries = [{"k": torch.zeros(s, dtype=kv, device=self.device),
+                        "v": torch.zeros(s, dtype=kv, device=self.device)}
+                       for _ in range(dec.num_layers)]
+            if kv_int8:
+                for e in entries:
+                    for n in ("k_scale", "v_scale"):
+                        e[n] = torch.zeros(s[:-1] + (1,), dtype=torch.float32,
+                                           device=self.device)
+            return entries
         self.prompt_pool, self.dec_pool = pool(shape), pool(dshape)
         # host-visible slot state (the device copies are authoritative
         # between windows; the mirrors advance by replaying the tokens)
@@ -293,12 +317,16 @@ class ContinuousBatcher:
     def _write_slot(self, kv, slots_d, gather_d):
         """Copy a prefilled [K, W] KV batch into rows `slots_d` of the prompt
         pool at offset 0, row gather_d[j] of the prefill to slots_d[j]
-        (same-batch dedupe). The rows are exactly the requests': no padded
-        row and no out-of-range slot."""
+        (same-batch dedupe), quantized on the way into int8 pools. The rows
+        are exactly the requests': no padded row and no out-of-range slot."""
         for dst, src in zip(self.prompt_pool, kv):
             w = src["k"].shape[1]
-            dst["k"][slots_d, :, :w] = src["k"][gather_d].transpose(1, 2)
-            dst["v"][slots_d, :, :w] = src["v"][gather_d].transpose(1, 2)
+            for n in ("k", "v"):
+                x = src[n][gather_d]
+                if self.kv_int8:
+                    x, sc = _kv_quantize(x)
+                    dst[f"{n}_scale"][slots_d, :, :w] = sc.transpose(1, 2)
+                dst[n][slots_d, :, :w] = x.transpose(1, 2)
 
     # -- the decode window (the hot loop) ------------------------------------
 
@@ -329,24 +357,46 @@ class ContinuousBatcher:
         greedy_row = st["greedy"][:cb]
         steps = torch.zeros_like(dlen0)
         toks = torch.empty((k, cb), dtype=torch.int64, device=self.device)
+        int8 = self.kv_int8
+        if int8:
+            # this window's K/V stay float in a window buffer, the decode
+            # pool's history (int8) is fixed for the window
+            win = [tuple(torch.zeros((cb, hkv, k, d), dtype=dtype, device=self.device)
+                         for _ in range(2)) for _ in dec.layers]
+            wmask = torch.zeros((cb, k), dtype=torch.bool, device=self.device)
+            dmask = cols_w[None, :] < dlen0[:, None]
         for step in range(k):
             was = act
             depth = dlen0 + step                      # this step's column
-            cols = torch.where(was, depth.clamp(max=spare), spare)
-            dmask = cols_w[None, :] <= depth[:, None]
+            if int8:
+                wmask[:, step] = was
+            else:
+                cols = torch.where(was, depth.clamp(max=spare), spare)
+                dmask = cols_w[None, :] <= depth[:, None]
             h = L.embed(dec.embed, last[:, None], dtype)
             positions = pos[:, None]
-            for lp, pe, de in zip(dec.layers, self.prompt_pool, self.dec_pool):
+            for i, (lp, pe, de) in enumerate(zip(dec.layers, self.prompt_pool, self.dec_pool)):
                 x = L.rmsnorm(lp.ln1, h, cfg.rms_norm_eps)
                 q, kk, vv = L.qkv_proj(lp.attn, x, dtype)
                 q = L.rmsnorm(lp.attn.q_norm, q.reshape(cb, 1, hq, d), cfg.rms_norm_eps)
                 kk = L.rmsnorm(lp.attn.k_norm, kk.reshape(cb, 1, hkv, d), cfg.rms_norm_eps)
                 q = L.apply_rope(q, positions, cfg.rope_theta)
                 kk = L.apply_rope(kk, positions, cfg.rope_theta)
-                de["k"][rows, :, cols] = kk[:, 0]
-                de["v"][rows, :, cols] = vv.reshape(cb, hkv, d)
-                a = slot_attention(q, pe["k"][:cb], pe["v"][:cb], pmask,
-                                   de["k"][:cb, :, :w], de["v"][:cb, :, :w], dmask)
+                if int8:
+                    wk, wv = win[i]
+                    wk[:, :, step] = kk[:, 0]
+                    wv[:, :, step] = vv.reshape(cb, hkv, d)
+                    a = slot_attention(
+                        q, pe["k"][:cb], pe["v"][:cb], pmask, de["k"][:cb, :, :w],
+                        de["v"][:cb, :, :w], dmask,
+                        (pe["k_scale"][:cb], pe["v_scale"][:cb]),
+                        (de["k_scale"][:cb, :, :w], de["v_scale"][:cb, :, :w]),
+                        (wk, wv, wmask))
+                else:
+                    de["k"][rows, :, cols] = kk[:, 0]
+                    de["v"][rows, :, cols] = vv.reshape(cb, hkv, d)
+                    a = slot_attention(q, pe["k"][:cb], pe["v"][:cb], pmask,
+                                       de["k"][:cb, :, :w], de["v"][:cb, :, :w], dmask)
                 h = h + L.dense(lp.attn.o, a.reshape(cb, 1, -1), dtype)
                 x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
                 h = h + L.swiglu(lp.mlp, x, dtype)
@@ -366,6 +416,16 @@ class ContinuousBatcher:
             act = was & (tok != self.eos)
             steps += was
             toks[step] = tok
+        if int8:
+            # fold the window into the decode pool, quantized: each active
+            # step's column at the row's depth, the rest into the spare
+            j = torch.arange(k, device=self.device)
+            cols = torch.where(wmask, (dlen0[:, None] + j).clamp(max=spare), spare)
+            for (wk, wv), de in zip(win, self.dec_pool):
+                for n, x in (("k", wk), ("v", wv)):
+                    xq, sc = _kv_quantize(x)
+                    de[n][rows[:, None], :, cols] = xq.transpose(1, 2)
+                    de[f"{n}_scale"][rows[:, None], :, cols] = sc.transpose(1, 2)
         st["last"][:cb], st["pos"][:cb], st["act"][:cb], st["gst"][:cb] = last, pos, act, gst
         st["dlen"][:cb] += steps
         return toks

@@ -17,8 +17,10 @@ The JAX engine jits prefill and a `lax.while_loop`; here PyTorch runs
 eagerly and the loop is a Python loop whose exit test is the one host sync
 per step. With `guided` (generate/guided.py) each row carries a DFA state on
 the device: its logits are masked before sampling and the state advances
-after, frozen once the row has finished. The device mesh comes with a later
-slice.
+after, frozen once the row has finished. With `kv_int8` the cache is int8
+with per-(token, head) scales: the prefill writes it and attends over its
+own float K/V (flash_fwd on the card), decode steps read it with the scales
+on the logits and probabilities. The device mesh comes with a later slice.
 """
 
 from __future__ import annotations
@@ -42,9 +44,12 @@ from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
 class GenerationEngine:
     def __init__(self, fusion_cfg: FusionConfig, eos_token_id: int,
-                 pad_token_id: Optional[int] = None, device=None):
-        """Runs on `device`: CUDA unless the caller passes "cpu"."""
+                 pad_token_id: Optional[int] = None, device=None, kv_int8: bool = False):
+        """Runs on `device`: CUDA unless the caller passes "cpu". `kv_int8`:
+        store the KV cache int8 with per-(token, head) scales (JAX
+        engine.py:37-50)."""
         self.cfg = fusion_cfg
+        self.kv_int8 = kv_int8
         self.eos_token_id = eos_token_id
         self.pad_token_id = pad_token_id if pad_token_id is not None else eos_token_id
         self.device = resolve_device(device)
@@ -72,7 +77,8 @@ class GenerationEngine:
         b, p = input_ids.shape
         embeds = fused_input_embeddings(model, self.cfg, input_ids,
                                         dna_input_ids, dna_attention_mask)
-        cache = init_cache(cfg, b, p + max_new_tokens, torch_dtype(cfg.dtype), self.device)
+        cache = init_cache(cfg, b, p + max_new_tokens, torch_dtype(cfg.dtype), self.device,
+                           quantize=self.kv_int8)
         cache_mask = F.pad(attention_mask.to(torch.int32), (0, max_new_tokens))
         hidden, cache = decoder_forward(
             model.decoder, cfg, inputs_embeds=embeds, attention_mask=attention_mask,
@@ -99,6 +105,10 @@ class GenerationEngine:
         max_new_tokens ends it first. Its tables must be on this device."""
         mnt = max_new_tokens if max_new_tokens is not None else sampling.max_new_tokens
         cfg = self.cfg.decoder
+        if self.kv_int8 and group_size > 1:
+            raise NotImplementedError(
+                "kv_int8 with group_size > 1: the grouped int8 decode is not ported yet "
+                "(ROADMAP.md, queue 1, item 7b)")
         input_ids, attention_mask = self._put(input_ids), self._put(attention_mask)
         dna_input_ids, dna_attention_mask = self._put(dna_input_ids), self._put(dna_attention_mask)
         b, p = input_ids.shape

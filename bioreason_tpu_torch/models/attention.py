@@ -26,19 +26,27 @@ from bioreason_tpu_torch.ops.local_attention import local_attention
 _NEG = torch.finfo(torch.float32).min
 
 
-def xla_attention(q, k, v, kv_mask=None, causal=False, q_offset=None):
+def xla_attention(q, k, v, kv_mask=None, causal=False, q_offset=None,
+                  k_scale=None, v_scale=None):
     """q: [B,Tq,Hq,D], k/v: [B,Tk,Hkv,D], kv_mask: [B,Tk] (1=valid).
 
     GQA with grouped einsums: the expanded [B,Tk,Hq,D] K/V is never built.
     Logits and softmax in fp32, probabilities cast to q's dtype for the
     value product. When `causal`, query i attends to keys j <= i + q_offset
     (q_offset defaults to Tk - Tq). A fully masked row softmaxes a row of
-    equal minima and returns the mean of V, as the JAX function does."""
+    equal minima and returns the mean of V, as the JAX function does.
+
+    `k_scale` / `v_scale` [B,Tk,Hkv,1]: the int8 KV cache's factors, applied
+    to the logits and to the probabilities (JAX attention.py:47-65; exact,
+    since a scale is per key token and head): no scaled copy of K or V is
+    made."""
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     qg = q.reshape(b, tq, hkv, group, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * (d ** -0.5)
+    if k_scale is not None:
+        logits = logits * k_scale[..., 0].transpose(1, 2).float()[:, :, None, None, :]
     if kv_mask is not None:
         logits = logits.masked_fill(~kv_mask.bool()[:, None, None, None, :], _NEG)
     if causal:
@@ -47,7 +55,10 @@ def xla_attention(q, k, v, kv_mask=None, causal=False, q_offset=None):
         qi = torch.arange(tq, device=q.device)[:, None] + q_offset
         kj = torch.arange(tk, device=q.device)[None, :]
         logits = logits.masked_fill(kj > qi, _NEG)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[..., 0].transpose(1, 2).float()[:, :, None, None, :]
+    probs = probs.to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(q.dtype))
     return out.reshape(b, tq, hq, d)
 
@@ -57,16 +68,24 @@ def use_kernel(q: torch.Tensor) -> bool:
     return q.is_cuda and q.shape[1] > 1
 
 
-def attention(q, k, v, kv_mask=None, causal=False, q_offset=None, impl="auto"):
+def attention(q, k, v, kv_mask=None, causal=False, q_offset=None, impl="auto",
+              k_scale=None, v_scale=None):
     """Multi-head (grouped-query) attention. Shapes as in `xla_attention`.
 
     impl: 'auto' (see `use_kernel`), 'pallas' (always the flash kernel; the
     name is the JAX config's), 'xla' (always the grouped einsums) or
-    'local:<W>' (banded, |i - j| <= W; bidirectional only)."""
+    'local:<W>' (banded, |i - j| <= W; bidirectional only). An int8 cache
+    (`k_scale` / `v_scale`) goes to `xla_attention`, as in the JAX dispatch
+    (attention.py:101-103): the flash kernel reads float K/V. Its callers
+    are decode steps; an int8 prefill attends over its fresh float K/V
+    (`qwen3._layer_forward`) and keeps the kernel."""
     if impl.startswith("local:"):
         if causal:
             raise NotImplementedError("local attention is bidirectional-only")
         return local_attention(q, k, v, int(impl.split(":", 1)[1]), kv_mask=kv_mask)
+    if k_scale is not None or v_scale is not None:
+        return xla_attention(q, k, v, kv_mask=kv_mask, causal=causal, q_offset=q_offset,
+                             k_scale=k_scale, v_scale=v_scale)
     if impl == "auto":
         impl = "pallas" if use_kernel(q) else "xla"
     if impl == "pallas":

@@ -13,6 +13,14 @@ Dense layers are `nn.Linear`, so kernels are stored `[out, in]`: the JAX
 package's `[in, out]` kernels are transposed once by `weights.py`. A LoRA
 adapter rides on its `nn.Linear` as `lora_a` [in, r], `lora_b` [r, out] (the
 JAX layouts) and a `lora_scale` buffer; `dense` adds it when present.
+
+Serving storage (train/quant.py, train/fuse.py): an `nn.Linear` or an
+`Embedding` may hold an int8 `weight` buffer with an fp32 `scale` buffer,
+one scale per output channel ([out, 1]) or per vocabulary row ([V, 1]);
+`dense`, `embed` and `lm_logits` read either storage. An attention module
+may hold one fused `qkv` linear in place of `q`, `k` and `v`, and an MLP
+one `gateup` in place of `gate` and `up`; an adapter of a fused projection
+stays on its own `Adapter` module, added to the split outputs.
 """
 
 from __future__ import annotations
@@ -71,28 +79,84 @@ class GeluMLP(nn.Module):
         self.down = linear(hidden, dim, bias, device, dtype)
 
 
+class Adapter(nn.Module):
+    """The LoRA adapter of a projection whose base weight lives in a fused
+    linear (train/fuse.py): `lora_a`, `lora_b` and `lora_scale` alone."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+
+
+def is_int8(mod: nn.Module) -> bool:
+    """Whether `mod` (an nn.Linear or an Embedding) stores its weight int8."""
+    return mod.weight.dtype == torch.int8
+
+
+def int8_weight(mod: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """An int8 weight dequantized in `dtype`: q.to(dtype) * scale.to(dtype),
+    the JAX package's order (layers.py:87-88); the product in fp32 cast to
+    bf16 afterwards would round differently."""
+    return mod.weight.to(dtype) * mod.scale.to(dtype)
+
+
+def int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """xq [M, K] int8 @ wq [N, K]^T int8 -> int32 [M, N], exact, through
+    `torch._int_mm` (cuBLASLt on the card). CUDA takes M > 16 only: fewer
+    rows are padded with zero rows to 17 and sliced off, never sent down
+    another path."""
+    m = xq.shape[0]
+    if m <= 16:
+        xq = F.pad(xq, (0, 0, 0, 17 - m))
+    return torch._int_mm(xq, wq.t())[:m]
+
+
+def _w8a8_dot(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """W8A8 product (JAX layers.py:31-53): each token's activations are
+    quantized to int8 against their absmax (fp32, clamped at 1e-12), the
+    int8 x int8 product accumulates exactly in int32, and the fp32 scales
+    of the token and of the output channel apply to it before the cast:
+    y = (yi * sx) * sw."""
+    sx = (x.abs().amax(-1, keepdim=True).float() / 127.0).clamp(min=1e-12)
+    xq = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
+    yi = int8_mm(xq.reshape(-1, xq.shape[-1]), lin.weight)
+    y = yi.reshape(*x.shape[:-1], -1).float() * sx * lin.scale.reshape(-1)
+    return y.to(dtype)
+
+
 def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
-          dropout: Dropout = None) -> torch.Tensor:
+          dropout: Dropout = None, act8: bool = False) -> torch.Tensor:
     """x @ W (+ b) (+ the LoRA adapter) in `dtype` (default: x's dtype),
-    whatever dtype the weights are stored in."""
+    whatever dtype the weights are stored in. An int8 weight is dequantized
+    in `dtype`, or with `act8` (W8A8, cfg.act_int8) runs `_w8a8_dot`;
+    `act8` does nothing to a float weight, as in the JAX package."""
     dtype = x.dtype if dtype is None else dtype
     x = x.to(dtype)
     bias = None if lin.bias is None else lin.bias.to(dtype)
-    y = F.linear(x, lin.weight.to(dtype), bias)
+    if not is_int8(lin):
+        y = F.linear(x, lin.weight.to(dtype), bias)
+    elif act8:
+        y = _w8a8_dot(x, lin, dtype)
+        y = y if bias is None else y + bias
+    else:
+        y = F.linear(x, int8_weight(lin, dtype), bias)
     d = lora_delta(lin, x, dtype, dropout)
     return y if d is None else y + d
 
 
-def add_adapter(lin: nn.Linear, a: torch.Tensor, b: torch.Tensor, scale: float) -> None:
-    """Attach a LoRA adapter to `lin`: fp32 parameters `lora_a` [in, r] and
-    `lora_b` [r, out], and the fp32 scalar buffer `lora_scale` (alpha / r)."""
+def add_adapter(lin: nn.Module, a: torch.Tensor, b: torch.Tensor, scale: float,
+                device=None) -> None:
+    """Attach a LoRA adapter to `lin` (an nn.Linear, or an `Adapter`, which
+    then needs `device`): fp32 parameters `lora_a` [in, r] and `lora_b`
+    [r, out], and the fp32 scalar buffer `lora_scale` (alpha / r)."""
     if (a.shape[0], b.shape[1], a.shape[1]) != (lin.in_features, lin.out_features, b.shape[0]):
         raise ValueError(f"adapter {tuple(a.shape)} x {tuple(b.shape)} does not fit "
                          f"{lin.in_features} -> {lin.out_features}")
-    lin.lora_a = nn.Parameter(a.detach().to(device=lin.weight.device, dtype=torch.float32))
-    lin.lora_b = nn.Parameter(b.detach().to(device=lin.weight.device, dtype=torch.float32))
+    device = lin.weight.device if device is None else device
+    lin.lora_a = nn.Parameter(a.detach().to(device=device, dtype=torch.float32))
+    lin.lora_b = nn.Parameter(b.detach().to(device=device, dtype=torch.float32))
     lin.register_buffer("lora_scale", torch.tensor(float(scale), dtype=torch.float32,
-                                                   device=lin.weight.device))
+                                                   device=device))
 
 
 def has_adapter(lin: nn.Module) -> bool:
@@ -114,11 +178,31 @@ def lora_delta(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
     return ((xl @ lin.lora_a.to(dtype)) @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
 
 
+def _split_delta(parent: nn.Module, name: str, base: torch.Tensor, x: torch.Tensor,
+                 dtype: torch.dtype, dropout: Dropout) -> torch.Tensor:
+    """A fused projection's split output plus the adapter left on
+    `parent.<name>`, if any."""
+    d = lora_delta(getattr(parent, name, None), x, dtype, dropout)
+    return base if d is None else base + d
+
+
 def qkv_proj(attn: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
-             drops: Tuple[Dropout, Dropout, Dropout] = (None, None, None)):
-    """Attention input projections -> (q, k, v) [..., q_dim/kv_dim/kv_dim]."""
-    return (dense(attn.q, x, dtype, drops[0]), dense(attn.k, x, dtype, drops[1]),
-            dense(attn.v, x, dtype, drops[2]))
+             drops: Tuple[Dropout, Dropout, Dropout] = (None, None, None),
+             act8: bool = False):
+    """Attention input projections -> (q, k, v) [..., q_dim/kv_dim/kv_dim].
+    With a fused `qkv` (train/fuse.py) one product gives all three, split by
+    the widths `o` reads (q) and the rest halved (k, v); the per-projection
+    adapters are added to the splits (JAX layers.py:100-123)."""
+    if hasattr(attn, "qkv"):
+        dtype = x.dtype if dtype is None else dtype
+        y = dense(attn.qkv, x, dtype, None, act8)
+        q_dim = attn.o.in_features
+        kv_dim = (attn.qkv.out_features - q_dim) // 2
+        q, k, v = y.split((q_dim, kv_dim, kv_dim), dim=-1)
+        return tuple(_split_delta(attn, n, base, x, dtype, dr)
+                     for n, base, dr in zip("qkv", (q, k, v), drops))
+    return (dense(attn.q, x, dtype, drops[0], act8), dense(attn.k, x, dtype, drops[1], act8),
+            dense(attn.v, x, dtype, drops[2], act8))
 
 
 def embed(emb: Embedding, ids: torch.Tensor,
@@ -127,9 +211,15 @@ def embed(emb: Embedding, ids: torch.Tensor,
     vocab are clamped for the lookup: the DNA placeholder id may lie past
     the vocab (e.g. 151938 with a 151936 vocab), and the splice overwrites
     those rows anyway. `jnp.take` fills them instead; an out-of-range
-    `torch.embedding` on CUDA is a device assert."""
+    `torch.embedding` on CUDA is a device assert. An int8 table gathers its
+    int8 rows and their scales, then multiplies in `dtype` (JAX
+    layers.py:130-138)."""
     w = emb.weight
-    out = F.embedding(ids.clamp(0, w.shape[0] - 1), w)
+    ids = ids.clamp(0, w.shape[0] - 1)
+    if is_int8(emb):
+        dtype = torch.float32 if dtype is None else dtype
+        return w[ids].to(dtype) * emb.scale[ids].to(dtype)
+    out = F.embedding(ids, w)
     return out if dtype is None else out.to(dtype)
 
 
@@ -138,10 +228,16 @@ def lm_logits(dec: nn.Module, h: torch.Tensor) -> torch.Tensor:
     separate `lm_head`). Operands are in h's dtype and the products
     accumulate AND come out in fp32, as the JAX einsum with
     preferred_element_type=float32 does: a bf16-output GEMM would round the
-    logits and can flip greedy near-ties."""
-    w = dec.lm_head.weight if dec.lm_head is not None else dec.embed.weight   # [V, H]
+    logits and can flip greedy near-ties. An int8 head streams its int8
+    values as operands and scales the fp32 logits per vocabulary row after
+    the product (JAX layers.py:141-160)."""
+    head = dec.lm_head if dec.lm_head is not None else dec.embed
+    w = head.weight                                                    # [V, H]
     h2 = h.reshape(-1, h.shape[-1])
-    return mm_f32(h2, w.to(h.dtype).t()).reshape(*h.shape[:-1], w.shape[0])
+    logits = mm_f32(h2, w.to(h.dtype).t())
+    if is_int8(head):
+        logits = logits * head.scale.reshape(-1)
+    return logits.reshape(*h.shape[:-1], w.shape[0])
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -177,17 +273,25 @@ def layernorm(norm: LayerNorm, x: torch.Tensor, eps: float = 1e-12) -> torch.Ten
 
 
 def swiglu(mlp: SwiGLU, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
-           dropout: Dropout = None) -> torch.Tensor:
-    g = dense(mlp.gate, x, dtype, dropout)
-    u = dense(mlp.up, x, dtype, dropout)
-    return dense(mlp.down, F.silu(g) * u, dtype, dropout)
+           dropout: Dropout = None, act8: bool = False) -> torch.Tensor:
+    """down(silu(gate(x)) * up(x)); with a fused `gateup` (train/fuse.py) one
+    product gives gate and up, halved, each plus its own adapter."""
+    if hasattr(mlp, "gateup"):
+        dtype = x.dtype if dtype is None else dtype
+        g, u = dense(mlp.gateup, x, dtype, None, act8).chunk(2, dim=-1)
+        g = _split_delta(mlp, "gate", g, x, dtype, dropout)
+        u = _split_delta(mlp, "up", u, x, dtype, dropout)
+    else:
+        g = dense(mlp.gate, x, dtype, dropout, act8)
+        u = dense(mlp.up, x, dtype, dropout, act8)
+    return dense(mlp.down, F.silu(g) * u, dtype, dropout, act8)
 
 
 def gelu_mlp(mlp: GeluMLP, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
-             dropout: Dropout = None) -> torch.Tensor:
+             dropout: Dropout = None, act8: bool = False) -> torch.Tensor:
     # exact (erf) gelu: HF ESM uses F.gelu's default, not the tanh approximation
-    up = dense(mlp.up, x, dtype, dropout)
-    return dense(mlp.down, F.gelu(up, approximate="none"), dtype, dropout)
+    up = dense(mlp.up, x, dtype, dropout, act8)
+    return dense(mlp.down, F.gelu(up, approximate="none"), dtype, dropout, act8)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """NT-v2-style bidirectional DNA encoder (the port of
 bioreason_tpu/models/nt_encoder.py; ESM-family pre-norm transformer with
 rotary embeddings, SwiGLU MLPs and LayerNorm). The fusion model consumes its
-last hidden state (reference dna_llm.py:156); no MLM head.
+last hidden state (reference dna_llm.py:156); no MLM head. Its denses may
+be int8 or fused for serving (train/quant.py, train/fuse.py) and take
+cfg.act_int8 (JAX nt_encoder.py:73-89).
 """
 
 from __future__ import annotations
@@ -52,16 +54,17 @@ def _layer_forward(lp: EncoderLayer, h, cfg: EncoderConfig, positions, attention
     b, t, _ = h.shape
     dtype = h.dtype
     nh, hd = cfg.num_heads, cfg.head_dim
+    a8 = cfg.act_int8
     x = L.layernorm(lp.ln1, h, cfg.norm_eps)
-    q, k, v = L.qkv_proj(lp.attn, x, dtype)
+    q, k, v = L.qkv_proj(lp.attn, x, dtype, act8=a8)
     q = L.apply_rope(q.reshape(b, t, nh, hd), positions, cfg.rope_theta)
     k = L.apply_rope(k.reshape(b, t, nh, hd), positions, cfg.rope_theta)
     v = v.reshape(b, t, nh, hd)
     a = attention(q, k, v, kv_mask=attention_mask, causal=False, impl=cfg.attention_impl)
-    h = h + L.dense(lp.attn.o, a.reshape(b, t, -1), dtype)
+    h = h + L.dense(lp.attn.o, a.reshape(b, t, -1), dtype, None, a8)
     x = L.layernorm(lp.ln2, h, cfg.norm_eps)
     mlp = L.swiglu if cfg.use_swiglu else L.gelu_mlp
-    return h + mlp(lp.mlp, x, dtype)
+    return h + mlp(lp.mlp, x, dtype, None, a8)
 
 
 def encoder_forward(enc: NTEncoder, cfg: EncoderConfig, input_ids: torch.Tensor,

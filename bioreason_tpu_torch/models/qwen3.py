@@ -5,7 +5,11 @@ RMSNorm before RoPE, SwiGLU MLP and tied embeddings.
 The KV cache is a list of per-layer {k, v} [B, S, Hkv, D] buffers written in
 place (`cache[i]["k"][:, idx:idx+t] = k`), never reallocated per step; the
 JAX package gets the same effect from donated buffers and
-dynamic_update_slice. The int8 cache comes with a later slice.
+dynamic_update_slice. `init_cache(quantize=True)` stores K/V int8 with an
+fp32 scale per (token, head) (`_kv_quantize`); decode steps read it with
+the scales on the logits and probabilities (`attention.xla_attention`),
+while a multi-token block written into it attends over its own fresh float
+K/V, so prefills keep the flash kernel (JAX qwen3.py:168-176).
 
 GRPO's grouped decode (`decoder_decode_step_grouped`): G completions share
 one prompt KV cache [B_u, P] written by a prefill of the unique prompts;
@@ -66,18 +70,42 @@ class Qwen3Decoder(nn.Module):
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer KV cache: a list of {k, v} [B, S, Hkv, D] zero buffers."""
+               device=None, quantize: bool = False) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer KV cache: a list of {k, v} [B, S, Hkv, D] zero buffers;
+    `quantize` stores them int8 beside fp32 `k_scale` / `v_scale`
+    [B, S, Hkv, 1] (JAX qwen3.py:66-88)."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    if quantize:
+        sshape = shape[:-1] + (1,)
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+                 "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device)}
+                for _ in range(cfg.num_layers)]
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(cfg.num_layers)]
 
 
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] float -> (int8 [..., D], fp32 scale [..., 1]): absmax per
+    row, clamped at 1e-8 BEFORE the division by 127 (JAX qwen3.py:91-96;
+    the weights clamp after it)."""
+    xf = x.float()
+    scale = xf.abs().amax(-1, keepdim=True).clamp(min=1e-8) / 127.0
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
 def cache_entry_update(entry: Dict[str, torch.Tensor], k: torch.Tensor,
                        v: torch.Tensor, index: int) -> Dict[str, torch.Tensor]:
-    """Write new K/V [B, T, Hkv, D] at `index`, in place. Returns the entry."""
+    """Write new K/V [B, T, Hkv, D] at `index`, in place, quantizing when
+    the entry carries scales. Returns the entry."""
     t = k.shape[1]
+    if "k_scale" in entry:
+        (qk, sk), (qv, sv) = _kv_quantize(k), _kv_quantize(v)
+        entry["k_scale"][:, index:index + t] = sk
+        entry["v_scale"][:, index:index + t] = sv
+        k, v = qk, qv
     entry["k"][:, index:index + t] = k
     entry["v"][:, index:index + t] = v
     return entry
@@ -94,8 +122,9 @@ def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
     drop = None
     if dropout_seed is not None:
         drop = (torch.Generator(device=h.device).manual_seed(dropout_seed), dropout_rate)
+    a8 = cfg.act_int8
     x = L.rmsnorm(lp.ln1, h, cfg.rms_norm_eps)
-    q, k, v = L.qkv_proj(lp.attn, x, dtype, (drop, drop, drop))
+    q, k, v = L.qkv_proj(lp.attn, x, dtype, (drop, drop, drop), a8)
     q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
@@ -104,9 +133,19 @@ def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
+    ks = vs = None
     if cache_entry is not None:
         cache_entry_update(cache_entry, k, v, cache_index)
-        k_all, v_all = cache_entry["k"], cache_entry["v"]
+        if "k_scale" in cache_entry and t > 1:
+            # an int8 cache's prefill: the block just written is all its
+            # callers have in it (they prefill fresh caches), so it attends
+            # over its own float K/V, through the flash kernel, with the
+            # mask of its slots (JAX qwen3.py:168-176)
+            k_all, v_all = k, v
+            kv_mask = kv_mask[:, cache_index:cache_index + t]
+        else:
+            k_all, v_all = cache_entry["k"], cache_entry["v"]
+            ks, vs = cache_entry.get("k_scale"), cache_entry.get("v_scale")
     else:
         k_all, v_all = k, v
     # with a cache the queries sit at absolute positions cache_index.. among
@@ -114,10 +153,10 @@ def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
     # left to the Tk - Tq default
     a = attention(q, k_all, v_all, kv_mask=kv_mask, causal=causal,
                   q_offset=cache_index if cache_entry is not None else None,
-                  impl=cfg.attention_impl)
-    h = h + L.dense(lp.attn.o, a.reshape(b, t, -1), dtype, drop)
+                  impl=cfg.attention_impl, k_scale=ks, v_scale=vs)
+    h = h + L.dense(lp.attn.o, a.reshape(b, t, -1), dtype, drop, a8)
     x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
-    return h + L.swiglu(lp.mlp, x, dtype, drop)
+    return h + L.swiglu(lp.mlp, x, dtype, drop, a8)
 
 
 def decoder_forward(
@@ -148,7 +187,7 @@ def decoder_forward(
     recomputed in backward when `cfg.remat`."""
     dtype = torch_dtype(cfg.dtype)
     if inputs_embeds is None:
-        inputs_embeds = L.embed(dec.embed, input_ids)
+        inputs_embeds = L.embed(dec.embed, input_ids, dtype)
     h = inputs_embeds.to(dtype)
     b, t, _ = h.shape
     if attention_mask is None:
@@ -231,7 +270,11 @@ def decoder_decode_step_grouped(dec: Qwen3Decoder, cfg: DecoderConfig,
     {k, v} [B_u, P, Hkv, D] (read, never written); dec_cache: per-layer
     {k, v} [B_u*G, N, Hkv, D], written in place at `dec_index`; dec_mask
     [B_u*G, N] marks the valid decode slots INCLUDING the one being written.
-    Returns (fp32 logits [B_u*G, 1, V], dec_cache)."""
+    Returns (fp32 logits [B_u*G, 1, V], dec_cache).
+
+    Denses stay weight-only when cfg.act_int8 asks for W8A8: the JAX step
+    turns it off here (qwen3.py:362-369). An int8 cache is not read here
+    yet: `GenerationEngine` refuses kv_int8 with G > 1."""
     dtype = torch_dtype(cfg.dtype)
     h = L.embed(dec.embed, input_ids, dtype)
     bg, t, _ = h.shape

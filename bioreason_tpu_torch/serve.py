@@ -36,12 +36,19 @@ Continuous batching over two depth classes, every answer constrained:
   python -m bioreason_tpu_torch.serve --continuous --tiers 8x512,8x1024 \
       --decode_window 8 --guided_regex '<answer>(yes|no)</answer>'
 
-int8 weights, activations and KV, and fused projections come with a later
-slice (ROADMAP.md, queue 1, item 7); `main` refuses their flags.
+Serving storage, applied in the JAX server's order (serve.py:430-441): a
+checkpoint's LoRA merged, then `--int8` (every dense of both towers, the
+embedding and the head int8 with per-channel scales, train/quant.py), then
+`--fuse` (q/k/v and gate/up fused, train/fuse.py); `--w8a8` (needs
+`--int8`) quantizes the activations of the denses per token too (the
+continuous batcher's decode windows stay weight-only, as in the JAX
+package), and `--kv_int8` stores the KV cache and the continuous pools int8:
+  python -m bioreason_tpu_torch.serve --int8 --kv_int8 --fuse --w8a8
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import queue
 import threading
@@ -62,12 +69,6 @@ from bioreason_tpu_torch.data.text_tokenizer import ByteTextTokenizer
 from bioreason_tpu_torch.generate.engine import GenerationEngine
 from bioreason_tpu_torch.models.fusion import FusionModel, init_fusion
 from bioreason_tpu_torch.train.rewards import extract_answer
-
-# flags of the JAX server whose paths are not ported yet (all ROADMAP.md,
-# queue 1, item 7)
-LATER_FLAGS = ("int8", "kv_int8", "fuse", "w8a8")
-ITEM7 = "not ported yet (ROADMAP.md, queue 1, item 7: quantization and fused projections)"
-
 
 def _bucket(n: int, multiple: int = 128) -> int:
     return ((max(n, 1) + multiple - 1) // multiple) * multiple
@@ -143,10 +144,10 @@ class InferenceServer:
         tokens and `max_new_tokens` decode columns, or one pool per class of
         `tiers` ("CAPxLEN,CAPxLEN,..."), `decode_window` tokens per host
         round trip. `guided_regex`: a pattern every completion must match
-        (generate/guided.py). `kv_int8` is not ported yet and raises."""
-        if kv_int8:
-            raise NotImplementedError(f"kv_int8: {ITEM7}")
+        (generate/guided.py). `kv_int8`: the engine's KV cache and every
+        tier's pools int8 with per-(token, head) scales."""
         self.model = model
+        self.kv_int8 = kv_int8
         self.cfg = fusion_cfg
         self.processor = processor
         self.sampling = sampling
@@ -164,7 +165,7 @@ class InferenceServer:
         self.decode_window = max(1, decode_window)
         self.engine = GenerationEngine(
             fusion_cfg, eos_token_id=processor.text_tokenizer.eos_token_id,
-            device=device)
+            device=device, kv_int8=kv_int8)
         self.engine_calls = 0
         self.guided_regex = guided_regex
         self._guided_cache: Dict[str, Any] = {}
@@ -216,7 +217,8 @@ class InferenceServer:
         cbs = [ContinuousBatcher(self.model, self.cfg, eos_token_id=tok.eos_token_id,
                                  capacity=cap, max_len=mlen, max_new=self.max_new_tokens,
                                  sampling=self.sampling, guided=self._spec_for(self.guided_regex),
-                                 device=self.engine.device, seed=self.seed + i)
+                                 kv_int8=self.kv_int8, device=self.engine.device,
+                                 seed=self.seed + i)
                for i, (cap, mlen) in enumerate(self.tiers or [(self.max_batch, self.slot_len)])]
         # the decode window is hit at once and shared by every request;
         # admission shapes depend on the prompts and warm up on first use
@@ -404,13 +406,32 @@ def build_config(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
     return cfg, BioProcessor(tok, dna_tok)
 
 
+def serving_storage(model: FusionModel, int8: bool = False, fuse: bool = False) -> FusionModel:
+    """The JAX server's order (serve.py:437-441): `int8` quantizes every
+    dense of both towers with the embedding and the head
+    (`quantize_frozen_int8(include_embed=True)`), then `fuse` fuses q/k/v
+    and gate/up. In place; returns the model."""
+    if int8:
+        from bioreason_tpu_torch.train.quant import quantize_frozen_int8
+        quantize_frozen_int8(model, include_embed=True)
+    if fuse:
+        from bioreason_tpu_torch.train.fuse import fuse_projections
+        fuse_projections(model)
+    return model
+
+
 def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
                  max_length_dna: int = 2048, seed: int = 0, device=None,
-                 checkpoint: Optional[str] = None, **server_kw) -> InferenceServer:
+                 checkpoint: Optional[str] = None, int8: bool = False, fuse: bool = False,
+                 w8a8: bool = False, **server_kw) -> InferenceServer:
     """Server over the SFT model of `checkpoint` (the port's `sft_final`:
     `train.checkpoint.rebuild_sft` builds its recorded base with its
     tokenizers, and its LoRA is merged into the frozen weights; the presets
-    are not read then), else over the presets' weights drawn from `seed`."""
+    are not read then), else over the presets' weights drawn from `seed`;
+    then `serving_storage` (`int8`, `fuse`). `w8a8` (act_int8 on both
+    towers) needs `int8`."""
+    if w8a8 and not int8:
+        raise ValueError("--w8a8 requires --int8 (act_int8 needs int8 kernels)")
     if checkpoint:
         from bioreason_tpu_torch.train.checkpoint import rebuild_sft
         from bioreason_tpu_torch.train.lora import merge_lora
@@ -420,10 +441,14 @@ def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
     else:
         cfg, processor = build_config(decoder, encoder, max_length_dna)
         model = init_fusion(cfg, seed=seed, device=device)
+    if w8a8:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, act_int8=True),
+                                  encoder=dataclasses.replace(cfg.encoder, act_int8=True))
+    serving_storage(model, int8, fuse)
     return InferenceServer(model, cfg, processor, device=device, seed=seed, **server_kw)
 
 
-def main(argv=None):
+def parse_args(argv=None):
     import argparse
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -452,19 +477,38 @@ def main(argv=None):
     p.add_argument("--guided_regex", default=None,
                    help="constrain every completion to match this regex (per-request "
                         "'guided_regex' also accepted in micro-batch mode)")
-    for flag in LATER_FLAGS:
-        p.add_argument(f"--{flag}", nargs="?", const=True, default=None, help=ITEM7)
+    p.add_argument("--int8", action="store_true",
+                   help="int8 weights with per-channel scales for both towers, the "
+                        "embedding and the head (train/quant.py)")
+    p.add_argument("--kv_int8", action="store_true",
+                   help="int8 KV cache and continuous pools, per-(token, head) scales")
+    p.add_argument("--fuse", action="store_true",
+                   help="fused qkv / gateup projections (train/fuse.py)")
+    p.add_argument("--w8a8", action="store_true",
+                   help="int8 activations on top of --int8 weights (cfg.act_int8): prefill "
+                        "denses take an int8 x int8 product; continuous decode windows stay "
+                        "weight-only int8")
     args = p.parse_args(argv)
-    asked = [f"--{f}" for f in LATER_FLAGS if getattr(args, f) is not None]
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)}: {ITEM7}")
+    if args.w8a8 and not args.int8:
+        p.error("--w8a8 requires --int8 (act_int8 needs int8 kernels)")
+    return args
 
-    server = build_server(args.decoder, args.encoder, args.max_length_dna, args.seed,
-                          args.device, args.checkpoint, max_batch=args.max_batch,
-                          max_new_tokens=args.max_new_tokens, continuous=args.continuous,
-                          slot_len=args.slot_len, tiers=args.tiers,
-                          guided_regex=args.guided_regex,
-                          decode_window=args.decode_window).start()
+
+def server_from_args(args) -> InferenceServer:
+    """The `InferenceServer` that `main` serves for `parse_args`' args,
+    unstarted."""
+    return build_server(args.decoder, args.encoder, args.max_length_dna, args.seed,
+                        args.device, args.checkpoint, int8=args.int8, fuse=args.fuse,
+                        w8a8=args.w8a8, max_batch=args.max_batch,
+                        max_new_tokens=args.max_new_tokens, continuous=args.continuous,
+                        slot_len=args.slot_len, tiers=args.tiers,
+                        guided_regex=args.guided_regex, kv_int8=args.kv_int8,
+                        decode_window=args.decode_window)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    server = server_from_args(args).start()
     httpd = make_http_server(server, args.port)
     print(f"serving on :{args.port} (POST /generate, GET /healthz)")
     httpd.serve_forever()

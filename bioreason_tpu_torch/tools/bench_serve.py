@@ -2,16 +2,22 @@
 
 Drives the continuous batcher (generate/continuous.py) at the serving
 shape: an NT-v2-500M encoder and a Qwen3-0.6B decoder (151,936-token head)
-in bf16 with weights from seed 0, and a queue of DNA-spliced requests
+with weights from seed 0, stored int8 by default as the JAX bench stores
+them (`--frozen int8`: every dense, the embedding and the head, per-channel
+scales, train/quant.py; `--frozen bfloat16` for bf16), and a queue of
+DNA-spliced requests
 (prompts of 256 text tokens holding 128 <|dna_pad|> placeholders, one DNA
 sequence of 128 k-mer tokens each) with completion lengths of max_new,
 max_new / 2 and max_new / 4 in rotation, admitted as slots free up, sampled
 at temperature 0.6, top-p 0.95, top-k 20 with no EOS (-1), decode windows
 of 16 tokens per host round trip and one window in flight
-(`run_pipelined`) unless --no_pipeline.
+(`run_pipelined`) unless --no_pipeline. `--kv int8` stores the pools int8,
+`--fuse` fuses q/k/v and gate/up (train/fuse.py), `--w8a8` (with
+`--frozen int8`) quantizes the admission prefill's activations per token.
 
     python -m bioreason_tpu_torch.tools.bench_serve            # on the card
     python -m bioreason_tpu_torch.tools.bench_serve --tiers 96x640,40x2048
+    python -m bioreason_tpu_torch.tools.bench_serve --kv int8 --fuse --w8a8
     python -m bioreason_tpu_torch.tools.bench_serve --decoder tiny --encoder tiny \\
         --device cpu --capacity 4 --max_new 8 --max_len 64 --prompt_len 64 --dna_len 16
 
@@ -21,12 +27,9 @@ real admission queue) and prints one JSON line: decoded tokens/s
 (`serving_tokens_per_sec_per_chip`, or `..._tiered`), the admit / decode
 split of the host's time, the windows and the mean slot occupancy, the
 prefill calls and the flash_fwd launches they made, the pools' GiB, the
-peak device memory, and the card's name and power limit (nvidia-smi).
+resident weights' GiB, the peak device memory, and the card's name and
+power limit (nvidia-smi).
 `main` returns the same numbers as a dict. It writes no file.
-
-int8 frozen weights, the int8 KV pools, fused projections and W8A8 are
-not ported yet (ROADMAP.md, queue 1, item 7): --frozen int8, --kv int8,
---fuse and --w8a8 raise.
 """
 
 from __future__ import annotations
@@ -35,9 +38,6 @@ import json
 import subprocess
 import sys
 import time
-
-ITEM7 = "not ported yet (ROADMAP.md, queue 1, item 7: quantization and fused projections)"
-
 
 def card_name() -> str:
     """`nvidia-smi --query-gpu=name,power.limit` of the first card."""
@@ -56,7 +56,8 @@ def parse_args(argv=None):
     ap.add_argument("--decoder", default="qwen3-0.6b", choices=sorted(DECODER_PRESETS))
     ap.add_argument("--encoder", default="nt-500m", choices=sorted(ENCODER_PRESETS))
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    ap.add_argument("--frozen", default="bfloat16", choices=["bfloat16", "int8"])
+    ap.add_argument("--frozen", default="int8", choices=["bfloat16", "int8"],
+                    help="weight storage (int8: train/quant.py with the embedding and head)")
     ap.add_argument("--capacity", type=int, default=64)
     ap.add_argument("--requests", type=int, default=0,
                     help="0 = 3 x capacity (a real admission queue; fewer requests than "
@@ -69,9 +70,12 @@ def parse_args(argv=None):
                     help="text tokens per prompt (also the admission's width bucket)")
     ap.add_argument("--dna_len", type=int, default=128,
                     help="DNA tokens per prompt (as many <|dna_pad|> placeholders)")
-    ap.add_argument("--kv", default="bfloat16", choices=["bfloat16", "int8"])
-    ap.add_argument("--fuse", action="store_true", help=ITEM7)
-    ap.add_argument("--w8a8", action="store_true", help=ITEM7)
+    ap.add_argument("--kv", default="bfloat16", choices=["bfloat16", "int8"],
+                    help="pool KV storage; int8 halves the pools' bytes")
+    ap.add_argument("--fuse", action="store_true",
+                    help="fused qkv / gateup projections (train/fuse.py)")
+    ap.add_argument("--w8a8", action="store_true",
+                    help="int8 activations too (cfg.act_int8) in the admission prefill")
     ap.add_argument("--shared", type=int, default=1,
                     help="requests per unique prompt (> 1: same-batch dedupe and the "
                          "prefix cache, GRPO-style G-completion serving)")
@@ -84,11 +88,8 @@ def parse_args(argv=None):
                     help="KV depth classes 'CAPxLEN,CAPxLEN' (serve --tiers): one pool per "
                          "class and length-routed mixed-prompt churn")
     args = ap.parse_args(argv)
-    asked = [f for f, on in (("--frozen int8", args.frozen == "int8"),
-                             ("--kv int8", args.kv == "int8"), ("--fuse", args.fuse),
-                             ("--w8a8", args.w8a8)) if on]
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)}: {ITEM7}")
+    if args.w8a8 and args.frozen != "int8":
+        ap.error("--w8a8 requires --frozen int8 (act_int8 needs int8 kernels)")
     if not args.requests:
         args.requests = 3 * args.capacity
     return args
@@ -106,15 +107,19 @@ def main(argv=None) -> dict:
     from bioreason_tpu_torch.generate.continuous import ContinuousBatcher, Request
     from bioreason_tpu_torch.models.fusion import init_fusion
     from bioreason_tpu_torch.ops import flash_attention as fa
-    from bioreason_tpu_torch.serve import _parse_tiers
+    from bioreason_tpu_torch.serve import _parse_tiers, serving_storage
+    from bioreason_tpu_torch.train.quant import storage_bytes
     from bioreason_tpu_torch.utils.devices import resolve_device
 
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
-    dec = dataclasses.replace(DECODER_PRESETS[args.decoder](), remat=False)
+    dec = dataclasses.replace(DECODER_PRESETS[args.decoder](), remat=False,
+                              act_int8=args.w8a8)
     cfg = FusionConfig(decoder=dec, encoder=dataclasses.replace(
-        ENCODER_PRESETS[args.encoder](), remat=False), dna_pad_token_id=dec.vocab_size + 2)
+        ENCODER_PRESETS[args.encoder](), remat=False, act_int8=args.w8a8),
+        dna_pad_token_id=dec.vocab_size + 2)
     model = init_fusion(cfg, seed=0, device=device).requires_grad_(False)
+    serving_storage(model, int8=args.frozen == "int8", fuse=args.fuse)
     sampling = SamplingConfig(temperature=0.6, top_p=0.95, top_k=20)
     l_dna = args.dna_len
     npr = np.random.default_rng(0)
@@ -137,7 +142,8 @@ def main(argv=None) -> dict:
     def batcher(cap, mlen, bucket, prefix_cache=False):
         return ContinuousBatcher(model, cfg, eos_token_id=-1, capacity=cap, max_len=mlen,
                                  max_new=args.max_new, prompt_bucket=bucket, sampling=sampling,
-                                 prefix_cache=prefix_cache, device=device)
+                                 kv_int8=args.kv == "int8", prefix_cache=prefix_cache,
+                                 device=device)
 
     def pool_gib(cbs):
         return sum(x.numel() * x.element_size() for cb in cbs
@@ -214,6 +220,7 @@ def main(argv=None) -> dict:
         "metric": metric, "value": tokens / dt, "unit": "tokens/s",
         "device": torch.cuda.get_device_name(0) if cuda else "cpu",
         "card": card_name() if cuda else None,
+        "frozen": args.frozen, "kv": args.kv, "fuse": args.fuse, "w8a8": args.w8a8,
         "capacity": capacity, "requests": len(reqs), "window": args.window,
         "decoded_tokens": tokens, "seconds": dt,
         "admit_s": admit_s, "decode_s": dt - admit_s,
@@ -221,7 +228,7 @@ def main(argv=None) -> dict:
         "mean_occupancy": tm["rows"] / (windows * capacity) if windows else 0.0,
         "prefill_calls": prefills, "flash_fwd_launches": launches,
         "flash_fwd_per_prefill": launches / prefills if prefills else 0.0,
-        "pool_gib": pool_gib(cbs),
+        "pool_gib": pool_gib(cbs), "weights_gib": storage_bytes(model) / 2 ** 30,
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None,
         **extra}
     if args.probe:

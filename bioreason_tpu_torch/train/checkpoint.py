@@ -2,7 +2,8 @@
 step, in one `torch.save` file (the resumable subset of
 bioreason_tpu/train/checkpoint.py; frozen weights are not written, since
 they come from the seed or the checkpoint that built the model), and
-`TopKKeeper`, the k best checkpoints by validation loss.
+`TopKKeeper`, the k best checkpoints by validation loss, and
+`load_classifier`, the DNA-only classifier's rebuild.
 
 A checkpoint records in its metadata the frozen base its adapters belong
 to, since adapters paired with another base would load without complaint
@@ -35,6 +36,11 @@ BASE_KEYS = ("seed", "init_device", "decoder", "encoder", "dna_attention",
 PRETRAINED_KEYS = ("hf_llm_dir", "hf_dna_dir", "evo2_dir", "base_files", "seed",
                    "dna_attention", "dna_embedding_layer", "vocab_size", "dtype", "lora_r",
                    "lora_alpha", "frozen_dtype")
+
+# what a DNA-only classifier's checkpoint records to build its model again
+# (the JAX CLI saves `dna_only_final` with stage="classifier" and its labels)
+CLASSIFIER_KEYS = ("stage", "encoder", "seed", "init_device", "num_classes", "labels",
+                   "train_just_classifier", "dtype")
 
 FILE = "state.pt"
 
@@ -270,3 +276,41 @@ class TopKKeeper:
 
     def best_path(self) -> Optional[str]:
         return self._kept[0][2] if self._kept else None
+
+
+@torch.no_grad()
+def load_classifier(path: str, cfg, encoder: Optional[str] = None, device=None):
+    """(the classifier, its labels) from a checkpoint `ClassifierTrainer.save`
+    wrote: the model drawn again from the recorded seed on a device of the
+    recorded type, the trained parameters loaded, the frozen ones stored as
+    the trainer stored them. Raises where the checkpoint is not a
+    classifier's, lacks a key, names another `encoder` preset or dtype than
+    the caller's, was drawn on another device type, or holds other
+    parameters than the model's trainable ones."""
+    from bioreason_tpu_torch.models.classifier import init_classifier
+    from bioreason_tpu_torch.train.classifier import partition
+    from bioreason_tpu_torch.utils.devices import resolve_device
+    device = resolve_device(device)
+    state = load_checkpoint(path)
+    meta = state["metadata"]
+    missing = [k for k in CLASSIFIER_KEYS if k not in meta]
+    if missing or meta["stage"] != "classifier":
+        raise ValueError(f"{path}: not a classifier checkpoint of the port (lacks {missing})")
+    if encoder is not None and meta["encoder"] != encoder:
+        raise ValueError(f"{path} was trained on encoder {meta['encoder']!r}, not {encoder!r}")
+    if meta["dtype"] != cfg.dtype:
+        raise ValueError(f"{path} was trained in {meta['dtype']}, not {cfg.dtype}")
+    if meta["init_device"] != device.type:
+        raise ValueError(f"{path}: its frozen weights were drawn on {meta['init_device']}, "
+                         f"which {device.type} does not draw again")
+    model = init_classifier(cfg, meta["num_classes"], meta["seed"], device)
+    names, params = partition(model, cfg, meta["train_just_classifier"])
+    trained = state["trainable"]
+    if sorted(trained) != sorted(names):
+        raise ValueError(f"{path} holds other trained parameters than the classifier's")
+    for name, p in zip(names, params):
+        if tuple(trained[name].shape) != tuple(p.shape):
+            raise ValueError(f"{path}: {name} is {tuple(trained[name].shape)}, the model's "
+                             f"{tuple(p.shape)}")
+        p.copy_(trained[name])
+    return model.requires_grad_(False), list(meta["labels"])

@@ -13,7 +13,11 @@ port of bioreason_tpu/train/optim.py, which chains optax transforms).
      mu_hat / (sqrt(nu_hat) + eps) (eps outside the sqrt), plus decoupled
      weight decay on every trainable parameter, times -lr(count).
 The schedule is 0 at step 0 when there is a warmup (the linear ramp starts
-at 0), so the first step moves no parameter.
+at 0), so the first step moves no parameter. `lr_scales` multiplies each
+parameter's whole update, weight decay included, after the learning rate:
+the DNA-only classifier's `optax.chain(adamw, masked(scale(s)))` for the
+encoder's leaves (bioreason_tpu/train/classifier.py:68-77), with the
+global norm still clipped over every parameter first.
 
 Finiteness is read from the global norm (one host sync per step): any NaN
 or Inf makes it non-finite. It also reads non-finite when finite gradients
@@ -62,9 +66,16 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
 class AdamW:
     """The optimizer over a list of fp32 trainable parameters."""
 
-    def __init__(self, params: Sequence[torch.nn.Parameter], cfg: OptimConfig):
+    def __init__(self, params: Sequence[torch.nn.Parameter], cfg: OptimConfig,
+                 lr_scales: Optional[Sequence[float]] = None):
         self.params: List[torch.nn.Parameter] = list(params)
         self.cfg = cfg
+        # parameters grouped by the scale of their update (one group of 1.0
+        # without `lr_scales`)
+        scales = [1.0] * len(self.params) if lr_scales is None else list(lr_scales)
+        if len(scales) != len(self.params):
+            raise ValueError(f"{len(scales)} lr_scales for {len(self.params)} parameters")
+        self._groups = {s: [i for i, x in enumerate(scales) if x == s] for s in set(scales)}
         self.schedule = cosine_warmup_schedule(cfg)
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
@@ -108,7 +119,9 @@ class AdamW:
         torch._foreach_div_(upd, denom)
         if cfg.weight_decay:
             torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+        for scale, idx in self._groups.items():
+            torch._foreach_add_([self.params[i] for i in idx], [upd[i] for i in idx],
+                                alpha=-lr * scale)
         return norm
 
     @torch.no_grad()

@@ -1,0 +1,96 @@
+"""Int8 storage for frozen weights (the port of bioreason_tpu/train/quant.py).
+
+`quantize_frozen_int8(model)` rewrites, in place, every `nn.Linear` of the
+decoder and the DNA tower to an int8 `weight` [out, in] buffer with an fp32
+`scale` [out, 1] buffer (symmetric absmax per output channel) and frees the
+float weight; biases, norms, LoRA adapters and the trainable DNA projection
+stay as they are. `layers.dense` dequantizes in the compute dtype on every
+call (or, with cfg.act_int8, runs the W8A8 product), so the resident
+weights take half the bytes of bf16. `include_embed=True` also stores the
+decoder's embedding int8 with one scale per vocabulary row, and its
+`lm_head` where it has one (a tied head reads the embedding): the serving
+configuration, in which every weight byte a decode step reads is int8.
+
+Layouts: JAX kernels are [in, out] and take their absmax over axis -2
+(quant.py:36); the port's weights are [out, in], so it is dim -1 here, one
+scale per output channel either way. Weight scales clamp at 1e-12 after
+the division by 127 (quant.py:36-37); the KV cache's clamp at 1e-8 before
+it (`qwen3._kv_quantize`). `torch.round` rounds half to even, as `jnp.rint`.
+
+Mixture-of-Experts banks (JAX quant.py:85-91) wait for the MoE slice.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from bioreason_tpu_torch.models import layers as L
+
+
+def quantize_kernel_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[out, in] float weight -> (int8 [out, in], fp32 scale [out, 1]):
+    symmetric absmax per output channel, computed in fp32."""
+    w = w.detach().float()
+    scale = (w.abs().amax(-1, keepdim=True) / 127.0).clamp(min=1e-12)
+    return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
+
+
+# the embedding is [V, H] in both packages and also takes its absmax over
+# the last axis, one scale per vocabulary row (JAX quant.py:42-51)
+quantize_embedding_int8 = quantize_kernel_int8
+
+
+def dequantize_kernel(q: torch.Tensor, scale: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return q.to(dtype) * scale.to(dtype)
+
+
+@torch.no_grad()
+def store_int8(mod: nn.Module, q: torch.Tensor, scale: torch.Tensor) -> None:
+    """Replace `mod.weight` (an nn.Linear's or an Embedding's) by the int8
+    buffer `q` and an fp32 `scale` buffer; the float weight is dropped."""
+    if tuple(q.shape) != tuple(mod.weight.shape) or q.dtype != torch.int8:
+        raise ValueError(f"int8 {tuple(q.shape)} {q.dtype} does not replace a weight "
+                         f"{tuple(mod.weight.shape)}")
+    device = mod.weight.device
+    del mod.weight
+    mod.register_buffer("weight", q.to(device))
+    mod.register_buffer("scale", scale.to(device=device, dtype=torch.float32))
+
+
+def _quantize(mod: nn.Module) -> None:
+    if not L.is_int8(mod):
+        store_int8(mod, *quantize_kernel_int8(mod.weight))
+
+
+@torch.no_grad()
+def quantize_frozen_int8(model: nn.Module, subtrees: Sequence[str] = ("decoder", "encoder"),
+                         include_embed: bool = False) -> nn.Module:
+    """Quantize, in place, every `nn.Linear` under the named submodules of a
+    `FusionModel` (the decoder and the DNA tower, NT or Evo2: the JAX walk
+    over the `kernel` leaves of those subtrees). `include_embed` adds the
+    decoder's embedding and its separate `lm_head`; otherwise an `lm_head`
+    stays float, as the JAX walk leaves it (quant.py:76-78). Already int8
+    modules are left as they are. Returns the model."""
+    for name in subtrees:
+        tower = getattr(model, name, None)
+        if tower is None:
+            continue
+        if hasattr(tower, "experts"):
+            raise NotImplementedError("int8 expert banks wait for the MoE slice "
+                                      "(ROADMAP.md, queue 1, item 8)")
+        for mod_name, mod in tower.named_modules():
+            if isinstance(mod, nn.Linear) and (mod_name != "lm_head" or include_embed):
+                _quantize(mod)
+        if name == "decoder" and include_embed:
+            _quantize(tower.embed)
+    return model
+
+
+def storage_bytes(module: nn.Module) -> int:
+    """Bytes of every parameter and buffer `module` holds."""
+    return sum(t.numel() * t.element_size()
+               for t in list(module.parameters()) + list(module.buffers()))

@@ -28,6 +28,9 @@ from torch import nn
 LORA_TRAINABLE = r"(lora_[ab]$)|(^dna_projection\.(weight|bias)$)"
 FULL_FINETUNE = r"(^decoder\.)|(^dna_projection\.)"
 ENCODER = r"(^encoder\.)"
+# the DNA-only classifier's default: the pooler and the head train, the
+# encoder is frozen (bioreason_tpu/train/trainable.py:21)
+CLASSIFIER_HEAD = r"(^pooler\.)|(^classifier\.)"
 # the per-layer modules JAX stacks [L, ...]: the decoder's and the NT encoder's
 STACKED = re.compile(r"^(decoder|encoder)\.layers\.\d+\.")
 

@@ -19,10 +19,19 @@ leaves as numpy arrays, e.g. `jax.tree.map(np.asarray, params)`, and fills a
   the `nn.Linear`, in the JAX layouts, fp32 (`layers.add_adapter`);
 * trainable leaves stay fp32: the adapters and the DNA projection;
 * a tied decoder (no `lm_head` leaf) keeps `lm_head = None` and
-  `layers.lm_logits` reads the embedding as the head.
+  `layers.lm_logits` reads the embedding as the head;
+* int8 storage (`{"q", "scale"}` leaves of train/quant.py: q [in, out]
+  int8, scale [1, out] fp32; the embedding's q [V, H], scale [V, 1]) is
+  carried bit for bit: the port's model is quantized first for its
+  structure (`train.quant.quantize_frozen_int8`), then every int8 value and
+  scale is copied in, transposed to [out, in] / [out, 1];
+* fused `qkv` / `gateup` leaves (train/fuse.py) likewise: the port's model
+  is fused first (`train.fuse.fuse_projections`), and an adapter left on a
+  fused projection becomes a `layers.Adapter`.
 
-The int8 `{"q", "scale"}` storage and the fused `qkv`/`gateup` leaves are
-not converted: unfuse on the JAX side first.
+A tree with `pooler` and `classifier` (bioreason_tpu/models/classifier.py)
+is a DNA-only classifier's: give `cfg` as its `EncoderConfig` and get a
+`DnaClassifier` (fp32, as its trainer takes it).
 """
 
 from __future__ import annotations
@@ -33,14 +42,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from bioreason_tpu_torch.config import FusionConfig
+from bioreason_tpu_torch.config import EncoderConfig, FusionConfig
+from bioreason_tpu_torch.models.classifier import DnaClassifier
 from bioreason_tpu_torch.models.fusion import FusionModel
-from bioreason_tpu_torch.models.layers import add_adapter
+from bioreason_tpu_torch.models.layers import Adapter, add_adapter, is_int8
+from bioreason_tpu_torch.train.fuse import fuse_projections
+from bioreason_tpu_torch.train.quant import quantize_frozen_int8
 from bioreason_tpu_torch.utils.devices import resolve_device
 
 
 def _copy(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
-    arr = np.asarray(src, dtype=np.float32)
+    arr = np.asarray(src, dtype=np.int8 if dst.dtype == torch.int8 else np.float32)
     if transpose:
         arr = arr.T
     if tuple(arr.shape) != tuple(dst.shape):
@@ -48,18 +60,87 @@ def _copy(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
     dst.copy_(torch.tensor(arr))
 
 
+def _is_int8(leaf: Any) -> bool:
+    return isinstance(leaf, dict) and "q" in leaf
+
+
+def _adapter(lin: nn.Module, p: Dict[str, Any], device) -> None:
+    add_adapter(lin, torch.tensor(np.asarray(p["lora_a"], np.float32)),
+                torch.tensor(np.asarray(p["lora_b"], np.float32)),
+                float(np.asarray(p["lora_scale"])), device)
+
+
 def _dense(lin: nn.Linear, p: Dict[str, Any]) -> None:
-    if not isinstance(p["kernel"], np.ndarray):
-        raise ValueError("only float, unfused dense leaves are converted")
-    _copy(lin.weight, p["kernel"], transpose=True)
+    kern = p["kernel"]
+    if _is_int8(kern) != is_int8(lin):
+        raise ValueError("the tree's int8 / float storage does not match the model's")
+    if _is_int8(kern):
+        _copy(lin.weight, kern["q"], transpose=True)
+        _copy(lin.scale, kern["scale"], transpose=True)
+    else:
+        _copy(lin.weight, kern, transpose=True)
     if "lora_a" in p:
-        add_adapter(lin, torch.tensor(np.asarray(p["lora_a"], np.float32)),
-                    torch.tensor(np.asarray(p["lora_b"], np.float32)),
-                    float(np.asarray(p["lora_scale"])))
+        _adapter(lin, p, lin.weight.device)
     if lin.bias is not None:
         _copy(lin.bias, p["bias"])
     elif "bias" in p:
         raise ValueError("the tree has a bias the config does not expect")
+
+
+def _projections(parent: nn.Module, tree: Dict[str, Any], names) -> None:
+    """Fill each dense parent.<name> of `names` from the tree, and attach
+    the adapters that a fused projection left behind. Raises where the
+    tree lacks a dense the model has, or holds one the model lacks."""
+    device = next(iter(parent.state_dict().values())).device
+    for name in names:
+        lin = getattr(parent, name, None)
+        p = tree.get(name, {})
+        if ("kernel" in p) != isinstance(lin, nn.Linear):
+            raise ValueError(f"the tree's {name!r} does not fit the model's {lin!r}")
+        if "kernel" in p:
+            _dense(lin, p)
+        elif "lora_a" in p:
+            ad = Adapter(*np.shape(p["lora_a"])[:1], np.shape(p["lora_b"])[1])
+            _adapter(ad, p, device)
+            setattr(parent, name, ad)
+
+
+def _storage(model: nn.Module, tree: Dict[str, Any]) -> None:
+    """Quantize and fuse the freshly built `model` where the tree is int8 or
+    fused, so that its leaves have somewhere to go."""
+    for name in ("decoder", "encoder"):
+        sub = tree.get(name, {})
+        layers = sub.get("layers")
+        if not isinstance(layers, dict):
+            continue
+        attn = layers["attn"]
+        if _is_int8(attn["o"]["kernel"]):
+            embed = sub.get("embed", {}).get("embedding")
+            quantize_frozen_int8(model, (name,), include_embed=_is_int8(embed))
+        if "qkv" in attn:
+            fuse_projections(model, (name,))
+
+
+def _nt_layers(tower: nn.Module, tree: Dict[str, Any], decoder: bool) -> None:
+    for i, lm in enumerate(tower.layers):
+        lp = _layer(tree["layers"], i)
+        _norm(lm.ln1, lp["ln1"])
+        _projections(lm.attn, lp["attn"], ("qkv", "q", "k", "v", "o"))
+        if decoder:
+            _norm(lm.attn.q_norm, lp["attn"]["q_norm"])
+            _norm(lm.attn.k_norm, lp["attn"]["k_norm"])
+        _norm(lm.ln2, lp["ln2"])
+        _projections(lm.mlp, lp["mlp"], ("gateup", "gate", "up", "down"))
+
+
+def _embedding(emb: nn.Module, leaf: Any) -> None:
+    if _is_int8(leaf) != is_int8(emb):
+        raise ValueError("the tree's int8 / float embedding does not match the model's")
+    if _is_int8(leaf):
+        _copy(emb.weight, leaf["q"])
+        _copy(emb.scale, leaf["scale"])
+    else:
+        _copy(emb.weight, leaf)
 
 
 def _norm(norm: nn.Module, p: Dict[str, Any]) -> None:
@@ -71,6 +152,20 @@ def _norm(norm: nn.Module, p: Dict[str, Any]) -> None:
 def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer `i` of a stacked [L, ...] subtree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+@torch.no_grad()
+def _classifier(tree: Dict[str, Any], cfg: EncoderConfig, device) -> DnaClassifier:
+    model = DnaClassifier(cfg, np.shape(tree["classifier"]["fc2"]["bias"])[0], device)
+    enc = model.encoder
+    _copy(enc.embed.weight, tree["encoder"]["embed"]["embedding"])
+    _nt_layers(enc, tree["encoder"], decoder=False)
+    _norm(enc.final_norm, tree["encoder"]["final_norm"])
+    pool, pt = model.pooler, tree["pooler"]
+    _copy(pool.query, pt["query"])
+    _projections(pool, pt, ("q", "k", "v", "o"))
+    _projections(model.classifier, tree["classifier"], ("fc1", "fc2"))
+    return model
 
 
 def _hyena_blocks(tower: nn.Module, blocks) -> None:
@@ -111,36 +206,24 @@ def _hyena_blocks(tower: nn.Module, blocks) -> None:
 def from_jax_params(tree: Dict[str, Any], cfg: FusionConfig,
                     device: Optional[torch.device] = None) -> FusionModel:
     """The JAX fusion parameter tree (numpy leaves) as a `FusionModel` on
-    `device` (CUDA unless the caller asks for the CPU)."""
+    `device` (CUDA unless the caller asks for the CPU); a classifier tree as
+    a `DnaClassifier` (module docstring)."""
+    if "pooler" in tree:
+        return _classifier(tree, cfg, resolve_device(device))
     model = FusionModel(cfg, resolve_device(device))
+    _storage(model, tree)
 
     enc, et = model.encoder, tree["encoder"]
     _copy(enc.embed.weight, et["embed"]["embedding"])
     if cfg.encoder_kind == "evo2":
         _hyena_blocks(enc, et["blocks"])
     else:
-        for i, lm in enumerate(enc.layers):
-            lp = _layer(et["layers"], i)
-            _norm(lm.ln1, lp["ln1"])
-            for name in ("q", "k", "v", "o"):
-                _dense(getattr(lm.attn, name), lp["attn"][name])
-            _norm(lm.ln2, lp["ln2"])
-            for name, sub in lp["mlp"].items():
-                _dense(getattr(lm.mlp, name), sub)
+        _nt_layers(enc, et, decoder=False)
     _norm(enc.final_norm, et["final_norm"])
 
     dec, dt = model.decoder, tree["decoder"]
-    _copy(dec.embed.weight, dt["embed"]["embedding"])
-    for i, lm in enumerate(dec.layers):
-        lp = _layer(dt["layers"], i)
-        _norm(lm.ln1, lp["ln1"])
-        for name in ("q", "k", "v", "o"):
-            _dense(getattr(lm.attn, name), lp["attn"][name])
-        _norm(lm.attn.q_norm, lp["attn"]["q_norm"])
-        _norm(lm.attn.k_norm, lp["attn"]["k_norm"])
-        _norm(lm.ln2, lp["ln2"])
-        for name in ("gate", "up", "down"):
-            _dense(getattr(lm.mlp, name), lp["mlp"][name])
+    _embedding(dec.embed, dt["embed"]["embedding"])
+    _nt_layers(dec, dt, decoder=True)
     _norm(dec.final_norm, dt["final_norm"])
     if ("lm_head" in dt) != (dec.lm_head is not None):
         raise ValueError("tie_word_embeddings does not match the tree's lm_head")

@@ -68,8 +68,9 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               dispatch); one step profiled.
   8. grpo     GRPO at bench_grpo.py's shape (Qwen3-0.6B widths at the byte
               tokenizer's vocabulary, remat full; NT-v2-500M; 4 synthetic
-              KEGG prompts of 2 x 600 bp x G = 4, 32 new tokens sampled
-              (64 in bench_grpo.py and before phase 11 came),
+              KEGG prompts of 2 x 600 bp x G = 4, 16 new tokens sampled
+              (64 in bench_grpo.py; 64 before phase 11 came, 32 before
+              phases 13-14 came),
               max_length_dna 128, beta 0.04, LoRA r32/a64, bf16 frozen
               weights from seed 0): the GRPOTrainer for 1 + 3 timed steps
               with phase timers, rewarded by xmlcount, correctness and the
@@ -140,7 +141,8 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               25-block Evo2 fixture (its head_dim of 8 takes the plain
               route; the decoder's launches counted).
  12. continuous  continuous serving at Qwen3-0.6B + NT-v2-500M width (bf16,
-              weights from seed 0): (a) `tools/bench_serve.py` (64 slots,
+              weights from seed 0): (a) `tools/bench_serve.py --frozen
+              bfloat16` (phase 14 runs its int8 default; 64 slots,
               128 requests here, 2 x capacity in place of its 3 x so the
               phase keeps its budget: 256 text + 128 DNA tokens each,
               128/64/32 new tokens sampled, windows of 16, pipelined):
@@ -165,6 +167,43 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               flash_fwd against its plain version at the admission prefill
               [64,256,16/8,128] causal, the encoder [64,128,16,64] and (c)'s
               mixed-width tier chunk with its left pads. At most 75 s.
+ 13. classifier  the DNA-only classifier at NT-v2-500M width (seed 0, B=16
+              pairs of L=512 random 6-mer ids, 8 classes): (a)
+              `tools/bench_classifier.py` as it runs alone, the encoder
+              frozen (examples/s, the median of 5 repetitions of 10 steps,
+              ms per step, device-busy and wall ms of one profiled step,
+              peak memory), exactly 2 x 29 = 58 flash_fwd a step and no
+              flash_bwd, a finite loss; (b) `--finetune_encoder`'s trainer at
+              the same shape with remat off as the bench runs it (fp32
+              masters and AdamW moments of 500 M parameters): 58 flash_fwd
+              and 58 flash_bwd a step over 3 timed steps, the loss falling on
+              one fixed batch, peak memory, then one step with remat on (116
+              flash_fwd, 58 flash_bwd); (c) flash_fwd and flash_bwd against
+              their plain versions at [16,512,16,64], all valid and with the
+              collate's right pads; (d) `python -m
+              bioreason_tpu_torch.cli.train_dna_only` for 3 steps on
+              synthetic items: its test metrics, its dna_only_final rebuilt
+              by `load_classifier` to the same logits. At most 60 s.
+ 14. int8     int8 serving at Qwen3-0.6B + NT-v2-500M width (seed 0): (a)
+              the resident weight bytes of the bf16 model and of `--int8`
+              (every dense of both towers, the embedding and the tied head
+              int8 with per-channel scales), counted from the modules'
+              storage: about half; (b) the --int8 engine against a bf16
+              engine holding its dequantized weights, teacher-forced logits
+              on phase 4's 8 requests (cosine >= 0.9999 per row and step:
+              only the head's scale sits elsewhere); (c) --int8 and --int8
+              --w8a8 against the bf16 weights: the quantization error
+              (cosine floors 0.98 and 0.95, the argmax agreement); (d) the
+              server with --int8 --kv_int8 --fuse --w8a8, 8 greedy requests
+              twice, identical, exactly 57 flash_fwd per engine call (the
+              int8 prefill attends over its fresh bf16 K/V); (e) W8A8's
+              int8 x int8 -> int32 product (torch._int_mm) exact, and against
+              the dequantized product at the prefill's own shapes (relative
+              error, times); flash_fwd at the int8 prefill's Tk = P; (f)
+              `tools/bench_serve.py` at the JAX bench's default (--frozen
+              int8) and with --kv int8 --fuse --w8a8 (128 requests each):
+              tokens/s, occupancy, pool and weight GiB, peak memory, 57
+              flash_fwd per prefill chunk. At most 120 s.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -1326,7 +1365,7 @@ def phase_train_long(torch, card):
 # at a quarter of it the update's kernel vs plain cosine fell to 0.81 on
 # gradients 1000x smaller (norm 1.2e-3 against 1.28), a check the cut made
 # meaningless, not a kernel fault
-GRPO_PROMPTS, GRPO_G, GRPO_NEW = 4, 4, 32
+GRPO_PROMPTS, GRPO_G, GRPO_NEW = 4, 4, 16
 
 
 def grpo_setup():
@@ -2626,7 +2665,7 @@ def phase_continuous(torch, card):
     # path, counts from 0 just before and read just after (its warmup's one
     # prefill included)
     reset_counts()
-    res = bench_serve.main(["--probe", "--requests", str(CONT_REQUESTS)])
+    res = bench_serve.main(["--probe", "--requests", str(CONT_REQUESTS), "--frozen", "bfloat16"])
     got = counts()
     torch.cuda.empty_cache()
     log(f"continuous bench [{card}]: {res['value']:.1f} decoded tokens/s ({res['decoded_tokens']} "
@@ -2823,6 +2862,372 @@ def phase_continuous(torch, card):
     return out, rows
 
 
+# -- phase 13 -----------------------------------------------------------------
+
+CLS_B, CLS_L, CLS_CLASSES = 16, 512, 8          # bench_classifier.py's shape
+CLS_FT_STEPS = 4                                 # finetune steps on one fixed batch
+CLS_BUDGET_S = 60.0
+
+
+def classifier_batch(b=CLS_B, t=CLS_L, classes=CLS_CLASSES, seed=0):
+    """bench_classifier.py's batch: random 6-mer ids, all valid."""
+    npr = np.random.default_rng(seed)
+    return {"ref_ids": npr.integers(6, 4102, (b, t)).astype(np.int32),
+            "alt_ids": npr.integers(6, 4102, (b, t)).astype(np.int32),
+            "ref_attention_mask": np.ones((b, t), np.int32),
+            "alt_attention_mask": np.ones((b, t), np.int32),
+            "labels": npr.integers(0, classes, b).astype(np.int32)}
+
+
+def phase_classifier(torch, card):
+    """The DNA-only classifier at NT-v2-500M width (module docstring, phase
+    13)."""
+    from bioreason_tpu_torch.cli import train_dna_only
+    from bioreason_tpu_torch.config import EncoderConfig, OptimConfig
+    from bioreason_tpu_torch.models.classifier import classifier_forward
+    from bioreason_tpu_torch.tools import bench_classifier
+    from bioreason_tpu_torch.train.checkpoint import load_classifier
+    from bioreason_tpu_torch.train.classifier import ClassifierTrainer
+    t_phase = time.perf_counter()
+    per_step = 2 * ENCODER_LAYERS                    # ref and alt through the encoder
+    out = {}
+
+    # (a) frozen: bench_classifier.py's run, the main path (counts from 0
+    # just before and read just after: 2 warm-up + 5 x 10 timed + 1 profiled)
+    reset_counts()
+    res = bench_classifier.main([])
+    got = counts()
+    steps = 2 + bench_classifier.REPS * bench_classifier.STEPS + 1
+    log(f"classifier bench [{card}]: {res['value']:.2f} examples/s (median of "
+        f"{[round(r, 2) for r in res['repetitions']]}), {res['ms_per_step']:.2f} ms a step; "
+        f"profiled step busy {res['profiled_step_busy_ms']:.2f} of "
+        f"{res['profiled_step_wall_ms']:.2f} ms; loss {res['loss']:.4f}; "
+        f"torch.cuda.max_memory_allocated {res['peak_gib']:.2f} GiB; launches {got} over "
+        f"{steps} steps")
+    if got != {k: per_step * steps if k == "flash_fwd" else 0 for k in got}:
+        fail(f"the frozen classifier launched {got} in {steps} steps, expected "
+             f"{per_step} flash_fwd a step and no flash_bwd")
+    if not math.isfinite(res["loss"]):
+        fail(f"the frozen classifier's loss is {res['loss']}")
+    out["frozen"] = {**res, "launches": got["flash_fwd"], "steps": steps}
+    torch.cuda.empty_cache()
+
+    # (b) --finetune_encoder at the bench's shape, remat off as the bench
+    # runs it: fp32 masters and AdamW moments for the whole encoder
+    cfg = dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False)
+    if (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.head_dim) != (29, 1024, 16, 64):
+        fail(f"the classifier's encoder is not at NT-v2-500M width: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    trainer = ClassifierTrainer(cfg, CLS_CLASSES, optim=OptimConfig(
+        learning_rate=1e-3, total_steps=100, warmup_ratio=0.0),
+        train_just_classifier=False, device="cuda")
+    batch = classifier_batch()
+    losses = [trainer.train_step(batch)["loss"]]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(CLS_FT_STEPS - 1):
+        losses.append(trainer.train_step(batch)["loss"])
+    ms = (time.perf_counter() - t0) * 1e3 / (CLS_FT_STEPS - 1)
+    got = counts()
+    n_train = sum(p.numel() for p in trainer.params)
+    log(f"classifier finetune [{card}]: remat off, {n_train / 1e6:.1f} M trainable parameters; "
+        f"{ms:.1f} ms a step ({CLS_B * 1e3 / ms:.2f} examples/s) over {CLS_FT_STEPS - 1} "
+        f"timed steps; losses {[round(x, 4) for x in losses]} on one fixed batch; launches "
+        f"{got}; torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    n = CLS_FT_STEPS - 1
+    if got != {"flash_fwd": per_step * n, "flash_bwd": per_step * n, "local_fwd": 0,
+               "local_bwd": 0}:
+        fail(f"the finetuned classifier launched {got} in {n} steps, expected {per_step} "
+             f"flash_fwd and {per_step} flash_bwd a step")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"the finetuned classifier's loss did not fall on a fixed batch: {losses}")
+    # one step with the preset's remat on: each layer's forward runs again
+    trainer.cfg = dataclasses.replace(cfg, remat=True)
+    reset_counts()
+    trainer.train_step(batch)
+    got_remat = counts()
+    log(f"classifier finetune, one step with remat on: launches {got_remat}")
+    if got_remat["flash_fwd"] != 2 * per_step or got_remat["flash_bwd"] != per_step:
+        fail(f"with remat on a finetune step launched {got_remat}, expected "
+             f"{2 * per_step} flash_fwd and {per_step} flash_bwd")
+    out["finetune"] = {"ms": ms, "losses": losses, "launches": got,
+                       "remat_launches": got_remat,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) the kernels at the classifier's shapes: all valid, and the
+    # collate's right pads (reads of 60-512 tokens)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    ones = torch.ones((CLS_B, CLS_L), dtype=torch.int32, device="cuda")
+    padded = right_padded(torch, CLS_B, CLS_L, 60, g)
+    rows = [kernel_case(torch, "classifier_encoder_B16_T512", CLS_B, CLS_L, CLS_L, 16, 16, 64,
+                        False, None, ones, 131),
+            kernel_case(torch, "classifier_encoder_B16_T512_rightpad", CLS_B, CLS_L, CLS_L, 16,
+                        16, 64, False, None, padded, 132)]
+    bwd_rows = [bwd_case(torch, "classifier_finetune_B16_T512", CLS_B, CLS_L, CLS_L, 16, 16, 64,
+                         False, 0, ones, 133),
+                bwd_case(torch, "classifier_finetune_B16_T512_rightpad", CLS_B, CLS_L, CLS_L,
+                         16, 16, 64, False, 0, padded, 134)]
+
+    # (d) the CLI on synthetic items: it trains, tests and writes
+    # dna_only_final, which the loader rebuilds to the same logits
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_cls_", dir=build_dir)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        cli = train_dna_only.main(["--max_steps", "3", "--batch_size", "4", "--n_synthetic",
+                                   "32", "--max_length_dna", "512", "--checkpoint_dir", tmp,
+                                   "--log_dir", os.path.join(tmp, "logs")])
+        secs = time.perf_counter() - t0
+        got = counts()
+        model, labels = load_classifier(os.path.join(tmp, "dna_only_final"), cli.cfg,
+                                        encoder="nt-500m", device="cuda")
+        small = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in classifier_batch(b=4, t=128).items()}
+        keys = ("ref_ids", "alt_ids", "ref_attention_mask", "alt_attention_mask")
+        with torch.no_grad():
+            want = classifier_forward(cli.model, cli.cfg, *(small[k] for k in keys))
+            rebuilt = classifier_forward(model, cli.cfg, *(small[k] for k in keys))
+        diff = float((rebuilt - want).abs().max())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"classifier CLI: train_dna_only --max_steps 3 on 32 synthetic items "
+        f"({len(labels)} classes) in {secs:.1f} s, launches {got}; dna_only_final rebuilt "
+        f"by load_classifier: logits max abs diff {diff:.3g}")
+    if got["flash_fwd"] % per_step or got["flash_bwd"] or diff > 1e-3:
+        fail(f"the classifier CLI: launches {got} (expected a multiple of {per_step} "
+             f"flash_fwd, no flash_bwd), rebuilt logits off by {diff}")
+    out["cli"] = {"seconds": secs, "launches": got}
+    del cli, model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"classifier: phase done in {out['seconds']:.1f} s (budget {CLS_BUDGET_S:g})")
+    if out["seconds"] > CLS_BUDGET_S:
+        fail(f"the classifier phase took {out['seconds']:.1f} s, over {CLS_BUDGET_S:g}")
+    return out, rows, bwd_rows
+
+
+# -- phase 14 -----------------------------------------------------------------
+
+INT8_NEW = 16                  # teacher-forced steps per request in (b) and (c)
+# (b) the int8 engine against a bf16 engine holding the dequantized weights:
+# the same products but the head's, whose per-row scale the int8 path puts
+# on the fp32 logits where the bf16 one rounds it into the weights
+INT8_EXACT_COS = 0.9999
+# (c) against the bf16 weights: the quantization error itself (per-channel
+# int8 steps of ~0.8% of a Gaussian row's spread in every dense, the
+# embedding and the head; per-token activations too under W8A8), compounded
+# over 57 layers of random weights
+INT8_COS_FLOOR, W8A8_COS_FLOOR = 0.98, 0.95
+INT8_BUDGET_S = 120.0
+
+
+def dequantized_copy(torch, q8, template):
+    """`template` (a bf16 model of the same config) with every weight that
+    is int8 in `q8` replaced by its dequantized bf16 value, as `dense`
+    computes it."""
+    from bioreason_tpu_torch.models import layers as L
+    mods = dict(q8.named_modules())
+    with torch.no_grad():
+        for name, mod in template.named_modules():
+            src = mods.get(name)
+            if src is not None and hasattr(src, "weight") and L.is_int8(src):
+                mod.weight.copy_(L.int8_weight(src, mod.weight.dtype))
+    return template
+
+
+def w8a8_case(torch, name, m, k, n, seed):
+    """`_w8a8_dot` against the product with the dequantized weight at one
+    prefill shape [m, k] x [k, n]: the int32 product exact, the relative
+    error, and the times of the two."""
+    with torch.no_grad():
+        return _w8a8_case(torch, name, m, k, n, seed)
+
+
+def _w8a8_case(torch, name, m, k, n, seed):
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.models import layers as L
+    from bioreason_tpu_torch.train.quant import store_int8, quantize_kernel_int8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    lin = L.linear(k, n, False, "cuda", torch.bfloat16)
+    lin.weight.data = (torch.randn((n, k), generator=g, device="cuda") * k ** -0.5).to(
+        torch.bfloat16)
+    store_int8(lin, *quantize_kernel_int8(lin.weight))
+    xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+    exact = bool(torch.equal(L.int8_mm(xq, lin.weight).long(),
+                             (xq.double() @ lin.weight.double().t()).long()))
+    y8 = L.dense(lin, x, torch.bfloat16, act8=True)
+    ref = L.dense(lin, x, torch.bfloat16)
+    rel = float((y8.float() - ref.float()).norm() / ref.float().norm())
+    w = L.int8_weight(lin, torch.bfloat16)
+    ms8 = cuda_ms(lambda: L.dense(lin, x, torch.bfloat16, act8=True), iters=20)
+    ms_dq = cuda_ms(lambda: L.dense(lin, x, torch.bfloat16), iters=20)
+    ms_bf = cuda_ms(lambda: F.linear(x, w), iters=20)
+    flops = 2.0 * m * k * n
+    log(f"w8a8 {name} [{m}, {k}] x [{k}, {n}]: int32 product exact {exact}; relative error "
+        f"against the dequantized product {rel:.4g}; ms: W8A8 {ms8:.4f} (int8 x int8 -> int32 "
+        f"through torch._int_mm, with the activation quantization), weight-only int8 "
+        f"{ms_dq:.4f} (dequantize + bf16 GEMM), bf16 GEMM alone {ms_bf:.4f}; "
+        f"{flops / (ms8 * 1e-3) / 1e12:.1f} TOP/s")
+    if not exact or rel > 0.05:
+        fail(f"w8a8 {name}: int32 product exact {exact}, relative error {rel:.4g}")
+    return {"shape": name, "M": m, "K": k, "N": n, "exact": exact, "rel_err": rel,
+            "w8a8_ms": ms8, "weight_only_ms": ms_dq, "bf16_ms": ms_bf}
+
+
+def phase_int8(torch, card):
+    """int8 weights, W8A8, int8 KV and fused projections at full width
+    (module docstring, phase 14)."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.serve import build_config, build_server, serving_storage
+    from bioreason_tpu_torch.tools import bench_serve
+    from bioreason_tpu_torch.train.quant import storage_bytes
+    t_phase = time.perf_counter()
+    per_call = ENCODER_LAYERS + DECODER_LAYERS
+    out = {}
+    cfg, _ = build_config("qwen3-0.6b", "nt-500m", max_length_dna=2048)
+    items, padded = served_inputs()
+    batch = [torch.as_tensor(a, device="cuda") for a in padded]
+
+    # (a) resident weight bytes, counted from the modules' storage
+    bf = init_fusion(cfg, seed=0, device="cuda").requires_grad_(False)
+    q8 = serving_storage(init_fusion(cfg, seed=0, device="cuda").requires_grad_(False),
+                         int8=True)
+    sizes = {name: (storage_bytes(getattr(bf, name)), storage_bytes(getattr(q8, name)))
+             for name in ("encoder", "decoder", "dna_projection")}
+    total_bf, total_q8 = storage_bytes(bf), storage_bytes(q8)
+    log(f"int8 [{card}]: resident weights {total_bf / 2**30:.3f} GiB bf16 -> "
+        f"{total_q8 / 2**30:.3f} GiB --int8 ({total_q8 / total_bf:.3f}); by tower "
+        + ", ".join(f"{k} {a / 2**20:.1f} -> {b / 2**20:.1f} MiB" for k, (a, b) in sizes.items()))
+    if not 0.45 < total_q8 / total_bf < 0.55:
+        fail(f"--int8 holds {total_q8 / total_bf:.3f} of the bf16 bytes, expected about half")
+    out["bytes"] = {"bf16": total_bf, "int8": total_q8, "by_tower": sizes}
+
+    # (b) exactness: the int8 engine against a bf16 engine holding the
+    # dequantized weights, teacher-forced on the int8 engine's greedy tokens
+    engine = GenerationEngine(cfg, eos_token_id=-1)
+    ids, _ = engine.generate(q8, *batch, greedy=True, max_new_tokens=INT8_NEW)
+    streams = torch.as_tensor(ids, device="cuda")
+    lg8 = teacher_forced(torch, engine, q8, batch, streams)
+    dq = dequantized_copy(torch, q8, init_fusion(cfg, seed=0, device="cuda"))
+    lg_dq = teacher_forced(torch, engine, dq, batch, streams)
+    del dq
+    cos_exact = F.cosine_similarity(lg8, lg_dq, dim=-1)
+    log(f"int8 vs dequantized bf16 weights [{card}]: teacher-forced logits cosine min "
+        f"{float(cos_exact.min()):.6f} over {cos_exact.numel()} (row, step) pairs "
+        f"(>= {INT8_EXACT_COS}), max abs diff {float((lg8 - lg_dq).abs().max()):.4g}")
+    if float(cos_exact.min()) < INT8_EXACT_COS or not bool(torch.isfinite(lg8).all()):
+        fail(f"--int8 differs from its own dequantized weights: cosine "
+             f"{float(cos_exact.min()):.6f}")
+
+    # (c) the quantization error: --int8 and --int8 --w8a8 against bf16
+    ids_bf, _ = engine.generate(bf, *batch, greedy=True, max_new_tokens=INT8_NEW)
+    streams_bf = torch.as_tensor(ids_bf, device="cuda")
+    lg_bf = teacher_forced(torch, engine, bf, batch, streams_bf)
+    cfg8 = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, act_int8=True),
+                               encoder=dataclasses.replace(cfg.encoder, act_int8=True))
+    e8a8 = GenerationEngine(cfg8, eos_token_id=-1)
+    quant = {}
+    for label, eng in (("int8", engine), ("w8a8", e8a8)):
+        lg = teacher_forced(torch, eng, q8, batch, streams_bf)
+        cos = F.cosine_similarity(lg, lg_bf, dim=-1)
+        top = float((lg.argmax(-1) == lg_bf.argmax(-1)).float().mean())
+        quant[label] = {"cos_min": float(cos.min()), "cos_median": float(cos.median()),
+                        "argmax_agree": top}
+        log(f"{label} vs bf16 weights [{card}]: teacher-forced logits cosine min "
+            f"{quant[label]['cos_min']:.6f}, median {quant[label]['cos_median']:.6f} over "
+            f"{cos.numel()} (row, step) pairs; argmax agreement {top:.3f}")
+    if (quant["int8"]["cos_min"] < INT8_COS_FLOOR or quant["w8a8"]["cos_min"] < W8A8_COS_FLOOR):
+        fail(f"quantization error past its floor ({INT8_COS_FLOOR}, {W8A8_COS_FLOOR}): {quant}")
+    out["logits"] = {"exact_cos_min": float(cos_exact.min()), **quant}
+    del lg8, lg_dq, lg_bf, bf
+    torch.cuda.empty_cache()
+
+    # (d) the server with every flag, the main path: counts from 0 just
+    # before, read just after; 57 flash_fwd per engine call with the int8
+    # KV cache (its prefill attends over its fresh bf16 K/V)
+    server = build_server("qwen3-0.6b", "nt-500m", max_length_dna=2048, seed=0, int8=True,
+                          fuse=True, w8a8=True, kv_int8=True, max_batch=8,
+                          batch_window_ms=500.0, max_new_tokens=INT8_NEW, greedy_default=True)
+    server.start()
+    calls_out, restore = record_engine_calls(server)
+    reset_counts()
+    calls0 = server.engine_calls
+    try:
+        first = burst(server, items, INT8_NEW)
+        second = burst(server, items, INT8_NEW)
+    finally:
+        server.stop()
+        restore()
+    got = counts()
+    calls = server.engine_calls - calls0
+    answered = [r for r in first + second if r and set(r) == {"completion", "answer"}]
+    st = calls_out[-1][1]
+    log(f"int8 serve [{card}] --int8 --kv_int8 --fuse --w8a8: {len(answered)} requests answered "
+        f"in {calls} engine calls, launches {got} = {got['flash_fwd'] / max(calls, 1):g} "
+        f"flash_fwd per call; last call B={st['batch']} P={st['prompt_len']}: prefill "
+        f"{st['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{st['decode_tokens'] / max(st['decode_s'], 1e-9):.1f} tokens/s")
+    if (len(answered) != 16 or first != second
+            or got != {k: per_call * calls if k == "flash_fwd" else 0 for k in got}):
+        fail(f"int8 serving: {len(answered)} answered, repeats equal {first == second}, "
+             f"launches {got} in {calls} calls (expected {per_call} flash_fwd each)")
+    out["serve"] = {"launches": got["flash_fwd"], "calls": calls,
+                    "prefill_s": st["prefill_s"], "decode_s": st["decode_s"]}
+    del server
+    torch.cuda.empty_cache()
+
+    # (e) W8A8's products at the prefill's shapes (served: 8 x 896 decoder
+    # tokens, 16 x 344 encoder tokens; fused projections)
+    m_dec, m_enc = 8 * batch[0].shape[1], batch[2].shape[0] * batch[2].shape[1]
+    w8 = [w8a8_case(torch, "decoder_qkv", m_dec, 1024, 4096, 141),
+          w8a8_case(torch, "decoder_o", m_dec, 2048, 1024, 142),
+          w8a8_case(torch, "decoder_gateup", m_dec, 1024, 6144, 143),
+          w8a8_case(torch, "decoder_down", m_dec, 3072, 1024, 144),
+          w8a8_case(torch, "encoder_qkv", m_enc, 1024, 3072, 145),
+          w8a8_case(torch, "encoder_gateup", m_enc, 1024, 8192, 146),
+          w8a8_case(torch, "encoder_down", m_enc, 4096, 1024, 147)]
+    out["w8a8"] = w8
+    # the int8 prefill's flash_fwd: Tk = P, not P + max_new
+    rows = [kernel_case(torch, f"int8_prefill_B8_P{batch[0].shape[1]}", 8, batch[0].shape[1],
+                        batch[0].shape[1], 16, 8, 128, True, 0, batch[1].to(torch.int32), 148)]
+
+    # (f) the serving bench at the JAX bench's default (--frozen int8), and
+    # with --kv int8 --fuse --w8a8
+    benches = {}
+    for label, extra in (("int8", []), ("all", ["--kv", "int8", "--fuse", "--w8a8"])):
+        reset_counts()
+        res = bench_serve.main(["--requests", str(CONT_REQUESTS)] + extra)
+        got = counts()
+        torch.cuda.empty_cache()
+        log(f"int8 bench [{card}] --frozen int8 {' '.join(extra)}: {res['value']:.1f} decoded "
+            f"tokens/s ({res['decoded_tokens']} tokens, {res['requests']} requests over "
+            f"{res['capacity']} slots in {res['seconds']:.2f} s; admit {res['admit_s']:.2f} s); "
+            f"mean occupancy {res['mean_occupancy']:.3f}; {res['prefill_calls']} prefill "
+            f"calls, {res['flash_fwd_per_prefill']:g} flash_fwd each; pools "
+            f"{res['pool_gib']:.3f} GiB, weights {res['weights_gib']:.3f} GiB, "
+            f"torch.cuda.max_memory_allocated {res['peak_gib']:.2f} GiB")
+        if got != {k: (per_call * (res["prefill_calls"] + 1) if k == "flash_fwd" else 0)
+                   for k in got}:
+            fail(f"the int8 bench launched {got}: expected {per_call} flash_fwd per prefill "
+                 f"chunk (and its warmup's one) and nothing else")
+        benches[label] = {**res, "launches": got["flash_fwd"]}
+    out["bench"] = benches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"int8: phase done in {out['seconds']:.1f} s (budget {INT8_BUDGET_S:g})")
+    if out["seconds"] > INT8_BUDGET_S:
+        fail(f"the int8 phase took {out['seconds']:.1f} s, over {INT8_BUDGET_S:g}")
+    return out, rows
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -2881,11 +3286,16 @@ def main():
     mark("pretrained")
     continuous, cont_rows = phase_continuous(torch, card)
     mark("continuous")
+    classifier, cls_rows, cls_bwd_rows = phase_classifier(torch, card)
+    torch.cuda.empty_cache()
+    mark("classifier")
+    int8, int8_rows = phase_int8(torch, card)
+    mark("int8")
     log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    rows += grpo_rows + evo2_rows + cont_rows
-    bwd_rows += grpo_bwd_rows + evo2_bwd_rows
+    rows += grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows
+    bwd_rows += grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows
     evo2_launches = {"serve": evo2_serve["flash_fwd"],
                      **{mode: evo2_train[mode]["launches"]
                         for mode in ("frozen", "finetune", "trainer")}}
@@ -2907,6 +3317,17 @@ def main():
                      "bench_prefill_chunks": continuous["bench"]["prefill_calls"] + 1,
                      "per_prefill_chunk": ENCODER_LAYERS + DECODER_LAYERS,
                      "per_decode_window": 0},
+                 "classifier_launches": {
+                     "frozen_bench": classifier["frozen"]["launches"],
+                     "frozen_bench_steps": classifier["frozen"]["steps"],
+                     "finetune": classifier["finetune"]["launches"]["flash_fwd"],
+                     "finetune_remat_step": classifier["finetune"]["remat_launches"]["flash_fwd"],
+                     "cli": classifier["cli"]["launches"]["flash_fwd"]},
+                 "int8_launches": {
+                     "serve_all_flags": int8["serve"]["launches"],
+                     "serve_engine_calls": int8["serve"]["calls"],
+                     "bench_int8": int8["bench"]["int8"]["launches"],
+                     "bench_all_flags": int8["bench"]["all"]["launches"]},
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -2925,6 +3346,9 @@ def main():
                                    if not isinstance(v, int)},
                  "pretrained_launches": {"sft": pretrained["sft"]["launches"]["flash_bwd"],
                                          "reason": pretrained["grpo"]["launches"]["flash_bwd"]},
+                 "classifier_launches": {
+                     "finetune": classifier["finetune"]["launches"]["flash_bwd"],
+                     "finetune_remat_step": classifier["finetune"]["remat_launches"]["flash_bwd"]},
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],

@@ -316,14 +316,71 @@ def test_guided_batcher_matches_jax_and_the_engine(window):
         cb.preempt(0)
 
 
+def test_slot_attention_with_int8_pools_is_the_jax_function():
+    """int8 prompt and decode tiers with their scales (on the logits and the
+    probabilities) and a float window tier, against the JAX function."""
+    rng = np.random.default_rng(1)
+    c, hq, hkv, d, p, n, k = 3, 4, 2, 16, 7, 5, 3
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    i8 = lambda *s: rng.integers(-127, 128, s).astype(np.int8)
+    sc = lambda *s: rng.uniform(0.005, 0.03, s).astype(np.float32)
+    q, wk, wv = f(c, 1, hq, d), f(c, k, hkv, d), f(c, k, hkv, d)
+    pe = {"k": i8(c, p, hkv, d), "v": i8(c, p, hkv, d), "k_scale": sc(c, p, hkv, 1),
+          "v_scale": sc(c, p, hkv, 1)}
+    de = {"k": i8(c, n, hkv, d), "v": i8(c, n, hkv, d), "k_scale": sc(c, n, hkv, 1),
+          "v_scale": sc(c, n, hkv, 1)}
+    pmask = (rng.random((c, p)) < 0.7).astype(np.int32)
+    pmask[:, -1] = 1
+    dmask = np.zeros((c, n), np.int32)
+    dmask[0, :2], dmask[1, :5] = 1, 1
+    wmask = np.zeros((c, k), np.int32)
+    wmask[:, :2] = 1
+    jcb = JCB.ContinuousBatcher.__new__(JCB.ContinuousBatcher)
+    ref = jax.jit(jcb._slot_attention)(q, pe, pmask, de, dmask, wk, wv, wmask)
+    hm = lambda x: torch.from_numpy(x).transpose(1, 2)          # head-major
+    b = lambda x: torch.from_numpy(x).bool()
+    out = slot_attention(torch.from_numpy(q), hm(pe["k"]), hm(pe["v"]), b(pmask), hm(de["k"]),
+                         hm(de["v"]), b(dmask), (hm(pe["k_scale"]), hm(pe["v_scale"])),
+                         (hm(de["k_scale"]), hm(de["v_scale"])), (hm(wk), hm(wv), b(wmask)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
 def test_kv_int8_and_oversized_requests_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        batcher(kv_int8=True)
-    cb = batcher(max_new=4)
-    with pytest.raises(ValueError, match="decode-pool depth"):
-        cb.admit(req(1, PROMPTS[1], 8))
-    with pytest.raises(ValueError, match="prompt-pool width"):
-        batcher(max_len=64).admit(req(4, PROMPTS[4], 2))
+    """Oversized requests raise, with float and with int8 pools (kv_int8 is
+    served since the int8 pools came; it no longer raises itself)."""
+    for kv_int8 in (False, True):
+        cb = batcher(max_new=4, kv_int8=kv_int8)
+        assert cb.prompt_pool[0]["k"].dtype == (torch.int8 if kv_int8 else torch.float32)
+        with pytest.raises(ValueError, match="decode-pool depth"):
+            cb.admit(req(1, PROMPTS[1], 8))
+        with pytest.raises(ValueError, match="prompt-pool width"):
+            batcher(max_len=64, kv_int8=kv_int8).admit(req(4, PROMPTS[4], 2))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_kv_int8_churn(window):
+    """The JAX batcher with int8 pools over `churn()` (2 slots, EOS -1): an
+    int8 stream depends on where windows fold into the pool, so the port
+    runs the same schedule."""
+    jcfg, params, _, _ = setup()
+    reqs = [req(r.rid, PROMPTS[r.rid], r.max_new_tokens, JCB.Request) for r in churn()]
+    cb = JCB.ContinuousBatcher(params, jcfg, eos_token_id=-1, capacity=2, max_len=256,
+                               max_new=16, prompt_bucket=64, kv_int8=True)
+    assert len(cb.run(reqs, window=window)) == len(reqs)
+    return {r.rid: r.tokens for r in reqs}
+
+
+@pytest.mark.parametrize("window", [3, 4])
+def test_kv_int8_batcher_matches_the_jax_batcher_under_churn(window):
+    """int8 prompt / decode pools (scales [C, Hkv, S, 1], head-major; JAX
+    keeps [C, S, Hkv, 1]) and a float window tier: greedy tokens equal to
+    the JAX int8 batcher's over six requests cycling through two slots, and
+    the prompt pool's int8 rows equal to the JAX pool's, transposed."""
+    cb = batcher(eos=-1, kv_int8=True, max_new=16)
+    reqs = churn()
+    cb.run(reqs, window=window)
+    assert {r.rid: r.tokens for r in reqs} == jax_kv_int8_churn(window)
+    assert cb.dec_pool[0]["k_scale"].shape == (2, 2, 17, 1)
 
 
 TINY_BENCH = ["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", "--capacity", "4",
@@ -354,7 +411,19 @@ def test_bench_serve_at_tiny(extra, capsys):
 
 @pytest.mark.parametrize("flag", [["--frozen", "int8"], ["--kv", "int8"], ["--fuse"],
                                   ["--w8a8"]])
-def test_bench_serve_refuses_item_7(flag):
+def test_bench_serve_refuses_item_7(flag, capsys):
+    """The JAX bench's storage flags, refused before the int8 slice came,
+    now run (bf16 weights below unless the flag asks for int8): every
+    request served to its quota, the flag in the JSON line; --w8a8 without
+    int8 weights is refused as the JAX bench refuses it."""
     from bioreason_tpu_torch.tools import bench_serve
-    with pytest.raises(NotImplementedError, match="item 7"):
-        bench_serve.main(TINY_BENCH + flag)
+    frozen = [] if flag[0] in ("--frozen", "--w8a8") else ["--frozen", "bfloat16"]
+    res = bench_serve.main(TINY_BENCH + frozen + flag)
+    assert res["decoded_tokens"] == sum((8, 4, 2)[i % 3] for i in range(12))
+    assert res["frozen"] == ("bfloat16" if frozen else "int8")
+    assert (res["kv"] == "int8") == (flag == ["--kv", "int8"])
+    assert res["fuse"] == (flag == ["--fuse"]) and res["w8a8"] == (flag == ["--w8a8"])
+    if flag == ["--w8a8"]:
+        with pytest.raises(SystemExit):
+            bench_serve.main(TINY_BENCH + ["--frozen", "bfloat16", "--w8a8"])
+    capsys.readouterr()

@@ -357,9 +357,14 @@ def test_serve_evo2_tiny_greedy_matches_jax_engine():
 
 
 def test_serve_main_accepts_the_evo2_presets():
-    from bioreason_tpu_torch.serve import main
-    with pytest.raises(NotImplementedError):      # parsed, then refused for --int8
-        main(["--decoder", "tiny", "--encoder", "evo2-tiny", "--device", "cpu", "--int8"])
+    """The server's arguments take the Evo2 presets (with --int8, which now
+    quantizes the tower's denses as the JAX walk quantizes its blocks'
+    kernels) and refuse a preset that does not exist."""
+    from bioreason_tpu_torch.serve import main, parse_args, server_from_args
+    server = server_from_args(parse_args(["--decoder", "tiny", "--encoder", "evo2-tiny",
+                                          "--device", "cpu", "--int8"]))
+    assert server.cfg.encoder_kind == "evo2"
+    assert server.model.encoder.blocks[0].mlp.gate.weight.dtype == torch.int8
     with pytest.raises(SystemExit):
         main(["--encoder", "evo2-7b", "--device", "cpu"])
 

@@ -41,7 +41,8 @@ from bioreason_tpu_torch.data.processor import BioProcessor as TProc
 from bioreason_tpu_torch.data.text_tokenizer import ByteTextTokenizer as TByte
 from bioreason_tpu_torch.generate.engine import GenerationEngine as TEngine
 from bioreason_tpu_torch.ops import sampling as t_sampling
-from bioreason_tpu_torch.serve import InferenceServer, main, make_http_server
+from bioreason_tpu_torch.serve import (InferenceServer, main, make_http_server, parse_args,
+                                       server_from_args)
 from bioreason_tpu_torch.train.rewards import extract_answer as t_extract
 from bioreason_tpu_torch.utils.devices import resolve_device
 from bioreason_tpu_torch.weights import from_jax_params
@@ -199,10 +200,39 @@ def test_server_request_and_http_round_trip(slice_setup):
     assert server.engine_calls == 2
 
 
+TINY_MAIN = ["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", "--max_new_tokens", "6"]
+
+
 @pytest.mark.parametrize("flag", ["--int8", "--kv_int8", "--fuse", "--w8a8"])
 def test_main_refuses_later_slices(flag):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag])
+    """The serving flags the earlier slices refused are served now; the one
+    refusal left is the JAX server's own: --w8a8 without --int8."""
+    if flag == "--w8a8":
+        with pytest.raises(SystemExit):
+            main(TINY_MAIN + [flag])
+        return
+    server = server_from_args(parse_args(TINY_MAIN + [flag]))
+    layer = server.model.decoder.layers[0]
+    assert (layer.mlp.down.weight.dtype == torch.int8) == (flag == "--int8")
+    assert (server.model.decoder.embed.weight.dtype == torch.int8) == (flag == "--int8")
+    assert hasattr(layer.attn, "qkv") == (flag == "--fuse")
+    assert server.engine.kv_int8 == (flag == "--kv_int8")
+
+
+def test_main_serves_int8_kv_int8_fuse_w8a8_over_http():
+    """`serve --int8 --kv_int8 --fuse --w8a8` on the tiny presets answers
+    over HTTP, greedy repeats identical."""
+    server = server_from_args(parse_args(TINY_MAIN + ["--int8", "--kv_int8", "--fuse", "--w8a8"]))
+    assert server.cfg.decoder.act_int8 and server.cfg.encoder.act_int8
+    layer = server.model.encoder.layers[0]
+    assert layer.attn.qkv.weight.dtype == torch.int8 and layer.attn.qkv.bias is not None
+    port, close = _serve(server)
+    try:
+        answers = [_post(port, ITEMS[0], greedy=True) for _ in range(2)]
+    finally:
+        close()
+    assert [code for code, _ in answers] == [200, 200]
+    assert answers[0] == answers[1] and set(answers[0][1]) == {"completion", "answer"}
 
 
 PATTERN = r"<answer>(yes|no)</answer>"
@@ -301,10 +331,19 @@ def test_micro_batch_per_request_guided_regex(slice_setup):
 
 
 def test_continuous_server_refuses_kv_int8(slice_setup):
+    """A continuous server with kv_int8 (refused before the int8 pools came)
+    builds int8 pools for every tier and answers."""
     _, _, tcfg, model, _, _ = slice_setup
-    with pytest.raises(NotImplementedError, match="item 7"):
-        InferenceServer(model, tcfg, TProc(TByte(), TKmer()), continuous=True, kv_int8=True,
-                        device="cpu")
+    server = InferenceServer(model, tcfg, TProc(TByte(), TKmer()), continuous=True,
+                             kv_int8=True, tiers="2x256,2x512", max_new_tokens=6,
+                             greedy_default=True, device="cpu")
+    port, close = _serve(server)
+    try:
+        code, out = _post(port, ITEMS[0])
+    finally:
+        close()
+    assert code == 200 and set(out) == {"completion", "answer"}
+    assert [cb.prompt_pool[0]["k"].dtype for cb in server.batchers] == [torch.int8] * 2
 
 
 def test_cuda_asked_for_and_absent_raises():
@@ -345,7 +384,11 @@ training = {{"bioreason_tpu_torch.ops.fused_ce", "bioreason_tpu_torch.train.lora
             "bioreason_tpu_torch.utils.ref_ckpt", "bioreason_tpu_torch.utils.profiling",
             "bioreason_tpu_torch.data.bpe", "bioreason_tpu_torch.data.variant_effect",
             "bioreason_tpu_torch.train.eval", "bioreason_tpu_torch.generate.continuous",
-            "bioreason_tpu_torch.generate.guided", "bioreason_tpu_torch.tools.bench_serve"}}
+            "bioreason_tpu_torch.generate.guided", "bioreason_tpu_torch.tools.bench_serve",
+            "bioreason_tpu_torch.models.classifier", "bioreason_tpu_torch.train.classifier",
+            "bioreason_tpu_torch.train.quant", "bioreason_tpu_torch.train.fuse",
+            "bioreason_tpu_torch.cli.train_dna_only",
+            "bioreason_tpu_torch.tools.bench_classifier"}}
 assert training <= set(names), sorted(training - set(names))
 for n in names:
     importlib.import_module(n)
@@ -358,4 +401,4 @@ assert not bad, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 47
+    assert int(proc.stdout.split()[0]) >= 53
