@@ -18,8 +18,10 @@ from bioreason_tpu_torch.data.variant_effect import (
     clean_variant_effect_example, clean_variant_effect_non_snv_example,
     format_variant_effect_for_dna_llm, format_variant_effect_for_llm)
 
-DECODER_PRESETS = {"tiny": DecoderConfig.tiny, "qwen3-0.6b": DecoderConfig.qwen3_0_6b}
-ENCODER_PRESETS = {"tiny": EncoderConfig.tiny, "nt-500m": EncoderConfig.nt_v2_500m}
+DECODER_PRESETS = {"tiny": DecoderConfig.tiny, "qwen3-0.6b": DecoderConfig.qwen3_0_6b,
+                   "qwen3-1.7b": DecoderConfig.qwen3_1_7b, "qwen3-4b": DecoderConfig.qwen3_4b}
+ENCODER_PRESETS = {"tiny": EncoderConfig.tiny, "nt-50m": EncoderConfig.nt_v2_50m,
+                   "nt-250m": EncoderConfig.nt_v2_250m, "nt-500m": EncoderConfig.nt_v2_500m}
 HYENA_PRESETS = {"evo2-tiny": HyenaConfig.tiny, "evo2-1b": HyenaConfig.evo2_1b}
 DATASET_TYPES = ("kegg", "variant_effect_coding", "variant_effect_non_snv")
 

@@ -30,9 +30,9 @@ optimizer state and step to <checkpoint_dir>/grpo_state every --save_every
 steps (read back by --resume) and to <checkpoint_dir>/grpo_final at the end.
 `--use_vllm` is accepted and ignored, as the JAX CLI and the reference do:
 rollouts always run through the port's engine. `--guided_decoding_regex`
-constrains every rollout to a regex (generate/guided.py). The device mesh,
-wandb, NaN debugging and int8 rollouts come with later slices: `main`
-refuses their flags.
+constrains every rollout to a regex (generate/guided.py); `--rollout_int8`
+rolls out with int8 base weights (train/grpo.py). The device mesh, wandb
+and NaN debugging come with later slices: `main` refuses their flags.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import dataclasses
 import os
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("mesh", "cpu_devices", "wandb", "rollout_int8", "debug_nans")
+LATER_FLAGS = ("mesh", "cpu_devices", "wandb", "debug_nans")
 
 
 def parse_args(argv=None):
@@ -93,6 +93,10 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=0)
     p.add_argument("--resume", action="store_true",
                    help="resume from <checkpoint_dir>/grpo_state if present")
+    p.add_argument("--rollout_int8", action="store_true",
+                   help="roll out with int8 base weights, the embedding and the head "
+                        "included (GRPOConfig.rollout_int8; the training passes stay in "
+                        "the compute dtype, so sampling is slightly off-policy)")
     p.add_argument("--guided_decoding_regex", default=None,
                    help="constrain every rollout completion to match this regex "
                         "(vllm_guided_decoding_regex, grpo_config.py:278-280)")
@@ -214,7 +218,8 @@ def main(argv=None):
         max_prompt_length=args.max_prompt_length,
         sampling=SamplingConfig(max_new_tokens=args.max_completion_length),
         optim=OptimConfig(learning_rate=args.learning_rate or 5e-6, total_steps=steps),
-        lora=lora_cfg, guided_decoding_regex=args.guided_decoding_regex, seed=args.seed)
+        lora=lora_cfg, guided_decoding_regex=args.guided_decoding_regex,
+        rollout_int8=args.rollout_int8, seed=args.seed)
     trainer = GRPOTrainer(fusion_cfg, cfg, proc, get_reward_funcs(args.reward_funcs),
                           model=model, device=device)
     state_path = os.path.join(args.checkpoint_dir, "grpo_state")

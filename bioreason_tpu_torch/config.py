@@ -1,9 +1,9 @@
 """Configuration dataclasses of the port (the serving, SFT and GRPO subset
 of bioreason_tpu/config.py, with the same field names and presets).
 
-Presets mirror the reference model zoo: the Qwen3-0.6B decoder and the two
-DNA towers, NT-v2-500M and Evo2-1B, at their published widths, plus `tiny`
-test sizes.
+Presets mirror the reference model zoo: the Qwen3 0.6B / 1.7B / 4B
+decoders and the DNA towers, NT-v2 50M / 250M / 500M and Evo2-1B, at their
+published widths, plus `tiny` test sizes.
 """
 
 from __future__ import annotations
@@ -46,6 +46,16 @@ class DecoderConfig:
         return cls(vocab_size=vocab_size, hidden_size=1024, intermediate_size=3072,
                    num_layers=28, num_heads=16, num_kv_heads=8, head_dim=128)
 
+    @classmethod
+    def qwen3_1_7b(cls, vocab_size: int = 151936) -> "DecoderConfig":
+        return cls(vocab_size=vocab_size, hidden_size=2048, intermediate_size=6144,
+                   num_layers=28, num_heads=16, num_kv_heads=8, head_dim=128)
+
+    @classmethod
+    def qwen3_4b(cls, vocab_size: int = 151936) -> "DecoderConfig":
+        return cls(vocab_size=vocab_size, hidden_size=2560, intermediate_size=9728,
+                   num_layers=36, num_heads=32, num_kv_heads=8, head_dim=128)
+
 
 @dataclass(frozen=True)
 class EncoderConfig:
@@ -79,6 +89,14 @@ class EncoderConfig:
         return cls(vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
                    num_layers=2, num_heads=4, remat=False, attention_impl="xla",
                    dtype="float32")
+
+    @classmethod
+    def nt_v2_50m(cls) -> "EncoderConfig":
+        return cls(hidden_size=512, intermediate_size=2048, num_layers=22, num_heads=16)
+
+    @classmethod
+    def nt_v2_250m(cls) -> "EncoderConfig":
+        return cls(hidden_size=768, intermediate_size=3072, num_layers=29, num_heads=12)
 
     @classmethod
     def nt_v2_500m(cls) -> "EncoderConfig":
@@ -208,7 +226,10 @@ class SFTConfig:
     lora: Optional[LoRAConfig] = field(default_factory=LoRAConfig)
     train_projection: bool = True    # projection always trainable (dna_llm quirk list)
     freeze_encoder: bool = True      # reference de-facto freezes DNA tower
-    frozen_dtype: str = "bfloat16"   # frozen >=2-D leaves need no fp32 master copy
+    # frozen >=2-D leaves need no fp32 master copy; "int8" (QLoRA) stores the
+    # frozen towers' denses int8 (train/quant.py) and the other frozen float
+    # leaves bf16; it needs LoRA and a frozen encoder (the trainer checks)
+    frozen_dtype: str = "bfloat16"
     pp_micro: int = 0                # pipeline parallelism: not ported (raises)
     # detached focal CE weighting on the TRAIN loss only (eval stays plain CE)
     focal_gamma: float = 0.0
@@ -219,11 +240,6 @@ class SFTConfig:
             raise NotImplementedError(
                 "SFTConfig.pp_micro > 0: pipeline parallelism is not ported yet "
                 "(ROADMAP.md, queue 1: multi-device)")
-        if self.frozen_dtype == "int8":
-            raise NotImplementedError(
-                "SFTConfig.frozen_dtype='int8': int8 frozen weights in training (QLoRA) "
-                "are not ported yet (ROADMAP.md, queue 1, item 7b); train/quant.py "
-                "quantizes a serving model")
 
 
 @dataclass(frozen=True)
@@ -242,8 +258,8 @@ class GRPOConfig:
     # regex every completion must match (vLLM guided decoding,
     # grpo_config.py:278-280), compiled once by the trainer (generate/guided.py)
     guided_decoding_regex: Optional[str] = None
-    rollout_int8: bool = False                    # not ported yet (item 7b): raises
-    rollout_kv_int8: bool = False                 # not ported yet (item 7b): raises
+    rollout_int8: bool = False       # rollouts on int8 weights, embedding and head
+    rollout_kv_int8: bool = False    # rollouts on an int8 KV cache
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     batch_size: int = 8              # prompts*G per step (must be divisible by G)
     # each step() is a micro-step of batch_size rollouts; the optimizer
@@ -251,7 +267,7 @@ class GRPOConfig:
     # gradient, and each accumulation slot keeps its own rollout buffer
     # (grpo_trainer.py:399-403)
     grad_accum_steps: int = 1
-    frozen_dtype: str = "bfloat16"   # "int8" is not ported yet: raises
+    frozen_dtype: str = "bfloat16"   # "int8": QLoRA, as SFTConfig's (needs LoRA)
     optim: OptimConfig = field(default_factory=lambda: OptimConfig(learning_rate=5e-6))
     lora: Optional[LoRAConfig] = field(default_factory=LoRAConfig)
     # TR-DPO-style ref sync (grpo_config.py:320-341)
@@ -259,10 +275,3 @@ class GRPOConfig:
     ref_model_mixup_alpha: float = 0.6
     ref_model_sync_steps: int = 512
     seed: int = 0
-
-    def __post_init__(self):
-        if self.rollout_int8 or self.rollout_kv_int8 or self.frozen_dtype == "int8":
-            raise NotImplementedError(
-                "GRPOConfig rollout_int8 / rollout_kv_int8 / frozen_dtype='int8': int8 "
-                "rollouts and QLoRA training are not ported yet (ROADMAP.md, queue 1, "
-                "item 7b)")

@@ -6,11 +6,14 @@ The reference's text tokenizer is the HF Qwen fast tokenizer
 (dna_llm.py:67-74). This module reads the same file with no dependency on
 `transformers`, `tokenizers` or `regex`. The split patterns of Qwen2/Qwen3
 and GPT-2 use the Unicode classes `\p{L}` and `\p{N}`, which `re` lacks:
-`translate_pattern` rewrites them into explicit character classes built
-once from `unicodedata` (letters: categories Lu Ll Lt Lm Lo; numbers: Nd Nl
-No. `[^\W\d_]` is not `\p{L}`: it takes letter-like marks and leaves out
-other characters `\p{L}` has, and `\d` is Nd alone). `\s` and `\S` are
-rewritten too: `re`'s `\s` also matches U+001C..U+001F, which are not
+`translate_pattern` rewrites them into explicit character classes read
+once from `unicode_classes.json` beside this module: the ranges the `regex`
+module gives them, written by `tools/unicode_classes.py`. They are not
+taken from `unicodedata`, whose Unicode version is the Python's and may be
+older than `regex`'s (Python 3.12's 15.0.0 leaves out 9,568 letters and 93
+numbers that `regex` 2026.7.19 has), nor from `[^\W\d_]`, which takes
+letter-like marks and leaves out letters (and `\d` is Nd alone). `\s` and
+`\S` are rewritten too: `re`'s `\s` also matches U+001C..U+001F, which are not
 Unicode White_Space, as `regex` and HF's tokenizers read `\s`. Scoped
 `(?i:...)` and `(?!\S)` work in `re` as they are.
 
@@ -42,7 +45,8 @@ import numpy as np
 GPT2_SPLIT = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+|"
               r" ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+")
 
-_CATEGORIES = {"L": ("Lu", "Ll", "Lt", "Lm", "Lo"), "N": ("Nd", "Nl", "No")}
+# the `regex` module's \p{L} and \p{N} (tools/unicode_classes.py writes it)
+_CLASSES_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "unicode_classes.json")
 # Unicode White_Space (PropList.txt): `regex`'s and the HF tokenizers' \s
 _WHITE_SPACE = ((0x09, 0x0D), (0x20, 0x20), (0x85, 0x85), (0xA0, 0xA0), (0x1680, 0x1680),
                 (0x2000, 0x200A), (0x2028, 0x2029), (0x202F, 0x202F), (0x205F, 0x205F),
@@ -53,24 +57,20 @@ class UnsupportedTokenizerError(ValueError):
     pass
 
 
-def _ranges(cps: Iterable[int]) -> List[Tuple[int, int]]:
-    out: List[List[int]] = []
-    for c in cps:
-        if out and c == out[-1][1] + 1:
-            out[-1][1] = c
-        else:
-            out.append([c, c])
-    return [(a, b) for a, b in out]
+@functools.lru_cache(maxsize=1)
+def _unicode_classes() -> Dict[str, Tuple[Tuple[int, int], ...]]:
+    with open(_CLASSES_PATH) as f:
+        raw = json.load(f)
+    return {name: tuple((a, b) for a, b in raw[name]) for name in ("L", "N")}
 
 
-@functools.lru_cache(maxsize=None)
 def unicode_class(name: str) -> Tuple[Tuple[int, int], ...]:
-    """The code point ranges of `\\p{name}` for name L or N, from this
-    Python's `unicodedata` (computed once)."""
-    if name not in _CATEGORIES:
+    """The code point ranges of `\\p{name}` for name L or N, as the `regex`
+    module reads them (`unicode_classes.json`, read once)."""
+    classes = _unicode_classes()
+    if name not in classes:
         raise UnsupportedTokenizerError(f"unicode class \\p{{{name}}}")
-    cats = _CATEGORIES[name]
-    return tuple(_ranges(c for c in range(0x110000) if unicodedata.category(chr(c)) in cats))
+    return classes[name]
 
 
 def _class_body(ranges) -> str:

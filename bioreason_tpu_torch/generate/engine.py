@@ -20,7 +20,9 @@ the device: its logits are masked before sampling and the state advances
 after, frozen once the row has finished. With `kv_int8` the cache is int8
 with per-(token, head) scales: the prefill writes it and attends over its
 own float K/V (flash_fwd on the card), decode steps read it with the scales
-on the logits and probabilities. The device mesh comes with a later slice.
+on the logits and probabilities; grouped, both the shared prompt cache and
+the per-completion decode cache are int8. The device mesh comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -105,10 +107,6 @@ class GenerationEngine:
         max_new_tokens ends it first. Its tables must be on this device."""
         mnt = max_new_tokens if max_new_tokens is not None else sampling.max_new_tokens
         cfg = self.cfg.decoder
-        if self.kv_int8 and group_size > 1:
-            raise NotImplementedError(
-                "kv_int8 with group_size > 1: the grouped int8 decode is not ported yet "
-                "(ROADMAP.md, queue 1, item 7b)")
         input_ids, attention_mask = self._put(input_ids), self._put(attention_mask)
         dna_input_ids, dna_attention_mask = self._put(dna_input_ids), self._put(dna_attention_mask)
         b, p = input_ids.shape
@@ -143,7 +141,8 @@ class GenerationEngine:
         if grouped:
             last_logits = last_logits.repeat_interleave(group_size, dim=0)
             prompt_lens = prompt_lens.repeat_interleave(group_size)
-            dec_cache = init_cache(cfg, bg, mnt, torch_dtype(cfg.dtype), self.device)
+            dec_cache = init_cache(cfg, bg, mnt, torch_dtype(cfg.dtype), self.device,
+                                   quantize=self.kv_int8)
             dec_mask = torch.zeros((bg, mnt), dtype=torch.int32, device=self.device)
         out = torch.full((bg, mnt), self.pad_token_id, dtype=torch.int64, device=self.device)
         tok = sample(last_logits)

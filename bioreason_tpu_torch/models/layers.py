@@ -14,9 +14,10 @@ package's `[in, out]` kernels are transposed once by `weights.py`. A LoRA
 adapter rides on its `nn.Linear` as `lora_a` [in, r], `lora_b` [r, out] (the
 JAX layouts) and a `lora_scale` buffer; `dense` adds it when present.
 
-Serving storage (train/quant.py, train/fuse.py): an `nn.Linear` or an
-`Embedding` may hold an int8 `weight` buffer with an fp32 `scale` buffer,
-one scale per output channel ([out, 1]) or per vocabulary row ([V, 1]);
+Int8 storage (train/quant.py, train/fuse.py; serving, and QLoRA training
+with its scales in bf16): an `nn.Linear` or an `Embedding` may hold an int8
+`weight` buffer with a float `scale` buffer, one scale per output channel
+([out, 1]) or per vocabulary row ([V, 1]);
 `dense`, `embed` and `lm_logits` read either storage. An attention module
 may hold one fused `qkv` linear in place of `q`, `k` and `v`, and an MLP
 one `gateup` in place of `gate` and `up`; an adapter of a fused projection
@@ -100,6 +101,30 @@ def int8_weight(mod: nn.Module, dtype: torch.dtype) -> torch.Tensor:
     return mod.weight.to(dtype) * mod.scale.to(dtype)
 
 
+class Int8Linear(torch.autograd.Function):
+    """y = x @ dequant(q, scale)^T (+ b) whose backward keeps the int8 weight
+    and its scale, not the dequantized copy: a frozen int8 dense in training
+    (QLoRA) would otherwise hold a float weight per call until the backward,
+    more than its int8 storage saves. The backward dequantizes again, in the
+    gradient's dtype, to form dx; q and scale take no gradient. The values
+    are those of `F.linear` on `int8_weight`, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, bias):
+        ctx.save_for_backward(q, scale)
+        return F.linear(x, q.to(x.dtype) * scale.to(x.dtype), bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        dx = db = None
+        if ctx.needs_input_grad[0]:
+            dx = g.matmul(q.to(g.dtype) * scale.to(g.dtype))
+        if ctx.needs_input_grad[3]:
+            db = g.reshape(-1, g.shape[-1]).sum(0)
+        return dx, None, None, db
+
+
 def int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """xq [M, K] int8 @ wq [N, K]^T int8 -> int32 [M, N], exact, through
     `torch._int_mm` (cuBLASLt on the card). CUDA takes M > 16 only: fewer
@@ -128,8 +153,9 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
           dropout: Dropout = None, act8: bool = False) -> torch.Tensor:
     """x @ W (+ b) (+ the LoRA adapter) in `dtype` (default: x's dtype),
     whatever dtype the weights are stored in. An int8 weight is dequantized
-    in `dtype`, or with `act8` (W8A8, cfg.act_int8) runs `_w8a8_dot`;
-    `act8` does nothing to a float weight, as in the JAX package."""
+    in `dtype` (`Int8Linear`, whose backward saves the int8 weight), or
+    with `act8` (W8A8, cfg.act_int8) runs `_w8a8_dot`; `act8` does nothing
+    to a float weight, as in the JAX package."""
     dtype = x.dtype if dtype is None else dtype
     x = x.to(dtype)
     bias = None if lin.bias is None else lin.bias.to(dtype)
@@ -139,7 +165,7 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
         y = _w8a8_dot(x, lin, dtype)
         y = y if bias is None else y + bias
     else:
-        y = F.linear(x, int8_weight(lin, dtype), bias)
+        y = Int8Linear.apply(x, lin.weight, lin.scale, bias)
     d = lora_delta(lin, x, dtype, dropout)
     return y if d is None else y + d
 

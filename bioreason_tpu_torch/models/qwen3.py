@@ -213,7 +213,8 @@ def decoder_forward(
     return out, cache
 
 
-def _grouped_decode_attention(q, pk, pv, prompt_mask, dk, dv, dec_mask, group: int):
+def _grouped_decode_attention(q, pk, pv, prompt_mask, dk, dv, dec_mask, group: int,
+                              pk_scale=None, pv_scale=None, dk_scale=None, dv_scale=None):
     """q [B_u*G, 1, Hq, D]; pk/pv [B_u, P, Hkv, D] (shared by each group's
     G rows); dk/dv [B_u*G, N, Hkv, D]; prompt_mask [B_u, P]; dec_mask
     [B_u*G, N]. Returns [B_u*G, 1, Hq, D] in q's dtype.
@@ -225,7 +226,13 @@ def _grouped_decode_attention(q, pk, pv, prompt_mask, dk, dv, dec_mask, group: i
     over the group's G * r query rows (r = Hq / Hkv), so each prompt key is
     read once per group; K/V are never repeated and never upcast to fp32
     (the batched products take a transposed copy of the cache in its own
-    dtype)."""
+    dtype).
+
+    `*_scale` [.., T, Hkv, 1]: an int8 cache's scales (JAX
+    qwen3.py:301-347). The int8 values go into the products cast to q's
+    dtype, as they are (exact: |q| <= 127); the key scales multiply the
+    fp32 logits and the value scales the fp32 probabilities before their
+    cast, so K/V are never dequantized into a float temporary."""
     bg, _, hq, d = q.shape
     bu, p_len, hkv, _ = pk.shape
     n = dk.shape[1]
@@ -234,25 +241,38 @@ def _grouped_decode_attention(q, pk, pv, prompt_mask, dk, dv, dec_mask, group: i
     scale = d ** -0.5
     neg = torch.finfo(torch.float32).min
 
+    def per_key(s):                         # [B, T, Hkv, 1] -> [B, Hkv, 1, T]
+        return s[..., 0].transpose(1, 2)[:, :, None, :].float()
+
     # prompt block: [B_u*Hkv, G*r, D] @ [B_u*Hkv, D, P]
     qp = q.reshape(bu, group, hkv, r, d).permute(0, 2, 1, 3, 4).reshape(bu * hkv, group * r, d)
     kp = pk.to(dtype).permute(0, 2, 3, 1).reshape(bu * hkv, d, p_len)
-    lp = L.bmm_f32(qp, kp).reshape(bu, hkv, group, r, p_len) * scale
+    lp = L.bmm_f32(qp, kp).reshape(bu, hkv, group * r, p_len) * scale
+    if pk_scale is not None:
+        lp = lp * per_key(pk_scale)
+    lp = lp.reshape(bu, hkv, group, r, p_len)
     lp = lp.masked_fill(~prompt_mask.bool()[:, None, None, None, :], neg)
     lp = lp.permute(0, 2, 1, 3, 4).reshape(bg, hkv, r, p_len)
     # decode block: [B_u*G*Hkv, r, D] @ [B_u*G*Hkv, D, N]
     qd = q.reshape(bg * hkv, r, d)
     kd = dk.to(dtype).permute(0, 2, 3, 1).reshape(bg * hkv, d, n)
     ld = L.bmm_f32(qd, kd).reshape(bg, hkv, r, n) * scale
+    if dk_scale is not None:
+        ld = ld * per_key(dk_scale)
     ld = ld.masked_fill(~dec_mask.bool()[:, None, None, :], neg)
 
-    probs = torch.softmax(torch.cat([lp, ld], dim=-1), dim=-1).to(dtype)
-    pp = (probs[..., :p_len].reshape(bu, group, hkv, r, p_len).permute(0, 2, 1, 3, 4)
-          .reshape(bu * hkv, group * r, p_len))
+    probs = torch.softmax(torch.cat([lp, ld], dim=-1), dim=-1)
+    pp = probs[..., :p_len].reshape(bu, group, hkv, r, p_len).permute(0, 2, 1, 3, 4)
+    if pv_scale is not None:
+        pp = pp * per_key(pv_scale)[:, :, None]
+    pp = pp.to(dtype).reshape(bu * hkv, group * r, p_len)
     vp = pv.to(dtype).permute(0, 2, 1, 3).reshape(bu * hkv, p_len, d)
     op = (torch.bmm(pp, vp).reshape(bu, hkv, group, r, d).permute(0, 2, 1, 3, 4)
           .reshape(bg, hkv, r, d))
-    pd = probs[..., p_len:].reshape(bg * hkv, r, n)
+    pd = probs[..., p_len:]
+    if dv_scale is not None:
+        pd = pd * per_key(dv_scale)
+    pd = pd.to(dtype).reshape(bg * hkv, r, n)
     vd = dv.to(dtype).permute(0, 2, 1, 3).reshape(bg * hkv, n, d)
     od = torch.bmm(pd, vd).reshape(bg, hkv, r, d)
     return (op + od).reshape(bg, 1, hq, d)
@@ -273,8 +293,8 @@ def decoder_decode_step_grouped(dec: Qwen3Decoder, cfg: DecoderConfig,
     Returns (fp32 logits [B_u*G, 1, V], dec_cache).
 
     Denses stay weight-only when cfg.act_int8 asks for W8A8: the JAX step
-    turns it off here (qwen3.py:362-369). An int8 cache is not read here
-    yet: `GenerationEngine` refuses kv_int8 with G > 1."""
+    turns it off here (qwen3.py:362-369). Int8 caches (`init_cache(quantize=
+    True)`, prompt and decode alike) are read with their scales."""
     dtype = torch_dtype(cfg.dtype)
     h = L.embed(dec.embed, input_ids, dtype)
     bg, t, _ = h.shape
@@ -290,7 +310,8 @@ def decoder_decode_step_grouped(dec: Qwen3Decoder, cfg: DecoderConfig,
         k = L.apply_rope(k, positions, cfg.rope_theta)
         cache_entry_update(de, k, v, dec_index)
         a = _grouped_decode_attention(q, pe["k"], pe["v"], prompt_mask, de["k"], de["v"],
-                                      dec_mask, group)
+                                      dec_mask, group, pe.get("k_scale"), pe.get("v_scale"),
+                                      de.get("k_scale"), de.get("v_scale"))
         h = h + L.dense(lp.attn.o, a.reshape(bg, t, -1), dtype)
         x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
         h = h + L.swiglu(lp.mlp, x, dtype)

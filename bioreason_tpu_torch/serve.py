@@ -426,8 +426,9 @@ def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
                  w8a8: bool = False, **server_kw) -> InferenceServer:
     """Server over the SFT model of `checkpoint` (the port's `sft_final`:
     `train.checkpoint.rebuild_sft` builds its recorded base with its
-    tokenizers, and its LoRA is merged into the frozen weights; the presets
-    are not read then), else over the presets' weights drawn from `seed`;
+    tokenizers, and its LoRA is merged into the frozen weights, or kept
+    beside them over a QLoRA base's int8 weights; the presets are not read
+    then), else over the presets' weights drawn from `seed`;
     then `serving_storage` (`int8`, `fuse`). `w8a8` (act_int8 on both
     towers) needs `int8`."""
     if w8a8 and not int8:
@@ -436,7 +437,9 @@ def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
         from bioreason_tpu_torch.train.checkpoint import rebuild_sft
         from bioreason_tpu_torch.train.lora import merge_lora
         cfg, model, tok, dna_tok = rebuild_sft(checkpoint, device, max_length_dna=max_length_dna)
-        model = merge_lora(model).requires_grad_(False)
+        if not any(b.dtype == torch.int8 for b in model.buffers()):
+            model = merge_lora(model)
+        model.requires_grad_(False)
         processor = BioProcessor(tok, dna_tok)
     else:
         cfg, processor = build_config(decoder, encoder, max_length_dna)

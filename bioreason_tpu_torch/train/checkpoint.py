@@ -114,26 +114,28 @@ def _pretrained_base(meta: Dict[str, Any], device, max_length_text: int = 512,
 def _load_trained(path: str, state: Dict[str, Any], model, device):
     """The SFT adapters attached to the base `model`, every trained
     parameter loaded (fp32) and the frozen ones stored as the trainer
-    stored them (`trainable.frozen_cast`)."""
+    stored them: a QLoRA base (frozen_dtype "int8") quantized again from
+    the same weights (`quant.quantize_frozen_int8`), then
+    `trainable.store_frozen`."""
     from bioreason_tpu_torch.config import LoRAConfig
     from bioreason_tpu_torch.train.lora import attach_lora
-    from bioreason_tpu_torch.train.trainable import frozen_cast
+    from bioreason_tpu_torch.train.quant import quantize_frozen_int8
+    from bioreason_tpu_torch.train.trainable import store_frozen
     meta = state["metadata"]
     model = model.to(device)
     if meta["lora_r"] is not None:
         attach_lora(model, LoRAConfig(r=meta["lora_r"], alpha=meta["lora_alpha"]))
+    if meta["frozen_dtype"] == "int8":
+        quantize_frozen_int8(model)
     trained = state["trainable"]
     params = dict(model.named_parameters())
     for name in trained:
         if name not in params or params[name].shape != trained[name].shape:
             raise ValueError(f"{path}: {name} {tuple(trained[name].shape)} does not fit "
                              f"the model")
-    low = getattr(torch, meta["frozen_dtype"]) if meta["frozen_dtype"] else None
-    for name, p in params.items():
-        if name in trained:
-            p.data = trained[name].to(device)
-        elif low is not None and frozen_cast(name, p):
-            p.data = p.data.to(low)
+    for name in trained:
+        params[name].data = trained[name].to(device)
+    store_frozen(model, meta["frozen_dtype"] or "", lambda name: name not in trained)
     return model
 
 
@@ -221,8 +223,13 @@ def load_sft_for_grpo(path: str, fusion_cfg, lora_cfg, seed: int, decoder: str, 
     """The SFT model of `path` (`load_sft_model`, which raises on a
     mismatch) ready for GRPO, as JAX `sft_to_grpo_params` makes it: its
     adapters merged (`merge_lora`) and fresh adapters of `lora_cfg` attached,
-    drawn from `generator` (none with `lora_cfg` None)."""
+    drawn from `generator` (none with `lora_cfg` None). A QLoRA checkpoint
+    (frozen_dtype "int8") raises ValueError before anything is built:
+    `merge_lora` refuses int8 weights."""
     from bioreason_tpu_torch.train.lora import attach_lora, merge_lora
+    if load_checkpoint(path)["metadata"].get("frozen_dtype") == "int8":
+        raise ValueError(f"{path} is a QLoRA checkpoint: its adapters cannot be merged "
+                         f"into int8 weights")
     model = merge_lora(load_sft_model(path, fusion_cfg, seed, decoder, encoder, device))
     if lora_cfg is not None:
         attach_lora(model, lora_cfg, generator)

@@ -1,6 +1,6 @@
 """GRPO trainer: grouped rollouts + the group-normalized clipped-surrogate
 loss (the port of bioreason_tpu/train/grpo.py, on one device: no mesh, no
-int8 rollouts, no async save).
+async save).
 
 One `step` is:
   rollout   - the prompts of `items` (each repeated G times contiguously,
@@ -25,10 +25,16 @@ The reference policy is the model with its adapters off and its other
 trainable parameters (in LoRA mode the DNA projection) as they were at the
 start, as the JAX trainer's LoRA-stripped copy of the initial trainable
 leaves is. `_make_ref` builds it as a second module tree that holds the
-policy's frozen parameters themselves (no copy of the ~1.1 B frozen
-weights) and copies of the trainable ones without the adapters. With
+policy's frozen tensors themselves (no copy of the frozen weights, int8 or
+float) and copies of the trainable ones without the adapters. With
 `sync_ref_model` (TR-DPO) the mixup is arithmetic on every weight, so each
 sync gives the reference weights of its own, as the reference does.
+
+QLoRA (`frozen_dtype="int8"`, JAX train/grpo.py:123-166) stores the frozen
+towers' denses int8 under fp32 adapters; `rollout_int8` rolls out on int8
+weights, embedding and head (`rollout_model`), sharing the training
+model's int8 tensors where it has them; `rollout_kv_int8` gives the engine
+an int8 KV cache (the grouped decode reads it with its scales).
 """
 
 from __future__ import annotations
@@ -45,13 +51,16 @@ from bioreason_tpu_torch.data.processor import BioProcessor, ProcessorOutput
 from bioreason_tpu_torch.generate.engine import GenerationEngine
 from bioreason_tpu_torch.models.fusion import (FusionModel, fused_input_embeddings,
                                                init_fusion, validate_splice)
-from bioreason_tpu_torch.models.layers import has_adapter
+from bioreason_tpu_torch.models.layers import has_adapter, is_int8
 from bioreason_tpu_torch.models.qwen3 import decoder_forward
 from bioreason_tpu_torch.ops.fused_ce import chunked_token_logps
 from bioreason_tpu_torch.train import trainable as T
 from bioreason_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from bioreason_tpu_torch.train.lora import attach_lora, has_lora, merged_weight
+from bioreason_tpu_torch.train.lora import attach_lora, has_lora, merged_weight, strip_lora
 from bioreason_tpu_torch.train.optim import AdamW
+from bioreason_tpu_torch.train.quant import (quantize_frozen_int8, quantize_kernel_int8,
+                                             store_int8)
+from bioreason_tpu_torch.train.trainable import shared_copy
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
 
@@ -134,14 +143,29 @@ class GRPOTrainer:
             regex = T.LORA_TRAINABLE
         else:
             regex = T.FULL_FINETUNE
-        # frozen >= 2-D float weights in bf16: no optimizer state, no fp32 master
+        if cfg.frozen_dtype == "int8":
+            # QLoRA (JAX train/grpo.py:139-156): the adapters attached above
+            # stay fp32, the frozen towers' denses become int8; the rollout
+            # and reference models share those int8 tensors
+            if cfg.lora is None:
+                raise ValueError("frozen_dtype='int8' requires LoRA (quantized weights "
+                                 "don't train)")
+            if cfg.sync_ref_model:
+                raise ValueError("frozen_dtype='int8' is incompatible with sync_ref_model "
+                                 "(TR-DPO mixup is arithmetic on the weights; int8 weights "
+                                 "don't support it)")
+            quantize_frozen_int8(model)
+        # frozen >= 2-D float weights (and int8 scales) in bf16: no optimizer
+        # state, no fp32 master
         self.params = T.set_trainable(model, regex, cfg.frozen_dtype)
         self.names = T.trainable_names(model)
         self.opt = AdamW(self.params, cfg.optim)
         self.ref_model = self._make_ref() if cfg.beta > 0.0 else None
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.engine = GenerationEngine(fusion_cfg, processor.text_tokenizer.eos_token_id,
-                                       device=self.device)
+                                       device=self.device, kv_int8=cfg.rollout_kv_int8)
+        # the int8 rollout policy (`rollout_model`), built at the first rollout
+        self._rollout: Optional[FusionModel] = None
         # the vLLM guided-decoding knob (grpo_config.py:278-280): compiled once,
         # its tables as wide as the decoder's head (JAX train/grpo.py:193-200)
         self.guided = None
@@ -169,15 +193,40 @@ class GRPOTrainer:
     @torch.no_grad()
     def _make_ref(self) -> FusionModel:
         """The adapter-off policy with its trainable parameters as they are
-        now: a module tree that holds the policy's frozen parameters (the
-        same tensors) and copies of the trainable ones, without adapters."""
-        ref = FusionModel(self.fusion_cfg, device="meta")
-        for name, p in self.model.named_parameters():
-            if name.rsplit(".", 1)[-1].startswith("lora_"):
-                continue
-            _set_parameter(ref, name, p if not p.requires_grad else
-                           torch.nn.Parameter(p.detach().clone(), requires_grad=False))
-        return ref
+        now: a module tree that holds the policy's frozen tensors themselves
+        (parameters and buffers: int8 weights and their scales are buffers)
+        and copies of the trainable ones, without adapters."""
+        return strip_lora(shared_copy(self.model, lambda p: torch.nn.Parameter(
+            p.detach().clone(), requires_grad=False) if p.requires_grad else p))
+
+    @torch.no_grad()
+    def rollout_model(self) -> FusionModel:
+        """The sampling policy the engine rolls out (JAX `_rollout_params`,
+        train/grpo.py:334-351): the model itself, or with `rollout_int8` a
+        module tree that holds the model's own tensors, its live adapters
+        among them, with the frozen base int8:
+          * on int8 frozen towers (`frozen_dtype="int8"`) it shares the
+            model's int8 weights, and only the float embedding (the tied
+            head) and an untied `lm_head` are quantized for it;
+          * on a float tree, every dense of both towers, the embedding and
+            the head are quantized for it (`include_embed=True`).
+        JAX quantizes again for every rollout; the base is frozen under
+        LoRA, so the quantized tensors are built once and reused. Weights
+        that train (no LoRA) are quantized again for every rollout."""
+        if not self.cfg.rollout_int8:
+            return self.model
+        if self._rollout is not None:
+            return self._rollout
+        rollout = shared_copy(self.model)
+        if self.cfg.frozen_dtype == "int8":
+            dec = rollout.decoder
+            for mod in (dec.embed, dec.lm_head):
+                if mod is not None and not is_int8(mod):
+                    store_int8(mod, *quantize_kernel_int8(mod.weight))
+        else:
+            quantize_frozen_int8(rollout, include_embed=True)
+        self._rollout = rollout if self.cfg.lora is not None else None
+        return rollout
 
     @torch.no_grad()
     def _sync_ref(self) -> None:
@@ -278,7 +327,7 @@ class GRPOTrainer:
             tm["prep"] = tm.get("prep", 0.0) + (t1 - t0)
             t0 = t1
         completion_ids, completion_mask = self.engine.generate(
-            self.model, out.input_ids, out.attention_mask, out.dna_input_ids,
+            self.rollout_model(), out.input_ids, out.attention_mask, out.dna_input_ids,
             out.dna_attention_mask, sampling=cfg.sampling,
             max_new_tokens=cfg.max_completion_length, generator=self.generator, group_size=g,
             guided=self.guided)

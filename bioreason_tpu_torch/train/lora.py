@@ -64,8 +64,14 @@ def merged_weight(lin: nn.Linear) -> torch.Tensor:
 @torch.no_grad()
 def merge_lora(model: nn.Module) -> nn.Module:
     """Fold every adapter into its weight (`merged_weight`) and drop the
-    adapters."""
-    for lin in list(_adapted(model)):
+    adapters. Raises ValueError, changing nothing, on an adapter over an
+    int8 weight (a QLoRA base): the sum would have to be quantized again,
+    another function than the one trained."""
+    adapted = list(_adapted(model))
+    if any(lin.weight.dtype == torch.int8 for lin in adapted):
+        raise ValueError("cannot merge LoRA adapters into int8 weights (a QLoRA base): "
+                         "keep the adapters beside them")
+    for lin in adapted:
         lin.weight.copy_(merged_weight(lin))
         _drop(lin)
     return model

@@ -11,6 +11,14 @@ decoder's embedding int8 with one scale per vocabulary row, and its
 `lm_head` where it has one (a tied head reads the embedding): the serving
 configuration, in which every weight byte a decode step reads is int8.
 
+Training (QLoRA: `SFTConfig` / `GRPOConfig` `frozen_dtype="int8"`) runs the
+same walk after the LoRA adapters are attached: they are parameters of
+their own beside the weight, so they stay fp32 and train, while the frozen
+weights under them go int8 (JAX quant.py:10-15). `trainable.set_trainable`
+then stores the scales in bf16, as JAX stores its [L, 1, out] scale leaves,
+and `layers.Int8Linear` keeps the int8 weight, not a float copy, for the
+backward.
+
 Layouts: JAX kernels are [in, out] and take their absmax over axis -2
 (quant.py:36); the port's weights are [out, in], so it is dim -1 here, one
 scale per output channel either way. Weight scales clamp at 1e-12 after
@@ -51,14 +59,16 @@ def dequantize_kernel(q: torch.Tensor, scale: torch.Tensor,
 @torch.no_grad()
 def store_int8(mod: nn.Module, q: torch.Tensor, scale: torch.Tensor) -> None:
     """Replace `mod.weight` (an nn.Linear's or an Embedding's) by the int8
-    buffer `q` and an fp32 `scale` buffer; the float weight is dropped."""
+    buffer `q` and a `scale` buffer in the dtype it is given (fp32 from
+    `quantize_kernel_int8`; bf16 when fused in a QLoRA model, whose trainer
+    stored its scales so); the float weight is dropped."""
     if tuple(q.shape) != tuple(mod.weight.shape) or q.dtype != torch.int8:
         raise ValueError(f"int8 {tuple(q.shape)} {q.dtype} does not replace a weight "
                          f"{tuple(mod.weight.shape)}")
     device = mod.weight.device
     del mod.weight
     mod.register_buffer("weight", q.to(device))
-    mod.register_buffer("scale", scale.to(device=device, dtype=torch.float32))
+    mod.register_buffer("scale", scale.to(device))
 
 
 def _quantize(mod: nn.Module) -> None:

@@ -1,6 +1,6 @@
 """SFT trainer: LoRA fine-tuning of the fusion model (the port of
 bioreason_tpu/train/sft.py, on one device: no mesh, no sequence or
-pipeline parallelism, no int8 frozen weights).
+pipeline parallelism).
 
 One `train_step` is: host batch -> supervised positions gathered
 (fused_ce.gather_label_positions) -> device tensors -> `fusion_forward`
@@ -15,7 +15,11 @@ parameters are fp32 masters; frozen fp32 parameters that are two or more
 dimensional in the JAX package's tree (`trainable.frozen_cast`: the
 per-layer norms and biases JAX stacks [L, ...] among them, and the Evo2
 tower's filter leaves) are stored in `cfg.frozen_dtype`, as JAX stores
-them (train/sft.py:88-99).
+them (train/sft.py:88-99). `frozen_dtype="int8"` is QLoRA: the frozen
+denses of both towers are stored int8 with per-channel scales
+(train/quant.py), dequantized on every call (`layers.Int8Linear`, whose
+backward keeps the int8 weight), and the other frozen float leaves and the
+scales are stored in bf16, as JAX stores them.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from bioreason_tpu_torch.train.checkpoint import load_checkpoint, model_keys, \
     save_checkpoint
 from bioreason_tpu_torch.train.lora import attach_lora, has_lora
 from bioreason_tpu_torch.train.optim import AdamW
+from bioreason_tpu_torch.train.quant import quantize_frozen_int8
 from bioreason_tpu_torch.utils.devices import resolve_device
 
 BATCH_KEYS = ("input_ids", "attention_mask", "dna_input_ids", "dna_attention_mask",
@@ -75,6 +80,14 @@ class SFTTrainer:
             regex = T.FULL_FINETUNE
         if not cfg.freeze_encoder:
             regex = f"({regex})|{T.ENCODER}"
+        if cfg.frozen_dtype == "int8":
+            # QLoRA (JAX train/sft.py:69-79): the adapters attached above stay
+            # fp32; the frozen towers' denses become int8, and set_trainable
+            # stores the other frozen float leaves and the scales in bf16
+            if cfg.lora is None or not cfg.freeze_encoder:
+                raise ValueError("frozen_dtype='int8' requires LoRA with a frozen encoder "
+                                 "(quantized weights don't train)")
+            quantize_frozen_int8(model)
         self.params = T.set_trainable(model, regex, cfg.frozen_dtype)
         self.names = T.trainable_names(model)
         self.opt = AdamW(self.params, cfg.optim)

@@ -17,8 +17,9 @@ stack, so its 1-D leaves stay fp32 on both sides.
 
 from __future__ import annotations
 
+import copy
 import re
-from typing import List
+from typing import Callable, List
 
 import torch
 from torch import nn
@@ -44,11 +45,10 @@ def frozen_cast(name: str, p: torch.Tensor) -> bool:
 def set_trainable(model: nn.Module, trainable_regex: str,
                   frozen_dtype: str = "") -> List[nn.Parameter]:
     """Mark the parameters whose names match `trainable_regex` trainable
-    (fp32, requires_grad) and freeze the rest, storing the frozen ones that
-    `frozen_cast` names in `frozen_dtype` when it is given. Returns the
-    trainable parameters in `named_parameters` order (the optimizer's)."""
+    (fp32, requires_grad) and freeze the rest, storing them as
+    `store_frozen` does. Returns the trainable parameters in
+    `named_parameters` order (the optimizer's)."""
     pat = re.compile(trainable_regex)
-    low = getattr(torch, frozen_dtype) if frozen_dtype else None
     trainable = []
     for name, p in model.named_parameters():
         if pat.search(name):
@@ -57,11 +57,43 @@ def set_trainable(model: nn.Module, trainable_regex: str,
             trainable.append(p)
         else:
             p.requires_grad_(False)
-            if low is not None and frozen_cast(name, p):
-                p.data = p.data.to(low)
+    store_frozen(model, frozen_dtype, lambda name: not pat.search(name))
     return trainable
+
+
+@torch.no_grad()
+def store_frozen(model: nn.Module, frozen_dtype: str, frozen: Callable[[str], bool]) -> None:
+    """Store the parameters whose names `frozen` accepts and that
+    `frozen_cast` names in `frozen_dtype`, when it is given ("int8" stores
+    them in bf16, JAX train/sft.py:92-95). The fp32 `scale` buffers of int8
+    modules (train/quant.py) are stored in that dtype too: JAX's scales are
+    frozen leaves of two or more dimensions ([L, 1, out] stacked, [1, out]
+    in an Evo2 block), so its dequantized weights use rounded scales."""
+    frozen_dtype = "bfloat16" if frozen_dtype == "int8" else frozen_dtype
+    if not frozen_dtype:
+        return
+    low = getattr(torch, frozen_dtype)
+    for name, p in model.named_parameters():
+        if frozen(name) and frozen_cast(name, p):
+            p.data = p.data.to(low)
+    for mod in model.modules():
+        w, scale = getattr(mod, "weight", None), getattr(mod, "scale", None)
+        if (isinstance(w, torch.Tensor) and w.dtype == torch.int8
+                and isinstance(scale, torch.Tensor) and scale.dtype == torch.float32):
+            mod.scale = scale.to(low)
 
 
 def trainable_names(model: nn.Module) -> List[str]:
     return [n for n, p in model.named_parameters() if p.requires_grad]
 
+
+def shared_copy(model: nn.Module,
+                param: Callable[[nn.Parameter], nn.Parameter] = lambda p: p) -> nn.Module:
+    """A second module tree of `model` that holds its tensors themselves:
+    every buffer (int8 weights and scales among them) and, for each
+    parameter, what `param` gives (the parameter itself by default). The
+    modules are new, so adapters dropped or weights quantized in the copy
+    leave `model` as it is."""
+    memo = {id(b): b for b in model.buffers()}
+    memo.update((id(p), param(p)) for p in model.parameters())
+    return copy.deepcopy(model, memo)

@@ -204,6 +204,42 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               int8) and with --kv int8 --fuse --w8a8 (128 requests each):
               tokens/s, occupancy, pool and weight GiB, peak memory, 57
               flash_fwd per prefill chunk. At most 120 s.
+ 15. qlora    QLoRA and int8 rollouts at NT-v2-500M + Qwen3-4B width (36
+              layers, hidden 2560, 32/8 heads of 128; seed 0, bf16
+              compute): (a) `tools/bench_sft.py --decoder qwen3-4b --frozen
+              int8` (bench.py's shape, 2 warm-up steps, 3 repetitions of 4
+              timed steps, one profiled step): examples/s, ms per step,
+              device-busy ms, resident frozen and peak GiB, every dense of
+              both towers int8 with bf16 scales, exactly 29 + 36 flash_fwd
+              and 36 flash_bwd a step; (b) the same at --frozen bfloat16:
+              int8's resident bytes as a share of bf16's, int8's peak under
+              bf16's (the int8 dense's backward keeps no float weight); (c)
+              one QLoRA loss and its trainable gradients against a bf16 model
+              holding the dequantized weights, on the plain attention route
+              (expected bitwise; held to 1e-6 relative on the loss and
+              gradient cosine >= 0.999999) and through the kernels, where
+              flash_bwd's dq sums in no fixed order: the int8 step run twice
+              gives the noise floor, and the twin is held to the loss and a
+              gradient cosine between that floor's reading and a planted
+              fault's; (d) `tools/bench_grpo.py --decoder
+              qwen3-4b --frozen int8 --rollout_int8` (4 prompts x G=4, 16 new
+              tokens, 1 + 2 steps): completions/s, the phase timers, peak
+              GiB, a finite loss and kl, exactly 3 x 29 + 4 x 36 flash_fwd
+              and 36 flash_bwd a step, the reference and the rollout policy
+              holding the training model's int8 weights and scales (the same
+              data_ptr) and the rollout its live adapters; (e)
+              `tools/bench_rollout.py` at 16 prompts x G=8 with 32 new tokens
+              (1 + 3 calls), --frozen bfloat16 --kv bfloat16 and --frozen
+              int8 --kv int8, at Qwen3-0.6B and at Qwen3-4B: tokens/s, weight
+              and peak GiB, exactly 29 + layers flash_fwd per call, and the
+              grouped int8-KV decode's first-step logits against the
+              ungrouped int8-KV step on the same caches, held to a cosine
+              that two planted faults (the decode slot's scales dropped,
+              the prompt's key and value scales swapped) fall under;
+              (f) flash_fwd and flash_bwd against their plain versions at the
+              4B shapes: the SFT step [4,768,32/8,128] causal, the GRPO
+              prefill, encoder, logp forward and update backward. At most
+              240 s.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -1398,7 +1434,7 @@ def acgt_share_reward(prompts, completions, **kw):
     return [sum(c in "ACGT" for c in x) / max(len(x), 1) for x in completions]
 
 
-def grpo_kernel_cases(torch, trainer, items):
+def grpo_kernel_cases(torch, trainer, items, prefix="grpo"):
     """flash_fwd and flash_bwd at the shapes and masks one GRPO step of
     `trainer` gives them, from its own prompts and last rollout buffer: the
     grouped prefill (causal, Tq = Tk = P: the prompt cache has no decode
@@ -1427,15 +1463,16 @@ def grpo_kernel_cases(torch, trainer, items):
     log(f"grpo kernels: prefill B={bu} P={p}; logps and update B={b} T={t}, completion "
         f"lengths {full[:, p:].sum(-1).tolist()}; encoder {list(dna_u.shape)} (rollout), "
         f"{list(dna.shape)} (logps)")
-    rows = [kernel_case(torch, f"grpo_prefill_P{p}", bu, p, p, hq, hkv, d, True, 0, pmask, 41),
-            *(kernel_case(torch, f"grpo_{part}_encoder_T{m.shape[1]}", m.shape[0], m.shape[1],
-                          m.shape[1], enc.num_heads, enc.num_heads, enc.head_dim, False, None,
-                          m, seed)
+    rows = [kernel_case(torch, f"{prefix}_prefill_P{p}", bu, p, p, hq, hkv, d, True, 0, pmask,
+                        41),
+            *(kernel_case(torch, f"{prefix}_{part}_encoder_T{m.shape[1]}", m.shape[0],
+                          m.shape[1], m.shape[1], enc.num_heads, enc.num_heads, enc.head_dim,
+                          False, None, m, seed)
               for part, m, seed in (("rollout", dna_u, 45), ("logps", dna, 42))),
-            kernel_case(torch, f"grpo_logps_T{t}_eos", b, t, t, hq, hkv, d, True, None, full,
-                        43)]
-    bwd_rows = [bwd_case(torch, f"grpo_update_T{t}_eos", b, t, t, hq, hkv, d, True, 0, full,
-                         44)]
+            kernel_case(torch, f"{prefix}_logps_T{t}_eos", b, t, t, hq, hkv, d, True, None,
+                        full, 43)]
+    bwd_rows = [bwd_case(torch, f"{prefix}_update_T{t}_eos", b, t, t, hq, hkv, d, True, 0,
+                         full, 44)]
     return rows, bwd_rows
 
 
@@ -3228,6 +3265,348 @@ def phase_int8(torch, card):
     return out, rows
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+QWEN4B_LAYERS = 36                     # Qwen3-4B: 36 layers, 32/8 heads of 128
+QLORA_STEPS, QLORA_REPS = 4, 3         # bench_sft: 2 warm-up + 3 x 4 timed + 1 profiled
+QLORA_GRPO_STEPS = 2                   # bench_grpo: 1 warm-up + 2 timed
+QLORA_ROLLOUT_NEW, QLORA_ROLLOUT_REPS = 32, 3   # bench_rollout: 1 warm-up + 3 timed calls
+# (c) a QLoRA step against a bf16 model holding its dequantized weights: the
+# int8 dense dequantizes in bf16 and calls the same GEMM on the same values,
+# forward and backward, so on a deterministic route (the plain attention,
+# remat on to bound its fp32 logits) the two are expected bitwise equal.
+# Through the kernels flash_bwd's dq is reduce-added in no fixed order
+# (ROADMAP 2): the int8 step against itself gives that route's noise floor,
+# and the twin there is held to a cosine under the floor's readings and
+# over the planted fault's (one decoder layer's dequantizing scale dropped
+# from its down projection's backward)
+QLORA_TWIN_LOSS_RTOL, QLORA_TWIN_COS, QLORA_KERNEL_COS = 1e-6, 0.999999, 0.999
+# (e) the grouped int8-KV decode step against the ungrouped one on the same
+# int8 caches: the same products summed in another order (bf16 operands
+# with fp32 accumulation against fp32 einsums), whose bf16 outputs round
+# apart through 28 layers. Held under the sound readings and over those of
+# two planted faults of the grouped step's scales (`grouped_kv8_check`)
+GROUPED_KV8_COS = 0.999
+QLORA_BUDGET_S = 240.0
+
+
+def dequantized_twin(torch, model, cfg):
+    """A module tree holding `model`'s tensors except its int8 weights,
+    which it holds dequantized in their tower's compute dtype as frozen
+    parameters (the value `dense` computes from them): the adapters and the
+    projection are the model's own."""
+    from bioreason_tpu_torch.models import layers as L
+    from bioreason_tpu_torch.train.trainable import shared_copy
+    from bioreason_tpu_torch.utils.devices import torch_dtype
+    twin = shared_copy(model)
+    with torch.no_grad():
+        for tower, tcfg in ((twin.decoder, cfg.decoder), (twin.encoder, cfg.dna_tower)):
+            for mod in tower.modules():
+                if isinstance(mod, torch.nn.Linear) and L.is_int8(mod):
+                    w = L.int8_weight(mod, torch_dtype(tcfg.dtype))
+                    del mod.weight, mod.scale
+                    mod.weight = torch.nn.Parameter(w, requires_grad=False)
+    return twin
+
+
+def per_tensor_scale_backward(ctx, g):
+    """A planted fault of `Int8Linear.backward`: dx dequantizes with one
+    scale per weight (its channels' mean) in place of one per channel."""
+    q, scale = ctx.saved_tensors
+    dx = g.matmul(q.to(g.dtype) * scale.float().mean().to(g.dtype))
+    db = g.reshape(-1, g.shape[-1]).sum(0) if ctx.needs_input_grad[3] else None
+    return dx, None, None, db
+
+
+def qlora_twin_check(torch, trainer, batch):
+    """(c): one QLoRA loss and its trainable gradients against the
+    dequantized twin's, on the plain route (held bitwise-tight) and through
+    the kernels (held to QLORA_KERNEL_COS, which the int8 step against
+    itself must pass and a planted fault, `per_tensor_scale_backward`, must
+    fail)."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.models import layers as L
+    db = trainer._device_batch(batch)
+    cfg = trainer.fusion_cfg
+    plain = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, attention_impl="xla", remat=True),
+        encoder=dataclasses.replace(cfg.encoder, attention_impl="xla"))
+    real = trainer.model
+    twin = dequantized_twin(torch, real, cfg)
+
+    def loss_and_grad(model, c):
+        trainer.model, trainer.fusion_cfg = model, c
+        try:
+            loss = trainer._loss(db, train=True)
+            grads = torch.autograd.grad(loss, trainer.params, allow_unused=True)
+        finally:
+            trainer.model, trainer.fusion_cfg = real, cfg
+        return float(loss.detach()), torch.cat([
+            (torch.zeros_like(p) if g is None else g).float().flatten()
+            for p, g in zip(trainer.params, grads)])
+
+    def compare(a, b):
+        (la, ga), (lb, gb) = a, b
+        return {"loss": la, "other_loss": lb, "loss_rel": abs(la - lb) / abs(lb),
+                "grad_cos": float(F.cosine_similarity(ga, gb, dim=0)),
+                "grad_max_abs_diff": float((ga - gb).abs().max()),
+                "grad_max": float(gb.abs().max()), "bitwise": bool(torch.equal(ga, gb))}
+
+    def show(what, r, n):
+        log(f"qlora (c) {what}: loss {r['loss']:.7f} vs {r['other_loss']:.7f} (relative "
+            f"{r['loss_rel']:.3g}); cosine of the {n} trainable gradients "
+            f"{r['grad_cos']:.7f}, max abs diff {r['grad_max_abs_diff']:.3g} (max |g| "
+            f"{r['grad_max']:.3g}); bitwise equal {r['bitwise']}")
+    out = {}
+    for route, c in (("plain", plain), ("kernels", cfg)):
+        first = loss_and_grad(real, c)
+        n = first[1].numel()
+        out[route] = compare(first, loss_and_grad(twin, c))
+        show(f"{route} route, the int8 step against a bf16 model holding its dequantized "
+             f"weights", out[route], n)
+        if route == "kernels":
+            out["kernels_noise"] = compare(first, loss_and_grad(real, c))
+            show("kernel route, the int8 step against itself (the noise floor)",
+                 out["kernels_noise"], n)
+            sound = L.Int8Linear.backward
+            L.Int8Linear.backward = staticmethod(per_tensor_scale_backward)
+            try:
+                out["kernels_fault"] = compare(loss_and_grad(real, c), first)
+            finally:
+                L.Int8Linear.backward = sound
+            show("kernel route, a planted fault (per-tensor scale in the int8 dense's "
+                 "backward) against the int8 step", out["kernels_fault"], n)
+        del first
+    r, k = out["plain"], out["kernels"]
+    noise, fault = out["kernels_noise"], out["kernels_fault"]
+    log(f"qlora (c): held: the plain route's loss within {QLORA_TWIN_LOSS_RTOL} relative "
+        f"and cosine >= {QLORA_TWIN_COS}; the kernel route's loss as tight and cosine >= "
+        f"{QLORA_KERNEL_COS}, which its noise floor {noise['grad_cos']:.7f} must pass and "
+        f"the fault {fault['grad_cos']:.7f} must fail")
+    if (r["loss_rel"] > QLORA_TWIN_LOSS_RTOL or r["grad_cos"] < QLORA_TWIN_COS
+            or not math.isfinite(r["loss"])):
+        fail(f"QLoRA and its dequantized twin disagree on the plain route: {r}")
+    if k["loss_rel"] > QLORA_TWIN_LOSS_RTOL or k["grad_cos"] < QLORA_KERNEL_COS:
+        fail(f"QLoRA and its dequantized twin disagree through the kernels: {k}")
+    if noise["grad_cos"] < QLORA_KERNEL_COS or fault["grad_cos"] >= QLORA_KERNEL_COS:
+        fail(f"the kernel route's limit {QLORA_KERNEL_COS} does not part the noise floor "
+             f"{noise['grad_cos']} from the planted fault {fault['grad_cos']}")
+    del twin
+    return out
+
+
+GROUPED_KV8_FAULTS = {
+    "the decode slot's scales dropped": lambda pk_s, pv_s, dk_s, dv_s: (pk_s, pv_s, None,
+                                                                         None),
+    "the prompt's key and value scales swapped": lambda pk_s, pv_s, dk_s, dv_s: (
+        pv_s, pk_s, dk_s, dv_s)}
+
+
+def grouped_kv8_check(torch, model, engine, inputs, group):
+    """(e): the first decode step's fp32 logits of the grouped int8-KV
+    decode (`decoder_decode_step_grouped`: the shared int8 prompt cache and
+    an int8 decode slot) against the ungrouped int8-KV step
+    (`decoder_forward` over the same prompt cache repeated G-fold plus the
+    slot), on the engine's own prefill; then the grouped step again with
+    each of GROUPED_KV8_FAULTS planted in `_grouped_decode_attention`'s
+    scales, which the limit must catch."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.models import qwen3
+    cfg = engine.cfg.decoder
+    ids, mask, dna, dna_mask = (torch.as_tensor(a, device="cuda") for a in inputs)
+    sound = qwen3._grouped_decode_attention
+    with torch.inference_mode():
+        last, pcache, _ = engine.prefill(model, ids, mask, dna, dna_mask, 0)
+        b, p = ids.shape
+        bg = b * group
+        tok = last.argmax(-1).repeat_interleave(group)[:, None]
+        pos = mask.sum(-1).repeat_interleave(group)[:, None]
+        ones = torch.ones((bg, 1), dtype=torch.int32, device="cuda")
+
+        def grouped():
+            dcache = qwen3.init_cache(cfg, bg, 1, torch.bfloat16, "cuda", quantize=True)
+            return qwen3.decoder_decode_step_grouped(model.decoder, cfg, tok, pos, pcache,
+                                                     mask, dcache, 0, ones, group)[0][:, 0]
+        lg = grouped()
+        faulty = {}
+        for name, fault in GROUPED_KV8_FAULTS.items():
+            qwen3._grouped_decode_attention = (
+                lambda *a, fault=fault: sound(*a[:8], *fault(*a[8:])))
+            try:
+                faulty[name] = grouped()
+            finally:
+                qwen3._grouped_decode_attention = sound
+        ucache = [{k: torch.cat([v.repeat_interleave(group, 0),
+                                 v.new_zeros((bg, 1) + tuple(v.shape[2:]))], 1)
+                   for k, v in e.items()} for e in pcache]
+        umask = torch.cat([mask.to(torch.int32).repeat_interleave(group, 0), ones], 1)
+        lu, _ = qwen3.decoder_forward(model.decoder, cfg, input_ids=tok, attention_mask=ones,
+                                      positions=pos, cache=ucache, cache_index=p,
+                                      cache_mask=umask)
+    lu = lu[:, 0]
+    cos = float(F.cosine_similarity(lg, lu, dim=-1).min())
+    agree = float((lg.argmax(-1) == lu.argmax(-1)).float().mean())
+    err = float((lg - lu).abs().max())
+    fault_cos = {name: float(F.cosine_similarity(f, lu, dim=-1).min())
+                 for name, f in faulty.items()}
+    log(f"qlora (e): grouped int8-KV decode vs the ungrouped int8-KV step, first step's "
+        f"logits over {bg} rows (B={b} x G={group}, P={p}, {pcache[0]['k'].dtype} caches): "
+        f"cosine min {cos:.7f} (>= {GROUPED_KV8_COS}), max abs diff {err:.4g} "
+        f"(max |logit| {float(lu.abs().max()):.4g}), argmax agreement {agree:.3f}; planted "
+        f"faults (must fall under {GROUPED_KV8_COS}): "
+        + "; ".join(f"{name} {c:.7f}" for name, c in fault_cos.items()))
+    if (cos < GROUPED_KV8_COS or not bool(torch.isfinite(lg).all())
+            or pcache[0]["k"].dtype != torch.int8):
+        fail(f"the grouped int8-KV decode differs from the ungrouped one: cosine {cos}")
+    if max(fault_cos.values()) >= GROUPED_KV8_COS:
+        fail(f"the limit {GROUPED_KV8_COS} misses a planted fault of the grouped int8-KV "
+             f"decode: {fault_cos}")
+    return {"cos_min": cos, "max_abs_diff": err, "argmax_agree": agree,
+            "fault_cos_min": fault_cos}
+
+
+def phase_qlora(torch, card):
+    """QLoRA SFT and GRPO at NT-v2-500M + Qwen3-4B, the int8 rollouts and
+    the grouped int8-KV decode (module docstring, phase 15)."""
+    from bioreason_tpu_torch.models import layers as L
+    from bioreason_tpu_torch.tools import bench_grpo, bench_rollout, bench_sft
+    t_phase = time.perf_counter()
+    out, rows, bwd_rows = {"sft": {}, "rollout": {}}, [], []
+
+    # (a)-(c) bench_sft at Qwen3-4B, int8 then bf16, each a main path:
+    # counts from 0 just before, read just after
+    per_step = {"flash_fwd": ENCODER_LAYERS + QWEN4B_LAYERS, "flash_bwd": QWEN4B_LAYERS}
+    n_steps = 2 + QLORA_REPS * QLORA_STEPS + 1
+    for frozen in ("int8", "bfloat16"):
+        t_sub = time.perf_counter()
+        reset_counts()
+        res, trainer, batch = bench_sft.run(bench_sft.parse_args(
+            ["--decoder", "qwen3-4b", "--frozen", frozen, "--steps", str(QLORA_STEPS),
+             "--reps", str(QLORA_REPS)]))
+        got = counts()
+        log(f"qlora (a/b) bench_sft [{card}] --decoder qwen3-4b --frozen {frozen}: "
+            f"{res['value']:.3f} examples/s (median of {res['repetitions']}), "
+            f"{res['ms_per_step']:.1f} ms per step; profiled step busy "
+            f"{res['profiled_step_busy_ms']:.2f} of {res['profiled_step_wall_ms']:.2f} ms; "
+            f"resident frozen {res['resident_frozen_gib']:.3f} GiB, peak "
+            f"{res['peak_gib']:.2f} GiB (init {res['init_peak_gib']:.2f}); "
+            f"{res['trainable_params'] / 1e6:.2f} M trainable; loss {res['loss']:.4f}; "
+            f"launches {got} over {n_steps} steps ({time.perf_counter() - t_sub:.1f} s)")
+        want = {k: n_steps * per_step.get(k, 0) for k in got}
+        if got != want or res["launches_per_step"] != per_step:
+            fail(f"bench_sft --frozen {frozen} launched {got}, expected {want}")
+        if not math.isfinite(res["loss"]):
+            fail(f"bench_sft --frozen {frozen}: loss {res['loss']}")
+        out["sft"][frozen] = {**res, "launches": got}
+        if frozen == "int8":
+            n8 = sum(1 for m in trainer.model.modules()
+                     if isinstance(m, torch.nn.Linear) and L.is_int8(m))
+            scales = {str(m.scale.dtype) for m in trainer.model.modules()
+                      if isinstance(m, torch.nn.Linear) and L.is_int8(m)}
+            log(f"qlora (a): {n8} int8 denses, scales {scales}")
+            if n8 != 7 * (QWEN4B_LAYERS + ENCODER_LAYERS) or scales != {"torch.bfloat16"}:
+                fail(f"QLoRA model: {n8} int8 denses, scales {scales}")
+            out["twin"] = qlora_twin_check(torch, trainer, batch)
+        del trainer, batch
+        torch.cuda.empty_cache()
+    i8, bf = out["sft"]["int8"], out["sft"]["bfloat16"]
+    share = i8["resident_frozen_gib"] / bf["resident_frozen_gib"]
+    log(f"qlora (b) [{card}]: int8's resident frozen bytes {share:.3f} of bf16's "
+        f"({i8['resident_frozen_gib']:.3f} / {bf['resident_frozen_gib']:.3f} GiB); peaks "
+        f"{i8['peak_gib']:.2f} (int8) vs {bf['peak_gib']:.2f} GiB (bf16); examples/s "
+        f"{i8['value']:.3f} vs {bf['value']:.3f} ({i8['value'] / bf['value']:.3f}x)")
+    if not i8["peak_gib"] < bf["peak_gib"] or not share < 0.6:
+        fail(f"QLoRA's peak {i8['peak_gib']:.2f} GiB is not under bf16's "
+             f"{bf['peak_gib']:.2f}, or its resident share is {share:.3f}")
+    rows.append(kernel_case(torch, "qlora_sft_T768_4b", 4, 768, 768, 32, 8, 128, True, 0,
+                            torch.ones((4, 768), dtype=torch.int32, device="cuda"), 151))
+    bwd_rows.append(bwd_case(torch, "qlora_sft_T768_4b", 4, 768, 768, 32, 8, 128, True, 0,
+                             torch.ones((4, 768), dtype=torch.int32, device="cuda"), 152))
+
+    # (d) bench_grpo at Qwen3-4B, int8 frozen towers and int8 rollouts
+    t_sub = time.perf_counter()
+    reset_counts()
+    res, trainer, items = bench_grpo.run(bench_grpo.parse_args(
+        ["--decoder", "qwen3-4b", "--frozen", "int8", "--rollout_int8", "--new", str(GRPO_NEW),
+         "--steps", str(QLORA_GRPO_STEPS), "--probe"]))
+    got = counts()
+    per_grpo = {"flash_fwd": 3 * ENCODER_LAYERS + 4 * QWEN4B_LAYERS, "flash_bwd": QWEN4B_LAYERS}
+    want = {k: (1 + QLORA_GRPO_STEPS) * per_grpo.get(k, 0) for k in got}
+    tm = res["timers"]
+    log(f"qlora (d) bench_grpo [{card}] --decoder qwen3-4b --frozen int8 --rollout_int8: "
+        f"{res['value']:.3f} completions/s, {res['seconds_per_step'] * 1e3:.1f} ms per step "
+        f"({res['prompts']} prompts x G={res['G']}, P={res['prompt_len']}, {GRPO_NEW} new "
+        f"tokens); seconds per phase "
+        f"{', '.join(f'{k} {tm[k]:.3f}' for k in ('prep', 'rollout', 'logps_dispatch', 'rewards', 'update'))}; "
+        f"peak {res['peak_gib']:.2f} GiB; loss {res['loss']:.6g} kl {res['kl']:.4g}; "
+        f"launches {got} over {1 + QLORA_GRPO_STEPS} steps ({time.perf_counter() - t_sub:.1f} s)")
+    if got != want:
+        fail(f"bench_grpo launched {got}, expected {want}")
+    if not (math.isfinite(res["loss"]) and math.isfinite(res["kl"])):
+        fail(f"bench_grpo: loss {res['loss']}, kl {res['kl']}")
+    model, ref, roll = trainer.model, trainer.ref_model, trainer.rollout_model()
+    mods = {n: m for n, m in model.named_modules()
+            if isinstance(m, torch.nn.Linear) and L.is_int8(m)}
+    shared = {}
+    for label, other in (("reference", ref), ("rollout", roll)):
+        theirs = dict(other.named_modules())
+        shared[label] = sum(theirs[n].weight.data_ptr() == m.weight.data_ptr()
+                            and theirs[n].scale.data_ptr() == m.scale.data_ptr()
+                            for n, m in mods.items())
+    live = dict(model.named_parameters())
+    adapters_live = all(p is live[n] for n, p in roll.named_parameters())
+    log(f"qlora (d): the reference and the rollout policy share {shared['reference']} and "
+        f"{shared['rollout']} of the training model's {len(mods)} int8 denses (weight and "
+        f"scale data_ptr); the rollout's parameters are the model's own: {adapters_live}; its "
+        f"embedding {roll.decoder.embed.weight.dtype} (the training model's "
+        f"{model.decoder.embed.weight.dtype})")
+    if (set(shared.values()) != {len(mods)} or not mods or not adapters_live
+            or not L.is_int8(roll.decoder.embed)):
+        fail(f"the GRPO models do not share the int8 storage: {shared} of {len(mods)}, "
+             f"adapters live {adapters_live}")
+    out["grpo"] = {**res, "launches": got, "shared": shared}
+    r, b = grpo_kernel_cases(torch, trainer, items, prefix="qlora_grpo")
+    rows += r
+    bwd_rows += b
+    del trainer, model, ref, roll, mods, live, items
+    torch.cuda.empty_cache()
+
+    # (e) bench_rollout at 16 x G=8, bf16 then int8 weights and KV, at the
+    # bench's Qwen3-0.6B and at Qwen3-4B
+    for decoder, layers in (("qwen3-0.6b", DECODER_LAYERS), ("qwen3-4b", QWEN4B_LAYERS)):
+        for frozen in ("bfloat16", "int8"):
+            t_sub = time.perf_counter()
+            reset_counts()
+            res, model, engine, inputs = bench_rollout.run(bench_rollout.parse_args(
+                ["--decoder", decoder, "--frozen", frozen, "--kv", frozen, "--new",
+                 str(QLORA_ROLLOUT_NEW), "--reps", str(QLORA_ROLLOUT_REPS)]))
+            got = counts()
+            want = {k: (1 + QLORA_ROLLOUT_REPS) * (ENCODER_LAYERS + layers)
+                    if k == "flash_fwd" else 0 for k in got}
+            log(f"qlora (e) bench_rollout [{card}] --decoder {decoder} --frozen {frozen} --kv "
+                f"{frozen}: {res['value']:.1f} decoded tokens/s (median of "
+                f"{[round(x, 1) for x in res['calls']]}), {res['rows']} rows x "
+                f"{res['new_tokens']} tokens, P={res['prompt_len']}; last call prefill "
+                f"{res['prefill_s'] * 1e3:.1f} ms, decode {res['decode_s'] * 1e3:.1f} ms; "
+                f"weights {res['weights_gib']:.3f} GiB, peak {res['peak_gib']:.2f} GiB; "
+                f"launches {got} ({time.perf_counter() - t_sub:.1f} s)")
+            if got != want:
+                fail(f"bench_rollout launched {got}, expected {want}")
+            out["rollout"][f"{decoder}_{frozen}"] = {**res, "launches": got["flash_fwd"]}
+            if decoder == "qwen3-0.6b" and frozen == "int8":
+                out["grouped_kv8"] = grouped_kv8_check(torch, model, engine, inputs, res["G"])
+            del model, engine
+            torch.cuda.empty_cache()
+        a, b = (out["rollout"][f"{decoder}_{f}"]["value"] for f in ("int8", "bfloat16"))
+        log(f"qlora (e) [{card}] {decoder}: int8 weights + int8 KV {a:.1f} vs bf16 {b:.1f} "
+            f"tokens/s ({a / b:.3f}x)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"qlora: phase done in {out['seconds']:.1f} s (budget {QLORA_BUDGET_S:g})")
+    if out["seconds"] > QLORA_BUDGET_S:
+        fail(f"the qlora phase took {out['seconds']:.1f} s, over {QLORA_BUDGET_S:g}")
+    return out, rows, bwd_rows
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -3290,12 +3669,19 @@ def main():
     torch.cuda.empty_cache()
     mark("classifier")
     int8, int8_rows = phase_int8(torch, card)
+    torch.cuda.empty_cache()
     mark("int8")
+    qlora, qlora_rows, qlora_bwd_rows = phase_qlora(torch, card)
+    mark("qlora")
     log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    rows += grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows
-    bwd_rows += grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows
+    rows += grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows + qlora_rows
+    bwd_rows += grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows + qlora_bwd_rows
+    qlora_launches = {"sft_int8": qlora["sft"]["int8"]["launches"],
+                      "sft_bfloat16": qlora["sft"]["bfloat16"]["launches"],
+                      "grpo_int8": qlora["grpo"]["launches"],
+                      "rollout": {k: v["launches"] for k, v in qlora["rollout"].items()}}
     evo2_launches = {"serve": evo2_serve["flash_fwd"],
                      **{mode: evo2_train[mode]["launches"]
                         for mode in ("frozen", "finetune", "trainer")}}
@@ -3328,6 +3714,11 @@ def main():
                      "serve_engine_calls": int8["serve"]["calls"],
                      "bench_int8": int8["bench"]["int8"]["launches"],
                      "bench_all_flags": int8["bench"]["all"]["launches"]},
+                 "qlora_launches": {
+                     "sft_int8": qlora_launches["sft_int8"]["flash_fwd"],
+                     "sft_bfloat16": qlora_launches["sft_bfloat16"]["flash_fwd"],
+                     "grpo_int8": qlora_launches["grpo_int8"]["flash_fwd"],
+                     "rollout": qlora_launches["rollout"]},
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -3349,6 +3740,10 @@ def main():
                  "classifier_launches": {
                      "finetune": classifier["finetune"]["launches"]["flash_bwd"],
                      "finetune_remat_step": classifier["finetune"]["remat_launches"]["flash_bwd"]},
+                 "qlora_launches": {
+                     "sft_int8": qlora_launches["sft_int8"]["flash_bwd"],
+                     "sft_bfloat16": qlora_launches["sft_bfloat16"]["flash_bwd"],
+                     "grpo_int8": qlora_launches["grpo_int8"]["flash_bwd"]},
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],

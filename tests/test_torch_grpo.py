@@ -90,9 +90,11 @@ def test_grpo_config_matches_and_refuses_later_slices():
     assert ([f.name for f in dataclasses.fields(TC.GRPOConfig)]
             == [f.name for f in dataclasses.fields(JC.GRPOConfig)])
     assert dataclasses.asdict(TC.GRPOConfig()) == dataclasses.asdict(JC.GRPOConfig())
-    for kw in ({"rollout_int8": True}, {"rollout_kv_int8": True}, {"frozen_dtype": "int8"}):
-        with pytest.raises(NotImplementedError):
-            TC.GRPOConfig(**kw)
+    # the int8 rollouts and QLoRA are ported: the configs construct, as JAX's
+    for kw in ({"rollout_int8": True}, {"rollout_kv_int8": True}, {"frozen_dtype": "int8"},
+               {"frozen_dtype": "int8", "rollout_int8": True, "rollout_kv_int8": True}):
+        assert dataclasses.asdict(TC.GRPOConfig(**kw)) == dataclasses.asdict(
+            JC.GRPOConfig(**kw))
 
 
 # -- the fixed rollout buffer and the two trainers ----------------------------
@@ -539,7 +541,7 @@ def test_an_sft_final_without_the_base_keys_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--debug_nans", "--mesh=1,1,1",
-                                  "--cpu_devices=2", "--wandb", "--rollout_int8"])
+                                  "--cpu_devices=2", "--wandb"])
 def test_reason_cli_refuses_later_slices(flag):
     from bioreason_tpu_torch.cli import reason
     with pytest.raises(NotImplementedError):

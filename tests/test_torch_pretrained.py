@@ -593,23 +593,42 @@ def test_bpe_matches_jax_and_tokenizers(tmp_path, kind):
 
 @pytest.mark.parametrize("name", ["L", "N"])
 def test_unicode_classes_match_regex(name):
-    """`\\p{L}` / `\\p{N}` built from unicodedata against the `regex`
-    module's, on every code point both Unicode versions assign."""
-    import unicodedata
-
+    """`\\p{L}` / `\\p{N}` as the BPE reads them (the committed
+    `data/unicode_classes.json`) against the `regex` module's, on every code
+    point 0..0x10FFFF, those that only `regex`'s Unicode assigns included;
+    and the file is what its generator writes from this `regex`."""
     import regex
     from bioreason_tpu_torch.data.bpe import compile_pattern, unicode_class
+    from bioreason_tpu_torch.tools.unicode_classes import generate
     ours = set()
     for a, b in unicode_class(name):
         ours.update(range(a, b + 1))
     theirs = regex.compile(rf"\p{{{name}}}")
-    assigned = [c for c in range(0x110000) if unicodedata.category(chr(c)) != "Cn"]
-    bad = [c for c in assigned if (c in ours) != bool(theirs.match(chr(c)))]
+    bad = [c for c in range(0x110000) if (c in ours) != bool(theirs.match(chr(c)))]
     assert not bad, [hex(c) for c in bad[:8]]
+    assert [tuple(r) for r in generate()[name]] == list(unicode_class(name))
     # the translated split pattern finds the same pieces as `regex`
+    assigned = [c for c in range(0x110000) if regex.match(r"\P{Cn}", chr(c))]
     text = "".join(chr(c) for c in assigned[::997])
     assert ([m.group() for m in compile_pattern(QWEN_SPLIT).finditer(text)]
             == [m.group() for m in regex.compile(QWEN_SPLIT).finditer(text)])
+
+
+@pytest.mark.parametrize("text", ["ab\u1c89cd", "v\U00010D40w"])
+def test_bpe_pieces_and_ids_past_pythons_unicode_match_jax(tmp_path, text):
+    """Code points that `regex`'s Unicode assigns and Python's does not
+    (U+1C89, a letter; U+10D40, a number): the port's split on Qwen's
+    pattern and its ids equal the JAX tokenizer's (ROADMAP 3, fault 1)."""
+    import regex
+    from bioreason_tpu.data.bpe import BPETokenizer as JBPE
+    from bioreason_tpu_torch.data.bpe import BPETokenizer, compile_pattern
+    pieces = [m.group() for m in compile_pattern(QWEN_SPLIT).finditer(text)]
+    assert pieces == [m.group() for m in regex.compile(QWEN_SPLIT).finditer(text)]
+    assert len(pieces) == (1 if text.startswith("ab") else 3)
+    path = _bpe_dir(tmp_path, "qwen")
+    ours, jax_tok = BPETokenizer.from_dir(path), JBPE.from_dir(path)
+    assert ours.encode(text) == jax_tok.encode(text)
+    assert ours.decode(ours.encode(text)) == text
 
 
 def test_load_hf_tokenizer_adds_the_dna_tokens_as_jax_does(hf_dirs, tmp_path):

@@ -342,9 +342,17 @@ def test_engine_greedy_tokens_match_jax_under_each_serving_flag(mode):
     np.testing.assert_array_equal(ids, jax_tokens(mode))
 
 
-def test_kv_int8_refuses_grouped_decode():
-    _, tcfg = cfgs()
-    model = from_jax_params(tree_for("plain"), tcfg, device="cpu")
+@pytest.mark.parametrize("tree_mode", ["plain", "int8_embed"])
+def test_kv_int8_refuses_grouped_decode(tree_mode):
+    """The grouped int8-KV decode (ported: it no longer refuses G > 1):
+    greedy grouped tokens on an int8 KV cache, over float and over int8
+    weights, equal the JAX engine's, and each group's rows agree."""
+    jcfg, tcfg = cfgs()
+    model = from_jax_params(tree_for(tree_mode), tcfg, device="cpu")
     engine = TEngine(tcfg, eos_token_id=-1, device="cpu", kv_int8=True)
-    with pytest.raises(NotImplementedError, match="group_size"):
-        engine.generate(model, *prompt_batch(), greedy=True, max_new_tokens=2, group_size=2)
+    ids, _ = engine.generate(model, *prompt_batch(), greedy=True, max_new_tokens=NEW,
+                             group_size=2)
+    want, _ = JEngine(jcfg, eos_token_id=-1, kv_int8=True).generate(
+        tree_for(tree_mode), *prompt_batch(), greedy=True, max_new_tokens=NEW, group_size=2)
+    np.testing.assert_array_equal(ids, want)
+    assert (ids[0::2] == ids[1::2]).all()
