@@ -31,8 +31,11 @@ steps (read back by --resume) and to <checkpoint_dir>/grpo_final at the end.
 `--use_vllm` is accepted and ignored, as the JAX CLI and the reference do:
 rollouts always run through the port's engine. `--guided_decoding_regex`
 constrains every rollout to a regex (generate/guided.py); `--rollout_int8`
-rolls out with int8 base weights (train/grpo.py). The device mesh, wandb
-and NaN debugging come with later slices: `main` refuses their flags.
+rolls out with int8 base weights (train/grpo.py); the --save_every
+checkpoint is written off the training thread; --debug_nans raises
+FloatingPointError at the first op that makes a NaN (utils/debug_nans.py).
+The device mesh and wandb come with later slices: `main` refuses their
+flags.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import dataclasses
 import os
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("mesh", "cpu_devices", "wandb", "debug_nans")
+LATER_FLAGS = ("mesh", "cpu_devices", "wandb")
 
 
 def parse_args(argv=None):
@@ -100,6 +103,9 @@ def parse_args(argv=None):
     p.add_argument("--guided_decoding_regex", default=None,
                    help="constrain every rollout completion to match this regex "
                         "(vllm_guided_decoding_regex, grpo_config.py:278-280)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first op that makes a NaN "
+                        "(jax_debug_nans' counterpart; syncs every op)")
     p.add_argument("--use_vllm", default=None,
                    help="accepted for reference-CLI compatibility and ignored "
                         "(sh_reason.sh:53): rollouts run through the port's engine")
@@ -123,6 +129,12 @@ def main(argv=None):
     """Train; returns the trainer, with `trainer.metrics_history` the
     per-step metrics."""
     args = parse_args(argv)
+    from bioreason_tpu_torch.utils.debug_nans import nan_checks
+    with nan_checks(args.debug_nans):
+        return _run(args)
+
+
+def _run(args):
     import torch
     from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS, load_items
     from bioreason_tpu_torch.config import (FusionConfig, GRPOConfig, LoRAConfig, OptimConfig,
@@ -247,12 +259,13 @@ def main(argv=None):
                                  rows, step=step)
                 step += 1
                 if args.save_every and step % args.save_every == 0:
-                    trainer.save(state_path)
+                    trainer.save(state_path, block=False)
                 if step >= steps:
                     break
             epoch += 1
     finally:
         logger.close()
+    trainer.finish_saves()
     final = trainer.save(os.path.join(args.checkpoint_dir, "grpo_final"))
     print(f"saved checkpoint to {final}", flush=True)
     return trainer

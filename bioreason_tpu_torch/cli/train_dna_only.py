@@ -16,8 +16,9 @@ follows training, then the trained parameters go to
 <checkpoint_dir>/dna_only_final with what draws the rest again
 (`train.checkpoint.load_classifier` rebuilds it). As in the JAX CLI, the
 learning rate is --learning_rate (its common default 2e-5), not the
-trainer's own 1e-3 default. The device mesh, NaN debugging and wandb come
-with later slices: `main` refuses their flags.
+trainer's own 1e-3 default. --debug_nans raises FloatingPointError at the
+first op that makes a NaN (utils/debug_nans.py). The device mesh and wandb
+come with later slices: `main` refuses their flags.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import os
 import numpy as np
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("wandb", "debug_nans", "mesh", "cpu_devices")
+LATER_FLAGS = ("wandb", "mesh", "cpu_devices")
 
 
 def parse_args(argv=None):
@@ -55,6 +56,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--checkpoint_dir", default="checkpoints")
     p.add_argument("--log_dir", default="logs")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first op that makes a NaN "
+                        "(jax_debug_nans' counterpart; syncs every op)")
     for flag in LATER_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                        help="not ported yet (raises)")
@@ -67,6 +71,12 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    from bioreason_tpu_torch.utils.debug_nans import nan_checks
+    with nan_checks(args.debug_nans):
+        return _run(args)
+
+
+def _run(args):
     from bioreason_tpu_torch.cli.common import ENCODER_PRESETS
     from bioreason_tpu_torch.config import OptimConfig
     from bioreason_tpu_torch.data.collate import classifier_collate

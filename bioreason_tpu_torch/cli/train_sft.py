@@ -38,13 +38,19 @@ fingerprint of each weights file, or what draws a seeded base again:
 vocabulary, the dtype, the LoRA rank), so that `reason --sft_checkpoint`
 and `serve --checkpoint` rebuild the model. --eval_every adds the val loss
 (and, with --probe_markers, the teacher-forced probe; --keep_top_k keeps
-the best checkpoints under <checkpoint_dir>/best); --sample_every prints a
+the best checkpoints under <checkpoint_dir>/best, parameters alone, under
+the JAX CLI's rule: a save only on a val loss 25% under the last kept one,
+and always at the step --stop_probe_acc stops at); --sample_every prints a
 sampled generation; --test_generative scores the test split
 (train/eval.py) into <checkpoint_dir>/test_generations.csv;
---profile_dir records steps 3-5 with torch.profiler. Sequence
-parallelism (`--sp_dna`, `--dna_attention sp`, `sp_pallas`,
-`sp_local:<W>`), the device mesh, NaN debugging and wandb come with later
-slices: `main` refuses their flags.
+--profile_dir records steps 3-5 with torch.profiler; --save_every writes
+<checkpoint_dir>/sft_state off the training thread; --log_dir writes the
+JAX CLI's rows (`train/<k>` every step, `val/loss`, `val/probe_<k>`, the
+test summary) to <log_dir>/metrics.jsonl; --debug_nans raises
+FloatingPointError at the first op that makes a NaN
+(utils/debug_nans.py). Sequence parallelism (`--sp_dna`, `--dna_attention
+sp`, `sp_pallas`, `sp_local:<W>`), the device mesh and wandb come with
+later slices: `main` refuses their flags.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ import os
 import numpy as np
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("sp_dna", "wandb", "debug_nans", "mesh", "cpu_devices")
+LATER_FLAGS = ("sp_dna", "wandb", "mesh", "cpu_devices")
 
 
 def parse_args(argv=None):
@@ -140,8 +146,13 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=0,
                    help="checkpoint (trainable params + optimizer + step) every N steps")
     p.add_argument("--checkpoint_dir", default="checkpoints")
+    p.add_argument("--log_dir", default=None,
+                   help="write the metric rows to <log_dir>/metrics.jsonl (none if unset)")
     p.add_argument("--resume", action="store_true",
                    help="resume from <checkpoint_dir>/sft_state if present")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first op that makes a NaN "
+                        "(jax_debug_nans' counterpart; syncs every op)")
     for flag in LATER_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                        help="not ported yet (raises)")
@@ -174,6 +185,12 @@ def main(argv=None):
     """Train; returns the trainer, with `trainer.history` the per-step metrics
     (and `trainer.test_result` the generative test's `EvalResult`)."""
     args = parse_args(argv)
+    from bioreason_tpu_torch.utils.debug_nans import nan_checks
+    with nan_checks(args.debug_nans):
+        return _run(args)
+
+
+def _run(args):
     import contextlib
 
     import torch
@@ -190,7 +207,7 @@ def main(argv=None):
     from bioreason_tpu_torch.train.eval import (evaluate_generative,
                                                 multilabel_substring_accuracy, prompt_messages,
                                                 teacher_forced_probe)
-    from bioreason_tpu_torch.train.metrics import StepTimer
+    from bioreason_tpu_torch.train.metrics import MetricsLogger, StepTimer
     from bioreason_tpu_torch.train.sft import SFTTrainer
     from bioreason_tpu_torch.utils.devices import resolve_device
     from bioreason_tpu_torch.utils.profiling import trace
@@ -263,7 +280,17 @@ def main(argv=None):
                                 max_length_text=args.max_length_text,
                                 max_length_dna=args.max_length_dna, bucket=args.bucket,
                                 supervise_eos=args.supervise_eos)
+    logger = MetricsLogger(args.log_dir, quiet=True)
+
+    def save_best(val_loss: float, step: int):
+        kept = keeper.update(val_loss, lambda path: trainer.save(path, presets, params_only=True),
+                             step)
+        if kept:
+            print(f"val_loss {val_loss:.4f} in top-{args.keep_top_k}: saved {kept}", flush=True)
+        return kept
+
     step = 0
+    last_kept = None
     timer = StepTimer()
     with contextlib.ExitStack() as profiling:
         for batch in prefetch(batch_iterator(train_items, collate, args.batch_size,
@@ -276,27 +303,35 @@ def main(argv=None):
             metrics = trainer.train_step(batch)
             metrics["step_time"] = timer.stop()
             metrics["examples_per_sec"] = args.batch_size / metrics["step_time"]
+            logger.log({f"train/{k}": v for k, v in metrics.items()}, step=step)
             step += 1
             stop = False
             if args.eval_every and step % args.eval_every == 0 and val_items:
                 losses = [trainer.eval_step(b) for b in batch_iterator(
                     val_items, collate, args.batch_size, shuffle=False, epochs=1,
                     drop_last=False)]
-                metrics["val_loss"] = float(np.mean(losses))
-                if keeper is not None:
-                    kept = keeper.update(metrics["val_loss"],
-                                         lambda path: trainer.save(path, presets), step)
-                    if kept:
-                        print(f"val_loss {metrics['val_loss']:.4f} in top-{args.keep_top_k}: "
-                              f"saved {kept}", flush=True)
+                if losses:
+                    val_loss = metrics["val_loss"] = float(np.mean(losses))
+                    logger.log({"val/loss": val_loss}, step=step)
+                    # the JAX CLI's rate limit (train_sft.py:280-301): a save
+                    # only on a val loss 25% under the last kept one
+                    if keeper is not None and (last_kept is None
+                                               or val_loss < 0.75 * last_kept):
+                        if save_best(val_loss, step):
+                            last_kept = val_loss
                 if markers:
                     probe = teacher_forced_probe(
                         trainer.model, fusion_cfg, proc, val_items[:args.probe_n], markers,
                         batch_size=args.batch_size, max_length_text=args.max_length_text,
                         max_length_dna=args.max_length_dna, supervise_eos=args.supervise_eos)
+                    logger.log({f"val/probe_{k}": v for k, v in probe.items()}, step=step)
                     metrics.update({f"probe_{k}": v for k, v in probe.items()})
                     accs = [v for k, v in probe.items() if k != "span_acc"]
                     stop = bool(args.stop_probe_acc) and min(accs) >= args.stop_probe_acc
+                    if stop and keeper is not None and losses:
+                        # the step the probe stops at is the model the run
+                        # ends on: saved past the rate limit (JAX :313-323)
+                        save_best(val_loss, step)
             if args.sample_every and step % args.sample_every == 0:
                 ex = train_items[0]
                 rendered = render_chat(prompt_messages(ex), add_generation_prompt=True)
@@ -312,7 +347,7 @@ def main(argv=None):
             trainer.history.append(metrics)
             print(json.dumps({"step": trainer.step, **metrics}), flush=True)
             if args.save_every and step % args.save_every == 0:
-                trainer.save(state_path, presets)
+                trainer.save(state_path, presets, block=False)
             if stop:
                 print(f"probe accuracies all >= {args.stop_probe_acc}: stopping at step "
                       f"{step}", flush=True)
@@ -320,6 +355,7 @@ def main(argv=None):
             if args.max_steps and step >= args.max_steps:
                 break
 
+    trainer.finish_saves()
     final = trainer.save(os.path.join(args.checkpoint_dir, "sft_final"), presets)
     print(f"saved checkpoint to {final}", flush=True)
 
@@ -339,9 +375,11 @@ def main(argv=None):
             csv_path=os.path.join(args.checkpoint_dir, "test_generations.csv"),
             max_length_text=args.max_length_text, max_length_dna=args.max_length_dna)
         trainer.test_result = res
-        print(json.dumps({"labels": labels, **res.summary(),
-                          "test_substring_accuracy":
-                              multilabel_substring_accuracy(res.generations)}), flush=True)
+        summary = {**res.summary(),
+                   "test_substring_accuracy": multilabel_substring_accuracy(res.generations)}
+        logger.log(summary)
+        print(json.dumps({"labels": labels, **summary}), flush=True)
+    logger.close()
     return trainer
 
 

@@ -27,7 +27,7 @@ class DecoderConfig:
     tie_word_embeddings: bool = True
     attention_impl: str = "auto"     # 'auto' | 'xla' (plain) | 'pallas' (kernel)
     remat: bool = True               # per-layer activation checkpointing in training
-    remat_policy: str = "full"       # 'full' (torch.utils.checkpoint); 'dots' raises
+    remat_policy: str = "full"       # 'full' | 'dots' (save the dense matmuls' outputs)
     dtype: str = "bfloat16"          # compute dtype (frozen weights are stored in it)
     # W8A8 serving mode: denses whose weights are int8 (train/quant.py)
     # also quantize their activations per token and take an int8 x int8 ->

@@ -17,7 +17,7 @@ Outputs are numpy arrays; the engine moves them to its device.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -29,6 +29,12 @@ class ProcessorOutput:
     dna_input_ids: Optional[np.ndarray] = None       # [S, L] int32 (flattened over batch)
     dna_attention_mask: Optional[np.ndarray] = None  # [S, L] int32
     batch_idx_map: List[int] = field(default_factory=list)  # len S
+
+    def asdict(self) -> Dict[str, Any]:
+        return {"input_ids": self.input_ids, "attention_mask": self.attention_mask,
+                "dna_input_ids": self.dna_input_ids,
+                "dna_attention_mask": self.dna_attention_mask,
+                "batch_idx_map": self.batch_idx_map}
 
 
 class BioProcessor:
@@ -127,3 +133,11 @@ class BioProcessor:
             slot[b] += 1
         new_map = [b for b in range(batch_size) for _ in range(k)]
         return new_ids, new_mask, new_map
+
+    def batch_decode(self, *a, **kw):
+        """The text tokenizer's `batch_decode`."""
+        return self.text_tokenizer.batch_decode(*a, **kw)
+
+    def decode(self, *a, **kw):
+        """The text tokenizer's `decode`."""
+        return self.text_tokenizer.decode(*a, **kw)

@@ -2,12 +2,15 @@
 (the port of bioreason_tpu/models/attention.py).
 
 `attention(impl="auto")` decides from the tensors it is given, not from the
-default platform: a CUDA tensor with more than one query row launches
-`flash_fwd` (and, in training, `flash_bwd` in the backward), whose wrapper
-raises on a dtype or head dim the kernels do not take (so no such call runs
-the plain version on the card unseen); decode steps (Tq == 1) and CPU
-tensors take `xla_attention`, as the JAX dispatch sends decode and small
-shapes to XLA (attention.py:104-110).
+default platform (`use_kernel`): the flash kernel (`flash_fwd`, and in
+training `flash_bwd` in the backward) for a CUDA query of more than one
+row whose head dim the kernels take (`HEAD_DIMS`); decode steps (Tq == 1),
+CPU tensors and NT-v2-50M's 32-wide heads take `xla_attention`. The JAX
+rule likewise sends decode, small shapes and head dims its kernel lacks to
+XLA (attention.py:104-109). The dtype is not part of the rule: an fp32
+CUDA query reaches the kernel's wrapper, which raises (the kernels are
+bf16; the JAX Pallas kernel also runs fp32). `impl="pallas"` always calls
+the wrapper, which raises on a CUDA call outside its contract.
 
 `impl="local:<W>"` is the banded route for long DNA (JAX attention.py:92-100,
 bidirectional only): `local_attention`, whose wrapper launches `local_fwd`
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from bioreason_tpu_torch.ops.flash_attention import flash_attention
+from bioreason_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 from bioreason_tpu_torch.ops.local_attention import local_attention
 
 _NEG = torch.finfo(torch.float32).min
@@ -63,17 +66,26 @@ def xla_attention(q, k, v, kv_mask=None, causal=False, q_offset=None,
     return out.reshape(b, tq, hq, d)
 
 
+def kernel_rule(device_type: str, tq: int, head_dim: int) -> bool:
+    """The `impl="auto"` rule: the flash kernel for a CUDA tensor of more
+    than one query row with a head dim in `HEAD_DIMS`, the plain grouped
+    path everywhere else (the counterpart of the JAX rule's head-dim clause,
+    attention.py:104-109)."""
+    return device_type == "cuda" and tq > 1 and head_dim in HEAD_DIMS
+
+
 def use_kernel(q: torch.Tensor) -> bool:
-    """The `impl="auto"` rule for taking the flash kernel."""
-    return q.is_cuda and q.shape[1] > 1
+    """`kernel_rule` on the query [B, Tq, H, D] it is given."""
+    return kernel_rule(q.device.type, q.shape[1], q.shape[-1])
 
 
 def attention(q, k, v, kv_mask=None, causal=False, q_offset=None, impl="auto",
               k_scale=None, v_scale=None):
     """Multi-head (grouped-query) attention. Shapes as in `xla_attention`.
 
-    impl: 'auto' (see `use_kernel`), 'pallas' (always the flash kernel; the
-    name is the JAX config's), 'xla' (always the grouped einsums) or
+    impl: 'auto' (see `kernel_rule`), 'pallas' (always the flash kernel's
+    wrapper, which raises on a CUDA call outside its contract; the name is
+    the JAX config's), 'xla' (always the grouped einsums) or
     'local:<W>' (banded, |i - j| <= W; bidirectional only). An int8 cache
     (`k_scale` / `v_scale`) goes to `xla_attention`, as in the JAX dispatch
     (attention.py:101-103): the flash kernel reads float K/V. Its callers

@@ -26,12 +26,14 @@ stays on its own `Adapter` module, added to the split outputs.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 # (generator, rate) of inverted dropout on a LoRA adapter's input
 Dropout = Optional[Tuple[torch.Generator, float]]
@@ -341,22 +343,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+# the matmuls without batch dims (JAX `dots_with_no_batch_dims_saveable`):
+# every dense and LoRA product, as F.linear dispatches them; the batched
+# attention einsums (bmm) are recomputed, as JAX recomputes them
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat(fn: Callable, cfg) -> Callable:
     """Per-layer rematerialization honoring cfg.remat/remat_policy (JAX
-    layers.py:326-336): 'full' recomputes the layer in backward
-    (`torch.utils.checkpoint`, non-reentrant); only while autograd records.
-    'dots' (save matmul outputs) has no counterpart yet and raises."""
+    layers.py:326-336), only while autograd records (`torch.utils.
+    checkpoint`, non-reentrant): 'full' recomputes the layer in backward;
+    'dots' keeps the outputs of the matmuls without batch dims (`aten.mm` /
+    `addmm`: the dense and adapter products) and recomputes the rest, the
+    elementwise ops and the attention (torch's selective activation
+    checkpointing)."""
     if not cfg.remat:
         return fn
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP.md, queue 1, "
-            f"item 1: left out of the SFT slice); use 'full' or remat=False")
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: expected 'full' or 'dots'")
+    kw_ckpt = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw_ckpt["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                  _save_dots)
 
     def wrapped(*args, **kw):
         if not torch.is_grad_enabled():
             return fn(*args, **kw)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return checkpoint(fn, *args, **kw_ckpt, **kw)
     return wrapped
 
 

@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from bioreason_tpu_torch.ops.cuda_build import load_libraries
+from bioreason_tpu_torch.utils.debug_nans import check_outputs
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -248,6 +249,7 @@ def _forward(q, k, v, kv_mask, causal, q_offset):
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {rc}")
     flash_attention.launches += 1
+    check_outputs("flash_fwd", out, lse)
     return out, lse
 
 
@@ -310,6 +312,7 @@ def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
     if rc != 0:
         raise RuntimeError(f"flash_bwd launch failed: cudaError {rc}")
     flash_bwd.launches += 1
+    check_outputs("flash_bwd", dq, dk, dv)
     return dq, dk, dv
 
 

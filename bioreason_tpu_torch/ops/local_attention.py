@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from bioreason_tpu_torch.ops import flash_attention as FA
+from bioreason_tpu_torch.utils.debug_nans import check_outputs
 
 NEG_INF = FA.NEG_INF
 Q_CHUNK = 1024          # query rows per step of the plain versions
@@ -120,6 +121,7 @@ def _forward(q, k, v, kv_mask, window):
     if rc != 0:
         raise RuntimeError(f"local_fwd launch failed: cudaError {rc}")
     local_attention.launches += 1
+    check_outputs("local_fwd", out, lse)
     return out, lse
 
 
@@ -172,6 +174,7 @@ def local_bwd(q, k, v, window, kv_mask, out, lse, dout):
     if rc != 0:
         raise RuntimeError(f"local_bwd launch failed: cudaError {rc}")
     local_bwd.launches += 1
+    check_outputs("local_bwd", dq, dk, dv)
     return dq, dk, dv
 
 

@@ -1,12 +1,14 @@
 """GRPO step throughput (rollout, rewards, ref logps, update): the port of
 bench_grpo.py.
 
-bench_grpo.py's workload: an NT-v2-500M encoder and a Qwen3 decoder
-(`--decoder`) at the byte tokenizer's vocabulary with weights from seed 0,
+bench_grpo.py's workload: an NT-v2-500M encoder (`--encoder nt-50m`: the
+rehearsal's NT-v2-50M) and a Qwen3 decoder (`--decoder`) at the byte
+tokenizer's vocabulary with weights from seed 0,
 LoRA r32/a64, --prompts synthetic KEGG prompts of 2 x 600 bp (DNA cut to
 128 tokens) x G = --G completions of --new tokens sampled, beta 0.04 (so
 the reference logps run every step), lr 5e-6, the decoder's remat by
---remat (full by default; the encoder's off). `--frozen int8` is QLoRA
+--remat (full by default, `dots` keeps the dense products; the
+encoder's off). `--frozen int8` is QLoRA
 (GRPOConfig.frozen_dtype); `--rollout_int8` rolls out on int8 weights,
 embedding and head, sharing the training model's int8 denses where it has
 them.
@@ -41,7 +43,7 @@ def parse_args(argv=None):
                     help="roll out on int8 weights, embedding and head")
     ap.add_argument("--decoder", default="qwen3-0.6b",
                     choices=["qwen3-0.6b", "qwen3-1.7b", "qwen3-4b", "tiny"])
-    ap.add_argument("--encoder", default="nt-500m", choices=["nt-500m", "tiny"])
+    ap.add_argument("--encoder", default="nt-500m", choices=["nt-500m", "nt-50m", "tiny"])
     ap.add_argument("--accum", type=int, default=1,
                     help="micro-steps per optimizer update (GRPOConfig.grad_accum_steps)")
     ap.add_argument("--frozen", default="bfloat16", choices=["bfloat16", "int8"],
@@ -56,9 +58,6 @@ def parse_args(argv=None):
                     help="the trainer's host timers by phase in the line")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.remat == "dots":
-        raise NotImplementedError("--remat dots: remat_policy='dots' is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 1)")
     return args
 
 
@@ -77,7 +76,8 @@ def build(args):
     tok = ByteTextTokenizer()
     fusion = FusionConfig(
         decoder=dataclasses.replace(DECODER_PRESETS[args.decoder](vocab_size=tok.vocab_size),
-                                    remat=args.remat != "off", remat_policy="full"),
+                                    remat=args.remat != "off",
+                                    remat_policy="dots" if args.remat == "dots" else "full"),
         encoder=dataclasses.replace(ENCODER_PRESETS[args.encoder](), remat=False),
         dna_pad_token_id=tok.dna_pad_id, max_length_text=512, max_length_dna=128)
     cfg = GRPOConfig(

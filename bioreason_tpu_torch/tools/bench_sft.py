@@ -6,7 +6,9 @@ over the decoder (no dropout, as bench.py's step draws none), the DNA
 projection trained, AdamW at bench.py's settings; B=4 items of T=768 text
 tokens, each holding 2 x 128 <|dna_pad|> placeholders after its first token
 for 2 DNA sequences of 128 random 6-mer ids, the last 128 positions
-supervised (labels gathered to them, ops/fused_ce.py), remat off.
+supervised (labels gathered to them, ops/fused_ce.py), remat off
+(`--remat full` recomputes each layer in the backward, `--remat dots`
+keeps its dense products and recomputes the rest, as bench.py's policy).
 `--frozen int8` is QLoRA: every dense of both towers stored int8 with
 per-channel scales, the other frozen float leaves and the scales in bf16
 (SFTConfig.frozen_dtype, train/quant.py); `--frozen bfloat16` stores the
@@ -28,7 +30,6 @@ and buffer), the peak device memory of the timed steps, and the card's name
 and power limit (nvidia-smi). `main` returns the same numbers as a dict;
 `run` also returns the trainer and the batch. It writes no file.
 
-`--remat dots` is refused (not ported, as everywhere in the port);
 `--frozen int8` with `--encoder evo2-1b` is refused, as bench.py refuses
 it. bench.py's `vs_baseline` (a ratio to an A100 figure) is left out.
 """
@@ -62,9 +63,6 @@ def parse_args(argv=None):
     ap.add_argument("--reps", type=int, default=3, help="timed repetitions (the median)")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.remat == "dots":
-        raise NotImplementedError("--remat dots: remat_policy='dots' is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 1)")
     if args.frozen == "int8" and args.encoder == "evo2-1b":
         raise SystemExit("--encoder evo2-1b supports bf16 frozen only (int8 tower "
                          "quantization targets the NT/Qwen dense layout)")
@@ -89,17 +87,19 @@ def build(args):
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     remat = args.remat != "off"
+    policy = "dots" if args.remat == "dots" else "full"
     kind, enc, hyena, _ = build_encoder_config(args.encoder)
     # the published vocabulary, with bench.py's placeholder id past it (the
     # embedding clamps it; the splice overwrites those rows); `tiny` takes
     # the byte tokenizer's
     tiny = args.decoder == "tiny"
     vocab, pad_id, text_hi = (300, 260, 256) if tiny else (151936, 151938, 150000)
-    dec = dataclasses.replace(DECODER_PRESETS[args.decoder](vocab_size=vocab), remat=remat)
+    dec = dataclasses.replace(DECODER_PRESETS[args.decoder](vocab_size=vocab), remat=remat,
+                              remat_policy=policy)
     if kind == "evo2":
         hyena = dataclasses.replace(hyena, remat=remat)
     else:
-        enc = dataclasses.replace(enc, remat=remat)
+        enc = dataclasses.replace(enc, remat=remat, remat_policy=policy)
     cfg = FusionConfig(decoder=dec, encoder=enc, hyena=hyena, encoder_kind=kind,
                        dna_pad_token_id=pad_id,
                        ce_save_logits=args.ce_save)

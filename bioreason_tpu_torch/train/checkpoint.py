@@ -1,8 +1,11 @@
 """Trainer checkpoints: the trainable parameters, the optimizer state and the
 step, in one `torch.save` file (the resumable subset of
 bioreason_tpu/train/checkpoint.py; frozen weights are not written, since
-they come from the seed or the checkpoint that built the model), and
-`TopKKeeper`, the k best checkpoints by validation loss, and
+they come from the seed or the checkpoint that built the model), or the
+parameters alone (`opt_state=None`: JAX `save(..., params_only=True)`, for
+the best-k checkpoints that only feed an eval or a fresh GRPO optimizer);
+`AsyncSaver`, the same write off the training thread; `load_metadata`;
+`TopKKeeper`, the k best checkpoints by validation loss; and
 `load_classifier`, the DNA-only classifier's rebuild.
 
 A checkpoint records in its metadata the frozen base its adapters belong
@@ -24,6 +27,7 @@ import json
 import math
 import os
 import shutil
+import threading
 from typing import Any, Dict, Optional
 
 import torch
@@ -55,23 +59,83 @@ def model_keys(fusion_cfg) -> Dict[str, Any]:
             "vocab_size": fusion_cfg.decoder.vocab_size, "dtype": fusion_cfg.decoder.dtype}
 
 
-def save_checkpoint(path: str, trainable: Dict[str, torch.Tensor], opt_state: Dict,
+def _map_tensors(fn, opt_state: Dict) -> Dict:
+    return {k: ([fn(t) for t in v] if isinstance(v, list) else v) for k, v in opt_state.items()}
+
+
+def save_checkpoint(path: str, trainable: Dict[str, torch.Tensor], opt_state: Optional[Dict],
                     step: int, metadata: Optional[Dict[str, Any]] = None) -> str:
-    """Write `path`/state.pt (written to a temporary name, then renamed)."""
+    """Write `path`/state.pt (written to a temporary name, then renamed);
+    `opt_state` None writes the parameters alone (no "opt_state" key)."""
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, FILE)
-    tmp = f"{target}.{os.getpid()}.tmp"
-    torch.save({"trainable": {k: v.detach().cpu() for k, v in trainable.items()},
-                "opt_state": {k: ([t.detach().cpu() for t in v] if isinstance(v, list) else v)
-                              for k, v in opt_state.items()},
-                "step": int(step), "metadata": dict(metadata or {})}, tmp)
+    tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+    state = {"trainable": {k: v.detach().cpu() for k, v in trainable.items()},
+             "step": int(step), "metadata": dict(metadata or {})}
+    if opt_state is not None:
+        state["opt_state"] = _map_tensors(lambda t: t.detach().cpu(), opt_state)
+    torch.save(state, tmp)
     os.replace(tmp, target)
     return target
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The dict `save_checkpoint` wrote, tensors on the CPU."""
+    """The dict `save_checkpoint` wrote, tensors on the CPU ("opt_state"
+    only where it was written)."""
     return torch.load(os.path.join(path, FILE), map_location="cpu", weights_only=True)
+
+
+def load_metadata(path: str) -> Dict[str, Any]:
+    """The step and the metadata a checkpoint records (JAX
+    checkpoint.py:214 reads its metadata.json), without reading its
+    tensors (the file is memory-mapped)."""
+    state = torch.load(os.path.join(path, FILE), map_location="cpu", weights_only=True,
+                       mmap=True)
+    return {"step": state["step"], **state["metadata"]}
+
+
+class AsyncSaver:
+    """`save_checkpoint` off the training thread (JAX checkpoint.py:53-80).
+
+    The trainer's parameters and optimizer state change in place at the
+    next `opt.step()` (torch's counterpart of JAX's donated buffers), so
+    `save` snapshots them with a device copy, queued on the caller's stream
+    before any later step; the copy to the host and the file write run in
+    a daemon thread. One save is in flight at a time: a new `save` (or
+    `wait`) joins the previous one first. A failed write is re-raised, as
+    RuntimeError from the failure, at the next `save` or `wait`, so a
+    periodic checkpoint never goes missing unseen."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, path: str, trainable: Dict[str, torch.Tensor], opt_state: Optional[Dict],
+             step: int, metadata: Optional[Dict[str, Any]] = None) -> str:
+        self.wait()
+        with torch.no_grad():
+            snap = {k: v.detach().clone() for k, v in trainable.items()}
+            snap_opt = (None if opt_state is None
+                        else _map_tensors(lambda t: t.detach().clone(), opt_state))
+        meta = dict(metadata or {})
+
+        def run():
+            try:
+                save_checkpoint(path, snap, snap_opt, step, meta)
+            except BaseException as e:        # re-raised by the next save / wait
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return os.path.join(path, FILE)
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from err
 
 
 def is_pretrained(meta: Dict[str, Any]) -> bool:

@@ -1,6 +1,5 @@
 """GRPO trainer: grouped rollouts + the group-normalized clipped-surrogate
-loss (the port of bioreason_tpu/train/grpo.py, on one device: no mesh, no
-async save).
+loss (the port of bioreason_tpu/train/grpo.py, on one device: no mesh).
 
 One `step` is:
   rollout   - the prompts of `items` (each repeated G times contiguously,
@@ -55,7 +54,7 @@ from bioreason_tpu_torch.models.layers import has_adapter, is_int8
 from bioreason_tpu_torch.models.qwen3 import decoder_forward
 from bioreason_tpu_torch.ops.fused_ce import chunked_token_logps
 from bioreason_tpu_torch.train import trainable as T
-from bioreason_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from bioreason_tpu_torch.train.checkpoint import AsyncSaver, load_checkpoint, save_checkpoint
 from bioreason_tpu_torch.train.lora import attach_lora, has_lora, merged_weight, strip_lora
 from bioreason_tpu_torch.train.optim import AdamW
 from bioreason_tpu_torch.train.quant import (quantize_frozen_int8, quantize_kernel_int8,
@@ -175,6 +174,7 @@ class GRPOTrainer:
                                           vocab_size=fusion_cfg.decoder.vocab_size,
                                           device=self.device)
         self.step_count = 0
+        self._saver = AsyncSaver()
         # one rollout buffer per accumulation slot (reference
         # _buffered_inputs[step % accum], grpo_trainer.py:399-403): slot s
         # regenerates on the first micro-step of each mu-cycle and is reused
@@ -416,10 +416,21 @@ class GRPOTrainer:
     def trainable_state(self) -> Dict[str, torch.Tensor]:
         return dict(zip(self.names, self.params))
 
-    def save(self, path: str, extra_metadata: Optional[Dict] = None) -> str:
-        """Trainable parameters, optimizer state and step to `path`."""
-        return save_checkpoint(path, self.trainable_state(), self.opt.state_dict(),
-                               self.step_count, {"stage": "grpo", **(extra_metadata or {})})
+    def save(self, path: str, extra_metadata: Optional[Dict] = None,
+             block: bool = True) -> str:
+        """Trainable parameters, optimizer state and step to `path`;
+        `block=False` hands the write to an `AsyncSaver` after a device copy
+        (JAX grpo.py:511-519; `finish_saves` joins it)."""
+        meta = {"stage": "grpo", **(extra_metadata or {})}
+        if block:
+            return save_checkpoint(path, self.trainable_state(), self.opt.state_dict(),
+                                   self.step_count, meta)
+        return self._saver.save(path, self.trainable_state(), self.opt.state_dict(),
+                                self.step_count, meta)
+
+    def finish_saves(self) -> None:
+        """Join the write in flight; re-raises its failure."""
+        self._saver.wait()
 
     @torch.no_grad()
     def restore(self, path: str) -> "GRPOTrainer":

@@ -34,7 +34,7 @@ from bioreason_tpu_torch.models.fusion import FusionModel, fusion_forward, init_
     validate_splice
 from bioreason_tpu_torch.ops.fused_ce import gather_label_positions
 from bioreason_tpu_torch.train import trainable as T
-from bioreason_tpu_torch.train.checkpoint import load_checkpoint, model_keys, \
+from bioreason_tpu_torch.train.checkpoint import AsyncSaver, load_checkpoint, model_keys, \
     save_checkpoint
 from bioreason_tpu_torch.train.lora import attach_lora, has_lora
 from bioreason_tpu_torch.train.optim import AdamW
@@ -92,6 +92,7 @@ class SFTTrainer:
         self.names = T.trainable_names(model)
         self.opt = AdamW(self.params, cfg.optim)
         self.step = 0
+        self._saver = AsyncSaver()
         self._dropout_gen = torch.Generator().manual_seed(cfg.seed + 2)   # per-step seeds
 
     def _loss(self, db: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
@@ -139,18 +140,32 @@ class SFTTrainer:
     def trainable_state(self) -> Dict[str, torch.Tensor]:
         return dict(zip(self.names, self.params))
 
-    def save(self, path: str, metadata: Optional[Dict] = None) -> str:
+    def save(self, path: str, metadata: Optional[Dict] = None, params_only: bool = False,
+             block: bool = True) -> str:
         """Trainable parameters, optimizer state and step to `path`, with
         `base_metadata` (when the trainer knows the base) and `metadata` in
-        its metadata."""
-        return save_checkpoint(path, self.trainable_state(), self.opt.state_dict(),
-                               self.step, {**(self.base_metadata or {}), **(metadata or {})})
+        its metadata (JAX train/sft.py:230-242). `params_only` leaves the
+        optimizer state out (the best-k checkpoints, which only feed an
+        eval or a fresh GRPO optimizer); `block=False` hands the write to
+        an `AsyncSaver` after a device copy (`finish_saves` joins it)."""
+        meta = {**(self.base_metadata or {}), **(metadata or {})}
+        opt_state = None if params_only else self.opt.state_dict()
+        if block:
+            return save_checkpoint(path, self.trainable_state(), opt_state, self.step, meta)
+        return self._saver.save(path, self.trainable_state(), opt_state, self.step, meta)
+
+    def finish_saves(self) -> None:
+        """Join the write in flight; re-raises its failure."""
+        self._saver.wait()
 
     @torch.no_grad()
     def restore(self, path: str) -> "SFTTrainer":
         state = load_checkpoint(path)
         if sorted(state["trainable"]) != sorted(self.names):
             raise ValueError(f"checkpoint {path} holds other trainable parameters")
+        if "opt_state" not in state:
+            raise ValueError(f"checkpoint {path} holds parameters alone (params_only): it "
+                             f"does not resume training")
         for name, p in zip(self.names, self.params):
             p.copy_(state["trainable"][name])
         self.opt.load_state_dict(state["opt_state"])

@@ -240,6 +240,38 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               4B shapes: the SFT step [4,768,32/8,128] causal, the GRPO
               prefill, encoder, logp forward and update backward. At most
               240 s.
+ 16. rehearsal  the quality rehearsal and the training-loop pieces that came
+              with it: (a) `tools/rehearsal.py --scale bench` at its widths
+              (Qwen3-0.6B + NT-v2-50M, 1-mer DNA of 32 bp), cut for time to
+              128 items, 2 SFT epochs of 12 steps with a validation every 8,
+              64 tokens generated in the tests and rollouts and 2 GRPO steps
+              (the bench run: 1,280 items, 40 epochs at most with the probe's
+              stop, every 96, 288 tokens, 80 steps): exactly 56 flash_fwd +
+              28 flash_bwd per SFT step (remat full), 28 flash_fwd per eval
+              batch, per probe batch and per engine call, 112 + 28 per GRPO
+              step and none from the encoder, whose 32-wide heads take the
+              plain path (the counts printed are those measured per call);
+              the GRPO trainer's seconds by phase (rollout, update, ...);
+              the val-loss, probe and reward curves in the
+              metrics files, the val loss under its first reading, best-k's
+              kept steps those of the JAX CLI's rule on that curve, params
+              only; the artifact under the package; attention(impl=
+              "pallas") at D = 32 raising; (b) the best SFT checkpoint's test
+              answers under serve's --int8 storage and with W8A8: accuracy
+              and the share equal to bf16's, printed only (phase 14 holds
+              both paths to teacher-forced cosine floors); (f) flash_fwd and flash_bwd
+              against their plain versions at the rehearsal's decoder shape
+              (B=8, the collate's bucketed T, 16/8 heads of 128, causal, its
+              pads); (c) `tools/bench_sft.py` at bench.py's shape with
+              --remat off, full and dots (examples/s, peak GiB, launches per
+              step, one step's device-busy and wall ms, the dots step's top
+              kernels), one step's loss and gradients of dots against off (the
+              loss equal, the gradients' cosine beside off's against
+              itself); (d) an async save between two steps: the step's time
+              around it, then around a blocking save at the same point, and
+              the async file equal to the snapshot, not to the stepped
+              parameters; (e) --debug_nans raising FloatingPointError
+              at a NaN out of flash_fwd and out of an aten op. At most 150 s.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -3607,6 +3639,385 @@ def phase_qlora(torch, card):
     return out, rows, bwd_rows
 
 
+# -- phase 16 -------------------------------------------------------------------
+
+# the rehearsal's bench widths (Qwen3-0.6B + NT-v2-50M, 1-mer DNA of 32 bp),
+# cut for time: 128 items (1,280 in the bench run), 2 SFT epochs of 12 steps
+# (40 at most, with the probe's stop), a validation every 8 steps (96), 64
+# tokens generated in the tests and rollouts (288), 2 GRPO steps (80)
+REH_ITEMS, REH_EPOCHS, REH_EVAL, REH_NEW, REH_GRPO = 128, 2, 8, 64, 2
+REH_SEQ_LEN, REH_BATCH, REH_SEED = 32, 8, 7
+REH_BUDGET_S = 150.0
+# one SFT step: remat full runs every decoder layer's forward twice; the
+# encoder's 32-wide heads take the plain path (models/attention.py)
+REH_PER = {"train_step": {"flash_fwd": 2 * DECODER_LAYERS, "flash_bwd": DECODER_LAYERS},
+           "eval_step": {"flash_fwd": DECODER_LAYERS},
+           "generate": {"flash_fwd": DECODER_LAYERS},
+           # the rollout's prefill, the reference logps, the update's forward
+           # and its recompute
+           "grpo_step": {"flash_fwd": 4 * DECODER_LAYERS, "flash_bwd": DECODER_LAYERS}}
+REH_DOTS_COS = 0.999                    # remat dots vs off through the kernels
+
+
+class LaunchLog:
+    """Each call of the wrapped functions with the kernel launches it made
+    and its nesting depth (a rollout's engine call inside a GRPO step)."""
+
+    def __init__(self):
+        self.calls, self.depth, self._undo = [], 0, []
+
+    def wrap(self, owner, attr, name):
+        real = getattr(owner, attr)
+
+        def wrapped(*a, **kw):
+            before = counts()
+            self.depth += 1
+            try:
+                return real(*a, **kw)
+            finally:
+                self.depth -= 1
+                after = counts()
+                self.calls.append((name, self.depth,
+                                   {k: after[k] - before[k] for k in after if after[k] - before[k]}))
+        setattr(owner, attr, wrapped)
+        self._undo.append((owner, attr, real))
+
+    def close(self):
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+        self._undo = []
+
+
+def jax_rule_kept(val_curve, k, stop_step):
+    """The steps the JAX CLI's best-k keeps (cli/train_sft.py:280-323): a
+    save only on a val loss 25% under the last kept one, and at the step the
+    probe stops at; the k best of those saves."""
+    kept, last = [], None
+
+    def update(value, step):
+        if len(kept) >= k and not value < kept[-1][0]:
+            return False
+        kept.append((value, step))
+        kept.sort(key=lambda t: t[0])
+        del kept[k:]
+        return True
+    for step, value in val_curve:
+        if (last is None or value < 0.75 * last) and update(value, step):
+            last = value
+        if step == stop_step:
+            update(value, step)
+    return sorted(step for _, step in kept)
+
+
+def rehearsal_fusion(torch, act_int8=False):
+    """The rehearsal's FusionConfig and processor (tools/rehearsal.py)."""
+    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS
+    from bioreason_tpu_torch.config import FusionConfig
+    from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
+    tok = ByteTextTokenizer()
+    dec = dataclasses.replace(DECODER_PRESETS["qwen3-0.6b"](vocab_size=tok.vocab_size),
+                              act_int8=act_int8)
+    enc = dataclasses.replace(ENCODER_PRESETS["nt-50m"](), act_int8=act_int8)
+    cfg = FusionConfig(decoder=dec, encoder=enc, dna_pad_token_id=tok.dna_pad_id,
+                       max_length_text=512, max_length_dna=REH_SEQ_LEN + 8)
+    return cfg, tok, BioProcessor(tok, KmerTokenizer(kmer=1))
+
+
+def phase_rehearsal(torch, card):
+    """The quality rehearsal at its bench widths, cut for time (REH_*), and
+    the training-loop pieces that came with it (module docstring, phase 16).
+    Returns (numbers, forward rows, backward rows)."""
+    import csv
+
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.cli.common import load_items
+    from bioreason_tpu_torch.data.collate import sft_collate
+    from bioreason_tpu_torch.config import SamplingConfig
+    from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.models.attention import attention
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    from bioreason_tpu_torch.serve import serving_storage
+    from bioreason_tpu_torch.tools import bench_sft, rehearsal
+    from bioreason_tpu_torch.train import eval as TE
+    from bioreason_tpu_torch.train.checkpoint import TopKKeeper, load_checkpoint, load_sft_model
+    from bioreason_tpu_torch.train.eval import evaluate_generative, multilabel_substring_accuracy
+    from bioreason_tpu_torch.train.grpo import GRPOTrainer
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    from bioreason_tpu_torch.utils.debug_nans import nan_checks
+    t_phase = time.perf_counter()
+    out, rows, bwd_rows = {}, [], []
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke_rehearsal_", dir=build_dir)
+    try:
+        # (a) the rehearsal tool, its launches counted per call of each kind
+        art_path = os.path.join(work, "rehearsal_smoke.json")
+        calls = LaunchLog()
+        calls.wrap(SFTTrainer, "train_step", "train_step")
+        calls.wrap(SFTTrainer, "eval_step", "eval_step")
+        calls.wrap(TE, "teacher_forced_probe", "probe")
+        calls.wrap(GenerationEngine, "generate", "generate")
+        calls.wrap(GRPOTrainer, "step", "grpo_step")
+        grpo_timers = []                      # the trainer's host timers by phase
+        real_init = GRPOTrainer.__init__
+
+        def init_with_timers(self, *a, **kw):
+            real_init(self, *a, **kw)
+            self.timers = {}
+            grpo_timers.append(self.timers)
+        GRPOTrainer.__init__ = init_with_timers
+        t_sub = time.perf_counter()
+        reset_counts()
+        try:
+            art = rehearsal.main(
+                ["--scale", "bench", "--seq_len", str(REH_SEQ_LEN), "--items", str(REH_ITEMS),
+                 "--sft_epochs", str(REH_EPOCHS), "--eval_every", str(REH_EVAL),
+                 "--max_new", str(REH_NEW), "--grpo_steps", str(REH_GRPO),
+                 "--seed", str(REH_SEED), "--work_dir", work, "--out", art_path])
+        finally:
+            calls.close()
+            GRPOTrainer.__init__ = real_init
+        total = counts()
+        wall = time.perf_counter() - t_sub
+        n_val = art["corpus"]["split"][1]
+        probe_batches = -(-min(64, n_val) // REH_BATCH)
+        want_per = {**REH_PER, "probe": {"flash_fwd": probe_batches * DECODER_LAYERS}}
+        by_kind = {}
+        for name, depth, delta in calls.calls:
+            by_kind.setdefault(name, []).append(delta)
+            if delta != want_per[name]:
+                fail(f"rehearsal: a {name} call launched {delta}, expected {want_per[name]}")
+        want_total = {}
+        for name, depth, delta in calls.calls:
+            if depth == 0:
+                for k, v in delta.items():
+                    want_total[k] = want_total.get(k, 0) + v
+        got_total = {k: v for k, v in total.items() if v}
+        n_calls = {k: len(v) for k, v in by_kind.items()}
+        # the distinct launch counts measured per call of each kind
+        per_call = {name: [dict(t) for t in sorted({tuple(sorted(d.items())) for d in ds})]
+                    for name, ds in by_kind.items()}
+        log(f"rehearsal (a) [{card}] tools/rehearsal.py --scale bench at {REH_ITEMS} items, "
+            f"{REH_EPOCHS} epochs, eval every {REH_EVAL}, {REH_NEW} new tokens, {REH_GRPO} GRPO "
+            f"steps: {wall:.1f} s (SFT {art['sft']['wall_s']} s, GRPO {art['grpo']['wall_s']} "
+            f"s, tests {art['eval_wall_s']} s); calls {n_calls}; launches {got_total}, "
+            f"per call {per_call} (reckoned {want_per}); GRPO seconds per phase over "
+            f"{REH_GRPO} steps { {k: round(v, 3) for k, v in grpo_timers[0].items()} }; "
+            f"test accuracy {art['test_accuracy_after_sft']:.4f} after "
+            f"SFT, {art['test_accuracy_after_grpo']:.4f} after GRPO")
+        if got_total != want_total or n_calls.get("train_step") != REH_EPOCHS * (
+                art["corpus"]["split"][0] // REH_BATCH) or n_calls.get("grpo_step") != REH_GRPO:
+            fail(f"rehearsal launched {got_total}, its calls {want_total} ({n_calls})")
+        sft_logs = os.path.join(work, "sft_logs")
+        val = rehearsal.load_curve(sft_logs, "val/loss")
+        probes = {k: rehearsal.load_curve(sft_logs, f"val/probe_{k}")
+                  for k in ("base_acc", "half_acc", "answer_acc", "span_acc")}
+        reward = rehearsal.load_curve(os.path.join(work, "grpo_logs"), "grpo/reward")
+        n_evals = n_calls["train_step"] // REH_EVAL
+        log(f"rehearsal (a): val loss {[round(v, 4) for _, v in val]}, probe "
+            f"{ {k: [round(x, 3) for _, x in c] for k, c in probes.items()} }, reward "
+            f"{[round(x, 3) for _, x in reward]}")
+        if (len(val) != n_evals or any(len(c) != n_evals for c in probes.values())
+                or len(reward) != REH_GRPO or art["sft"]["val_loss_curve"] != val):
+            fail(f"rehearsal: the metrics files lack curves ({len(val)} val, "
+                 f"{ {k: len(c) for k, c in probes.items()} } probe, {len(reward)} reward)")
+        if not min(v for _, v in val[1:]) < val[0][1]:
+            fail(f"rehearsal: the val loss never fell below its first reading {val}")
+        keeper = TopKKeeper(os.path.join(work, "sft_ckpt", "best"), k=2)
+        kept = sorted(step for _, step, _ in keeper._kept)
+        stop = n_calls["train_step"] if n_calls["train_step"] < REH_EPOCHS * (
+            art["corpus"]["split"][0] // REH_BATCH) else None
+        want_kept = jax_rule_kept(val, 2, stop)
+        lean = [("opt_state" not in torch.load(os.path.join(path, "state.pt"), mmap=True,
+                                               map_location="cpu", weights_only=True))
+                for _, _, path in keeper._kept]
+        log(f"rehearsal (a): best-k kept steps {kept} (the JAX rule on this val curve: "
+            f"{want_kept}), params only {lean}; artifact {art_path} (default "
+            f"{rehearsal.default_out('bench')})")
+        if kept != want_kept or not all(lean) or not lean:
+            fail(f"rehearsal: best-k kept {kept} (params only {lean}), the JAX rule {want_kept}")
+        pkg = os.path.join(REPO, "bioreason_tpu_torch")
+        default = rehearsal.default_out("bench")
+        if (not os.path.isfile(art_path) or not art_path.startswith(pkg + os.sep)
+                or os.path.dirname(default) != os.path.join(pkg, "artifacts")):
+            fail(f"rehearsal: artifact {art_path}, default {default}: not under {pkg}")
+        g = torch.Generator(device="cuda").manual_seed(5)
+        q32 = torch.randn((2, 64, 16, 32), generator=g, device="cuda").to(torch.bfloat16)
+        try:
+            attention(q32, q32, q32, impl="pallas")
+            fail("attention(impl='pallas') at D = 32 on the card did not raise")
+        except ValueError as e:
+            log(f"rehearsal (a): attention(impl='pallas') at D = 32 raises: {e}")
+        out["a"] = {"wall_s": wall, "launches": got_total, "calls": n_calls,
+                    "per_call": per_call, "grpo_timers": grpo_timers[0], "val_loss": val, "kept": kept,
+                    "acc_sft": art["test_accuracy_after_sft"],
+                    "acc_grpo": art["test_accuracy_after_grpo"]}
+
+        # (b) the best SFT checkpoint under serve's int8 storage and W8A8
+        t_sub = time.perf_counter()
+        with open(os.path.join(work, "generations_sft.csv"), newline="") as f:
+            bf16_rows = list(csv.DictReader(f))
+        _, _, test_items = load_items("kegg", os.path.join(work, "corpus"), 0, 0, REH_SEED)
+        uniq = sorted({ex["answer"].strip() for ex in test_items})
+        out["b"] = {"bf16": {"accuracy": art["test_accuracy_after_sft"], "equal": 1.0}}
+        for mode in ("int8", "w8a8"):
+            cfg, tok, proc = rehearsal_fusion(torch, act_int8=mode == "w8a8")
+            model = load_sft_model(keeper.best_path(), rehearsal_fusion(torch)[0], REH_SEED,
+                                   "qwen3-0.6b", "nt-50m", "cuda")
+            serving_storage(model, int8=True)
+            engine = GenerationEngine(cfg, eos_token_id=tok.eos_token_id, device="cuda")
+            res = evaluate_generative(engine, model, proc, test_items, labels=tuple(uniq[:2]),
+                                      sampling=SamplingConfig(max_new_tokens=REH_NEW),
+                                      max_new_tokens=REH_NEW, batch_size=REH_BATCH, greedy=True,
+                                      max_length_text=512, max_length_dna=REH_SEQ_LEN + 8)
+            equal = sum(g["generation"] == r["generation"]
+                        for g, r in zip(res.generations, bf16_rows)) / len(bf16_rows)
+            out["b"][mode] = {"accuracy": multilabel_substring_accuracy(res.generations),
+                              "equal": equal}
+            del model, engine
+            torch.cuda.empty_cache()
+        log(f"rehearsal (b) [{card}] (print-only: phases 14-15 hold the int8 and W8A8 paths "
+            f"to limits): the best SFT checkpoint's {len(bf16_rows)} test answers, "
+            f"{REH_NEW} tokens greedy: accuracy and share of answers equal to bf16's "
+            f"{out['b']} ({time.perf_counter() - t_sub:.1f} s)")
+
+        # (f) the kernels at the rehearsal's decoder shape: a training batch
+        items = load_items("kegg", os.path.join(work, "corpus"), 0, 0, REH_SEED)[0][:REH_BATCH]
+        cfg, tok, proc = rehearsal_fusion(torch)
+        batch = sft_collate(items, proc, 512, REH_SEQ_LEN + 8, bucket=128, supervise_eos=True)
+        mask = torch.as_tensor(np.asarray(batch["attention_mask"]), device="cuda").to(torch.int32)
+        t_dec = mask.shape[1]
+        rows.append(kernel_case(torch, f"rehearsal_sft_T{t_dec}", REH_BATCH, t_dec, t_dec, 16, 8,
+                                128, True, 0, mask, 161))
+        bwd_rows.append(bwd_case(torch, f"rehearsal_sft_T{t_dec}", REH_BATCH, t_dec, t_dec, 16, 8,
+                                 128, True, 0, mask, 162))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (c) bench_sft at bench.py's shape, remat off, full and dots
+    t_sub = time.perf_counter()
+    out["c"] = {}
+    per_off = {"flash_fwd": ENCODER_LAYERS + DECODER_LAYERS, "flash_bwd": DECODER_LAYERS}
+    per_on = {"flash_fwd": ENCODER_LAYERS + 2 * DECODER_LAYERS, "flash_bwd": DECODER_LAYERS}
+    for remat in ("off", "full", "dots"):
+        reset_counts()
+        res, trainer, batch = bench_sft.run(bench_sft.parse_args(
+            ["--remat", remat, "--steps", "2", "--reps", "1"]))
+        want = per_off if remat == "off" else per_on
+        if res["launches_per_step"] != want:
+            fail(f"bench_sft --remat {remat} launched {res['launches_per_step']} a step, "
+                 f"expected {want}")
+        out["c"][remat] = {"examples_per_sec": res["value"], "peak_gib": res["peak_gib"],
+                           "ms_per_step": res["ms_per_step"],
+                           "busy_ms": res["profiled_step_busy_ms"],
+                           "wall_ms": res["profiled_step_wall_ms"]}
+        if remat == "dots":
+            profile_step(torch, card, "bench_sft --remat dots, one step",
+                         lambda: trainer.train_step(batch), ("flash", "gemm"))
+        if remat != "off":
+            del trainer, batch
+            torch.cuda.empty_cache()
+            continue
+        db = trainer._device_batch(batch)
+        cfg0 = trainer.fusion_cfg
+
+        def loss_and_grad(remat_on, policy="full"):
+            trainer.fusion_cfg = dataclasses.replace(
+                cfg0, decoder=dataclasses.replace(cfg0.decoder, remat=remat_on,
+                                                  remat_policy=policy))
+            try:
+                loss = trainer._loss(db, train=True)
+                grads = torch.autograd.grad(loss, trainer.params, allow_unused=True)
+            finally:
+                trainer.fusion_cfg = cfg0
+            return float(loss.detach()), torch.cat([
+                (torch.zeros_like(p) if g is None else g).float().flatten()
+                for p, g in zip(trainer.params, grads)])
+        l_off, g_off = loss_and_grad(False)
+        l_again, g_again = loss_and_grad(False)
+        l_dots, g_dots = loss_and_grad(True, "dots")
+        floor = float(F.cosine_similarity(g_off, g_again, dim=0))
+        cos = float(F.cosine_similarity(g_off, g_dots, dim=0))
+        out["c"]["dots_vs_off"] = {"loss": [l_off, l_dots], "cos": cos, "off_vs_off_cos": floor}
+        log(f"rehearsal (c): one step at bench.py's shape, remat dots vs off: loss {l_dots!r} vs "
+            f"{l_off!r}, cosine of the {g_off.numel()} trainable gradients {cos:.7f} (off "
+            f"against itself {floor:.7f}: flash_bwd's dq sums in no fixed order)")
+        if l_dots != l_off or cos < REH_DOTS_COS:
+            fail(f"remat dots against off: loss {l_dots} vs {l_off}, cosine {cos:.6f}")
+        del g_off, g_again, g_dots
+
+        # (d) an async save during training
+        ckdir = tempfile.mkdtemp(prefix="smoke_async_", dir=build_dir)
+        try:
+            plain = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
+                plain.append(time.perf_counter() - t0)
+            snap = {k: v.detach().clone() for k, v in trainer.trainable_state().items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.save(os.path.join(ckdir, "s"), block=False)
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            around = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            trainer.finish_saves()
+            wait = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.save(os.path.join(ckdir, "b"), block=True)
+            blocking_call = time.perf_counter() - t0
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            around_blocking = time.perf_counter() - t0
+            state = load_checkpoint(os.path.join(ckdir, "s"))
+            same = all(torch.equal(state["trainable"][k], v.cpu()) for k, v in snap.items())
+            moved = sum(not torch.equal(trainer.trainable_state()[k].detach(), v)
+                        for k, v in snap.items())
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        out["d"] = {"plain_step_s": plain, "step_around_save_s": around,
+                    "wait_after_s": wait, "blocking_save_s": blocking_call,
+                    "step_around_blocking_save_s": around_blocking}
+        log(f"rehearsal (d) [{card}]: a step around save(block=False) {around * 1e3:.1f} ms "
+            f"(then {wait * 1e3:.1f} ms waiting for the write), around a blocking save "
+            f"{around_blocking * 1e3:.1f} ms (the save {blocking_call * 1e3:.1f} ms), "
+            f"plain steps {[round(x * 1e3, 1) for x in plain]} ms; the file holds the "
+            f"snapshot's {len(snap)} tensors: {same}; {moved} moved since")
+        if not same or not moved:
+            fail(f"the async save holds other values than its snapshot ({same}, {moved})")
+        del trainer, batch, db, snap, state
+        torch.cuda.empty_cache()
+    log(f"rehearsal (c) [{card}] bench_sft at bench.py's shape: "
+        f"{ {k: v for k, v in out['c'].items() if k != 'dots_vs_off'} } "
+        f"({time.perf_counter() - t_sub:.1f} s)")
+
+    # (e) --debug_nans: a NaN out of the flash kernel and out of an aten op
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((1, 128, 2, 64), generator=g, device="cuda").to(torch.bfloat16)
+    bad = q.clone()
+    bad[0, 3, 1, 5] = float("nan")
+    raised = []
+    with nan_checks():
+        fa.flash_attention(q, q, q, causal=True)               # sound: no raise
+        for fn in (lambda: fa.flash_attention(bad, q, q, causal=True),
+                   lambda: q.float() * float("nan")):
+            try:
+                fn()
+                fail("--debug_nans: a planted NaN did not raise")
+            except FloatingPointError as e:
+                raised.append(str(e))
+    log(f"rehearsal (e): --debug_nans raised {raised}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"rehearsal: phase done in {out['seconds']:.1f} s (budget {REH_BUDGET_S:g})")
+    if out["seconds"] > REH_BUDGET_S:
+        fail(f"the rehearsal phase took {out['seconds']:.1f} s, over {REH_BUDGET_S:g}")
+    return out, rows, bwd_rows
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -3672,12 +4083,15 @@ def main():
     torch.cuda.empty_cache()
     mark("int8")
     qlora, qlora_rows, qlora_bwd_rows = phase_qlora(torch, card)
+    torch.cuda.empty_cache()
     mark("qlora")
+    reh, reh_rows, reh_bwd_rows = phase_rehearsal(torch, card)
+    mark("rehearsal")
     log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    rows += grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows + qlora_rows
-    bwd_rows += grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows + qlora_bwd_rows
+    rows += grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows + qlora_rows + reh_rows
+    bwd_rows += grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows + qlora_bwd_rows + reh_bwd_rows
     qlora_launches = {"sft_int8": qlora["sft"]["int8"]["launches"],
                       "sft_bfloat16": qlora["sft"]["bfloat16"]["launches"],
                       "grpo_int8": qlora["grpo"]["launches"],
@@ -3719,6 +4133,10 @@ def main():
                      "sft_bfloat16": qlora_launches["sft_bfloat16"]["flash_fwd"],
                      "grpo_int8": qlora_launches["grpo_int8"]["flash_fwd"],
                      "rollout": qlora_launches["rollout"]},
+                 "rehearsal_launches": {"total": reh["a"]["launches"].get("flash_fwd", 0),
+                                        "calls": reh["a"]["calls"],
+                                        "per_call": {k: sorted({d.get("flash_fwd", 0) for d in v})
+                                                     for k, v in reh["a"]["per_call"].items()}},
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -3744,6 +4162,9 @@ def main():
                      "sft_int8": qlora_launches["sft_int8"]["flash_bwd"],
                      "sft_bfloat16": qlora_launches["sft_bfloat16"]["flash_bwd"],
                      "grpo_int8": qlora_launches["grpo_int8"]["flash_bwd"]},
+                 "rehearsal_launches": {"total": reh["a"]["launches"].get("flash_bwd", 0),
+                                        "per_call": {k: sorted({d.get("flash_bwd", 0) for d in v})
+                                                     for k, v in reh["a"]["per_call"].items()}},
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],

@@ -148,9 +148,10 @@ def test_plain_attention_matches_jax_xla_attention_on_valid_rows():
 
 
 def test_dispatch_rule():
-    """`auto` takes the kernel for a CUDA tensor with Tq > 1, whatever its
-    head dim (the wrapper raises on one it does not take); decode (Tq == 1)
-    and CPU tensors take the grouped einsums."""
+    """`auto` takes the kernel only for a CUDA tensor with Tq > 1 and a
+    head dim the kernels take (`kernel_rule`, tested in
+    test_torch_rehearsal.py); decode (Tq == 1) and CPU tensors take the
+    grouped einsums."""
     q = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16)
     assert not use_kernel(q)                       # on the CPU
     q, k, v = (torch.from_numpy(x) for x in inputs(1, 6, 6, 2, 2, 64, seed=9))

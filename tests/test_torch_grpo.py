@@ -540,9 +540,27 @@ def test_an_sft_final_without_the_base_keys_is_refused(tmp_path):
         load_sft_for_grpo(str(tmp_path), tcfg, None, 0, "tiny", "tiny", device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["--debug_nans", "--mesh=1,1,1",
+@pytest.mark.parametrize("flag", ["--mesh=1,1,1",
                                   "--cpu_devices=2", "--wandb"])
 def test_reason_cli_refuses_later_slices(flag):
     from bioreason_tpu_torch.cli import reason
     with pytest.raises(NotImplementedError):
         reason.main(["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag])
+
+
+def test_reason_cli_debug_nans_raises_at_a_planted_nan(tmp_path, monkeypatch):
+    """`reason --debug_nans` (ported; was refused): a sound run steps as
+    without it; with a NaN planted in every rmsnorm the rollout's prefill
+    raises FloatingPointError naming the op that made it."""
+    from bioreason_tpu_torch.cli import reason
+    from bioreason_tpu_torch.models import layers as TLayers
+    argv = ["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", "--seed", "3",
+            "--num_generations", "2", "--batch_size", "2", "--max_steps", "1",
+            "--max_completion_length", "4", "--max_length_dna", "64", "--n_synthetic", "16",
+            "--checkpoint_dir", str(tmp_path / "ck"), "--log_dir", str(tmp_path / "logs")]
+    sound = reason.main(argv + ["--debug_nans"])
+    assert sound.metrics_history[0]["loss"] == reason.main(argv).metrics_history[0]["loss"]
+    real = TLayers.rmsnorm
+    monkeypatch.setattr(TLayers, "rmsnorm", lambda *a, **kw: real(*a, **kw) * float("nan"))
+    with pytest.raises(FloatingPointError, match="aten.mul"):
+        reason.main(argv + ["--debug_nans"])

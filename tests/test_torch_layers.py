@@ -227,17 +227,21 @@ def test_lora_dropout_statistics():
 
 
 def test_remat_full_gives_the_same_gradients_and_dots_raises():
+    """remat 'full' and, since the dots policy is ported, 'dots' (the dense
+    products kept, the rest recomputed) give remat off's gradients bitwise;
+    a policy neither names raises."""
     from types import SimpleNamespace
     mod = TL.SwiGLU(16, 32)
     TL.init_normal_(mod, torch.Generator().manual_seed(0))
     x = torch.randn(3, 16, generator=torch.Generator().manual_seed(1))
     grads = []
-    for remat in (False, True):
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
         mod.zero_grad()
         fn = TL.remat(lambda m, x: TL.swiglu(m, x), SimpleNamespace(remat=remat,
-                                                                     remat_policy="full"))
+                                                                     remat_policy=policy))
         fn(mod, x).square().sum().backward()
         grads.append(mod.up.weight.grad.clone())
     torch.testing.assert_close(grads[0], grads[1], atol=0, rtol=0)
-    with pytest.raises(NotImplementedError):
-        TL.remat(TL.swiglu, SimpleNamespace(remat=True, remat_policy="dots"))
+    torch.testing.assert_close(grads[0], grads[2], atol=0, rtol=0)
+    with pytest.raises(ValueError, match="remat_policy"):
+        TL.remat(TL.swiglu, SimpleNamespace(remat=True, remat_policy="offload"))

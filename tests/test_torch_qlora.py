@@ -566,6 +566,10 @@ def test_reason_cli_rolls_out_int8(tmp_path):
 @pytest.mark.parametrize("tool,argv,metric", [
     ("bench_sft", ["--frozen", "int8", "--steps", "1", "--fuse"], "sft_examples_per_sec_per_chip"),
     ("bench_sft", ["--steps", "1", "--reps", "1"], "sft_examples_per_sec_per_chip"),
+    ("bench_sft", ["--steps", "1", "--reps", "1", "--remat", "dots"],
+     "sft_examples_per_sec_per_chip"),
+    ("bench_grpo", ["--remat", "dots", "--new", "4", "--steps", "1", "--probe"],
+     "grpo_full_step_completions_per_sec_per_chip"),
     ("bench_grpo", ["--frozen", "int8", "--rollout_int8", "--new", "4", "--steps", "1",
                     "--probe"], "grpo_full_step_completions_per_sec_per_chip"),
     ("bench_rollout", ["--frozen", "int8", "--kv", "int8", "--new", "4", "--prompts", "2",
@@ -583,10 +587,10 @@ def test_benches_print_one_json_line(tool, argv, metric, capsys):
 
 
 def test_benches_refuse_what_bench_py_refuses():
+    """`--remat dots` is ported (bench.py's policy: the dense products kept),
+    so both benches take it; `--frozen int8` with Evo2 stays refused."""
     from bioreason_tpu_torch.tools import bench_grpo, bench_sft
-    with pytest.raises(NotImplementedError):
-        bench_sft.parse_args(["--remat", "dots"])
-    with pytest.raises(NotImplementedError):
-        bench_grpo.parse_args(["--remat", "dots"])
+    assert bench_sft.parse_args(["--remat", "dots"]).remat == "dots"
+    assert bench_grpo.parse_args(["--remat", "dots"]).remat == "dots"
     with pytest.raises(SystemExit):
         bench_sft.parse_args(["--frozen", "int8", "--encoder", "evo2-1b"])

@@ -390,7 +390,8 @@ training = {{"bioreason_tpu_torch.ops.fused_ce", "bioreason_tpu_torch.train.lora
             "bioreason_tpu_torch.cli.train_dna_only",
             "bioreason_tpu_torch.tools.bench_classifier", "bioreason_tpu_torch.tools.bench_sft",
             "bioreason_tpu_torch.tools.bench_grpo", "bioreason_tpu_torch.tools.bench_rollout",
-            "bioreason_tpu_torch.tools.unicode_classes"}}
+            "bioreason_tpu_torch.tools.unicode_classes", "bioreason_tpu_torch.tools.rehearsal",
+            "bioreason_tpu_torch.tools.diagnose_quality", "bioreason_tpu_torch.utils.debug_nans"}}
 assert training <= set(names), sorted(training - set(names))
 for n in names:
     importlib.import_module(n)
@@ -403,4 +404,4 @@ assert not bad, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 57
+    assert int(proc.stdout.split()[0]) >= 71

@@ -561,13 +561,36 @@ def test_cli_rejects_an_unknown_dna_attention():
         train_sft.parse_args(["--dna_attention", "local:x"])
 
 
-@pytest.mark.parametrize("flag", ["--debug_nans", "--sp_dna", "--dna_attention=sp_local:64",
+@pytest.mark.parametrize("flag", ["--sp_dna", "--dna_attention=sp_local:64",
                                   "--dna_attention=sp", "--mesh=1,1,1",
                                   "--cpu_devices=2", "--wandb"])
 def test_cli_refuses_later_slices(flag):
     from bioreason_tpu_torch.cli import train_sft
     with pytest.raises(NotImplementedError):
         train_sft.main(["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag])
+
+
+def plant_nan(monkeypatch):
+    """Every rmsnorm's output times NaN: the first op that makes a NaN."""
+    from bioreason_tpu_torch.models import layers as TLayers
+    real = TLayers.rmsnorm
+    monkeypatch.setattr(TLayers, "rmsnorm", lambda *a, **kw: real(*a, **kw) * float("nan"))
+
+
+def test_cli_debug_nans_raises_at_a_planted_nan(tmp_path, monkeypatch):
+    """`--debug_nans` (ported; was refused): a sound run trains as without
+    it; with a NaN planted in every rmsnorm it raises FloatingPointError
+    naming the op that made it, where the run without the flag goes on
+    with a NaN loss (the optimizer's non-finite guard skips the step)."""
+    from bioreason_tpu_torch.cli import train_sft
+    argv = ["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", "--max_steps", "1",
+            "--max_length_dna", "64", "--checkpoint_dir", str(tmp_path)]
+    sound = train_sft.main(argv + ["--debug_nans"])
+    assert sound.history[0]["loss"] == train_sft.main(argv).history[0]["loss"]
+    plant_nan(monkeypatch)
+    with pytest.raises(FloatingPointError, match="aten.mul"):
+        train_sft.main(argv + ["--debug_nans"])
+    assert math.isnan(train_sft.main(argv).history[0]["loss"])
 
 
 def test_trainable_regexes():
