@@ -161,7 +161,10 @@ def _run(args):
     reference = bool(ckpt) and is_reference_checkpoint(ckpt)
     base = None
     if args.hf_llm_dir:
-        from bioreason_tpu_torch.utils.pretrained import load_pretrained_fusion
+        from bioreason_tpu_torch.train.trainable import refuse_moe
+        from bioreason_tpu_torch.utils.pretrained import (decoder_config_from_hf,
+                                                          load_pretrained_fusion)
+        refuse_moe(decoder_config_from_hf(args.hf_llm_dir), "reason --hf_llm_dir")
         fusion_cfg, base, tok, dna_tok = load_pretrained_fusion(
             args.hf_llm_dir, args.hf_dna_dir, args.max_length_text, args.max_length_dna,
             seed=args.seed, dtype=args.dtype or "bfloat16", device=device)

@@ -2,8 +2,9 @@
 of bioreason_tpu/config.py, with the same field names and presets).
 
 Presets mirror the reference model zoo: the Qwen3 0.6B / 1.7B / 4B
-decoders and the DNA towers, NT-v2 50M / 250M / 500M and Evo2-1B, at their
-published widths, plus `tiny` test sizes.
+decoders and the Qwen3-30B-A3B mixture of experts, and the DNA towers,
+NT-v2 50M / 250M / 500M and Evo2-1B, at their published widths, plus
+`tiny` test sizes.
 """
 
 from __future__ import annotations
@@ -34,6 +35,16 @@ class DecoderConfig:
     # int32 product (layers._w8a8_dot); float weights ignore it. Serving
     # only; the grouped and the continuous decode steps turn it off
     act_int8: bool = False
+    # Mixture-of-Experts FFN (Qwen3-MoE family, e.g. 30B-A3B). 0 keeps the
+    # dense SwiGLU; above 0 EVERY layer is sparse (the HF family's
+    # decoder_sparse_step=1, mlp_only_layers=[]): `layers.moe_apply`
+    num_experts: int = 0
+    num_experts_per_tok: int = 8
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+    # tokens per expert C = max(k, ceil(capacity_factor * k * N / E)), N the
+    # rows of the call; tokens past C drop. >= E / k routes losslessly
+    moe_capacity_factor: float = 1.25
 
     @classmethod
     def tiny(cls, vocab_size: int = 300) -> "DecoderConfig":
@@ -55,6 +66,23 @@ class DecoderConfig:
     def qwen3_4b(cls, vocab_size: int = 151936) -> "DecoderConfig":
         return cls(vocab_size=vocab_size, hidden_size=2560, intermediate_size=9728,
                    num_layers=36, num_heads=32, num_kv_heads=8, head_dim=128)
+
+    @classmethod
+    def tiny_moe(cls, vocab_size: int = 300) -> "DecoderConfig":
+        return cls(vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
+                   num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+                   num_experts=4, num_experts_per_tok=2,
+                   moe_intermediate_size=64, remat=False,
+                   attention_impl="xla", dtype="float32")
+
+    @classmethod
+    def qwen3_30b_a3b(cls, vocab_size: int = 151936) -> "DecoderConfig":
+        """Qwen3-30B-A3B (MoE): 128 experts, 8 active, 3B active params."""
+        return cls(vocab_size=vocab_size, hidden_size=2048,
+                   intermediate_size=0, num_layers=48, num_heads=32,
+                   num_kv_heads=4, head_dim=128, tie_word_embeddings=False,
+                   num_experts=128, num_experts_per_tok=8,
+                   moe_intermediate_size=768, norm_topk_prob=True)
 
 
 @dataclass(frozen=True)

@@ -68,7 +68,7 @@ from bioreason_tpu_torch.config import FusionConfig, SamplingConfig
 from bioreason_tpu_torch.generate import guided as G
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.fusion import FusionModel, fused_input_embeddings
-from bioreason_tpu_torch.models.qwen3 import _kv_quantize, decoder_forward, init_cache
+from bioreason_tpu_torch.models.qwen3 import _kv_quantize, _mlp, decoder_forward, init_cache
 from bioreason_tpu_torch.ops.sampling import sample_logits
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
@@ -399,7 +399,7 @@ class ContinuousBatcher:
                                        de["k"][:cb, :, :w], de["v"][:cb, :, :w], dmask)
                 h = h + L.dense(lp.attn.o, a.reshape(cb, 1, -1), dtype)
                 x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
-                h = h + L.swiglu(lp.mlp, x, dtype)
+                h = h + _mlp(lp, cfg, x, dtype)
             h = L.rmsnorm(dec.final_norm, h, cfg.rms_norm_eps)
             logits = L.lm_logits(dec, h)[:, 0]
             if self.guided is not None:

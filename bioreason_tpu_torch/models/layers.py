@@ -21,12 +21,15 @@ with its scales in bf16): an `nn.Linear` or an `Embedding` may hold an int8
 `dense`, `embed` and `lm_logits` read either storage. An attention module
 may hold one fused `qkv` linear in place of `q`, `k` and `v`, and an MLP
 one `gateup` in place of `gate` and `up`; an adapter of a fused projection
-stays on its own `Adapter` module, added to the split outputs.
+stays on its own `Adapter` module, added to the split outputs. A `MoE`'s
+expert banks are `ExpertBank`s, [E, in, out] as in the JAX package, int8
+with [E, 1, out] scales the same way.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -72,6 +75,38 @@ class SwiGLU(nn.Module):
         self.gate = linear(dim, hidden, bias, device, dtype)
         self.up = linear(dim, hidden, bias, device, dtype)
         self.down = linear(hidden, dim, bias, device, dtype)
+
+
+class ExpertBank(nn.Module):
+    """One projection of every expert, `weight` [E, in, out] in the JAX
+    layout (so `torch.bmm` takes it as it is); int8 storage replaces it by
+    an int8 buffer and a `scale` [E, 1, out] (train/quant.py)."""
+
+    def __init__(self, num_experts: int, in_dim: int, out_dim: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_experts, in_dim, out_dim, device=device,
+                                               dtype=dtype))
+
+
+class Experts(nn.Module):
+    def __init__(self, num_experts: int, dim: int, hidden: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.gate = ExpertBank(num_experts, dim, hidden, device, dtype)
+        self.up = ExpertBank(num_experts, dim, hidden, device, dtype)
+        self.down = ExpertBank(num_experts, hidden, dim, device, dtype)
+
+
+class MoE(nn.Module):
+    """Mixture-of-Experts FFN (Qwen3-MoE family, JAX layers.py:219-232): a
+    linear router H -> E without bias and a bank of SwiGLU experts."""
+
+    def __init__(self, dim: int, num_experts: int, hidden: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.router = linear(dim, num_experts, False, device, dtype)
+        self.experts = Experts(num_experts, dim, hidden, device, dtype)
 
 
 class GeluMLP(nn.Module):
@@ -315,6 +350,105 @@ def swiglu(mlp: SwiGLU, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
     return dense(mlp.down, F.silu(g) * u, dtype, dropout, act8)
 
 
+def moe_capacity(n: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
+    """Slots per expert for a call of `n` rows: max(k, ceil(cf * k * n / E)),
+    the JAX package's float expression (layers.py:262)."""
+    return max(top_k, int(math.ceil(capacity_factor * top_k * n / num_experts)))
+
+
+def moe_route(moe: MoE, xf: torch.Tensor, top_k: int, norm_topk_prob: bool,
+              dtype: torch.dtype):
+    """Router of `moe_apply` on rows xf [N, H]: logits in `dtype`, softmax
+    in fp32, top-k by a STABLE descending sort, so that equal
+    probabilities keep the lower expert first, as `jax.lax.top_k` does
+    (`torch.topk` does not promise it, and bf16 logits tie often).
+    Returns (gates [N, k] fp32, experts [N, k] int64)."""
+    probs = torch.softmax(dense(moe.router, xf, dtype).float(), dim=-1)
+    vals, idx = probs.sort(dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    if norm_topk_prob:
+        vals = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    return vals, idx
+
+
+def moe_slots(idx: torch.Tensor, num_experts: int, cap: int):
+    """Each (token, choice)'s slot in its expert: the count of earlier
+    tokens, in flattened (b, t) order, routed to that expert (JAX
+    layers.py:263-264); kept where the slot is below `cap`. The count runs
+    along the tokens of an [E, N] one-hot, its contiguous axis (a scan
+    over the outer axis of [N, E] took 1.3 ms a layer at N = 7168, E = 128
+    on an H100). Returns (slot [N, k] int32, keep [N, k] bool)."""
+    assign = torch.zeros((num_experts, idx.shape[0]), dtype=torch.int32, device=idx.device)
+    assign.scatter_(0, idx.t(), 1)
+    slot = (assign.cumsum(1, dtype=torch.int32) - 1).gather(0, idx.t()).t()
+    return slot, slot < cap
+
+
+def expert_bank(bank: ExpertBank, dtype: torch.dtype) -> torch.Tensor:
+    """A bank in `dtype`: an int8 one as q.to(dtype) * scale.to(dtype)
+    (JAX layers.py:268-273)."""
+    return int8_weight(bank, dtype) if is_int8(bank) else bank.weight.to(dtype)
+
+
+def moe_dispatch(xf: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor,
+                 keep: torch.Tensor, num_experts: int, cap: int):
+    """Rows xf [N, H] gathered into the experts' buffer [E, C, H] (empty
+    slots zero). Returns it and each choice's flat row `dest` [N, k] in
+    the buffer; a dropped choice aims at the spare row E * C, which is
+    never read."""
+    n, h = xf.shape
+    dest = torch.where(keep, idx * cap + slot, num_experts * cap)
+    token = torch.arange(n, device=xf.device).repeat_interleave(idx.shape[1])
+    src = torch.full((num_experts * cap + 1,), n, dtype=torch.int64, device=xf.device)
+    src.scatter_(0, dest.reshape(-1), token)
+    xpad = torch.cat([xf, xf.new_zeros(1, h)])              # row n: empty slots
+    return xpad[src[:-1]].view(num_experts, cap, h), dest
+
+
+def moe_experts(moe: MoE, ein: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """silu(x @ gate) * (x @ up) @ down of every expert on its buffer
+    [E, C, H]: three `torch.bmm` over E in `dtype`. Returns [E * C, H]."""
+    g = torch.bmm(ein, expert_bank(moe.experts.gate, dtype))
+    u = torch.bmm(ein, expert_bank(moe.experts.up, dtype))
+    out = torch.bmm(F.silu(g) * u, expert_bank(moe.experts.down, dtype))
+    return out.view(-1, ein.shape[-1])
+
+
+def moe_combine(oe: torch.Tensor, vals: torch.Tensor, dest: torch.Tensor,
+                keep: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Each token's k expert rows of oe [E * C, H], weighted by its gates
+    rounded to `dtype` first, as JAX's `comb` is; a dropped choice weighs
+    0. Returns [N, H]."""
+    w = torch.where(keep, vals, 0.0).to(dtype)                # [N, k]
+    rows = oe[torch.where(keep, dest, 0)]                     # [N, k, H]
+    return torch.bmm(w[:, None, :], rows)[:, 0]
+
+
+def moe_apply(moe: MoE, x: torch.Tensor, top_k: int, norm_topk_prob: bool = True,
+              dtype: Optional[torch.dtype] = None,
+              capacity_factor: float = 1.25) -> torch.Tensor:
+    """The JAX package's capacity MoE (layers.py:235-283) in index form.
+
+    Routing as `moe_route`; every row of x [B, T, H] counts in N, left pads
+    and empty slots included, and a token past its expert's capacity C
+    (`moe_capacity`) contributes zero. Where JAX builds the one-hot
+    dispatch [N, E, C] for its einsums, this gathers the kept rows into an
+    [E, C, H] buffer (`moe_dispatch`), runs the experts on it
+    (`moe_experts`) and gathers each token's k rows back (`moe_combine`).
+    Nothing of N * E * C elements is allocated."""
+    b, t, h = x.shape
+    n = b * t
+    dtype = x.dtype if dtype is None else dtype
+    xf = x.reshape(n, h).to(dtype)
+    e = moe.experts.gate.weight.shape[0]
+    vals, idx = moe_route(moe, xf, top_k, norm_topk_prob, dtype)
+    cap = moe_capacity(n, e, top_k, capacity_factor)
+    slot, keep = moe_slots(idx, e, cap)
+    ein, dest = moe_dispatch(xf, idx, slot, keep, e, cap)
+    oe = moe_experts(moe, ein, dtype)
+    return moe_combine(oe, vals, dest, keep, dtype).view(b, t, h)
+
+
 def gelu_mlp(mlp: GeluMLP, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
              dropout: Dropout = None, act8: bool = False) -> torch.Tensor:
     # exact (erf) gelu: HF ESM uses F.gelu's default, not the tanh approximation
@@ -392,9 +526,10 @@ def _normal_(param: torch.Tensor, std: float, generator: Optional[torch.Generato
 @torch.no_grad()
 def init_normal_(module: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
     """Random weights with the JAX init's distributions (layers.py:17-28,
-    126-127,165-166): dense kernels N(0, 1/in) with zero biases, embeddings
-    N(0, 0.02^2), drawn in fp32 from `generator`; norms keep their ones and
-    zeros. `jax.random` draws other numbers from the same seed."""
+    126-127,165-166,219-232): dense kernels N(0, 1/in) with zero biases,
+    expert banks [E, in, out] N(0, 1/in), embeddings N(0, 0.02^2), drawn
+    in fp32 from `generator`; norms keep their ones and zeros.
+    `jax.random` draws other numbers from the same seed."""
     for mod in module.modules():
         if isinstance(mod, Embedding):
             _normal_(mod.weight, 0.02, generator)
@@ -402,4 +537,6 @@ def init_normal_(module: nn.Module, generator: Optional[torch.Generator]) -> nn.
             _normal_(mod.weight, mod.in_features ** -0.5, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, ExpertBank):
+            _normal_(mod.weight, mod.weight.shape[1] ** -0.5, generator)
     return module

@@ -1,6 +1,8 @@
 """Qwen3-style causal decoder (the port of bioreason_tpu/models/qwen3.py):
 pre-norm RMSNorm transformer with grouped-query attention, per-head q/k
-RMSNorm before RoPE, SwiGLU MLP and tied embeddings.
+RMSNorm before RoPE, SwiGLU MLP and tied embeddings; with
+`cfg.num_experts` every layer's MLP is a capacity-routed mixture of experts
+(`layers.moe_apply`, Qwen3-MoE).
 
 The KV cache is a list of per-layer {k, v} [B, S, Hkv, D] buffers written in
 place (`cache[i]["k"][:, idx:idx+t] = k`), never reallocated per step; the
@@ -53,7 +55,10 @@ class DecoderLayer(nn.Module):
         self.ln1 = L.RMSNorm(cfg.hidden_size, device)
         self.attn = DecoderAttention(cfg, device, dtype)
         self.ln2 = L.RMSNorm(cfg.hidden_size, device)
-        self.mlp = L.SwiGLU(cfg.hidden_size, cfg.intermediate_size, False, device, dtype)
+        self.mlp = (L.MoE(cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size,
+                          device, dtype)
+                    if cfg.num_experts
+                    else L.SwiGLU(cfg.hidden_size, cfg.intermediate_size, False, device, dtype))
 
 
 class Qwen3Decoder(nn.Module):
@@ -111,6 +116,16 @@ def cache_entry_update(entry: Dict[str, torch.Tensor], k: torch.Tensor,
     return entry
 
 
+def _mlp(lp: DecoderLayer, cfg: DecoderConfig, x, dtype, drop=None, a8: bool = False):
+    """Dense SwiGLU or Mixture-of-Experts FFN per cfg.num_experts (JAX
+    qwen3.py:130-135): the MoE takes neither LoRA dropout nor act_int8, and
+    its router runs weight-only."""
+    if cfg.num_experts:
+        return L.moe_apply(lp.mlp, x, cfg.num_experts_per_tok, cfg.norm_topk_prob, dtype,
+                           cfg.moe_capacity_factor)
+    return L.swiglu(lp.mlp, x, dtype, drop, a8)
+
+
 def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
                    causal, cache_entry=None, cache_index=None, dropout_seed=None,
                    dropout_rate: float = 0.0):
@@ -156,7 +171,7 @@ def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
                   impl=cfg.attention_impl, k_scale=ks, v_scale=vs)
     h = h + L.dense(lp.attn.o, a.reshape(b, t, -1), dtype, drop, a8)
     x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
-    return h + L.swiglu(lp.mlp, x, dtype, drop, a8)
+    return h + _mlp(lp, cfg, x, dtype, drop, a8)
 
 
 def decoder_forward(
@@ -314,7 +329,7 @@ def decoder_decode_step_grouped(dec: Qwen3Decoder, cfg: DecoderConfig,
                                       de.get("k_scale"), de.get("v_scale"))
         h = h + L.dense(lp.attn.o, a.reshape(bg, t, -1), dtype)
         x = L.rmsnorm(lp.ln2, h, cfg.rms_norm_eps)
-        h = h + L.swiglu(lp.mlp, x, dtype)
+        h = h + _mlp(lp, cfg, x, dtype)
     h = L.rmsnorm(dec.final_norm, h, cfg.rms_norm_eps)
     return L.lm_logits(dec, h), dec_cache
 

@@ -29,7 +29,9 @@ split of the host's time, the windows and the mean slot occupancy, the
 prefill calls and the flash_fwd launches they made, the pools' GiB, the
 resident weights' GiB, the peak device memory, and the card's name and
 power limit (nvidia-smi).
-`main` returns the same numbers as a dict. It writes no file.
+`main` returns the same numbers as a dict. It writes no file. `drive` runs
+the same bench on a model the caller built (a configuration no preset
+names, e.g. a Qwen3-MoE decoder) with these options' shape.
 """
 
 from __future__ import annotations
@@ -99,20 +101,13 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     import dataclasses
 
-    import numpy as np
-    import torch
-
     from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS
-    from bioreason_tpu_torch.config import FusionConfig, SamplingConfig
-    from bioreason_tpu_torch.generate.continuous import ContinuousBatcher, Request
+    from bioreason_tpu_torch.config import FusionConfig
     from bioreason_tpu_torch.models.fusion import init_fusion
-    from bioreason_tpu_torch.ops import flash_attention as fa
-    from bioreason_tpu_torch.serve import _parse_tiers, serving_storage
-    from bioreason_tpu_torch.train.quant import storage_bytes
+    from bioreason_tpu_torch.serve import serving_storage
     from bioreason_tpu_torch.utils.devices import resolve_device
 
     device = resolve_device(args.device)
-    cuda = device.type == "cuda"
     dec = dataclasses.replace(DECODER_PRESETS[args.decoder](), remat=False,
                               act_int8=args.w8a8)
     cfg = FusionConfig(decoder=dec, encoder=dataclasses.replace(
@@ -120,6 +115,29 @@ def main(argv=None) -> dict:
         dna_pad_token_id=dec.vocab_size + 2)
     model = init_fusion(cfg, seed=0, device=device).requires_grad_(False)
     serving_storage(model, int8=args.frozen == "int8", fuse=args.fuse)
+    return drive(model, cfg, args)
+
+
+def drive(model, cfg, args) -> dict:
+    """The bench on a built `model` of `cfg`: what `main` times once it has
+    drawn the presets' weights. `args` (`parse_args`) gives the bench's
+    shape; its --decoder, --encoder, --frozen, --fuse and --w8a8 are not
+    read: the result reports the storage read off `model` and `cfg`.
+    Returns the result dict and prints it as one JSON line."""
+    import numpy as np
+    import torch
+
+    from bioreason_tpu_torch.config import SamplingConfig
+    from bioreason_tpu_torch.generate.continuous import ContinuousBatcher, Request
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    from bioreason_tpu_torch.serve import _parse_tiers
+    from bioreason_tpu_torch.train.quant import storage_bytes
+
+    device = next(model.parameters()).device
+    int8 = any(t.dtype == torch.int8 for t in model.buffers())
+    fuse = any(name.rsplit(".", 1)[-1] in ("qkv", "gateup") for name, _ in model.named_modules())
+    cuda = device.type == "cuda"
+    dec = cfg.decoder
     sampling = SamplingConfig(temperature=0.6, top_p=0.95, top_k=20)
     l_dna = args.dna_len
     npr = np.random.default_rng(0)
@@ -220,7 +238,8 @@ def main(argv=None) -> dict:
         "metric": metric, "value": tokens / dt, "unit": "tokens/s",
         "device": torch.cuda.get_device_name(0) if cuda else "cpu",
         "card": card_name() if cuda else None,
-        "frozen": args.frozen, "kv": args.kv, "fuse": args.fuse, "w8a8": args.w8a8,
+        "frozen": "int8" if int8 else "bfloat16", "kv": args.kv, "fuse": fuse,
+        "w8a8": cfg.decoder.act_int8,
         "capacity": capacity, "requests": len(reqs), "window": args.window,
         "decoded_tokens": tokens, "seconds": dt,
         "admit_s": admit_s, "decode_s": dt - admit_s,

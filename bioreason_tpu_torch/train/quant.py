@@ -25,7 +25,10 @@ scale per output channel either way. Weight scales clamp at 1e-12 after
 the division by 127 (quant.py:36-37); the KV cache's clamp at 1e-8 before
 it (`qwen3._kv_quantize`). `torch.round` rounds half to even, as `jnp.rint`.
 
-Mixture-of-Experts banks (JAX quant.py:85-91) wait for the MoE slice.
+Mixture-of-Experts expert banks ([E, in, out] in both packages) take one
+scale per (expert, output channel), [E, 1, out], their absmax over the
+input axis -2 (JAX quant.py:83-89); the router is an `nn.Linear` like any
+other and goes int8 too, as the JAX walk quantizes its `kernel` leaf.
 """
 
 from __future__ import annotations
@@ -38,12 +41,22 @@ from torch import nn
 from bioreason_tpu_torch.models import layers as L
 
 
+def _absmax_int8(w: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    w = w.detach().float()
+    scale = (w.abs().amax(dim, keepdim=True) / 127.0).clamp(min=1e-12)
+    return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
+
+
 def quantize_kernel_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[out, in] float weight -> (int8 [out, in], fp32 scale [out, 1]):
     symmetric absmax per output channel, computed in fp32."""
-    w = w.detach().float()
-    scale = (w.abs().amax(-1, keepdim=True) / 127.0).clamp(min=1e-12)
-    return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
+    return _absmax_int8(w, -1)
+
+
+def quantize_bank_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[E, in, out] expert bank -> (int8 [E, in, out], fp32 scale
+    [E, 1, out]): absmax over the input axis, computed in fp32."""
+    return _absmax_int8(w, -2)
 
 
 # the embedding is [V, H] in both packages and also takes its absmax over
@@ -58,10 +71,11 @@ def dequantize_kernel(q: torch.Tensor, scale: torch.Tensor,
 
 @torch.no_grad()
 def store_int8(mod: nn.Module, q: torch.Tensor, scale: torch.Tensor) -> None:
-    """Replace `mod.weight` (an nn.Linear's or an Embedding's) by the int8
-    buffer `q` and a `scale` buffer in the dtype it is given (fp32 from
-    `quantize_kernel_int8`; bf16 when fused in a QLoRA model, whose trainer
-    stored its scales so); the float weight is dropped."""
+    """Replace `mod.weight` (an nn.Linear's, an Embedding's or an
+    ExpertBank's) by the int8 buffer `q` and a `scale` buffer in the dtype
+    it is given (fp32 from `quantize_kernel_int8`; bf16 when fused in a
+    QLoRA model, whose trainer stored its scales so); the float weight is
+    dropped."""
     if tuple(q.shape) != tuple(mod.weight.shape) or q.dtype != torch.int8:
         raise ValueError(f"int8 {tuple(q.shape)} {q.dtype} does not replace a weight "
                          f"{tuple(mod.weight.shape)}")
@@ -73,15 +87,17 @@ def store_int8(mod: nn.Module, q: torch.Tensor, scale: torch.Tensor) -> None:
 
 def _quantize(mod: nn.Module) -> None:
     if not L.is_int8(mod):
-        store_int8(mod, *quantize_kernel_int8(mod.weight))
+        quant = quantize_bank_int8 if isinstance(mod, L.ExpertBank) else quantize_kernel_int8
+        store_int8(mod, *quant(mod.weight))
 
 
 @torch.no_grad()
 def quantize_frozen_int8(model: nn.Module, subtrees: Sequence[str] = ("decoder", "encoder"),
                          include_embed: bool = False) -> nn.Module:
-    """Quantize, in place, every `nn.Linear` under the named submodules of a
-    `FusionModel` (the decoder and the DNA tower, NT or Evo2: the JAX walk
-    over the `kernel` leaves of those subtrees). `include_embed` adds the
+    """Quantize, in place, every `nn.Linear` and MoE expert bank under the
+    named submodules of a `FusionModel` (the decoder and the DNA tower, NT
+    or Evo2: the JAX walk over the `kernel` and `experts` leaves of those
+    subtrees). `include_embed` adds the
     decoder's embedding and its separate `lm_head`; otherwise an `lm_head`
     stays float, as the JAX walk leaves it (quant.py:76-78). Already int8
     modules are left as they are. Returns the model."""
@@ -89,11 +105,9 @@ def quantize_frozen_int8(model: nn.Module, subtrees: Sequence[str] = ("decoder",
         tower = getattr(model, name, None)
         if tower is None:
             continue
-        if hasattr(tower, "experts"):
-            raise NotImplementedError("int8 expert banks wait for the MoE slice "
-                                      "(ROADMAP.md, queue 1, item 8)")
         for mod_name, mod in tower.named_modules():
-            if isinstance(mod, nn.Linear) and (mod_name != "lm_head" or include_embed):
+            if (isinstance(mod, L.ExpertBank)
+                    or isinstance(mod, nn.Linear) and (mod_name != "lm_head" or include_embed)):
                 _quantize(mod)
         if name == "decoder" and include_embed:
             _quantize(tower.embed)

@@ -24,6 +24,16 @@ from typing import Callable, List
 import torch
 from torch import nn
 
+def refuse_moe(decoder_cfg, what: str) -> None:
+    """Training through a Mixture-of-Experts decoder is not ported yet: the
+    trainers and their CLIs call this first (ROADMAP.md, queue 1, item 8b:
+    MoE training; the MoE serves)."""
+    if decoder_cfg.num_experts:
+        raise NotImplementedError(
+            f"{what}: training a Mixture-of-Experts decoder is not ported yet (ROADMAP.md, "
+            f"queue 1, item 8b: MoE training); the port serves it")
+
+
 # SFT/GRPO default: adapters + fusion projection train; everything else frozen
 # (reference: projection always unfrozen, DNA tower always frozen).
 LORA_TRAINABLE = r"(lora_[ab]$)|(^dna_projection\.(weight|bias)$)"

@@ -112,6 +112,7 @@ QWEN3_LAYER = {
     "mlp.gate_proj.weight": "mlp.gate.weight",
     "mlp.up_proj.weight": "mlp.up.weight",
     "mlp.down_proj.weight": "mlp.down.weight",
+    "mlp.gate.weight": "mlp.router.weight",         # Qwen3-MoE's router [E, H]
 }
 QWEN3_TOP = {"model.embed_tokens.weight": "embed.weight", "model.norm.weight": "final_norm.scale",
              "lm_head.weight": "lm_head.weight"}
@@ -119,15 +120,36 @@ QWEN3_RULES: List[Rule] = (
     [(re.escape(k), v) for k, v in QWEN3_TOP.items()]
     + [(r"model\.layers\.(?P<i>\d+)\." + re.escape(k), "layers.{i}." + v)
        for k, v in QWEN3_LAYER.items()])
+# Qwen3-MoE (Qwen3MoeForCausalLM): each expert's [out, in] projections,
+# transposed and stacked onto a leading E, fill the [E, in, out] banks
+QWEN3_EXPERT = re.compile(
+    r"model\.layers\.(\d+)\.mlp\.experts\.(\d+)\.(gate|up|down)_proj\.weight")
+
+
+def _stack_experts(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The stacked expert banks of an HF Qwen3-MoE state (JAX
+    hf_import.py:100-128), under the port's names."""
+    out: Dict[str, torch.Tensor] = {}
+    banks: Dict[Tuple[str, str], Dict[int, torch.Tensor]] = {}
+    for key, t in state.items():
+        m = QWEN3_EXPERT.fullmatch(key)
+        if m:
+            banks.setdefault((m.group(1), m.group(3)), {})[int(m.group(2))] = t.t()
+    for (i, proj), per_expert in banks.items():
+        if sorted(per_expert) != list(range(len(per_expert))):
+            raise ValueError(f"layer {i} {proj}_proj: experts {sorted(per_expert)[:6]}.. "
+                             f"are not 0..E-1")
+        out[f"layers.{i}.mlp.experts.{proj}.weight"] = torch.stack(
+            [per_expert[j] for j in range(len(per_expert))])
+    return out
 
 
 def import_qwen3(state: Dict[str, torch.Tensor], decoder: nn.Module) -> nn.Module:
-    """An HF Qwen3 state dict into a `Qwen3Decoder`. A tied decoder
-    (`lm_head` None) ignores an `lm_head.weight` in the file, as HF does."""
-    if any(".mlp.experts." in k for k in state):
-        raise NotImplementedError("Qwen3-MoE checkpoints: MoE is not ported yet (ROADMAP.md, "
-                                  "queue 1, item 8)")
+    """An HF Qwen3 or Qwen3-MoE state dict into a `Qwen3Decoder`. A tied
+    decoder (`lm_head` None) ignores an `lm_head.weight` in the file, as HF
+    does."""
     named = import_with_map(state, QWEN3_RULES)
+    named.update(_stack_experts(state))
     if decoder.lm_head is None:
         named.pop("lm_head.weight", None)
     return load_into(decoder, named, "Qwen3 decoder")

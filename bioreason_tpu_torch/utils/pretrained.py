@@ -39,15 +39,14 @@ def _read_config(path: str) -> Dict:
 
 
 def decoder_config_from_hf(path: str, **overrides) -> DecoderConfig:
-    """A DecoderConfig from a local HF Qwen3 directory's config.json."""
+    """A DecoderConfig from a local HF Qwen3 or Qwen3-MoE directory's
+    config.json; a MoE whose layers are not all sparse is refused (JAX
+    pretrained.py:61-70)."""
     c = _read_config(path)
     arch = (c.get("architectures") or [""])[0]
     if "Qwen3" not in arch and c.get("model_type", "") not in ("qwen3", "qwen3_moe"):
         raise ValueError(f"{path}: expected a Qwen3-family checkpoint, got "
                          f"architectures={c.get('architectures')}")
-    if c.get("num_experts"):
-        raise NotImplementedError(f"{path}: Qwen3-MoE is not ported yet (ROADMAP.md, queue 1, "
-                                  f"item 8)")
     kw = dict(
         vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
         intermediate_size=c["intermediate_size"], num_layers=c["num_hidden_layers"],
@@ -57,6 +56,15 @@ def decoder_config_from_hf(path: str, **overrides) -> DecoderConfig:
         rope_theta=float(c.get("rope_theta", 1_000_000.0)),
         rms_norm_eps=float(c.get("rms_norm_eps", 1e-6)),
         tie_word_embeddings=bool(c.get("tie_word_embeddings", True)))
+    if c.get("num_experts"):                         # Qwen3-MoE (e.g. 30B-A3B)
+        if c.get("mlp_only_layers") or c.get("decoder_sparse_step", 1) != 1:
+            raise ValueError(f"{path}: mixed dense/sparse Qwen3-MoE layouts "
+                             "(mlp_only_layers/decoder_sparse_step) are not "
+                             "supported — all layers must be sparse")
+        kw.update(num_experts=c["num_experts"],
+                  num_experts_per_tok=c.get("num_experts_per_tok", 8),
+                  moe_intermediate_size=c["moe_intermediate_size"],
+                  norm_topk_prob=bool(c.get("norm_topk_prob", True)))
     kw.update(overrides)
     return DecoderConfig(**kw)
 

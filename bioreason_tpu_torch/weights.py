@@ -25,6 +25,9 @@ leaves as numpy arrays, e.g. `jax.tree.map(np.asarray, params)`, and fills a
   carried bit for bit: the port's model is quantized first for its
   structure (`train.quant.quantize_frozen_int8`), then every int8 value and
   scale is copied in, transposed to [out, in] / [out, 1];
+* a MoE MLP's `router` dense is transposed like any other, its expert
+  banks `experts/{gate,up,down}` [E, in, out] are copied in the JAX layout,
+  which the port keeps (int8: q and scale [E, 1, out] as they are);
 * fused `qkv` / `gateup` leaves (train/fuse.py) likewise: the port's model
   is fused first (`train.fuse.fuse_projections`), and an adapter left on a
   fused projection becomes a `layers.Adapter`.
@@ -45,7 +48,7 @@ from torch import nn
 from bioreason_tpu_torch.config import EncoderConfig, FusionConfig
 from bioreason_tpu_torch.models.classifier import DnaClassifier
 from bioreason_tpu_torch.models.fusion import FusionModel
-from bioreason_tpu_torch.models.layers import Adapter, add_adapter, is_int8
+from bioreason_tpu_torch.models.layers import Adapter, MoE, add_adapter, is_int8
 from bioreason_tpu_torch.train.fuse import fuse_projections
 from bioreason_tpu_torch.train.quant import quantize_frozen_int8
 from bioreason_tpu_torch.utils.devices import resolve_device
@@ -130,7 +133,26 @@ def _nt_layers(tower: nn.Module, tree: Dict[str, Any], decoder: bool) -> None:
             _norm(lm.attn.q_norm, lp["attn"]["q_norm"])
             _norm(lm.attn.k_norm, lp["attn"]["k_norm"])
         _norm(lm.ln2, lp["ln2"])
-        _projections(lm.mlp, lp["mlp"], ("gateup", "gate", "up", "down"))
+        if isinstance(lm.mlp, MoE):
+            _moe(lm.mlp, lp["mlp"])
+        else:
+            _projections(lm.mlp, lp["mlp"], ("gateup", "gate", "up", "down"))
+
+
+def _moe(moe: MoE, p: Dict[str, Any]) -> None:
+    """A MoE MLP: the router dense and the [E, in, out] banks, whose layout
+    the port keeps (no transpose); int8 banks carry q and their
+    [E, 1, out] scales."""
+    _projections(moe, p, ("router",))
+    for name in ("gate", "up", "down"):
+        bank, leaf = getattr(moe.experts, name), p["experts"][name]
+        if _is_int8(leaf) != is_int8(bank):
+            raise ValueError("the tree's int8 / float expert bank does not match the model's")
+        if _is_int8(leaf):
+            _copy(bank.weight, leaf["q"])
+            _copy(bank.scale, leaf["scale"])
+        else:
+            _copy(bank.weight, leaf)
 
 
 def _embedding(emb: nn.Module, leaf: Any) -> None:

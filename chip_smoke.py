@@ -272,6 +272,46 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               the async file equal to the snapshot, not to the stepped
               parameters; (e) --debug_nans raising FloatingPointError
               at a NaN out of flash_fwd and out of an aten op. At most 150 s.
+ 17. moe      Qwen3-MoE serving at Qwen3-30B-A3B + NT-v2-500M, full width
+              and depth (48 layers, hidden 2048, 32/4 heads of 128, 128
+              experts of 768 with 8 active, capacity factor 1.25, untied
+              head, vocab 151,936): (a) every earlier phase's memory freed
+              first (fails above 2 GiB still allocated), then the model
+              drawn from seed 0 in bf16 directly on the card (an fp32 stage
+              would need 114 GiB): parameters, resident GiB, build seconds;
+              (b) `InferenceServer` in micro-batch mode, phase 4's 8
+              requests of 2 x 2 kb twice, 64 greedy tokens, equal tokens,
+              exactly 29 + 48 = 77 flash_fwd per engine call, all of them
+              in its prefill (one prefill alone counts 77): prefill ms,
+              decode tokens/s; (c) the served prefill's drops per layer (the
+              tokens that lose a choice, the left pads among them), every
+              layer's slots and keep flags held equal to the JAX form's (a
+              cumsum over the [N, E] one-hot), the experts' loads and the
+              mean cosine between the router's input rows, one
+              request's prefill logits through the kernels against the
+              plain route, one MoE layer in bf16 against the port's fp32
+              `moe_apply` on the served prefill's own input (the share of
+              tokens routed alike, their cosine) and the largest tensor that
+              bf16 call allocates against N * E * C; (d) the grouped decode,
+              2 prompts x G = 4, greedy, twice: a prompt's completions equal,
+              the runs equal; (e) `tools/bench_serve.drive` on this
+              model at 16 slots, 32 requests of 256 text + 128 DNA tokens,
+              64/32/16 new tokens:
+              tokens/s, pool GiB, 77 flash_fwd per prefill chunk and none in
+              a window, the rows that lost a choice in each decode window;
+              (g) one prefill and one decode step profiled, device ms by
+              part (router and top-k, slots, dispatch gather, expert bmm,
+              combine, attention, the rest), busy share, launches; the
+              expert products' bound (FLOPs / 989e12 against bytes /
+              3.35e12) as the capacity form computes them and as this run's
+              data needs them; (f) the bf16 teacher-forced logits, then
+              `serving_storage(int8=True)` in place (both copies would need
+              86 GiB): resident GiB, the cosine against bf16 held to
+              phase 14's floor, under which a planted fault (one scale per
+              bank) must fall, one engine call's tokens/s, the int8
+              profile; (h)
+              flash_fwd at [8,896,32/4,128] causal with the served left pads
+              against its plain version (GQA ratio 8). At most 180 s.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -280,6 +320,7 @@ where torch.cuda.is_available() is false or the port's package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -4018,6 +4059,660 @@ def phase_rehearsal(torch, card):
     return out, rows, bwd_rows
 
 
+# -- phase 17 -------------------------------------------------------------------
+
+# Qwen3-30B-A3B (config.py:qwen3_30b_a3b) with NT-v2-500M, at full width and
+# depth, bf16 weights drawn from seed 0 on the card
+MOE_LAYERS = 48
+MOE_BUDGET_S = 180.0
+MOE_NEW = 64                            # served new tokens, as phase 4
+MOE_GROUP_NEW = 16                      # (d)'s grouped completions
+MOE_BENCH_NEW = 64                      # (e)'s longest completion (bench: 128)
+# (c) kernel vs plain route, last-column prefill logits of one request: the
+# two attention routes round apart (bf16 P against fp32), which can move a
+# near-tie of the router in some layer and send a token to another expert
+MOE_ROUTE_COS = 0.99
+# (c) one MoE layer in bf16 against fp32 on the served prefill's input: the
+# tokens routed alike (the same k experts, the same drops) must share at
+# least this share, and agree to this cosine (bf16 products, fp32 sums)
+MOE_ALIKE_SHARE, MOE_LAYER_COS = 0.8, 0.99
+# (f) --int8 against bf16, teacher-forced: phase 14's floor. On an NVIDIA
+# H100 80GB HBM3 at 700.00 W the sound int8 banks read a minimum of
+# 0.993968, one scale per bank (the mean) 0.990700 and one scale per bank
+# (the largest) 0.234760: a mild fault of the scale layout moves random
+# weights' logits too little for a cosine to see, so the banks are also
+# held to their own bound: the largest error of the dequantized bank
+# against the bf16 one it was quantized from, in quantization steps
+# (absmax over the input axis / 127), is half a step for a per-(expert,
+# out-channel) store, plus fp32 rounding (read 0.500002; the faults 59.8
+# and 210.2). Every planted fault must break that bound, and one must read
+# under the floor
+MOE_INT8_COS_FLOOR, MOE_BANK_STEPS = 0.98, 0.501
+MOE_BANK_LAYERS = (0, MOE_LAYERS - 1)    # the banks kept in bf16 for the bound
+MOE_BANK_FAULTS = {
+    "one scale per bank, its scales' mean":
+        lambda sc: sc.float().mean().to(sc.dtype).expand_as(sc),
+    "one scale per bank, its largest (a per-tensor absmax)": lambda sc: sc.amax().expand_as(sc)}
+MOE_INT8_NEW = 16
+
+
+def moe_config():
+    """(FusionConfig, BioProcessor) of Qwen3-30B-A3B + NT-v2-500M with the
+    byte tokenizer, as `serve.build_config` makes the presets' pairs (no CLI
+    preset names a MoE decoder, as in the JAX package)."""
+    from bioreason_tpu_torch.config import DecoderConfig, EncoderConfig, FusionConfig
+    from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
+    tok = ByteTextTokenizer()
+    cfg = FusionConfig(decoder=DecoderConfig.qwen3_30b_a3b(), encoder=EncoderConfig.nt_v2_500m(),
+                       dna_pad_token_id=tok.dna_pad_id, max_length_dna=2048)
+    return cfg, BioProcessor(tok, KmerTokenizer())
+
+
+class MoeRecorder:
+    """Wraps `layers.moe_slots` (and, with `keep_input`, `moe_apply`) to
+    record each MoE call's rows `n`, capacity `cap` and its experts `idx`,
+    slots `slot` and keep flags `keep` [N, k] on the device (no host sync),
+    and with `keep_input` the first call's module and input; `close`
+    restores them."""
+
+    def __init__(self, keep_input=False):
+        from bioreason_tpu_torch.models import layers as L
+        self.L, self.calls, self.inputs = L, [], []
+        self.real_slots, self.real_apply = L.moe_slots, L.moe_apply
+
+        def slots(idx, e, cap):
+            slot, keep = self.real_slots(idx, e, cap)
+            self.calls.append({"n": idx.shape[0], "cap": cap, "idx": idx, "slot": slot,
+                               "keep": keep})
+            return slot, keep
+        L.moe_slots = slots
+        if keep_input:
+            def apply(moe, x, *a, **kw):
+                if not self.inputs:
+                    self.inputs.append((moe, x.detach().clone(), a, kw))
+                return self.real_apply(moe, x, *a, **kw)
+            L.moe_apply = apply
+
+    def close(self):
+        self.L.moe_slots, self.L.moe_apply = self.real_slots, self.real_apply
+
+
+def moe_kept_numel(torch, fn):
+    """fn() under a dispatch mode that records the largest tensor any op
+    allocates (outputs that share an input's storage, as views do, are not
+    allocations): the index form allocates nothing of N * E * C elements."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def storages(xs):
+        return {t.untyped_storage().data_ptr() for t in xs if isinstance(t, torch.Tensor)}
+
+    class MaxNumel(TorchDispatchMode):
+        biggest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            given = storages([*args, *(kwargs or {}).values()])
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and t.untyped_storage().data_ptr() not in given:
+                    MaxNumel.biggest = max(MaxNumel.biggest, t.numel())
+            return out
+    with MaxNumel():
+        out = fn()
+    return out, MaxNumel.biggest
+
+
+def moe_layer_check(torch, card, moe, x, cfg):
+    """(c): one MoE layer's output in bf16 against the port's fp32
+    `moe_apply` on the same input (the served prefill's first layer), and
+    the largest tensor the bf16 call allocates."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.models import layers as L
+    dec = cfg.decoder
+    k, e = dec.num_experts_per_tok, dec.num_experts
+    n = x.shape[0] * x.shape[1]
+    cap = L.moe_capacity(n, e, k, dec.moe_capacity_factor)
+    with torch.inference_mode():
+        y16, biggest = moe_kept_numel(torch, lambda: L.moe_apply(
+            moe, x, k, dec.norm_topk_prob, torch.bfloat16, dec.moe_capacity_factor))
+        y32 = L.moe_apply(moe, x.float(), k, dec.norm_topk_prob, torch.float32,
+                          dec.moe_capacity_factor)
+        routes = []
+        for dtype, xx in ((torch.bfloat16, x), (torch.float32, x.float())):
+            xf = xx.reshape(n, -1).to(dtype)
+            _, idx = L.moe_route(moe, xf, k, dec.norm_topk_prob, dtype)
+            _, keep = L.moe_slots(idx, e, cap)
+            routes.append(torch.where(keep, idx, -1).sort(-1).values)
+    alike = (routes[0] == routes[1]).all(-1)
+    a, b = y16.reshape(n, -1).float(), y32.reshape(n, -1)
+    zero = (b.abs().sum(-1) == 0)
+    live = alike & ~zero
+    cos = F.cosine_similarity(a[live], b[live], dim=-1)
+    share = float(alike.float().mean())
+    log(f"moe layer [{card}] bf16 vs fp32 moe_apply at the served prefill's N = {n} "
+        f"(C = {cap}): {share:.4f} of tokens routed alike (>= {MOE_ALIKE_SHARE}); on those "
+        f"cosine min {float(cos.min()):.6f}, median {float(cos.median()):.6f} (>= "
+        f"{MOE_LAYER_COS}); rows dropped whole alike in both "
+        f"{bool((zero[alike] == (a.abs().sum(-1) == 0)[alike]).all())}; largest tensor of the "
+        f"bf16 call {biggest:,} elements (the [E * C, H] buffer is {e * cap * x.shape[-1]:,}) "
+        f"against N * E * C = {n * e * cap:,}")
+    if share < MOE_ALIKE_SHARE or float(cos.min()) < MOE_LAYER_COS:
+        fail(f"the bf16 MoE layer disagrees with fp32: share {share:.4f}, cosine "
+             f"{float(cos.min()):.6f}")
+    if biggest >= n * e * cap // 2:
+        fail(f"moe_apply allocated {biggest:,} elements, not the index form")
+    return {"alike_share": share, "cos_min": float(cos.min()), "largest_numel": biggest,
+            "n_e_c": n * e * cap}
+
+
+def moe_drops(torch, calls, pad_rows=None):
+    """Per recorded MoE call: (token, choice) pairs dropped, tokens with a
+    drop, and of those the pads (rows where `pad_rows` [N] is True)."""
+    out = []
+    for c in calls:
+        lost = ~c["keep"]
+        tok = lost.any(-1)
+        pads = int((tok & pad_rows).sum()) if pad_rows is not None else None
+        out.append({"n": c["n"], "cap": c["cap"], "pairs": int(lost.sum()),
+                    "tokens": int(tok.sum()), "pad_tokens": pads})
+    return out
+
+
+def moe_slots_check(torch, card, calls, num_experts, pad_rows, x):
+    """(c): each recorded call's slots and keep flags recomputed as the JAX
+    package computes them (layers.py:258-264: a cumulative sum down the
+    tokens of the [N, E] one-hot in fp32) and held equal to `moe_slots`'s;
+    the experts' loads (tokens routed to each, before the capacity), the
+    experts the left pads picked, and the mean cosine between the first
+    layer's input rows `x` (the router's input), real tokens and all."""
+    import torch.nn.functional as F
+    loads, bad = [], []
+    for li, c in enumerate(calls):
+        assign = F.one_hot(c["idx"], num_experts).sum(1).float()        # [N, E]
+        pos = assign.cumsum(0) - 1.0
+        keep = assign * (pos < c["cap"])
+        mine = torch.zeros_like(assign).scatter_(1, c["idx"], c["keep"].float())
+        if not (torch.equal(keep, mine)
+                and torch.equal(pos.gather(1, c["idx"]).to(torch.int32), c["slot"])):
+            bad.append(li)
+        loads.append(assign.sum(0))
+    loads = torch.stack(loads).to(torch.int64).cpu()                    # [layers, E]
+    cap = calls[0]["cap"]
+    top = loads.sort(-1, descending=True).values
+    pad_experts = sorted(int(e) for e in torch.unique(calls[0]["idx"][pad_rows]))
+    xn = F.normalize(x.reshape(-1, x.shape[-1]).float(), dim=-1)
+
+    def mean_cos(rows):
+        m = rows.shape[0]
+        return float((rows.sum(0).square().sum() - m) / (m * (m - 1)))
+    cos_all, cos_real = mean_cos(xn), mean_cos(xn[~pad_rows])
+    over = (loads > cap).sum(-1)
+    log(f"moe slots [{card}]: keep and slot of {len(calls)} served-prefill layers against the "
+        f"JAX form (cumsum over the [N, E] one-hot): equal in {len(calls) - len(bad)} "
+        f"(unequal in layers {bad})")
+    log(f"moe loads [{card}] served prefill, tokens routed per expert before the capacity "
+        f"(C = {cap}, N * k / E = {calls[0]['n'] * calls[0]['idx'].shape[1] / num_experts:g}): "
+        f"layer 0's 16 largest {top[0, :16].tolist()}, its median {int(top[0].median())}, "
+        f"experts with no token {int((loads[0] == 0).sum())}; the largest per layer "
+        f"{top[:, 0].tolist()}; experts over C per layer {over.tolist()}; the pads' experts in "
+        f"layer 0 {pad_experts} with loads {[int(loads[0, e]) for e in pad_experts]}; mean "
+        f"cosine between layer 0's router inputs: all rows {cos_all:.4f}, real tokens "
+        f"{cos_real:.4f}")
+    if bad:
+        fail(f"moe_slots disagrees with the JAX form in layers {bad}")
+    return {"layers_equal": len(calls) - len(bad), "loads_max": top[:, 0].tolist(),
+            "experts_over_cap": over.tolist(), "load_layer0": loads[0].tolist(),
+            "pad_experts": pad_experts, "router_input_mean_cos": {"all": cos_all,
+                                                                  "real": cos_real}}
+
+
+def moe_profile(torch, card, model, cfg, batch, label):
+    """One prefill and one decode step of the served batch under the
+    profiler, the MoE split by part: router and top-k, slots, dispatch
+    gather, expert bmm, combine; attention; the rest (busy minus those)."""
+    from torch.profiler import record_function
+    from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.models import layers as L
+    from bioreason_tpu_torch.models import qwen3 as Q
+    parts = {"moe_route": "router + top-k", "moe_slots": "slots",
+             "moe_dispatch": "dispatch gather", "moe_experts": "expert bmm",
+             "moe_combine": "combine"}
+    real = {name: getattr(L, name) for name in parts}
+    real_attn = Q.attention
+
+    def labelled(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+    for name, fn in real.items():
+        setattr(L, name, labelled(name, fn))
+    Q.attention = labelled("attention", real_attn)
+    engine = GenerationEngine(cfg, eos_token_id=-1)
+    ids, mask, dna, dmask = batch
+    b, p = ids.shape
+    out = {}
+    try:
+        with torch.inference_mode():
+            engine.prefill(model, *batch, 2)
+            busy, wall, got, kern = profile_step(
+                torch, card, f"{label} prefill", lambda: engine.prefill(model, *batch, 2),
+                ("flash_fwd", "nvjet", "gemm"), ranges=(*parts, "attention"))
+            # the flash kernel is launched through ctypes, outside any torch
+            # op, so its time joins the attention range by name
+            flash = sum(d for name, d, *_ in kern if "flash_fwd" in name) / 1e6
+            out["prefill"] = {"busy_ms": busy, "wall_ms": wall, "launches": len(kern),
+                              "parts": {k: v[1] + (flash if k == "attention" else 0.0)
+                                        for k, v in got.items()}}
+            _, cache, cmask = engine.prefill(model, *batch, 2)
+            cmask[:, p] = 1
+            tok = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
+            pos = mask.sum(-1)[:, None]
+            ones = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+
+            def step():
+                return Q.decoder_forward(model.decoder, cfg.decoder, input_ids=tok,
+                                         attention_mask=ones, positions=pos, cache=cache,
+                                         cache_index=p, cache_mask=cmask)
+            step()
+            busy, wall, got, kern = profile_step(torch, card, f"{label} decode step", step,
+                                                 ("nvjet", "gemm"),
+                                                 ranges=(*parts, "attention"))
+            out["decode"] = {"busy_ms": busy, "wall_ms": wall, "launches": len(kern),
+                             "parts": {k: v[1] for k, v in got.items()}}
+    finally:
+        for name, fn in real.items():
+            setattr(L, name, fn)
+        Q.attention = real_attn
+    for what, r in out.items():
+        rest = r["busy_ms"] - sum(r["parts"].values())
+        log(f"moe profile [{card}] {label} {what}: device busy {r['busy_ms']:.3f} of "
+            f"{r['wall_ms']:.3f} ms wall ({100 * r['busy_ms'] / max(r['wall_ms'], 1e-9):.1f}%), "
+            f"{r['launches']} launches; "
+            + ", ".join(f"{parts.get(k, k)} {v:.3f} ms ({100 * v / max(r['busy_ms'], 1e-9):.1f}%)"
+                        for k, v in r["parts"].items())
+            + f", the rest {rest:.3f} ms ({100 * rest / max(r['busy_ms'], 1e-9):.1f}%)")
+        r["rest_ms"] = rest
+    return out
+
+
+@contextlib.contextmanager
+def moe_bank_scale_fault(torch, model, fault):
+    """A planted fault of the int8 expert banks (f): every bank of the
+    decoder dequantizes with `fault`(its [E, 1, out] scales) in their
+    place; restored on exit."""
+    from bioreason_tpu_torch.models import layers as L
+    banks = [m for m in model.decoder.modules() if isinstance(m, L.ExpertBank)]
+    saved = [m.scale for m in banks]
+    try:
+        for m, sc in zip(banks, saved):
+            m.scale = fault(sc)
+        yield
+    finally:
+        for m, sc in zip(banks, saved):
+            m.scale = sc
+
+
+def moe_bank_steps(torch, model, kept):
+    """(f): the largest error of the int8 banks of the layers in `kept`
+    ({layer: {name: its bf16 bank, kept before quantizing}}), dequantized
+    as `moe_experts` dequantizes them (`layers.expert_bank`, here in fp32),
+    against those bf16 banks, in quantization steps (absmax over the input
+    axis / 127, from the bf16 bank)."""
+    from bioreason_tpu_torch.models import layers as L
+    worst = 0.0
+    for li, banks in kept.items():
+        experts = model.decoder.layers[li].mlp.experts
+        for name, w in banks.items():
+            w = w.float()
+            step = (w.abs().amax(-2, keepdim=True) / 127.0).clamp(min=1e-12)
+            err = (L.expert_bank(getattr(experts, name), torch.float32) - w).abs_().div_(step)
+            worst = max(worst, float(err.amax()))
+            del w, step, err
+    return worst
+
+
+def moe_expert_bound(cfg, n_rows, kept_pairs, label):
+    """The expert products' bound over the decoder: FLOPs / 989e12 against
+    bytes / 3.35e12, for the capacity form as it computes (E * C rows, every
+    bank read) and for what this run's data needs (the kept (token, expert)
+    pairs, the banks of the experts some token picked: `kept_pairs` and
+    `picked` per layer)."""
+    from bioreason_tpu_torch.models import layers as L
+    dec = cfg.decoder
+    h, i, e, k = dec.hidden_size, dec.moe_intermediate_size, dec.num_experts, \
+        dec.num_experts_per_tok
+    cap = L.moe_capacity(n_rows, e, k, dec.moe_capacity_factor)
+    flops_form = 6.0 * e * cap * h * i * dec.num_layers
+    bytes_form = (3 * e * h * i * 2 + 2 * 2 * e * cap * h) * dec.num_layers
+    pairs, picked = kept_pairs
+    flops_need = 6.0 * h * i * sum(pairs)
+    bytes_need = sum(3 * pk * h * i * 2 + 2 * 2 * pr * h for pr, pk in zip(pairs, picked))
+    res = {}
+    for what, f, nb in (("capacity form", flops_form, bytes_form), ("needed", flops_need,
+                                                                     bytes_need)):
+        t_ops, t_bytes = f / PEAK_BF16_FLOPS * 1e3, nb / PEAK_HBM_BYTES * 1e3
+        res[what] = {"tflop": f / 1e12, "gib": nb / 2 ** 30, "ops_ms": t_ops,
+                     "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"moe expert products {label} (N = {n_rows}, C = {cap}, 48 layers): "
+        + "; ".join(f"{w}: {r['tflop']:.3f} TFLOP / 989e12 = {r['ops_ms']:.3f} ms against "
+                    f"{r['gib']:.2f} GiB / 3.35e12 = {r['bytes_ms']:.3f} ms, bound "
+                    f"{r['bound_ms']:.3f} ms ({r['bound_by']})" for w, r in res.items()))
+    return res
+
+
+def phase_moe(torch, card):
+    """Qwen3-MoE serving at Qwen3-30B-A3B + NT-v2-500M (module docstring,
+    phase 17)."""
+    import gc
+
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.models.qwen3 import decoder_forward
+    from bioreason_tpu_torch.serve import InferenceServer, prepare_batch, serving_storage
+    from bioreason_tpu_torch.tools import bench_serve
+    from bioreason_tpu_torch.train.quant import storage_bytes
+    t_phase = time.perf_counter()
+    per_call = ENCODER_LAYERS + MOE_LAYERS
+    out = {}
+
+    # (a) build: nothing of the earlier phases left, then the model in bf16
+    # directly on the card (an fp32 stage would need 114 GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    log(f"moe: {left / 2**30:.3f} GiB allocated before the build")
+    if left > 2 * 2**30:
+        live = sorted(((o.numel() * o.element_size(), tuple(o.shape), str(o.dtype))
+                       for o in gc.get_objects()
+                       if isinstance(o, torch.Tensor) and o.is_cuda), reverse=True)
+        fail(f"{left / 2**30:.2f} GiB of earlier phases is still allocated; the largest live "
+             f"CUDA tensors {live[:10]}")
+    cfg, processor = moe_config()
+    dec = cfg.decoder
+    if (dec.num_layers, dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim,
+            dec.num_experts, dec.num_experts_per_tok, dec.moe_intermediate_size,
+            dec.tie_word_embeddings, dec.vocab_size) != (MOE_LAYERS, 2048, 32, 4, 128, 128, 8,
+                                                         768, False, 151936):
+        fail(f"the decoder is not at Qwen3-30B-A3B width: {dec}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_fusion(cfg, seed=0, device="cuda").requires_grad_(False)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_dec = sum(p.numel() for p in model.decoder.parameters())
+    n_all = sum(p.numel() for p in model.parameters())
+    resident = storage_bytes(model)
+    log(f"moe [{card}]: Qwen3-30B-A3B ({n_dec / 1e9:.3f} B parameters: {dec.num_layers} layers, "
+        f"hidden {dec.hidden_size}, {dec.num_heads}/{dec.num_kv_heads} heads of {dec.head_dim}, "
+        f"{dec.num_experts} experts of {dec.moe_intermediate_size}, {dec.num_experts_per_tok} "
+        f"active, tied head {dec.tie_word_embeddings}, vocab {dec.vocab_size:,}) + NT-v2-500M, "
+        f"{n_all / 1e9:.3f} B in all, {dec.dtype} on the card: {resident / 2**30:.2f} GiB "
+        f"resident, built in {t_build:.2f} s; torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out["build"] = {"params": n_all, "decoder_params": n_dec, "gib": resident / 2**30,
+                    "s": t_build}
+
+    items, padded = served_inputs()
+    batch = [torch.as_tensor(a, device="cuda") for a in padded]
+    b, p = batch[0].shape
+
+    # (b) serve: the micro-batch server, 8 concurrent 2 kb requests twice;
+    # the main path, counts from 0 just before and read just after
+    server = InferenceServer(model, cfg, processor, max_batch=8, batch_window_ms=500.0,
+                             max_new_tokens=MOE_NEW, greedy_default=True)
+    server.start()
+    calls_out, restore = record_engine_calls(server)
+    reset_counts()
+    calls0 = server.engine_calls
+    try:
+        first = burst(server, items, MOE_NEW)
+        second = burst(server, items, MOE_NEW)
+    finally:
+        server.stop()
+        restore()
+    got = counts()
+    calls = server.engine_calls - calls0
+    answered = [r for r in first + second if r and set(r) == {"completion", "answer"}]
+    # the prefill alone: all of an engine call's launches, so its decode
+    # steps launched none
+    reset_counts()
+    recorder = MoeRecorder(keep_input=True)
+    try:
+        with torch.inference_mode():
+            server.engine.prefill(model, *batch, MOE_NEW)
+        torch.cuda.synchronize()
+    finally:
+        recorder.close()
+    prefill_launches = counts()
+    st = [s for _, s in calls_out]
+    log(f"moe serve [{card}]: {len(answered)} requests answered in {calls} engine calls "
+        f"(batches {[s['batch'] for s in st]}), launches {got} = "
+        f"{got['flash_fwd'] / max(calls, 1):g} flash_fwd per engine call; one prefill alone "
+        f"{prefill_launches}, so 0 in each call's {st[-1]['steps'] - 1} decode steps")
+    for name, s in (("first 8", st[0]), ("same 8 again", st[-1])):
+        log(f"moe serve [{card}] {name}: B={s['batch']} P={s['prompt_len']}: prefill "
+            f"{s['prefill_s'] * 1e3:.1f} ms; decode "
+            f"{s['decode_tokens'] / max(s['decode_s'], 1e-9):.1f} tokens/s over "
+            f"{s['steps'] - 1} steps ({s['decode_s'] / max(s['steps'] - 1, 1) * 1e3:.2f} ms "
+            f"per step)")
+    if (len(answered) != 16 or first != second or calls != 2
+            or got != {k: per_call * calls if k == "flash_fwd" else 0 for k in got}
+            or prefill_launches["flash_fwd"] != per_call):
+        fail(f"moe serving: {len(answered)} answered, repeats equal {first == second}, "
+             f"launches {got} in {calls} calls, {prefill_launches} in one prefill (expected "
+             f"{per_call} flash_fwd per call, all in its prefill)")
+    if server.engine.nonfinite_rows:
+        fail(f"moe serving: {server.engine.nonfinite_rows} logit rows were not finite")
+    per_engine_call = got["flash_fwd"] / calls
+    out["serve"] = {"launches": got["flash_fwd"], "calls": calls,
+                    "per_engine_call": per_engine_call,
+                    "prefill_alone": prefill_launches["flash_fwd"],
+                    "per_decode_step": ((per_engine_call - prefill_launches["flash_fwd"])
+                                        / (st[-1]["steps"] - 1)),
+                    "prefill_ms": [s["prefill_s"] * 1e3 for s in st],
+                    "decode_tps": [s["decode_tokens"] / s["decode_s"] for s in st]}
+
+    # (c) drops in the served prefill, by layer; the kernel route against
+    # the plain one; one layer in bf16 against fp32
+    pad_rows = ~batch[1].bool().reshape(-1)
+    drops = moe_drops(torch, recorder.calls, pad_rows)
+    if len(drops) != MOE_LAYERS or any(d["n"] != b * p for d in drops):
+        fail(f"the served prefill made {len(drops)} MoE calls, not one per layer at N = {b * p}")
+    log(f"moe drops [{card}] served prefill (N = {b * p} rows, {int(pad_rows.sum())} of them "
+        f"left pads; C = {drops[0]['cap']}): tokens with a dropped choice per layer "
+        f"{[d['tokens'] for d in drops]}, of them pads {[d['pad_tokens'] for d in drops]}; "
+        f"(token, expert) pairs dropped {sum(d['pairs'] for d in drops)} of "
+        f"{MOE_LAYERS * b * p * dec.num_experts_per_tok}")
+    out["drops_prefill"] = drops
+    out["slots"] = moe_slots_check(torch, card, recorder.calls, dec.num_experts, pad_rows,
+                                   recorder.inputs[0][1])
+    one = [torch.as_tensor(a, device="cuda")
+           for a in prepare_batch(processor, cfg, items[:1])]
+    plain_cfg = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, attention_impl="xla"),
+        decoder=dataclasses.replace(dec, attention_impl="xla"))
+    reset_counts()
+    k_logits = server.engine.prefill(model, *one, MOE_NEW)[0]
+    k_launches = counts()["flash_fwd"]
+    p_logits = GenerationEngine(plain_cfg, -1).prefill(model, *one, MOE_NEW)[0]
+    cos = float(F.cosine_similarity(k_logits, p_logits, dim=-1).min())
+    log(f"moe [{card}] kernel vs plain route, one request's last-column prefill logits: "
+        f"cosine {cos:.6f} (>= {MOE_ROUTE_COS}), max abs diff "
+        f"{float((k_logits - p_logits).abs().max()):.4g} (|logit| max "
+        f"{float(p_logits.abs().max()):.3g}), same argmax "
+        f"{bool((k_logits.argmax(-1) == p_logits.argmax(-1)).all())}; {k_launches} flash_fwd")
+    if cos < MOE_ROUTE_COS or k_launches != per_call or not bool(torch.isfinite(k_logits).all()):
+        fail(f"kernel and plain routes disagree on the MoE model (cosine {cos:.4f}, "
+             f"{k_launches} launches)")
+    moe0, x0, _, _ = recorder.inputs[0]
+    out["layer"] = moe_layer_check(torch, card, moe0, x0, cfg)
+    del recorder, x0
+    torch.cuda.empty_cache()
+
+    # (d) grouped decode: 2 prompts x G = 4, greedy, twice
+    engine = GenerationEngine(cfg, eos_token_id=-1)
+    two = [torch.as_tensor(a, device="cuda") for a in prepare_batch(processor, cfg, items[:2])]
+    reset_counts()
+    g1, _ = engine.generate(model, *two, greedy=True, max_new_tokens=MOE_GROUP_NEW, group_size=4)
+    g_launches = counts()["flash_fwd"]
+    gst = dict(engine.last_stats)
+    g2, _ = engine.generate(model, *two, greedy=True, max_new_tokens=MOE_GROUP_NEW, group_size=4)
+    same_in_group = all((g1[4 * i: 4 * i + 4] == g1[4 * i]).all() for i in range(2))
+    log(f"moe grouped [{card}]: 2 prompts x G=4, {MOE_GROUP_NEW} greedy tokens: completions of "
+        f"a prompt equal {same_in_group}, two runs equal {bool((g1 == g2).all())}; "
+        f"{g_launches} flash_fwd; prefill {gst['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{gst['decode_tokens'] / gst['decode_s']:.1f} tokens/s")
+    if not same_in_group or not (g1 == g2).all() or g_launches != per_call:
+        fail("the grouped MoE decode's completions differ within a group or between runs")
+    out["grouped"] = {"tps": gst["decode_tokens"] / gst["decode_s"]}
+
+    # (e) continuous: the serving bench (`bench_serve.drive`) at 16 slots, 32 requests;
+    # each decode window's MoE calls (k steps x 48 layers at its cb rows)
+    # marked by wrapping the batcher's window
+    from bioreason_tpu_torch.generate import continuous as C
+    args = bench_serve.parse_args(["--capacity", "16", "--requests", "32", "--max_new",
+                                   str(MOE_BENCH_NEW), "--probe"])
+    recorder, marks = MoeRecorder(), []
+    real_multi = C.ContinuousBatcher._multi_step
+
+    def multi_step(self, st, k, w, cb, *a, **kw):
+        start = len(recorder.calls)
+        toks = real_multi(self, st, k, w, cb, *a, **kw)
+        marks.append((cb, recorder.calls[start:]))
+        return toks
+    C.ContinuousBatcher._multi_step = multi_step
+    reset_counts()
+    try:
+        res = bench_serve.drive(model, cfg, args)
+    finally:
+        recorder.close()
+        C.ContinuousBatcher._multi_step = real_multi
+    got = counts()
+    per_window = [(cb, sum(d["tokens"] for d in moe_drops(torch, calls_)))
+                  for cb, calls_ in marks]
+    log(f"moe continuous [{card}]: {res['value']:.1f} decoded tokens/s ({res['decoded_tokens']} "
+        f"tokens, {res['requests']} requests over {res['capacity']} slots in "
+        f"{res['seconds']:.2f} s; admit {res['admit_s']:.2f} s); {res['windows']} windows, "
+        f"mean occupancy {res['mean_occupancy']:.3f}; pools {res['pool_gib']:.3f} GiB; "
+        f"{res['prefill_calls']} prefill calls, {res['flash_fwd_per_prefill']:g} flash_fwd "
+        f"each; rows with a dropped choice per decode window (cb rows: rows dropped, summed "
+        f"over its steps and 48 layers) {per_window}; launches with the warmup {got}")
+    if got != {k: (per_call * (res["prefill_calls"] + 1) if k == "flash_fwd" else 0)
+               for k in got}:
+        fail(f"the MoE bench launched {got}: expected {per_call} flash_fwd per prefill chunk "
+             f"(and its warmup's one) and nothing else")
+    out["continuous"] = {**res, "launches": got["flash_fwd"], "drops_per_window": per_window}
+    del recorder
+    torch.cuda.empty_cache()
+
+    # (g) the profile of one prefill and one decode step, with the expert
+    # products' bound (bf16 storage) from the kept pairs and the experts
+    # picked in that prefill and step
+    recorder = MoeRecorder()
+    try:
+        with torch.inference_mode():
+            _, cache, cmask = engine.prefill(model, *batch, 2)
+            cmask[:, p] = 1
+            decoder_forward(model.decoder, dec, input_ids=torch.zeros((b, 1), dtype=torch.int64,
+                                                                      device="cuda"),
+                            attention_mask=torch.ones((b, 1), dtype=torch.int32,
+                                                      device="cuda"),
+                            positions=batch[1].sum(-1)[:, None], cache=cache, cache_index=p,
+                            cache_mask=cmask)
+        torch.cuda.synchronize()
+    finally:
+        recorder.close()
+    del cache
+    kept = {}
+    for what, calls_ in (("prefill", recorder.calls[:MOE_LAYERS]),
+                         ("decode", recorder.calls[MOE_LAYERS:])):
+        kept[what] = ([int(c["keep"].sum()) for c in calls_],
+                      [int(torch.unique(c["idx"][c["keep"]]).numel()) for c in calls_])
+    out["profile_bf16"] = moe_profile(torch, card, model, cfg, batch, "bf16")
+    out["bound"] = {"prefill": moe_expert_bound(cfg, b * p, kept["prefill"], "prefill"),
+                    "decode": moe_expert_bound(cfg, b, kept["decode"], "decode step")}
+
+    # (f) int8: the bf16 teacher-forced logits first, then the storage
+    # quantized in place (both copies at once would need 86 GiB)
+    ids_bf, _ = engine.generate(model, *batch, greedy=True, max_new_tokens=MOE_INT8_NEW)
+    streams = torch.as_tensor(ids_bf, device="cuda")
+    lg_bf = teacher_forced(torch, engine, model, batch, streams)
+    kept_banks = {li: {name: getattr(model.decoder.layers[li].mlp.experts, name).weight.clone()
+                       for name in ("gate", "up", "down")} for li in MOE_BANK_LAYERS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serving_storage(model, int8=True)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident8 = storage_bytes(model)
+    lg8 = teacher_forced(torch, engine, model, batch, streams)
+    cos = F.cosine_similarity(lg8, lg_bf, dim=-1)
+    top = float((lg8.argmax(-1) == lg_bf.argmax(-1)).float().mean())
+    steps = moe_bank_steps(torch, model, kept_banks)
+    faults = {}
+    for name, fault in MOE_BANK_FAULTS.items():
+        with moe_bank_scale_fault(torch, model, fault):
+            c = F.cosine_similarity(teacher_forced(torch, engine, model, batch, streams), lg_bf,
+                                    dim=-1)
+            faults[name] = {"cos_min": float(c.min()), "cos_median": float(c.median()),
+                            "bank_steps": moe_bank_steps(torch, model, kept_banks)}
+    del kept_banks
+    reset_counts()
+    ids8, _ = engine.generate(model, *batch, greedy=True, max_new_tokens=MOE_INT8_NEW)
+    got8 = counts()
+    st8 = dict(engine.last_stats)
+    log(f"moe int8 [{card}]: quantized in place in {t_q:.2f} s (banks [E, 1, out] scales, "
+        f"the router too); resident {resident8 / 2**30:.2f} GiB ({resident8 / resident:.3f} of "
+        f"bf16's {resident / 2**30:.2f}); teacher-forced logits against bf16: cosine min "
+        f"{float(cos.min()):.6f}, median {float(cos.median()):.6f} over {cos.numel()} (row, "
+        f"step) pairs (>= {MOE_INT8_COS_FLOOR}); argmax agreement {top:.3f}; layers "
+        f"{list(MOE_BANK_LAYERS)}' banks against their bf16: largest error {steps:.6f} steps "
+        f"(<= {MOE_BANK_STEPS}); planted faults of the banks' scales: "
+        + "; ".join(f"{k}: cosine min {v['cos_min']:.6f}, median {v['cos_median']:.6f}, "
+                    f"largest bank error {v['bank_steps']:.3f} steps (must be over "
+                    f"{MOE_BANK_STEPS})" for k, v in faults.items())
+        + f"; one engine call "
+        f"of {MOE_INT8_NEW} tokens: prefill {st8['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{st8['decode_tokens'] / st8['decode_s']:.1f} tokens/s; launches {got8}")
+    if (float(cos.min()) < MOE_INT8_COS_FLOOR or not bool(torch.isfinite(lg8).all())
+            or got8["flash_fwd"] != per_call or not 0.45 < resident8 / resident < 0.55):
+        fail(f"moe int8: cosine {float(cos.min()):.6f}, launches {got8}, resident share "
+             f"{resident8 / resident:.3f}")
+    if steps > MOE_BANK_STEPS:
+        fail(f"the int8 banks are {steps:.6f} quantization steps off their bf16, over "
+             f"{MOE_BANK_STEPS}")
+    missed = [k for k, v in faults.items() if v["bank_steps"] <= MOE_BANK_STEPS]
+    if missed:
+        fail(f"the bound of {MOE_BANK_STEPS} steps misses the planted faults {missed}")
+    if all(v["cos_min"] >= MOE_INT8_COS_FLOOR for v in faults.values()):
+        fail(f"no planted fault of the int8 banks reads under the floor {MOE_INT8_COS_FLOOR}")
+    out["int8"] = {"gib": resident8 / 2**30, "cos_min": float(cos.min()),
+                   "cos_median": float(cos.median()), "argmax_agree": top,
+                   "bank_steps": steps, "faults": faults,
+                   "decode_tps": st8["decode_tokens"] / st8["decode_s"],
+                   "prefill_ms": st8["prefill_s"] * 1e3}
+    del lg8, lg_bf
+    out["profile_int8"] = moe_profile(torch, card, model, cfg, batch, "int8")
+
+    # (h) flash_fwd at the MoE prefill's shape: 32 q heads over 4 KV heads,
+    # the served left pads, a cache of P + 64
+    del model, server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmask = F.pad(batch[1].to(torch.int32), (0, MOE_NEW))
+    rows = [kernel_case(torch, f"moe_prefill_P{p}", b, p, p + MOE_NEW, 32, 4, 128, True, 0,
+                        cmask, 171)]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"moe: phase done in {out['seconds']:.1f} s (budget {MOE_BUDGET_S:g})")
+    if out["seconds"] > MOE_BUDGET_S:
+        fail(f"the moe phase took {out['seconds']:.1f} s, over {MOE_BUDGET_S:g}")
+    return out, rows
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -4087,10 +4782,13 @@ def main():
     mark("qlora")
     reh, reh_rows, reh_bwd_rows = phase_rehearsal(torch, card)
     mark("rehearsal")
+    moe, moe_rows = phase_moe(torch, card)
+    mark("moe")
     log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    rows += grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows + qlora_rows + reh_rows
+    rows += (grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows + qlora_rows + reh_rows
+             + moe_rows)
     bwd_rows += grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows + qlora_bwd_rows + reh_bwd_rows
     qlora_launches = {"sft_int8": qlora["sft"]["int8"]["launches"],
                       "sft_bfloat16": qlora["sft"]["bfloat16"]["launches"],
@@ -4137,6 +4835,12 @@ def main():
                                         "calls": reh["a"]["calls"],
                                         "per_call": {k: sorted({d.get("flash_fwd", 0) for d in v})
                                                      for k, v in reh["a"]["per_call"].items()}},
+                 "moe_launches": {"serve": moe["serve"]["launches"],
+                                  "serve_engine_calls": moe["serve"]["calls"],
+                                  "per_engine_call": moe["serve"]["per_engine_call"],
+                                  "prefill_alone": moe["serve"]["prefill_alone"],
+                                  "per_decode_step": moe["serve"]["per_decode_step"],
+                                  "bench": moe["continuous"]["launches"]},
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],

@@ -38,6 +38,11 @@ from bioreason_tpu_torch.train.classifier import multiclass_prf as t_prf
 from bioreason_tpu_torch.train.optim import AdamW
 from bioreason_tpu_torch.weights import from_jax_params
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 CLASSES = 4
 ITEMS = synthetic_kegg_items(8, seq_len=60, seed=1)
 LABELS = sorted({it["answer"] for it in ITEMS})[:CLASSES]

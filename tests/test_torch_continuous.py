@@ -35,6 +35,11 @@ from bioreason_tpu_torch.generate.engine import GenerationEngine as TEngine
 from bioreason_tpu_torch.generate.guided import guided_spec_for as t_spec_for
 from bioreason_tpu_torch.weights import from_jax_params
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 TOK = JByte()
 PROC = JProc(TOK, JKmer())
 EOS = TOK.eos_token_id

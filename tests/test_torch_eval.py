@@ -19,6 +19,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from bioreason_tpu import config as JC
 from bioreason_tpu.data import kegg as JK
@@ -34,6 +35,11 @@ from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokeni
 from bioreason_tpu_torch.generate.engine import GenerationEngine
 from bioreason_tpu_torch.train import eval as TE
 from bioreason_tpu_torch.weights import from_jax_params
+
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
 
 JTOK = JByte()
 PROC = BioProcessor(ByteTextTokenizer(), KmerTokenizer())

@@ -19,6 +19,11 @@ from bioreason_tpu.ops import flash_attention as jfa
 from bioreason_tpu_torch.models.attention import attention, use_kernel, xla_attention
 from bioreason_tpu_torch.ops import flash_attention as tfa
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

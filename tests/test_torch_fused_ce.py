@@ -15,6 +15,11 @@ import torch
 from bioreason_tpu.ops import fused_ce as J
 from bioreason_tpu_torch.ops import fused_ce as T
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 V, H, CHUNK = 300, 32, 128
 ATOL = 1e-5
 RNG = np.random.default_rng(0)

@@ -30,6 +30,11 @@ from bioreason_tpu_torch.generate import guided as TG
 from bioreason_tpu_torch.generate.engine import GenerationEngine as TEngine
 from bioreason_tpu_torch.weights import from_jax_params
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 # the patterns of tests/test_guided.py
 PATTERNS = [r"abc", r"a*b+c?", r"(yes|no)", r"<answer>(yes|no)</answer>", r"[a-c]{2,5}",
             r"\d+\.\d{2}", r"(ab)*c+", r"[^x]*x", r"a{3}", r"a{2,}b", r"(a|bc)(d|e)*",

@@ -10,6 +10,11 @@ import torch
 from bioreason_tpu.models import layers as JL
 from bioreason_tpu_torch.models import layers as TL
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 RNG = np.random.default_rng(0)
 

@@ -32,6 +32,11 @@ from bioreason_tpu_torch.ops import flash_attention as FA
 from bioreason_tpu_torch.ops import local_attention as tla
 from bioreason_tpu_torch.weights import from_jax_params
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 FWD_TOL = 2e-5
 BWD_TOL = 1e-4
 

@@ -39,6 +39,11 @@ from bioreason_tpu_torch.train.sft import SFTTrainer
 from bioreason_tpu_torch.utils import pretrained as TP
 from bioreason_tpu_torch.weights import from_jax_params
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 tokenizers = pytest.importorskip("tokenizers")
 safetensors_np = pytest.importorskip("safetensors.numpy")
 

@@ -42,6 +42,11 @@ from bioreason_tpu_torch.train import fuse as TF
 from bioreason_tpu_torch.train import quant as TQ
 from bioreason_tpu_torch.weights import from_jax_params
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 TOK = JByte()
 PROC = JProc(TOK, JKmer())
 NEW = 10

@@ -26,6 +26,11 @@ from bioreason_tpu_torch.models.attention import attention, kernel_rule
 from bioreason_tpu_torch.tools import rehearsal as TR
 from bioreason_tpu_torch.weights import from_jax_params
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -47,6 +47,11 @@ from bioreason_tpu_torch.train.rewards import extract_answer as t_extract
 from bioreason_tpu_torch.utils.devices import resolve_device
 from bioreason_tpu_torch.weights import from_jax_params
 
+# one intra-op thread: the tensors here are tiny, and pytest-xdist runs
+# several workers on the host's cores, which torch's default of a thread
+# per core oversubscribes many times over
+torch.set_num_threads(1)
+
 ITEMS = j_kegg.synthetic_kegg_items(n=3, seq_len=40, seed=2)
 
 
