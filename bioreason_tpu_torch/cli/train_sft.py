@@ -215,10 +215,7 @@ def _run(args):
     device = resolve_device(args.device)
     model = base = None
     if args.hf_llm_dir:
-        from bioreason_tpu_torch.train.trainable import refuse_moe
-        from bioreason_tpu_torch.utils.pretrained import (base_record, decoder_config_from_hf,
-                                                          load_pretrained_fusion)
-        refuse_moe(decoder_config_from_hf(args.hf_llm_dir), "train_sft --hf_llm_dir")
+        from bioreason_tpu_torch.utils.pretrained import base_record, load_pretrained_fusion
         fusion_cfg, model, tok, dna_tok = load_pretrained_fusion(
             args.hf_llm_dir, args.hf_dna_dir, args.max_length_text, args.max_length_dna,
             seed=args.seed, dtype=args.dtype or "bfloat16", evo2_dir=args.evo2_dir,

@@ -1,7 +1,8 @@
 """Local KEGG-style dataset loading (the port's copy of the JSON layouts of
 bioreason_tpu/data/loaders.py): a directory of per-variant .json files, a
 .jsonl file, or a .json file holding a list. Every record is normalized to
-{question, answer, reasoning, reference_sequence, variant_sequence}.
+{question, answer, reasoning, reference_sequence, variant_sequence}, with
+the record's "ID" where it has one (`cli/curate.py`'s eQTL and OMIM items).
 """
 
 from __future__ import annotations
@@ -16,13 +17,16 @@ from bioreason_tpu_torch.data.kegg import process_kegg_item
 def _normalize(item: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(item.get("reasoning"), dict):
         return process_kegg_item(item)
-    return {
+    out = {
         "question": item.get("question", ""),
         "answer": str(item.get("answer", "")).strip(),
         "reasoning": item.get("reasoning", "") or "",
         "reference_sequence": item.get("reference_sequence", "").upper().strip(),
         "variant_sequence": item.get("variant_sequence", "").upper().strip(),
     }
+    if "ID" in item:       # the record ids of the curated eQTL / OMIM tasks
+        out["ID"] = item["ID"]
+    return out
 
 
 def load_local_dataset(path: str) -> List[Dict[str, Any]]:

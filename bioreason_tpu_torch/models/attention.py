@@ -7,10 +7,11 @@ training `flash_bwd` in the backward) for a CUDA query of more than one
 row whose head dim the kernels take (`HEAD_DIMS`); decode steps (Tq == 1),
 CPU tensors and NT-v2-50M's 32-wide heads take `xla_attention`. The JAX
 rule likewise sends decode, small shapes and head dims its kernel lacks to
-XLA (attention.py:104-109). The dtype is not part of the rule: an fp32
-CUDA query reaches the kernel's wrapper, which raises (the kernels are
-bf16; the JAX Pallas kernel also runs fp32). `impl="pallas"` always calls
-the wrapper, which raises on a CUDA call outside its contract.
+XLA (attention.py:104-109). The dtype is not part of the rule: the
+wrapper picks the kernel by dtype (`flash_attention.kernel_for`: bf16 ->
+`flash_fwd` / `flash_bwd`, fp32 -> `flash_f32_fwd` / `flash_f32_bwd`, as
+the JAX Pallas kernel runs both) and raises on any other. `impl="pallas"`
+always calls the wrapper, which raises on a CUDA call outside its contract.
 
 `impl="local:<W>"` is the banded route for long DNA (JAX attention.py:92-100,
 bidirectional only): `local_attention`, whose wrapper launches `local_fwd`

@@ -162,6 +162,30 @@ class Int8Linear(torch.autograd.Function):
         return dx, None, None, db
 
 
+class Int8Bank(torch.autograd.Function):
+    """The expert product x [E, C, in] @ dequant(q, scale) [E, in, out] of an
+    int8 bank whose backward keeps the int8 bank and its [E, 1, out] scale,
+    not the dequantized copy: under QLoRA `torch.bmm` on `expert_bank` would
+    hold a float copy of every bank it read (1.2 GB a layer at
+    Qwen3-30B-A3B) until the backward. The backward dequantizes again, in
+    the gradient's dtype, for d(input) alone; q and scale take no gradient.
+    The values are those of `torch.bmm` on `expert_bank`, forward and
+    backward (the counterpart of `Int8Linear` for the banks)."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        return torch.bmm(x, q.to(x.dtype) * scale.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(g, (q.to(g.dtype) * scale.to(g.dtype)).transpose(1, 2))
+        return dx, None, None
+
+
 def int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """xq [M, K] int8 @ wq [N, K]^T int8 -> int32 [M, N], exact, through
     `torch._int_mm` (cuBLASLt on the card). CUDA takes M > 16 only: fewer
@@ -405,12 +429,21 @@ def moe_dispatch(xf: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor,
     return xpad[src[:-1]].view(num_experts, cap, h), dest
 
 
+def bank_product(x: torch.Tensor, bank: ExpertBank, dtype: torch.dtype) -> torch.Tensor:
+    """x [E, C, in] @ the bank [E, in, out] in `dtype`: `torch.bmm` on a
+    float bank, `Int8Bank` on an int8 one."""
+    if is_int8(bank):
+        return Int8Bank.apply(x.to(dtype), bank.weight, bank.scale)
+    return torch.bmm(x, bank.weight.to(dtype))
+
+
 def moe_experts(moe: MoE, ein: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """silu(x @ gate) * (x @ up) @ down of every expert on its buffer
-    [E, C, H]: three `torch.bmm` over E in `dtype`. Returns [E * C, H]."""
-    g = torch.bmm(ein, expert_bank(moe.experts.gate, dtype))
-    u = torch.bmm(ein, expert_bank(moe.experts.up, dtype))
-    out = torch.bmm(F.silu(g) * u, expert_bank(moe.experts.down, dtype))
+    [E, C, H]: three batched products over E in `dtype` (`bank_product`).
+    Returns [E * C, H]."""
+    g = bank_product(ein, moe.experts.gate, dtype)
+    u = bank_product(ein, moe.experts.up, dtype)
+    out = bank_product(F.silu(g) * u, moe.experts.down, dtype)
     return out.view(-1, ein.shape[-1])
 
 

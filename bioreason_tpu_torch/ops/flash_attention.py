@@ -24,6 +24,12 @@ The two sources also hold the banded kernels of ops/local_attention.py
 (C entries `local_fwd_bf16`, `local_bwd_bf16`: the same bodies with the
 band's tile range and predicate): one library per source, `kernel_fn(entry)`
 finds an entry in its library.
+
+fp32 inputs take `csrc/flash_f32.cu` (`flash_f32_fwd`, `flash_f32_bwd`:
+fp32 products on the CUDA cores, flash and band alike), as the Pallas
+kernels keep their operands in the input dtype. `kernel_for` is the one
+dtype rule of both modules' wrappers: bf16 -> the bf16 kernels, fp32 ->
+the fp32 ones, anything else raises.
 """
 
 from __future__ import annotations
@@ -38,10 +44,13 @@ from bioreason_tpu_torch.utils.debug_nans import check_outputs
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
-LIBRARIES = ("flash_fwd", "flash_bwd")            # csrc/<name>.cu
-# C entry `<entry>_bf16` -> the library that holds it
+LIBRARIES = ("flash_fwd", "flash_bwd", "flash_f32")            # csrc/<name>.cu
+# kernel entry -> the library that holds it
 _LIBRARY_OF = {"flash_fwd": "flash_fwd", "flash_bwd": "flash_bwd",
-               "local_fwd": "flash_fwd", "local_bwd": "flash_bwd"}
+               "local_fwd": "flash_fwd", "local_bwd": "flash_bwd",
+               "flash_f32_fwd": "flash_f32", "flash_f32_bwd": "flash_f32"}
+# kernel entry -> its C function
+C_NAME = {e: e if e.startswith("flash_f32") else f"{e}_bf16" for e in _LIBRARY_OF}
 _libs = {}
 _fns = {}
 _build_logs = {}
@@ -67,6 +76,15 @@ _ARGTYPES = {
                   _I, _I, _I, _I, _I,                     # B T Hq Hkv D
                   ctypes.POINTER(_LL),                    # 24 strides
                   _I, ctypes.c_float, _P],                # window scale stream
+    "flash_f32_fwd": [_P, _P, _P, _P, _P, _P,             # q k v mask o lse
+                      _I, _I, _I, _I, _I, _I,             # B Tq Tk Hq Hkv D
+                      ctypes.POINTER(_LL),                # 12 strides
+                      _I, _I, _I, ctypes.c_float, _P],    # causal q_offset window scale stream
+    "flash_f32_bwd": [_P, _P, _P, _P, _P, _P, _P,         # q k v mask o lse do
+                      _P, _P, _P, _P,                     # dq dk dv delta
+                      _I, _I, _I, _I, _I, _I,             # B Tq Tk Hq Hkv D
+                      ctypes.POINTER(_LL),                # 24 strides
+                      _I, _I, _I, ctypes.c_float, _P],    # causal q_offset window scale stream
 }
 
 
@@ -82,11 +100,12 @@ def _load(*names: str) -> None:
 
 
 def kernel_fn(entry: str):
-    """The C entry `<entry>_bf16` ("flash_fwd", "flash_bwd", "local_fwd",
-    "local_bwd"), its library built at first use."""
+    """The C function `C_NAME[entry]` of a kernel entry ("flash_fwd",
+    "flash_bwd", "local_fwd", "local_bwd", "flash_f32_fwd",
+    "flash_f32_bwd"), its library built at first use."""
     if entry not in _fns:
         _load(_LIBRARY_OF[entry])
-        fn = getattr(_libs[_LIBRARY_OF[entry]], f"{entry}_bf16")
+        fn = getattr(_libs[_LIBRARY_OF[entry]], C_NAME[entry])
         fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
         _fns[entry] = fn
@@ -190,6 +209,19 @@ def _aligned(x) -> bool:
     return _strides_ok(x) and not x.data_ptr() % 16
 
 
+def kernel_for(dtype: torch.dtype, backward: bool = False, band: bool = False) -> str:
+    """The dtype rule of the wrappers: the kernel entry a CUDA call in
+    `dtype` launches. bf16 takes the TMA + wgmma kernels (`flash_fwd`,
+    `flash_bwd`, or `local_fwd`, `local_bwd` for the band), fp32 the fp32
+    kernels of csrc/flash_f32.cu (`flash_f32_fwd`, `flash_f32_bwd`, the
+    band included); any other dtype raises ValueError."""
+    if dtype == torch.bfloat16:
+        return ("local_" if band else "flash_") + ("bwd" if backward else "fwd")
+    if dtype == torch.float32:
+        return "flash_f32_bwd" if backward else "flash_f32_fwd"
+    raise ValueError(f"the flash kernels take bfloat16 or float32, got {dtype}")
+
+
 def _check(q, k, v, kv_mask):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, D]")
@@ -209,12 +241,13 @@ def _check(q, k, v, kv_mask):
                              f"multiples of 8 elements, got {x.stride()}")
     if not q.is_cuda:
         return
+    kernel_for(q.dtype)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"the flash kernels take bfloat16, {name} is {x.dtype}")
-        if not _aligned(x):
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}: the kernels take one dtype")
+        if q.dtype == torch.bfloat16 and not _aligned(x):
             raise ValueError(f"{name} needs a unit last stride and 16-byte "
                              f"aligned rows, got strides {x.stride()}")
     if kv_mask is not None and kv_mask.device != q.device:
@@ -225,10 +258,73 @@ def _mask_i32(kv_mask):
     return None if kv_mask is None else kv_mask.to(torch.int32).contiguous()
 
 
+def flash_f32_fwd(q, k, v, kv_mask, causal, q_offset, window=-1):
+    """(out, lse) of fp32 q, k, v on the card through `flash_f32_fwd` of
+    csrc/flash_f32.cu (one launch to the count): flash attention, or with
+    `window` >= 0 the band |i - j| <= window (Tq == Tk, causal ignored)."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty((b, tq, hq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    if b == 0 or tq == 0:
+        return out, lse
+    if tk == 0:                       # no key: every row is fully masked
+        return out.zero_(), lse.fill_(NEG_INF)
+    mask = _mask_i32(kv_mask)
+    strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    rc = kernel_fn("flash_f32_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, tq, tk, hq, hkv, d, strides,
+        int(bool(causal)), int(q_offset), int(window), float(d ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_f32_fwd launch failed: cudaError {rc}")
+    flash_f32_fwd.launches += 1
+    check_outputs("flash_f32_fwd", out, lse)
+    return out, lse
+
+
+def flash_f32_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout, window=-1):
+    """(dq, dk, dv) of `flash_f32_fwd` on the card through `flash_f32_bwd`
+    of csrc/flash_f32.cu (a delta pass, the dq kernel, the dk/dv kernel
+    summing the GQA group; one launch to the count). Every gradient element
+    is written once by one block, in a fixed order: bitwise reproducible."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    dout = dout.float()
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    out = out if out.stride(-1) == 1 else out.contiguous()
+    dq = torch.empty((b, tq, hq, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, tk, hkv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty((b, tk, hkv, d), dtype=torch.float32, device=q.device)
+    if b == 0 or tq == 0 or tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty(b * hq * tq, dtype=torch.float32, device=q.device)
+    mask = _mask_i32(kv_mask)
+    strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, out, dout, dq, dk, dv)
+                                         for s in x.stride()[:3]))
+    rc = kernel_fn("flash_f32_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        out.data_ptr(), lse.contiguous().data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        b, tq, tk, hq, hkv, d, strides, int(bool(causal)), int(q_offset), int(window),
+        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_f32_bwd launch failed: cudaError {rc}")
+    flash_f32_bwd.launches += 1
+    check_outputs("flash_f32_bwd", dq, dk, dv)
+    return dq, dk, dv
+
+
 def _forward(q, k, v, kv_mask, causal, q_offset):
     """(out, lse): the kernel on a CUDA tensor, the plain version on a CPU one."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, kv_mask, causal, q_offset)
+    if kernel_for(q.dtype) == "flash_f32_fwd":
+        return flash_f32_fwd(q, k, v, kv_mask, causal, q_offset)
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, tq, hq, d), dtype=q.dtype, device=q.device)
@@ -281,8 +377,11 @@ def flash_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout):
         if tuple(x.shape) != tuple(shape) or x.device != q.device:
             raise ValueError(f"{name} must be {tuple(shape)} on {q.device}, "
                              f"got {tuple(x.shape)} on {x.device}")
-    if out.dtype != torch.bfloat16 or lse.dtype != torch.float32:
-        raise ValueError(f"flash_bwd takes bf16 out and fp32 lse, got {out.dtype}, {lse.dtype}")
+    if out.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(f"flash_bwd takes out in q's dtype ({q.dtype}) and fp32 lse, "
+                         f"got {out.dtype}, {lse.dtype}")
+    if kernel_for(q.dtype, backward=True) == "flash_f32_bwd":
+        return flash_f32_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout)
     dout = dout.to(torch.bfloat16)
     if not _aligned(dout):
         # autograd may hand a strided grad; the kernel reads rows of 16 bytes
@@ -340,7 +439,8 @@ def flash_attention(q, k, v, kv_mask=None, causal=False, q_offset=None,
                     return_lse: bool = False):
     """Drop-in for models.attention.xla_attention on the kernel's contract.
 
-    q [B,Tq,Hq,D], k/v [B,Tk,Hkv,D] bf16 (D in {64, 128}), kv_mask [B,Tk]
+    q [B,Tq,Hq,D], k/v [B,Tk,Hkv,D] bf16 or fp32 (D in {64, 128}; the
+    dtype picks the kernel, `kernel_for`), kv_mask [B,Tk]
     (nonzero = valid), causal means key j <= query i + q_offset, with
     q_offset defaulting to Tk - Tq. Returns out [B,Tq,Hq,D] (and, with
     `return_lse`, lse [B,Hq,Tq] fp32). Differentiable in q, k and v."""
@@ -357,3 +457,5 @@ def flash_attention(q, k, v, kv_mask=None, causal=False, q_offset=None,
 
 flash_attention.launches = 0      # flash_fwd launches since the last reset
 flash_bwd.launches = 0            # flash_bwd launches since the last reset
+flash_f32_fwd.launches = 0        # flash_f32_fwd launches (flash and band) since the last reset
+flash_f32_bwd.launches = 0        # flash_f32_bwd launches (flash and band) since the last reset

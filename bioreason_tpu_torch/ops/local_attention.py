@@ -19,9 +19,12 @@ head-major transposes, block padding and per-head mask repeat have no
 counterpart, nor its `block` argument (a TPU tiling choice that changes no
 result). On CPU tensors the wrappers compute `local_attention_ref` /
 `local_attention_bwd_ref` at any head dim, as the JAX kernel does in
-interpret mode; on a CUDA tensor they launch the kernel (bf16, D in
-{64, 128}) or raise, never anything else. Each wrapper counts its launches
-(`local_attention.launches`, `local_bwd.launches`).
+interpret mode; on a CUDA tensor they launch the kernel (D in {64, 128})
+or raise, never anything else. The dtype picks it (`FA.kernel_for`): bf16
+launches `local_fwd` / `local_bwd`, fp32 the band of csrc/flash_f32.cu
+(`flash_f32_fwd` / `flash_f32_bwd` with a window, counted there). Each
+wrapper counts its launches (`local_attention.launches`,
+`local_bwd.launches`).
 """
 
 from __future__ import annotations
@@ -104,6 +107,8 @@ def _forward(q, k, v, kv_mask, window):
     """(out, lse): the kernel on a CUDA tensor, the plain version on a CPU one."""
     if not q.is_cuda:
         return local_attention_ref(q, k, v, window, kv_mask)
+    if FA.kernel_for(q.dtype, band=True) == "flash_f32_fwd":
+        return FA.flash_f32_fwd(q, k, v, kv_mask, False, 0, window=min(window, q.shape[1]))
     b, t, hq, d = q.shape
     out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
@@ -144,8 +149,12 @@ def local_bwd(q, k, v, window, kv_mask, out, lse, dout):
         if tuple(x.shape) != tuple(shape) or x.device != q.device:
             raise ValueError(f"{name} must be {tuple(shape)} on {q.device}, "
                              f"got {tuple(x.shape)} on {x.device}")
-    if out.dtype != torch.bfloat16 or lse.dtype != torch.float32:
-        raise ValueError(f"local_bwd takes bf16 out and fp32 lse, got {out.dtype}, {lse.dtype}")
+    if out.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(f"local_bwd takes out in q's dtype ({q.dtype}) and fp32 lse, "
+                         f"got {out.dtype}, {lse.dtype}")
+    if FA.kernel_for(q.dtype, backward=True, band=True) == "flash_f32_bwd":
+        return FA.flash_f32_bwd(q, k, v, kv_mask, False, 0, out, lse, dout,
+                                window=min(window, t))
     dout = dout.to(torch.bfloat16)
     if not FA._aligned(dout):
         # autograd may hand a strided grad; the kernel reads rows of 16 bytes

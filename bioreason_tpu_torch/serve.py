@@ -420,6 +420,20 @@ def serving_storage(model: FusionModel, int8: bool = False, fuse: bool = False) 
     return model
 
 
+def checkpoint_model(checkpoint: str, device=None, max_length_dna: int = 2048):
+    """(FusionConfig, model, BioProcessor) of the port's `sft_final` (or
+    `sft_state`) for inference: `train.checkpoint.rebuild_sft` builds its
+    recorded base with its tokenizers, and its LoRA is merged into the
+    frozen weights, or kept beside them over a QLoRA base's int8 weights;
+    no parameter takes a gradient."""
+    from bioreason_tpu_torch.train.checkpoint import rebuild_sft
+    from bioreason_tpu_torch.train.lora import merge_lora
+    cfg, model, tok, dna_tok = rebuild_sft(checkpoint, device, max_length_dna=max_length_dna)
+    if not any(b.dtype == torch.int8 for b in model.buffers()):
+        model = merge_lora(model)
+    return cfg, model.requires_grad_(False), BioProcessor(tok, dna_tok)
+
+
 def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
                  max_length_dna: int = 2048, seed: int = 0, device=None,
                  checkpoint: Optional[str] = None, int8: bool = False, fuse: bool = False,
@@ -434,13 +448,7 @@ def build_server(decoder: str = "qwen3-0.6b", encoder: str = "nt-500m",
     if w8a8 and not int8:
         raise ValueError("--w8a8 requires --int8 (act_int8 needs int8 kernels)")
     if checkpoint:
-        from bioreason_tpu_torch.train.checkpoint import rebuild_sft
-        from bioreason_tpu_torch.train.lora import merge_lora
-        cfg, model, tok, dna_tok = rebuild_sft(checkpoint, device, max_length_dna=max_length_dna)
-        if not any(b.dtype == torch.int8 for b in model.buffers()):
-            model = merge_lora(model)
-        model.requires_grad_(False)
-        processor = BioProcessor(tok, dna_tok)
+        cfg, model, processor = checkpoint_model(checkpoint, device, max_length_dna)
     else:
         cfg, processor = build_config(decoder, encoder, max_length_dna)
         model = init_fusion(cfg, seed=seed, device=device)

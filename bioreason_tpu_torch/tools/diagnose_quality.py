@@ -84,8 +84,8 @@ def parse_args(argv=None):
                          "dependent tokens")
     ap.add_argument("--dtype", default=None,
                     help="both towers' compute dtype (float32 at bench isolates bf16 "
-                         "rounding; on the card with --attention xla, since the flash "
-                         "kernels take bfloat16 only)")
+                         "rounding; on the card float32 runs the fp32 flash kernels, "
+                         "csrc/flash_f32.cu)")
     ap.add_argument("--probe_every", type=int, default=100)
     ap.add_argument("--probe_n", type=int, default=64)
     ap.add_argument("--supervise_eos", action="store_true", default=True)

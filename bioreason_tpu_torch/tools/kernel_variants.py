@@ -145,7 +145,7 @@ def time_build(entry: str, path: str) -> dict:
     """ms per wrapper call with the C entry of `path`, and the error."""
     import torch
     from bioreason_tpu_torch.ops import flash_attention as fa
-    fn = getattr(ctypes.CDLL(path), f"{entry}_bf16")
+    fn = getattr(ctypes.CDLL(path), fa.C_NAME[entry])
     fn.argtypes, fn.restype = fa._ARGTYPES[entry], ctypes.c_int
     fa._fns[entry] = fn
     out = {}

@@ -217,7 +217,8 @@ def parse_args(argv=None):
     ap.add_argument("--sft_epochs", type=int, default=0, help="0 = scale default")
     ap.add_argument("--dtype", default=None,
                     help="compute dtype of both towers in both stages and the tests; "
-                         "the card's flash kernels take bfloat16 only")
+                         "on the card float32 runs the fp32 flash kernels "
+                         "(csrc/flash_f32.cu), bfloat16 the tensor-core ones")
     ap.add_argument("--grpo_steps", type=int, default=0, help="0 = scale default")
     ap.add_argument("--eval_every", type=int, default=0,
                     help="SFT validation period; 0 = scale default (a cut for time)")

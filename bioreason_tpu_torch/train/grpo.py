@@ -119,7 +119,6 @@ class GRPOTrainer:
         Adapters are attached unless the model carries some already. Runs
         on `device` (CUDA unless "cpu"); sampling draws come from a
         generator seeded with `cfg.seed`."""
-        T.refuse_moe(fusion_cfg.decoder, "GRPOTrainer")
         if cfg.batch_size % cfg.num_generations:
             raise ValueError(f"batch {cfg.batch_size} not divisible by G={cfg.num_generations}"
                              " (reference grpo_trainer.py:429-446)")

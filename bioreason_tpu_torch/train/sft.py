@@ -55,7 +55,6 @@ class SFTTrainer:
         loaded from, recorded in every checkpoint. Adapters are attached
         unless the model carries some already. Runs on `device` (CUDA unless
         "cpu")."""
-        T.refuse_moe(fusion_cfg.decoder, "SFTTrainer")
         self.fusion_cfg, self.cfg = fusion_cfg, cfg
         self.device = resolve_device(device)
         # what builds the frozen base again (checkpoint.BASE_KEYS, with the

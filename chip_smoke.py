@@ -10,13 +10,14 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               reference computations.
   2. build    compile csrc/flash_fwd.cu and csrc/flash_bwd.cu (the flash
               kernels and the banded local_* kernels, both including
-              csrc/sm90.cuh) with nvcc for sm_90a, one nvcc each, started
+              csrc/sm90.cuh) and csrc/flash_f32.cu (the fp32 kernels, flash
+              and band) with nvcc for sm_90a, one nvcc each, started
               together; print each kernel's ptxas report (registers,
               spills) and, from `cuobjdump -sass`, its count of wgmma
               (HGMMA) and TMA (UTMALDG, UBLKCP, UBLKRED, ...) instructions.
-              Fails on a spill, or where flash_fwd_kernel, flash_bwd_kernel,
-              local_fwd_kernel or local_bwd_kernel lacks either kind of
-              instruction.
+              Fails on a spill in any kernel, or where flash_fwd_kernel,
+              flash_bwd_kernel, local_fwd_kernel or local_bwd_kernel lacks
+              either kind of instruction.
   3. kernels  flash_fwd against its plain version (`flash_attention_ref`,
               fp32 math) in bf16 on the card at the encoder, prefill and
               q_offset shapes and the training encoder's shape, and flash_bwd
@@ -39,7 +40,16 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               edge on the 128-key tile boundary with GQA at D=128 and left
               pads, the diagonal alone), event and CUDA-graph times, with
               flash_fwd / flash_bwd at the long-DNA encoder's shape without
-              the band beside them.
+              the band beside them. Then the fp32 kernels (flash_f32_fwd,
+              flash_f32_bwd, reached through the same wrappers on fp32
+              tensors) against the plain fp32 versions, TF32 off on both
+              sides, out and LSE within 1e-5 and the gradients within 1e-4
+              of their largest magnitude: the served prefill
+              [8,896,16/8,128] causal with its left pads (forward), the
+              rehearsal's SFT step [8,512,16/8,128] forward and backward, a
+              batch row with no visible key, and the band (b)
+              [4,2048,16,64] at W=256 forward and backward; event, graph,
+              plain, SDPA-on-fp32 and bound (67 TFLOP/s fp32) times.
   4. serve    the port's InferenceServer at Qwen3-0.6B + NT-v2-500M width,
               bf16, weights from a fixed seed: the kernel route against the
               plain route on one request, then 8 concurrent greedy requests
@@ -143,7 +153,7 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  12. continuous  continuous serving at Qwen3-0.6B + NT-v2-500M width (bf16,
               weights from seed 0): (a) `tools/bench_serve.py --frozen
               bfloat16` (phase 14 runs its int8 default; 64 slots,
-              128 requests here, 2 x capacity in place of its 3 x so the
+              96 requests here, 1.5 x capacity in place of its 3 x so the
               phase keeps its budget: 256 text + 128 DNA tokens each,
               128/64/32 new tokens sampled, windows of 16, pipelined):
               decoded tokens/s, the admit / decode split, windows and mean
@@ -201,7 +211,7 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               the dequantized product at the prefill's own shapes (relative
               error, times); flash_fwd at the int8 prefill's Tk = P; (f)
               `tools/bench_serve.py` at the JAX bench's default (--frozen
-              int8) and with --kv int8 --fuse --w8a8 (128 requests each):
+              int8) and with --kv int8 --fuse --w8a8 (96 requests each):
               tokens/s, occupancy, pool and weight GiB, peak memory, 57
               flash_fwd per prefill chunk. At most 120 s.
  15. qlora    QLoRA and int8 rollouts at NT-v2-500M + Qwen3-4B width (36
@@ -243,8 +253,8 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  16. rehearsal  the quality rehearsal and the training-loop pieces that came
               with it: (a) `tools/rehearsal.py --scale bench` at its widths
               (Qwen3-0.6B + NT-v2-50M, 1-mer DNA of 32 bp), cut for time to
-              128 items, 2 SFT epochs of 12 steps with a validation every 8,
-              64 tokens generated in the tests and rollouts and 2 GRPO steps
+              96 items, 2 SFT epochs of 9 steps with a validation every 8,
+              64 tokens generated in the tests and rollouts and 1 GRPO step
               (the bench run: 1,280 items, 40 epochs at most with the probe's
               stop, every 96, 288 tokens, 80 steps): exactly 56 flash_fwd +
               28 flash_bwd per SFT step (remat full), 28 flash_fwd per eval
@@ -313,6 +323,41 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               flash_fwd at [8,896,32/4,128] causal with the served left pads
               against its plain version (GQA ratio 8). At most 180 s.
 
+ 18. moe_train  MoE training at Qwen3-30B-A3B + NT-v2-500M, full width and
+              depth: (a) every earlier phase's memory freed first (fails
+              above 2 GiB), the model drawn in bf16 on the card, LoRA
+              r32/a64 (the LoRAConfig defaults) on q, k, v, o and the router
+              of all 48 layers (240 adapted linears), no frozen leaf up-cast;
+              (b) 3 SFTTrainer steps at bench.py's shape on one repeated
+              batch, remat on: ms a step, examples/s, peak GiB, the losses
+              (finite, falling), exactly 29 + 2 x 48 flash_fwd and 48
+              flash_bwd a step, and every layer's forward and recompute
+              routed alike (experts and keep flags); (c) one step's loss and
+              trainable gradients through the kernels against the plain
+              route, then flash_fwd / flash_bwd alone at [4,768,32/4,128]
+              causal (GQA 8) against their plain versions, SDPA's backward
+              the lowest of 3 runs; (d) 2 GRPOTrainer steps at
+              bench_grpo.py's shape (4 prompts x G=4, P=332, 64 new
+              tokens, beta 0.04, no int8 rollout, no sync): completions/s,
+              seconds by phase, peak GiB, 48 + 3 x 29 + 3 x 48 flash_fwd and
+              48 flash_bwd a step, the reference and the rollout policy
+              holding the model's banks (data_ptr); (e) QLoRA in place:
+              fresh adapters from (b)'s seed, the projection as (b) began,
+              resident GiB, the same 3 SFT steps (the first loss against
+              (b)'s), 1 GRPO step with int8 rollouts sharing the banks; then
+              on a 2-layer model at full width one QLoRA step against its
+              dequantized bf16 twin (phase 15's check) and, remat off, the
+              bytes of float banks autograd saves and the peak, the int8
+              bank product against torch.bmm on the dequantized bank.
+ 19. fp32_api the fp32 route and the user API at Qwen3-0.6B + NT-v2-50M:
+              `train_sft --dtype float32` for 2 steps (the route that raised
+              before the fp32 kernels; 56 flash_f32_fwd and 28 flash_f32_bwd
+              a step), 3 SFTTrainer steps in fp32 through the kernels and on
+              the plain route (losses within 1e-4 relative),
+              `DnaLLM.generate_text` on 8 KEGG prompts over that fp32 model
+              (28 flash_f32_fwd) and `make_traces --backend engine` on 4
+              variant rows (its int8 bf16 storage: 28 flash_fwd).
+
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
 where torch.cuda.is_available() is false or the port's package is missing.
@@ -360,6 +405,16 @@ BWD_RTOL_OF_MAX = 2e-2
 # are 0 and both versions give fp32 rounding noise (~1e-6) of the dP and
 # delta they subtract; every other case's max |ref| is above 1 and unchanged
 BWD_SCALE_FLOOR = 1e-2
+
+# the fp32 kernels (csrc/flash_f32.cu) against their plain fp32 versions on
+# the card, TF32 off on both sides: both keep every product in fp32 (FFMA
+# against cuBLAS's fp32 GEMM) and differ in summation order and the online
+# softmax's rescaling, ~1e-7 relative per sum; out and the LSE are held to
+# 1e-5 of their largest magnitude, the gradients (sums over every query or
+# key of a tile walk) to 1e-4 of theirs
+F32_OUT_RTOL_OF_MAX, F32_LSE_RTOL_OF_MAX, F32_BWD_RTOL_OF_MAX = 1e-5, 1e-5, 1e-4
+# H100 SXM fp32 outside the tensor cores (NVIDIA data sheet), for their bound
+PEAK_FP32_FLOPS = 67e12
 
 # the redesigned kernels (wgmma + TMA) and the SASS opcodes counted as TMA
 REDESIGNED = ("flash_fwd_kernel", "flash_bwd_kernel", "local_fwd_kernel", "local_bwd_kernel")
@@ -958,6 +1013,167 @@ def phase_kernels(torch, max_new):
     return rows, bwd_rows, band_rows
 
 
+def f32_case(torch, name, b, tq, tk, hq, hkv, d, causal, mask, seed, window=None,
+             backward=True):
+    """flash_f32_fwd (and flash_f32_bwd) against the plain fp32 versions on
+    one shape: the flash route (`flash_attention` / `flash_bwd` on fp32
+    tensors) or, with `window`, the band (`local_attention` / `local_bwd`).
+    Out on the rows that see a key and the LSE there within
+    F32_*_RTOL_OF_MAX of their largest magnitude, rows that see none
+    exactly (0, -1e30) with dq = 0, the gradients within
+    F32_BWD_RTOL_OF_MAX; event and graph times, the plain versions', SDPA's
+    on the same fp32 inputs (the lowest of three repetitions) and the
+    bound (FLOPs / 67e12 against fp32 bytes / 3.35e12). Returns the
+    forward's row and the backward's (or None)."""
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    from bioreason_tpu_torch.ops import local_attention as la
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev)
+                     for shape in ((b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, d),
+                                   (b, tq, hq, d)))
+    if window is None:
+        # causal with q_offset 0: a prefill into a cache of Tk >= Tq slots
+        vis = mask.bool()[:, None, :].expand(b, tq, tk)
+        if causal:
+            vis = vis & (torch.arange(tk, device=dev)[None, :]
+                         <= torch.arange(tq, device=dev)[:, None])
+        fwd = lambda: fa.flash_attention(q, k, v, mask, causal=causal, q_offset=0,
+                                         return_lse=True)
+        ref_fwd = lambda: fa.flash_attention_ref(q, k, v, mask, causal, 0)
+        bwd = lambda o, l: fa.flash_bwd(q, k, v, mask, causal, 0, o, l, dout)
+        ref_bwd = lambda o, l: fa.flash_attention_bwd_ref(q, k, v, mask, causal, 0, o, l, dout)
+    else:
+        vis = band_visible(torch, tq, window, mask)
+        fwd = lambda: la.local_attention(q, k, v, window, mask, return_lse=True)
+        ref_fwd = lambda: la.local_attention_ref(q, k, v, window, mask)
+        bwd = lambda o, l: la.local_bwd(q, k, v, window, mask, o, l, dout)
+        ref_bwd = lambda o, l: la.local_attention_bwd_ref(q, k, v, window, mask, o, l, dout)
+    before = (fa.flash_f32_fwd.launches, fa.flash_f32_bwd.launches,
+              fa.flash_attention.launches, fa.flash_bwd.launches)
+    out, lse = fwd()
+    torch.cuda.synchronize()
+    if (fa.flash_f32_fwd.launches - before[0] != 1
+            or fa.flash_attention.launches != before[2]):
+        fail(f"kernel {name} (fp32): the wrapper did not launch flash_f32_fwd once")
+    rows = vis.any(-1)
+    ref_out, ref_lse = ref_fwd()
+    out_max = float(ref_out[rows].abs().max())
+    err = float((out[rows] - ref_out[rows]).abs().max())
+    lrows = rows[:, None, :].expand(b, hq, tq)
+    lse_max = float(ref_lse[lrows].abs().max())
+    lse_err = float((lse[lrows] - ref_lse[lrows]).abs().max())
+    if err > F32_OUT_RTOL_OF_MAX * out_max or lse_err > F32_LSE_RTOL_OF_MAX * lse_max:
+        fail(f"kernel {name} (fp32): out err {err:.3g} (max |ref| {out_max:.3g}) or lse err "
+             f"{lse_err:.3g} (max |ref| {lse_max:.3g}) over the tolerance")
+    empty = ~rows
+    n_empty = int(empty.sum())
+    if n_empty and (bool(out[empty].ne(0).any())
+                    or bool(lse.transpose(1, 2)[empty].ne(fa.NEG_INF).any())):
+        fail(f"kernel {name} (fp32): rows with no visible key are not (0, -1e30)")
+    del ref_out, ref_lse
+    pairs = float(vis.sum())
+    q_rows, kv_rows = float(rows.sum()), float(vis.any(1).sum())
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    amask = vis[:, None]
+
+    def library():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
+                                                  enable_gqa=hkv != hq)
+    shape = {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d, "causal": causal,
+             "window": window, "visible_pairs": pairs, "rows_without_key": n_empty}
+    kfwd = lambda: fwd()
+    ms, gms = cuda_ms(kfwd, iters=20), graph_ms(kfwd)
+    plain_ms = cuda_ms(ref_fwd, iters=3, warmup=1)
+    lib_ms = library_min_ms(library)
+    flops = 4.0 * d * hq * pairs
+    nbytes = 4 * (q_rows * hq * d + 2 * kv_rows * hkv * d + out.numel() + lse.numel()
+                  + mask.numel())
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    frow = {"shape": name, "kernel": "flash_f32_fwd", **shape, "max_abs_err": err,
+            "out_max": out_max, "lse_max_abs_err": lse_err, "ms": ms, "graph_ms": gms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flops / (ms * 1e-3) / 1e12}
+    log(f"kernel {name} (fp32 fwd): B={b} Tq={tq} Tk={tk} Hq={hq} Hkv={hkv} D={d} "
+        f"causal={causal} window={window}: {pairs:.4g} visible pairs, {n_empty} rows without "
+        f"a key; max abs err {err:.3g} of max |ref| {out_max:.3g} (lse {lse_err:.3g} of "
+        f"{lse_max:.3g}); ms {ms:.4f} (graph {gms:.4f}) plain_ms {plain_ms:.3f} library_ms "
+        f"{lib_ms:.4f} bound_ms {frow['bound_ms']:.4f} ({frow['bound_by']}), "
+        f"{frow['tflops']:.2f} TFLOP/s")
+    if not backward:
+        return frow, None
+    grads = bwd(out, lse)
+    torch.cuda.synchronize()
+    if fa.flash_f32_bwd.launches - before[1] != 1 or fa.flash_bwd.launches != before[3]:
+        fail(f"kernel {name} (fp32): the wrapper did not launch flash_f32_bwd once")
+    refs = ref_bwd(out, lse)
+    errs = {}
+    for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        if not bool(torch.isfinite(got).all()):
+            fail(f"kernel {name} (fp32): {gname} is not finite")
+        errs[gname] = float((got - ref).abs().max())
+        errs[gname + "_ref_max"] = float(ref.abs().max())
+        if errs[gname] > F32_BWD_RTOL_OF_MAX * errs[gname + "_ref_max"]:
+            fail(f"kernel {name} (fp32): {gname} differs from the plain version by "
+                 f"{errs[gname]:.4g} (max |ref| {errs[gname + '_ref_max']:.4g})")
+    if n_empty and bool(grads[0][empty].ne(0).any()):
+        fail(f"kernel {name} (fp32): rows with no visible key have dq != 0")
+    del refs
+    kbwd = lambda: bwd(out, lse)
+    bms, bgms = cuda_ms(kbwd, iters=20), graph_ms(kbwd)
+    plain_bms = cuda_ms(lambda: ref_bwd(out, lse), iters=3, warmup=1)
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, enable_gqa=hkv != hq)
+    do_t = dout.transpose(1, 2).contiguous()
+    lib_bms = library_min_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t,
+                                                         retain_graph=True))
+    del o
+    flops = 10.0 * d * hq * pairs
+    nbytes = 4 * (3 * q_rows * hq * d + 2 * kv_rows * hkv * d + q_rows * hq + mask.numel()
+                  + q.numel() + 2 * k.numel())
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    brow = {"shape": name, "kernel": "flash_f32_bwd", **shape,
+            "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]), **errs, "ms": bms,
+            "graph_ms": bgms, "plain_ms": plain_bms, "library_ms": lib_bms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flops / (bms * 1e-3) / 1e12}
+    log(f"kernel {name} (fp32 bwd): max abs err dq {errs['dq']:.3g} dk {errs['dk']:.3g} dv "
+        f"{errs['dv']:.3g} (max |ref| {errs['dq_ref_max']:.3g} {errs['dk_ref_max']:.3g} "
+        f"{errs['dv_ref_max']:.3g}); ms {bms:.4f} (graph {bgms:.4f}) plain_ms "
+        f"{plain_bms:.3f} library_ms {lib_bms:.4f} bound_ms {brow['bound_ms']:.4f} "
+        f"({brow['bound_by']}), {brow['tflops']:.2f} TFLOP/s")
+    return frow, brow
+
+
+def f32_kernel_cases(torch, max_new):
+    """The fp32 kernels at the shapes the fp32 route gives them: the served
+    prefill with its left pads, the rehearsal's SFT step forward and
+    backward, a batch row with no visible key, and the long-DNA band (b)."""
+    g = torch.Generator(device="cuda").manual_seed(41)
+    _, (ids, mask, _, _) = served_inputs()
+    b, p = ids.shape
+    cmask = torch.as_tensor(np.pad(mask, ((0, 0), (0, max_new))), device="cuda")
+    empty = left_padded(torch, 2, 300, 0, 100, g)
+    empty[1] = 0
+    cases = [
+        ("f32_prefill_served_P%d" % p, b, p, p + max_new, 16, 8, 128, True, cmask, 42, None,
+         False),
+        ("f32_sft_T512_leftpad", 8, 512, 512, 16, 8, 128, True,
+         left_padded(torch, 8, 512, 0, 100, g), 43, None, True),
+        ("f32_empty_row_T300", 2, 300, 300, 16, 8, 128, True, empty, 44, None, True),
+        ("f32_band_T2048_W256", 4, 2048, 2048, 16, 16, 64, False,
+         right_padded(torch, 4, 2048, 1024, g), 45, LONG_WINDOW, True)]
+    rows = []
+    for (name, b_, tq, tk, hq, hkv, d, causal, m, seed, window, backward) in cases:
+        frow, brow = f32_case(torch, name, b_, tq, tk, hq, hkv, d, causal, m, seed, window,
+                              backward)
+        rows += [frow] + ([brow] if brow else [])
+    return rows
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def burst(server, reqs, max_new):
@@ -1212,20 +1428,31 @@ def bench_batch(cfg, b=4, t_text=768, l_dna=128):
 
 
 def _wrappers():
-    """Each kernel's wrapper, which counts its launches."""
+    """Each bf16 kernel's wrapper, which counts its launches."""
     from bioreason_tpu_torch.ops import flash_attention as fa
     from bioreason_tpu_torch.ops import local_attention as la
     return {"flash_fwd": fa.flash_attention, "flash_bwd": fa.flash_bwd,
             "local_fwd": la.local_attention, "local_bwd": la.local_bwd}
 
 
+def _f32_wrappers():
+    """The fp32 kernels' launchers (flash and band), which count theirs."""
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    return {"flash_f32_fwd": fa.flash_f32_fwd, "flash_f32_bwd": fa.flash_f32_bwd}
+
+
 def reset_counts():
-    for fn in _wrappers().values():
+    for fn in (*_wrappers().values(), *_f32_wrappers().values()):
         fn.launches = 0
 
 
 def counts():
+    """The bf16 kernels' launches (the fp32 ones: `all_counts`)."""
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def all_counts():
+    return {**counts(), **{name: fn.launches for name, fn in _f32_wrappers().items()}}
 
 
 def phase_train(torch, card, ckpt):
@@ -2656,9 +2883,10 @@ GUIDED = r"<answer>(yes|no)</answer>"
 CONT_STEP_COS, CONT_FIRST_COS = 0.999, 0.9999
 CONT_BUDGET_S = 75.0
 CONT_NEW, CONT_WINDOW = 24, 16
-# (a)'s requests: 2 x capacity, not the bench's 3 x, so that the phase keeps
-# its budget on a slower host (the queue stays: 128 requests over 64 slots)
-CONT_REQUESTS = 128
+# (a)'s requests: 1.5 x capacity, not the bench's 3 x, so that the phase and
+# the script keep their budgets on a slower host (the queue stays: 96
+# requests over 64 slots)
+CONT_REQUESTS = 96
 
 
 def teacher_forced(torch, engine, model, batch, streams):
@@ -3364,10 +3592,10 @@ QLORA_BUDGET_S = 240.0
 
 
 def dequantized_twin(torch, model, cfg):
-    """A module tree holding `model`'s tensors except its int8 weights,
-    which it holds dequantized in their tower's compute dtype as frozen
-    parameters (the value `dense` computes from them): the adapters and the
-    projection are the model's own."""
+    """A module tree holding `model`'s tensors except its int8 weights and
+    expert banks, which it holds dequantized in their tower's compute dtype
+    as frozen parameters (the values `dense` and `bank_product` compute
+    from them): the adapters and the projection are the model's own."""
     from bioreason_tpu_torch.models import layers as L
     from bioreason_tpu_torch.train.trainable import shared_copy
     from bioreason_tpu_torch.utils.devices import torch_dtype
@@ -3375,7 +3603,7 @@ def dequantized_twin(torch, model, cfg):
     with torch.no_grad():
         for tower, tcfg in ((twin.decoder, cfg.decoder), (twin.encoder, cfg.dna_tower)):
             for mod in tower.modules():
-                if isinstance(mod, torch.nn.Linear) and L.is_int8(mod):
+                if isinstance(mod, (torch.nn.Linear, L.ExpertBank)) and L.is_int8(mod):
                     w = L.int8_weight(mod, torch_dtype(tcfg.dtype))
                     del mod.weight, mod.scale
                     mod.weight = torch.nn.Parameter(w, requires_grad=False)
@@ -3683,10 +3911,10 @@ def phase_qlora(torch, card):
 # -- phase 16 -------------------------------------------------------------------
 
 # the rehearsal's bench widths (Qwen3-0.6B + NT-v2-50M, 1-mer DNA of 32 bp),
-# cut for time: 128 items (1,280 in the bench run), 2 SFT epochs of 12 steps
+# cut for time: 96 items (1,280 in the bench run), 2 SFT epochs of 9 steps
 # (40 at most, with the probe's stop), a validation every 8 steps (96), 64
-# tokens generated in the tests and rollouts (288), 2 GRPO steps (80)
-REH_ITEMS, REH_EPOCHS, REH_EVAL, REH_NEW, REH_GRPO = 128, 2, 8, 64, 2
+# tokens generated in the tests and rollouts (288), 1 GRPO step (80)
+REH_ITEMS, REH_EPOCHS, REH_EVAL, REH_NEW, REH_GRPO = 96, 2, 8, 64, 1
 REH_SEQ_LEN, REH_BATCH, REH_SEED = 32, 8, 7
 REH_BUDGET_S = 150.0
 # one SFT step: remat full runs every decoder layer's forward twice; the
@@ -4109,29 +4337,29 @@ def moe_config():
 
 
 class MoeRecorder:
-    """Wraps `layers.moe_slots` (and, with `keep_input`, `moe_apply`) to
-    record each MoE call's rows `n`, capacity `cap` and its experts `idx`,
-    slots `slot` and keep flags `keep` [N, k] on the device (no host sync),
-    and with `keep_input` the first call's module and input; `close`
-    restores them."""
+    """Wraps `layers.moe_apply` and `layers.moe_slots` (which `moe_apply`
+    calls once) to record each MoE call's module (`id`), rows `n`,
+    capacity `cap` and its experts `idx`, slots `slot` and keep flags
+    `keep` [N, k] on the device (no host sync), and with `keep_input` the
+    first call's module and input; `close` restores them."""
 
     def __init__(self, keep_input=False):
         from bioreason_tpu_torch.models import layers as L
-        self.L, self.calls, self.inputs = L, [], []
+        self.L, self.calls, self.inputs, self.module = L, [], [], None
         self.real_slots, self.real_apply = L.moe_slots, L.moe_apply
 
         def slots(idx, e, cap):
             slot, keep = self.real_slots(idx, e, cap)
-            self.calls.append({"n": idx.shape[0], "cap": cap, "idx": idx, "slot": slot,
-                               "keep": keep})
+            self.calls.append({"module": self.module, "n": idx.shape[0], "cap": cap,
+                               "idx": idx, "slot": slot, "keep": keep})
             return slot, keep
-        L.moe_slots = slots
-        if keep_input:
-            def apply(moe, x, *a, **kw):
-                if not self.inputs:
-                    self.inputs.append((moe, x.detach().clone(), a, kw))
-                return self.real_apply(moe, x, *a, **kw)
-            L.moe_apply = apply
+
+        def apply(moe, x, *a, **kw):
+            self.module = id(moe)
+            if keep_input and not self.inputs:
+                self.inputs.append((moe, x.detach().clone(), a, kw))
+            return self.real_apply(moe, x, *a, **kw)
+        L.moe_slots, L.moe_apply = slots, apply
 
     def close(self):
         self.L.moe_slots, self.L.moe_apply = self.real_slots, self.real_apply
@@ -4713,6 +4941,549 @@ def phase_moe(torch, card):
     return out, rows
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+# the device of phases 18-19 ("cpu" only to rehearse them at tiny widths)
+DEV = "cuda"
+MOE_TRAIN_BUDGET_S = 240.0
+MOE_SFT_STEPS = 3
+MOE_GRPO_STEPS = 2
+MOE_GRPO_NEW = 64                      # bench_grpo.py's completion length
+MOE_SFT_LR = 1e-3                      # no warm-up: the loss must fall in 3 steps
+# (c) the kernel route against the plain route, one step's loss and trainable
+# gradients: the routes round apart (bf16 P against fp32), and a token whose
+# router sits on a near-tie can take another expert in some layer, so the
+# bound is looser than the dense decoder's cosine of 0.99 (phase 6)
+MOE_ROUTE_LOSS_RTOL, MOE_ROUTE_GRAD_COS = 1e-2, 0.98
+# (e) the first QLoRA step's loss against (b)'s first: both start from the same
+# adapters (B = 0) and projection, so they differ by int8's rounding alone
+MOE_QLORA_LOSS_RTOL = 1e-2
+MOE_TWIN_LAYERS = 2                    # (e)'s twin: Qwen3-30B-A3B width, cut in depth
+
+
+def adapted_linears(torch, model):
+    from bioreason_tpu_torch.models.layers import has_adapter
+    return [n for n, m in model.named_modules()
+            if isinstance(m, torch.nn.Linear) and has_adapter(m)]
+
+
+def banks(model):
+    from bioreason_tpu_torch.models.layers import ExpertBank
+    return [m for m in model.modules() if isinstance(m, ExpertBank)]
+
+
+def moe_sft_steps(torch, card, label, trainer, batch, steps, per_step):
+    """`steps` SFTTrainer steps on one repeated batch (the main path: counts
+    from 0 just before, read just after); the forward's and the recompute's
+    routing recorded in the first. Returns the numbers."""
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = MoeRecorder()
+    metrics, step_s = [], []
+    try:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            metrics.append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if i == 0:
+                rec.close()
+    finally:
+        rec.close()
+    got = all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in metrics]
+    b = batch["input_ids"].shape[0]
+    ms = 1e3 * sum(step_s[1:]) / max(1, steps - 1)
+    log(f"moe_train {label} [{card}]: {steps} SFT steps at B={b} T="
+        f"{batch['input_ids'].shape[1]} + DNA {list(batch['dna_input_ids'].shape)}, remat "
+        f"{trainer.fusion_cfg.decoder.remat}: step s {[round(x, 3) for x in step_s]}, {ms:.1f} ms "
+        f"a step after the first ({b * 1e3 / ms:.3f} examples/s), peak {peak:.2f} GiB; losses "
+        f"{[round(x, 6) for x in losses]}; launches {got}")
+    want = {k: steps * per_step.get(k, 0) for k in got}
+    if got != want:
+        fail(f"moe_train {label}: launched {got} in {steps} steps, reckoned {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"moe_train {label}: the loss is not finite or does not fall: {losses}")
+    # the recompute routes as the forward did: two calls a layer, equal
+    by_mod = {}
+    for call in rec.calls:
+        by_mod.setdefault(call["module"], []).append(call)
+    layers = trainer.model.decoder.layers
+    alike = sum(len(c) == 2 and all(torch.equal(c[0][k], c[1][k]) for k in ("idx", "keep"))
+                for c in by_mod.values())
+    dropped = [float((~c[0]["keep"]).float().mean()) for c in by_mod.values()]
+    log(f"moe_train {label}: forward and recompute routed alike (experts and keep flags) in "
+        f"{alike} of {len(layers)} layers ({len(rec.calls)} MoE calls in the step); the "
+        f"(token, choice) pairs dropped per layer {min(dropped):.3f}-{max(dropped):.3f}")
+    if len(by_mod) != len(layers) or alike != len(layers):
+        fail(f"moe_train {label}: the recompute routed otherwise than the forward "
+             f"({alike} of {len(layers)} layers alike, {len(by_mod)} modules seen)")
+    return {"losses": losses, "step_s": step_s, "ms": ms, "examples_per_s": b * 1e3 / ms,
+            "peak_gib": peak, "launches": got, "layers_alike": alike,
+            "dropped_share": [min(dropped), max(dropped)]}
+
+
+def moe_grpo_steps(torch, card, label, trainer, items, steps, per_step):
+    """`steps` GRPOTrainer steps (the main path, counts from 0), with the
+    trainer's phase timers; the reference policy and the rollout policy
+    hold the training model's expert banks themselves."""
+    bank_ptrs = {b.weight.data_ptr() for b in banks(trainer.model)}
+    for what, m in (("reference", trainer.ref_model), ("rollout", trainer.rollout_model())):
+        ptrs = {b.weight.data_ptr() for b in banks(m)}
+        if ptrs != bank_ptrs:
+            fail(f"moe_train {label}: the {what} policy does not share the expert banks' "
+                 f"storage ({len(ptrs - bank_ptrs)} of {len(ptrs)} banks its own)")
+    log(f"moe_train {label}: the reference and the rollout policy hold the model's "
+        f"{len(bank_ptrs)} expert banks themselves (data_ptr)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.timers = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = [trainer.step(items) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = all_counts()
+    tm, trainer.timers = trainer.timers, None
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"moe_train {label} [{card}]: {steps} GRPO steps of {len(items)} completions "
+        f"({trainer.cfg.num_generations} a prompt, {trainer.cfg.max_completion_length} new "
+        f"tokens, P={trainer.engine.last_stats['prompt_len']}) in {dt:.1f} s: "
+        f"{len(items) * steps / dt:.3f} completions/s; seconds by phase "
+        f"{ {k: round(v, 3) for k, v in tm.items()} }; peak {peak:.2f} GiB; per step "
+        + "; ".join(f"loss {m['loss']:.5g} kl {m['kl']:.4g} reward {m['reward']:.3g}"
+                    for m in hist) + f"; launches {got}")
+    want = {k: steps * per_step.get(k, 0) for k in got}
+    if got != want:
+        fail(f"moe_train {label}: launched {got} in {steps} GRPO steps, reckoned {want}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["kl"]) for m in hist):
+        fail(f"moe_train {label}: a non-finite GRPO loss or kl: {hist}")
+    return {"completions_per_s": len(items) * steps / dt, "s_per_step": dt / steps,
+            "timers": tm, "peak_gib": peak, "launches": got,
+            "loss": [m["loss"] for m in hist], "kl": [m["kl"] for m in hist]}
+
+
+def moe_twin_and_saved_banks(torch, card, cfg, batch):
+    """(e), at Qwen3-30B-A3B width cut to MOE_TWIN_LAYERS layers: one QLoRA
+    step's loss and gradients against a bf16 twin holding the dequantized
+    weights and banks (`qlora_twin_check`), then, with remat off, what one
+    step's autograd saves of the banks and its peak memory, the int8 bank
+    product (`layers.bank_product`) against `torch.bmm` on the dequantized
+    bank (a planted plain path), beside the reckoned bytes of a saved bf16
+    copy of every bank."""
+    import gc
+
+    from bioreason_tpu_torch.config import LoRAConfig, OptimConfig, SFTConfig
+    from bioreason_tpu_torch.models import layers as L
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    cut = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                               num_layers=MOE_TWIN_LAYERS))
+    model = init_fusion(cut, seed=0, device=DEV)
+    # no LoRA dropout: each loss of the check must see the same function
+    sft = SFTConfig(batch_size=4, frozen_dtype="int8", lora=LoRAConfig(dropout=0.0),
+                    optim=OptimConfig(learning_rate=MOE_SFT_LR, warmup_ratio=0.0,
+                                      total_steps=100), seed=0)
+    trainer = SFTTrainer(cut, sft, model=model, device=DEV)
+    twin = qlora_twin_check(torch, trainer, batch)
+    e, h, inter = cut.decoder.num_experts, cut.decoder.hidden_size, \
+        cut.decoder.moe_intermediate_size
+    bank_bytes = 3 * e * h * inter * 2                     # a layer's banks in bf16
+    reckoned = MOE_TWIN_LAYERS * bank_bytes
+    n = batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
+    cap = L.moe_capacity(n, e, cut.decoder.num_experts_per_tok, cut.decoder.moe_capacity_factor)
+    if cap in (h, inter):
+        fail(f"moe_train (e): a capacity of {cap} gives activations a bank's shape")
+    off = dataclasses.replace(cut, decoder=dataclasses.replace(cut.decoder, remat=False))
+    trainer.fusion_cfg = off
+    db = trainer._device_batch(batch)
+
+    def step():
+        """One loss and its trainable gradients; the bytes of float [E, in,
+        out] tensors autograd saved; the peak above the resident."""
+        saved = []
+
+        def pack(x):
+            if tuple(x.shape) in ((e, h, inter), (e, inter, h)) and x.dtype.is_floating_point:
+                saved.append(x.numel() * x.element_size())
+            return x
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            loss = trainer._loss(db, train=True)
+        torch.autograd.grad(loss, trainer.params, allow_unused=True)
+        torch.cuda.synchronize()
+        return sum(saved), (torch.cuda.max_memory_allocated() - base) / 2**30
+    int8_saved, int8_peak = step()
+    real = L.bank_product
+    L.bank_product = lambda x, bank, dtype: torch.bmm(x, L.expert_bank(bank, dtype))
+    try:
+        plain_saved, plain_peak = step()
+    finally:
+        L.bank_product = real
+    log(f"moe_train (e) [{card}]: {MOE_TWIN_LAYERS}-layer Qwen3-30B-A3B, remat off: the int8 "
+        f"bank product saved {int8_saved / 2**30:.3f} GiB of float banks, peak "
+        f"{int8_peak:.3f} GiB above the resident; torch.bmm on the dequantized banks saved "
+        f"{plain_saved / 2**30:.3f} GiB, peak {plain_peak:.3f} GiB; reckoned: a bf16 copy of "
+        f"every bank {reckoned / 2**30:.3f} GiB ({bank_bytes / 2**30:.3f} a layer, "
+        f"{bank_bytes * cfg.decoder.num_layers / 2**30:.1f} GiB over {cfg.decoder.num_layers})")
+    if int8_saved or plain_saved < reckoned or plain_peak - int8_peak < 0.75 * reckoned / 2**30:
+        fail(f"moe_train (e): the int8 bank product saved {int8_saved} bytes of float banks "
+             f"(reckoned 0) and peaked {int8_peak:.3f} GiB against the plain path's "
+             f"{plain_peak:.3f} GiB ({plain_saved} bytes saved, reckoned {reckoned})")
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"twin": twin, "saved_float_bank_bytes": int8_saved, "peak_gib": int8_peak,
+            "plain_saved_bytes": plain_saved, "plain_peak_gib": plain_peak,
+            "reckoned_bytes": reckoned}
+
+
+def phase_moe_train(torch, card):
+    """MoE training at Qwen3-30B-A3B + NT-v2-500M, full width and depth
+    (module docstring, phase 18)."""
+    import gc
+
+    import torch.nn.functional as F
+    from bioreason_tpu_torch.config import (GRPOConfig, LoRAConfig, OptimConfig,
+                                            SamplingConfig, SFTConfig)
+    from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only, synthetic_kegg_items
+    from bioreason_tpu_torch.models.fusion import fusion_forward, init_fusion
+    from bioreason_tpu_torch.train.grpo import GRPOTrainer
+    from bioreason_tpu_torch.train.lora import strip_lora
+    from bioreason_tpu_torch.train.quant import storage_bytes
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) build: nothing of the earlier phases left, the model in bf16 on
+    # the card, LoRA r32/a64 on q, k, v, o and the router of every layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    log(f"moe_train: {left / 2**30:.3f} GiB allocated before the build")
+    if left > 2 * 2**30:
+        fail(f"{left / 2**30:.2f} GiB of earlier phases is still allocated")
+    cfg, processor = moe_config()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, remat=True,
+                                                               remat_policy="full"),
+                              encoder=dataclasses.replace(cfg.encoder, remat=False))
+    dec = cfg.decoder
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_fusion(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    dtypes0 = {n: p.dtype for n, p in model.named_parameters()}
+    sft = SFTConfig(batch_size=4, lora=LoRAConfig(),
+                    optim=OptimConfig(learning_rate=MOE_SFT_LR, warmup_ratio=0.0,
+                                      total_steps=100), seed=0)
+    trainer = SFTTrainer(cfg, sft, model=model, device=DEV)
+    adapted = adapted_linears(torch, model)
+    per_layer = {n.split(".")[-1] for n in adapted}
+    upcast = [n for n, p in model.named_parameters()
+              if not p.requires_grad and p.dtype.itemsize > dtypes0[n].itemsize]
+    n_train = sum(p.numel() for p in trainer.params)
+    resident = storage_bytes(model) / 2**30
+    log(f"moe_train (a) [{card}]: Qwen3-30B-A3B + NT-v2-500M in {dec.dtype} on the card in "
+        f"{t_build:.2f} s, {resident:.2f} GiB resident with the adapters; LoRA r"
+        f"{sft.lora.r}/a{sft.lora.alpha} on {len(adapted)} linears ({sorted(per_layer)} of "
+        f"each layer), {n_train / 1e6:.3f} M trainable parameters in {len(trainer.params)} "
+        f"tensors; frozen leaves up-cast: {len(upcast)}")
+    if (len(adapted) != 5 * dec.num_layers or per_layer != {"q", "k", "v", "o", "router"}
+            or not all(n.startswith("decoder.layers.") for n in adapted)):
+        fail(f"moe_train (a): expected 5 adapted linears in each of {dec.num_layers} layers, "
+             f"the routers among them; got {len(adapted)} ({sorted(per_layer)})")
+    if upcast or any(b.weight.requires_grad or b.weight.dtype != torch.bfloat16
+                     for b in banks(model)):
+        fail(f"moe_train (a): frozen leaves up-cast or banks not frozen bf16: {upcast[:6]}")
+    out["build"] = {"s": t_build, "resident_gib": resident, "adapted": len(adapted),
+                    "trainable_params": n_train}
+    proj0 = {n: p.detach().clone() for n, p in model.dna_projection.named_parameters()}
+
+    # (b) SFT at bench.py's shape, remat on: the encoder's 29 flash_fwd, the
+    # decoder's 48 and their 48 recomputed ones, 48 flash_bwd a step
+    batch = bench_batch(cfg)
+    per_step = {"flash_fwd": ENCODER_LAYERS + 2 * dec.num_layers, "flash_bwd": dec.num_layers}
+    out["sft"] = moe_sft_steps(torch, card, "(b) bf16 LoRA", trainer, batch, MOE_SFT_STEPS,
+                               per_step)
+    # where a step's device time goes, and how much of the step it is busy
+    out["sft"]["profile"] = profile_step(torch, card, "moe_train (b) one bf16 SFT step",
+                                         lambda: trainer.train_step(batch),
+                                         ("flash_fwd", "flash_bwd", "nvjet", "gemm"))[:2]
+
+    # (c) one step's loss and trainable gradients, kernel route against plain
+    db = trainer._device_batch(batch)
+
+    def loss_and_grad(c):
+        _, loss = fusion_forward(trainer.model, c, db["input_ids"], db["attention_mask"],
+                                 db["dna_input_ids"], db["dna_attention_mask"],
+                                 label_positions=db["label_positions"],
+                                 label_targets=db["label_targets"],
+                                 label_valid=db["label_valid"])
+        grads = torch.autograd.grad(loss, trainer.params, allow_unused=True)
+        return float(loss.detach()), torch.cat([
+            (torch.zeros_like(p) if g is None else g).float().flatten()
+            for p, g in zip(trainer.params, grads)])
+    # where a step's time goes, on the host's clock: the forward alone, then
+    # the forward with the recompute and the backward
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fusion_forward(trainer.model, cfg, db["input_ids"], db["attention_mask"],
+                       db["dna_input_ids"], db["dna_attention_mask"],
+                       label_positions=db["label_positions"], label_targets=db["label_targets"],
+                       label_valid=db["label_valid"])
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    lk, gk = loss_and_grad(cfg)
+    torch.cuda.synchronize()
+    t_lg = time.perf_counter() - t0 - t_fwd
+    log(f"moe_train (b) a step's parts, each timed alone (host clock): the forward "
+        f"{t_fwd * 1e3:.1f} ms, the forward with the recompute and the backward "
+        f"{t_lg * 1e3:.1f} ms, the whole step {out['sft']['ms']:.1f} ms")
+    out["sft"]["split_ms"] = {"forward": t_fwd * 1e3, "forward_backward": t_lg * 1e3}
+    plain = dataclasses.replace(cfg, decoder=dataclasses.replace(dec, attention_impl="xla"),
+                                encoder=dataclasses.replace(cfg.encoder, attention_impl="xla"))
+    lp, gp = loss_and_grad(plain)
+    cos = float(F.cosine_similarity(gk, gp, dim=0))
+    rel = abs(lk - lp) / abs(lp)
+    log(f"moe_train (c): kernel vs plain route, one loss + gradient: loss {lk:.6f} vs {lp:.6f} "
+        f"(relative {rel:.3g}, held to {MOE_ROUTE_LOSS_RTOL}), cosine of the {gk.numel()} "
+        f"trainable gradients {cos:.6f} (held to {MOE_ROUTE_GRAD_COS})")
+    if not (math.isfinite(lk) and rel <= MOE_ROUTE_LOSS_RTOL and cos >= MOE_ROUTE_GRAD_COS):
+        fail(f"moe_train (c): the kernel and plain routes disagree (loss rel {rel:.3g}, "
+             f"cosine {cos:.4f})")
+    out["route"] = {"loss": lk, "plain_loss": lp, "loss_rel": rel, "grad_cos": cos}
+    del gk, gp, db
+    ones = torch.ones((4, 768), dtype=torch.int32, device=DEV)
+    out["fwd_row"] = kernel_case(torch, "moe_sft_T768", 4, 768, 768, dec.num_heads,
+                                 dec.num_kv_heads, dec.head_dim, True, 0, ones, 51)
+    out["bwd_row"] = bwd_case(torch, "moe_sft_T768_bwd", 4, 768, 768, dec.num_heads,
+                              dec.num_kv_heads, dec.head_dim, True, 0, ones, 51)
+    del trainer
+    gc.collect()
+
+    # (d) GRPO at bench_grpo.py's shape: beta > 0, float rollouts, no sync
+    gcfg = dataclasses.replace(cfg, max_length_text=512, max_length_dna=128)
+    grpo = GRPOConfig(num_generations=GRPO_G, batch_size=GRPO_PROMPTS * GRPO_G, beta=0.04,
+                      max_completion_length=MOE_GRPO_NEW,
+                      sampling=SamplingConfig(max_new_tokens=MOE_GRPO_NEW),
+                      optim=OptimConfig(learning_rate=5e-6, total_steps=100),
+                      lora=LoRAConfig(), seed=0)
+    items = [format_kegg_prompt_only(it)
+             for it in synthetic_kegg_items(GRPO_PROMPTS, seq_len=600, seed=0)]
+    items = [x for x in items for _ in range(GRPO_G)]
+    g_per_step = {"flash_fwd": dec.num_layers + 3 * ENCODER_LAYERS + 3 * dec.num_layers,
+                  "flash_bwd": dec.num_layers}
+    gt = GRPOTrainer(gcfg, grpo, processor, [acgt_share_reward], model=model, device=DEV)
+    out["grpo"] = moe_grpo_steps(torch, card, "(d) bf16 GRPO", gt, items, MOE_GRPO_STEPS,
+                                 g_per_step)
+    del gt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) QLoRA: fresh adapters from (b)'s seed, the projection as (b) began,
+    # the frozen towers int8 in place
+    strip_lora(model)
+    with torch.no_grad():
+        for n, p in model.dna_projection.named_parameters():
+            p.copy_(proj0[n])
+    # quantizing in place frees each bf16 bank as its int8 one is stored:
+    # nothing else may hold them (both copies would need 86.8 GiB)
+    log(f"moe_train (e): {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before "
+        f"quantizing ({storage_bytes(model) / 2**30:.2f} GiB the model's)")
+    qtrainer = SFTTrainer(cfg, dataclasses.replace(sft, frozen_dtype="int8"), model=model,
+                           device=DEV)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_q = storage_bytes(model) / 2**30
+    log(f"moe_train (e) [{card}]: QLoRA in place: {resident_q:.2f} GiB resident (bf16 "
+        f"{resident:.2f}), every bank int8: "
+        f"{all(b.weight.dtype == torch.int8 for b in banks(model))}")
+    out["qlora_sft"] = moe_sft_steps(torch, card, "(e) QLoRA", qtrainer, batch, MOE_SFT_STEPS,
+                                     per_step)
+    l_b, l_e = out["sft"]["losses"][0], out["qlora_sft"]["losses"][0]
+    q_rel = abs(l_e - l_b) / abs(l_b)
+    log(f"moe_train (e): first loss QLoRA {l_e:.6f} vs bf16 {l_b:.6f} (relative {q_rel:.3g}, "
+        f"held to {MOE_QLORA_LOSS_RTOL}); peak {out['qlora_sft']['peak_gib']:.2f} GiB vs "
+        f"{out['sft']['peak_gib']:.2f} GiB")
+    if q_rel > MOE_QLORA_LOSS_RTOL or not all(b.weight.dtype == torch.int8 for b in banks(model)):
+        fail(f"moe_train (e): QLoRA's first loss {l_e} against bf16's {l_b}")
+    out["qlora_sft"]["resident_gib"] = resident_q
+    del qtrainer
+    gc.collect()
+    gq = GRPOTrainer(gcfg, dataclasses.replace(grpo, frozen_dtype="int8", rollout_int8=True),
+                     processor, [acgt_share_reward], model=model, device=DEV)
+    out["qlora_grpo"] = moe_grpo_steps(torch, card, "(e) QLoRA GRPO, int8 rollouts", gq, items,
+                                       1, g_per_step)
+    del gq, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["twin"] = moe_twin_and_saved_banks(torch, card, cfg, batch)
+    secs = time.perf_counter() - t_phase
+    log(f"moe_train: {secs:.1f} s of the script's clock (budget {MOE_TRAIN_BUDGET_S:.0f} s)")
+    out["s"] = secs
+    return out
+
+
+# -- phase 19 ----------------------------------------------------------------
+
+FP32_API_BUDGET_S = 90.0
+FP32_STEPS = 3
+# the fp32 kernels against the plain route over three steps: the same fp32
+# products summed in another order, then three Adam updates
+FP32_LOSS_RTOL = 1e-4
+FP32_API_PROMPTS, FP32_TRACE_ITEMS = 8, 4
+
+
+def phase_fp32_api(torch, card):
+    """The fp32 route and the user API at Qwen3-0.6B + NT-v2-50M (module
+    docstring, phase 19)."""
+    from bioreason_tpu_torch.cli import make_traces, train_sft
+    from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
+                                            LoRAConfig, OptimConfig, SFTConfig)
+    from bioreason_tpu_torch.data import ByteTextTokenizer
+    from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only, synthetic_kegg_items
+    from bioreason_tpu_torch.data.chat_template import apply_chat_template
+    from bioreason_tpu_torch.models.api import DnaLLM
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    t_phase = time.perf_counter()
+    out = {}
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_fp32_", dir=build_dir)
+    try:
+        # (a) train_sft --dtype float32: the route that raised before the
+        # fp32 kernels; the decoder's 28 layers twice (remat) and 28
+        # backward a step, none from NT-v2-50M's 32-wide heads
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train_sft.main(["--dtype", "float32", "--decoder", "qwen3-0.6b", "--encoder",
+                             "nt-50m", "--max_steps", "2", "--seed", "0", "--checkpoint_dir",
+                             tmp, "--device", DEV])
+        secs = time.perf_counter() - t0
+        got = all_counts()
+        losses = [m["loss"] for m in tr.history]
+        want = {k: 0 for k in got}
+        want.update(flash_f32_fwd=2 * 2 * DECODER_LAYERS, flash_f32_bwd=2 * DECODER_LAYERS)
+        log(f"fp32 (a) train_sft --dtype float32 --decoder qwen3-0.6b --encoder nt-50m "
+            f"[{card}]: 2 steps in {secs:.1f} s (build and data included), losses "
+            f"{[round(x, 5) for x in losses]}; launches {got}")
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses) or got != want:
+            fail(f"fp32 (a): train_sft --dtype float32 ran {losses}, launched {got}, "
+                 f"reckoned {want}")
+        out["cli"] = {"losses": losses, "launches": got, "s": secs}
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b) 3 SFTTrainer steps on the fp32 model through the kernels and again
+    # on the plain route, from the same weights, at bench.py's batch cut to
+    # 512 text tokens (its placeholder id past the random text ids)
+    cfg = FusionConfig(decoder=dataclasses.replace(DecoderConfig.qwen3_0_6b(), dtype="float32"),
+                       encoder=dataclasses.replace(EncoderConfig.nt_v2_50m(), dtype="float32"),
+                       dna_pad_token_id=151938)
+    sft = SFTConfig(batch_size=4, lora=LoRAConfig(dropout=0.0),
+                    optim=OptimConfig(learning_rate=1e-4, warmup_ratio=0.0, total_steps=100),
+                    seed=0)
+    batch = bench_batch(cfg, t_text=512)
+    runs = {}
+    for impl in ("auto", "xla"):
+        c = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                 attention_impl=impl))
+        trainer = SFTTrainer(c, sft, model=init_fusion(c, seed=0, device=DEV), device=DEV)
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(batch)["loss"] for _ in range(FP32_STEPS)]
+        torch.cuda.synchronize()
+        runs[impl] = {"losses": losses, "s": time.perf_counter() - t0, "launches": all_counts()}
+        if impl == "auto":
+            model = trainer.model
+        del trainer
+    k, x = runs["auto"], runs["xla"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k["losses"], x["losses"]))
+    per = (2 if cfg.decoder.remat else 1) * DECODER_LAYERS
+    want = {kk: 0 for kk in k["launches"]}
+    want.update(flash_f32_fwd=FP32_STEPS * per, flash_f32_bwd=FP32_STEPS * DECODER_LAYERS)
+    log(f"fp32 (b) SFTTrainer [{card}]: {FP32_STEPS} steps at B=4 T=512 in fp32: kernels "
+        f"{[round(v, 7) for v in k['losses']]} in {k['s']:.2f} s (launches {k['launches']}), "
+        f"plain {[round(v, 7) for v in x['losses']]} in {x['s']:.2f} s; largest relative "
+        f"difference {rel:.3g} (held to {FP32_LOSS_RTOL})")
+    if (rel > FP32_LOSS_RTOL or k["launches"] != want or any(x["launches"].values())
+            or not all(math.isfinite(v) for v in k["losses"])):
+        fail(f"fp32 (b): the kernel route's losses {k['losses']} against the plain route's "
+             f"{x['losses']}, launches {k['launches']} (reckoned {want}) and {x['launches']}")
+    out["trainer"] = {"kernels": k, "plain": x, "loss_rel": rel}
+
+    # (c) the user API: DnaLLM over that fp32 model, greedy text for 8 KEGG
+    # prompts (one engine call: the prefill's 28 flash_f32_fwd)
+    items = [format_kegg_prompt_only(it)
+             for it in synthetic_kegg_items(FP32_API_PROMPTS, seq_len=600, seed=0)]
+    texts = [apply_chat_template(ex)["prompt"] for ex in items]
+    dna = [ex["dna_sequences"] for ex in items]
+    tok = ByteTextTokenizer()
+    api = DnaLLM(dataclasses.replace(cfg, dna_pad_token_id=tok.dna_pad_id), text_tokenizer=tok,
+                 model=model.requires_grad_(False), device=DEV)
+    reset_counts()
+    t0 = time.perf_counter()
+    answers = api.generate_text(texts, dna, greedy=True, max_new_tokens=32)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = all_counts()
+    log(f"fp32 (c) DnaLLM.generate_text [{card}]: {len(answers)} KEGG prompts, 32 greedy "
+        f"tokens, in {secs:.2f} s; launches {got}; first answer {answers[0][:60]!r}")
+    if (len(answers) != FP32_API_PROMPTS or got.get("flash_f32_fwd") != DECODER_LAYERS
+            or any(v for kk, v in got.items() if kk != "flash_f32_fwd")):
+        fail(f"fp32 (c): DnaLLM.generate_text gave {len(answers)} answers, launched {got}")
+    out["api"] = {"s": secs, "launches": got}
+    del api, model
+    torch.cuda.empty_cache()
+
+    # (d) make_traces --backend engine on 4 variant rows: bf16 int8 serving
+    # storage (its default), one engine call, the decoder prefill's 28 flash_fwd
+    tmp = tempfile.mkdtemp(prefix="smoke_traces_", dir=build_dir)
+    try:
+        tsv = os.path.join(tmp, "v.tsv")
+        cols = ["Var_ID", "ENTRY", "Chr", "Start", "RefAllele", "AltAllele",
+                "Network Definition", "Gene", "Disease"]
+        with open(tsv, "w") as f:
+            f.write("\t".join(cols) + "\n")
+            for i in range(FP32_TRACE_ITEMS):
+                f.write("\t".join([f"rs{i}", "hsa:3845", "12", str(25245350 + i), "C", "T",
+                                   "EGFR-RAS-RAF-MEK-ERK signaling",
+                                   json.dumps({"hsa:3845": "KRAS; KRAS proto-oncogene"}),
+                                   json.dumps({"Pancreatic cancer": "H00018"})]) + "\n")
+        reset_counts()
+        t0 = time.perf_counter()
+        analyses = make_traces.main(["--tsv", tsv, "--out", os.path.join(tmp, "a.json"),
+                                     "--backend", "engine", "--encoder", "nt-50m",
+                                     "--max_new_tokens", "64", "--batch_size", "8",
+                                     "--device", DEV])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = all_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kinds = sorted({a["backend"] for a in analyses})
+    log(f"fp32 (d) make_traces --backend engine [{card}]: {len(analyses)} analyses ({kinds}) "
+        f"in {secs:.2f} s (model build included); launches {got}")
+    if (len(analyses) != FP32_TRACE_ITEMS or got.get("flash_fwd") != DECODER_LAYERS
+            or any(v for kk, v in got.items() if kk != "flash_fwd")):
+        fail(f"fp32 (d): make_traces wrote {len(analyses)} analyses, launched {got}")
+    out["traces"] = {"s": secs, "launches": got, "backends": kinds}
+    secs = time.perf_counter() - t_phase
+    log(f"fp32: {secs:.1f} s of the script's clock (budget {FP32_API_BUDGET_S:.0f} s)")
+    out["s"] = secs
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 def main():
@@ -4736,6 +5507,7 @@ def main():
     built = phase_build()
     mark("device, build")
     rows, bwd_rows, band_rows = phase_kernels(torch, max_new)
+    f32_rows = f32_kernel_cases(torch, max_new)
     mark("kernels")
     launches, server, items = phase_serve(torch, card, max_new)
     phase_profile(torch, card, server, items, max_new=8)
@@ -4784,12 +5556,19 @@ def main():
     mark("rehearsal")
     moe, moe_rows = phase_moe(torch, card)
     mark("moe")
+    moe_train = phase_moe_train(torch, card)
+    mark("moe_train")
+    fp32 = phase_fp32_api(torch, card)
+    mark("fp32_api")
     log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows += (grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows + qlora_rows + reh_rows
-             + moe_rows)
-    bwd_rows += grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows + qlora_bwd_rows + reh_bwd_rows
+             + moe_rows + [moe_train["fwd_row"]])
+    bwd_rows += (grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows + qlora_bwd_rows + reh_bwd_rows
+                 + [moe_train["bwd_row"]])
+    moe_train_launches = {k: {kk: v for kk, v in moe_train[k]["launches"].items() if v}
+                          for k in ("sft", "grpo", "qlora_sft", "qlora_grpo")}
     qlora_launches = {"sft_int8": qlora["sft"]["int8"]["launches"],
                       "sft_bfloat16": qlora["sft"]["bfloat16"]["launches"],
                       "grpo_int8": qlora["grpo"]["launches"],
@@ -4835,6 +5614,8 @@ def main():
                                         "calls": reh["a"]["calls"],
                                         "per_call": {k: sorted({d.get("flash_fwd", 0) for d in v})
                                                      for k, v in reh["a"]["per_call"].items()}},
+                 "moe_train_launches": {k: v.get("flash_fwd", 0)
+                                        for k, v in moe_train_launches.items()},
                  "moe_launches": {"serve": moe["serve"]["launches"],
                                   "serve_engine_calls": moe["serve"]["calls"],
                                   "per_engine_call": moe["serve"]["per_engine_call"],
@@ -4869,6 +5650,8 @@ def main():
                  "rehearsal_launches": {"total": reh["a"]["launches"].get("flash_bwd", 0),
                                         "per_call": {k: sorted({d.get("flash_bwd", 0) for d in v})
                                                      for k, v in reh["a"]["per_call"].items()}},
+                 "moe_train_launches": {k: v.get("flash_bwd", 0)
+                                        for k, v in moe_train_launches.items()},
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],
@@ -4893,8 +5676,33 @@ def main():
             "library_ms": at["library_ms"], "at_shape": at["shape"],
             "build": {fn: r for fn, r in built.items() if f"local_{kind}_kernel" in fn},
             "shapes": mine})
+    # the fp32 kernels at the rehearsal's SFT step shape, launches from the
+    # fp32 phase's train_sft run (the route that raised before them)
+    f32_entries = []
+    for kind, replaces, also in (
+            ("fwd", "bioreason_tpu/ops/flash_attention.py:60",
+             ["bioreason_tpu/ops/flash_attention.py:239", "bioreason_tpu/ops/local_attention.py:46"]),
+            ("bwd", "bioreason_tpu/ops/flash_attention.py:118",
+             ["bioreason_tpu/ops/flash_attention.py:160", "bioreason_tpu/ops/flash_attention.py:271",
+              "bioreason_tpu/ops/local_attention.py:95", "bioreason_tpu/ops/local_attention.py:133"])):
+        name = f"flash_f32_{kind}"
+        mine = [r for r in f32_rows if r["kernel"] == name]
+        at = next(r for r in mine if r["shape"].startswith("f32_sft"))
+        fns = (("flash_f32_fwd_kernel",) if kind == "fwd" else
+               ("flash_f32_delta_kernel", "flash_f32_dq_kernel", "flash_f32_dkv_kernel"))
+        f32_entries.append({
+            "name": name, "route": "cuda", "source": "bioreason_tpu_torch/csrc/flash_f32.cu",
+            "replaces": replaces, "also_replaces": also,
+            "launches": fp32["cli"]["launches"][name],
+            "trainer_launches": fp32["trainer"]["kernels"]["launches"][name],
+            "api_launches": fp32["api"]["launches"].get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": at["ms"],
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "at_shape": at["shape"],
+            "build": {fn: r for fn, r in built.items() if any(f in fn for f in fns)},
+            "shapes": mine})
     log(f"evo2 goldens: largest error on the card {golden_err:.3g}")
-    log(json.dumps({"kernels": [fwd_entry, bwd_entry, *local_entries]}))
+    log(json.dumps({"kernels": [fwd_entry, bwd_entry, *local_entries, *f32_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -73,14 +73,14 @@ def test_kernel_variant_applies_to_the_source(entry, variant):
 
 
 def test_every_c_entry_has_a_binding():
-    assert set(c_entries()) == {f"{e}_bf16" for e in tfa._ARGTYPES}
+    assert set(c_entries()) == {tfa.C_NAME[e] for e in tfa._ARGTYPES}
 
 
 @pytest.mark.parametrize("entry", sorted(tfa._ARGTYPES))
 def test_binding_matches_the_c_signature(entry):
     """Each ctypes argument list has the C entry's parameter count and
     kinds (pointer, int, long long, float, long long array), in order."""
-    params = c_entries()[f"{entry}_bf16"]
+    params = c_entries()[tfa.C_NAME[entry]]
     want = [ctype_of(p) for p in params]
     got = tfa._ARGTYPES[entry]
     assert len(got) == len(want), (entry, len(got), len(want))

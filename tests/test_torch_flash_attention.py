@@ -166,6 +166,23 @@ def test_dispatch_rule():
         attention(q, k, v, impl="splash")
 
 
+@pytest.mark.parametrize("dtype,backward,want", [
+    (torch.bfloat16, False, "flash_fwd"), (torch.bfloat16, True, "flash_bwd"),
+    (torch.float32, False, "flash_f32_fwd"), (torch.float32, True, "flash_f32_bwd"),
+    (torch.float16, False, None), (torch.float16, True, None),
+    (torch.float64, False, None), (torch.int8, True, None)])
+def test_dtype_rule_names_the_kernel(dtype, backward, want):
+    """The wrappers' one dtype rule (`kernel_for`): bf16 launches the
+    tensor-core kernels, fp32 the fp32 kernels of csrc/flash_f32.cu (as the
+    Pallas kernels take fp32 operands); fp16 and every other dtype raise."""
+    if want is None:
+        with pytest.raises(ValueError):
+            tfa.kernel_for(dtype, backward=backward)
+    else:
+        assert tfa.kernel_for(dtype, backward=backward) == want
+        assert tfa.C_NAME[want] in ("flash_f32_fwd", "flash_f32_bwd", f"{want}_bf16")
+
+
 # -- backward ----------------------------------------------------------------------
 # (name, B, Tq, Tk, Hq, Hkv, D, causal, q_offset, block_q, block_k, mask kind)
 BWD_CASES = [

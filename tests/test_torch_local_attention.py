@@ -241,6 +241,21 @@ def test_wrapper_and_dispatch_refusals():
         attention(q, q, q, causal=True, impl="local:4")
 
 
+@pytest.mark.parametrize("dtype,backward,want", [
+    (torch.bfloat16, False, "local_fwd"), (torch.bfloat16, True, "local_bwd"),
+    (torch.float32, False, "flash_f32_fwd"), (torch.float32, True, "flash_f32_bwd"),
+    (torch.float16, False, None), (torch.float16, True, None), (torch.float64, True, None)])
+def test_dtype_rule_for_the_band(dtype, backward, want):
+    """The band's kernels by dtype: bf16 `local_fwd` / `local_bwd`, fp32 the
+    fp32 kernels with a window (csrc/flash_f32.cu, BAND = true); fp16 and
+    any other dtype raise."""
+    if want is None:
+        with pytest.raises(ValueError):
+            FA.kernel_for(dtype, backward=backward, band=True)
+    else:
+        assert FA.kernel_for(dtype, backward=backward, band=True) == want
+
+
 # -- the encoder on the banded route -------------------------------------------------
 
 @functools.lru_cache(maxsize=None)

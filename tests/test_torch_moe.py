@@ -359,10 +359,11 @@ def test_continuous_batcher_streams_under_churn_match_jax(monkeypatch):
 
 # -- the HF import and the refusals --------------------------------------------------
 
-def write_moe_dir(path, mixed=False):
+def write_moe_dir(path, mixed=False, vocab=96):
     """A tiny Qwen3-MoE directory as `save_pretrained` leaves it, from a
-    numpy seed: config.json and one fp32 safetensors file."""
-    h, e, inter, nl, hq, hkv, d, v = 32, 4, 24, 2, 4, 2, 8, 96
+    numpy seed: config.json and one fp32 safetensors file (beside a
+    tokenizer of up to `vocab` ids, where the caller writes one)."""
+    h, e, inter, nl, hq, hkv, d, v = 32, 4, 24, 2, 4, 2, 8, vocab
     cfg = {"architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe",
            "vocab_size": v, "hidden_size": h, "intermediate_size": 48,
            "moe_intermediate_size": inter, "num_experts": e, "num_experts_per_tok": 2,
@@ -427,22 +428,3 @@ def test_hf_moe_import_matches_jax(tmp_path):
     for load in (JP.decoder_config_from_hf, TP.decoder_config_from_hf):
         with pytest.raises(ValueError, match="mixed dense/sparse"):
             load(mixed)
-
-
-def test_training_entry_points_refuse_a_moe_decoder(tmp_path):
-    from bioreason_tpu_torch.cli import reason, train_sft
-    from bioreason_tpu_torch.data.processor import BioProcessor
-    from bioreason_tpu_torch.data.nt_tokenizer import KmerTokenizer
-    from bioreason_tpu_torch.data.text_tokenizer import ByteTextTokenizer
-    from bioreason_tpu_torch.train.grpo import GRPOTrainer
-    from bioreason_tpu_torch.train.sft import SFTTrainer
-    _, tcfg = moe_cfgs()
-    path, nt = write_moe_dir(tmp_path / "moe"), str(tmp_path / "nt")   # refused before nt
-    proc = BioProcessor(ByteTextTokenizer(), KmerTokenizer())
-    calls = [lambda: SFTTrainer(tcfg, TC.SFTConfig(), device="cpu"),
-             lambda: GRPOTrainer(tcfg, TC.GRPOConfig(), proc, [], device="cpu"),
-             lambda: train_sft.main(["--hf_llm_dir", path, "--hf_dna_dir", nt, "--device", "cpu"]),
-             lambda: reason.main(["--hf_llm_dir", path, "--hf_dna_dir", nt, "--device", "cpu"])]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="8b: MoE training"):
-            call()
