@@ -26,10 +26,10 @@ band's tile range and predicate): one library per source, `kernel_fn(entry)`
 finds an entry in its library.
 
 fp32 inputs take `csrc/flash_f32.cu` (`flash_f32_fwd`, `flash_f32_bwd`:
-fp32 products on the CUDA cores, flash and band alike), as the Pallas
-kernels keep their operands in the input dtype. `kernel_for` is the one
-dtype rule of both modules' wrappers: bf16 -> the bf16 kernels, fp32 ->
-the fp32 ones, anything else raises.
+split-TF32 products on the tensor cores, three TF32 passes each, flash and
+band alike), as the Pallas kernels keep their operands in the input dtype.
+`kernel_for` is the one dtype rule of both modules' wrappers: bf16 -> the
+bf16 kernels, fp32 -> the fp32 ones, anything else raises.
 """
 
 from __future__ import annotations
@@ -239,17 +239,25 @@ def _check(q, k, v, kv_mask):
         if not _strides_ok(x):
             raise ValueError(f"{name} needs a unit last stride and strides that are "
                              f"multiples of 8 elements, got {x.stride()}")
-    if not q.is_cuda:
-        return
+    if q.is_cuda:
+        _check_card(q, k, v, kv_mask)
+
+
+def _check_card(q, k, v, kv_mask):
+    """What a call on the card needs beyond the shapes: a dtype the kernels
+    take (`kernel_for`), one device and one dtype, and the layout rule of
+    every kernel there, bf16 and fp32 alike: each reads q, k and v by TMA,
+    so `_aligned` (16-byte multiples of stride and a 16-byte aligned base)."""
     kernel_for(q.dtype)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if x.dtype != q.dtype:
             raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}: the kernels take one dtype")
-        if q.dtype == torch.bfloat16 and not _aligned(x):
-            raise ValueError(f"{name} needs a unit last stride and 16-byte "
-                             f"aligned rows, got strides {x.stride()}")
+        if not _aligned(x):
+            raise ValueError(f"{name} needs a unit last stride, strides of 16-byte multiples "
+                             f"and a 16-byte aligned base, got strides {x.stride()} at "
+                             f"{x.data_ptr() % 16} bytes past 16")
     if kv_mask is not None and kv_mask.device != q.device:
         raise ValueError(f"kv_mask is on {kv_mask.device}, q on {q.device}")
 
@@ -289,12 +297,14 @@ def flash_f32_bwd(q, k, v, kv_mask, causal, q_offset, out, lse, dout, window=-1)
     """(dq, dk, dv) of `flash_f32_fwd` on the card through `flash_f32_bwd`
     of csrc/flash_f32.cu (a delta pass, the dq kernel, the dk/dv kernel
     summing the GQA group; one launch to the count). Every gradient element
-    is written once by one block, in a fixed order: bitwise reproducible."""
+    is written once by one block, in a fixed order: bitwise reproducible.
+    dout is read by TMA: one that breaks `_aligned` is copied first."""
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     dout = dout.float()
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    if not _aligned(dout):
+        # autograd may hand a strided or offset grad; the kernels read it by TMA
+        dout = dout.clone(memory_format=torch.contiguous_format)
     out = out if out.stride(-1) == 1 else out.contiguous()
     dq = torch.empty((b, tq, hq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, tk, hkv, d), dtype=torch.float32, device=q.device)

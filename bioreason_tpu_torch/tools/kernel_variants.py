@@ -3,15 +3,16 @@ CUDA card.
 
     python3 -m bioreason_tpu_torch.tools.kernel_variants [entry ...]
 
-Builds csrc/flash_fwd.cu and csrc/flash_bwd.cu as they are and with each
-named text change of `VARIANTS` (one nvcc each, run together), and times
-each build through the port's own wrappers (`flash_attention`, `flash_bwd`,
-`local_attention`, `local_bwd`, with the build's C entry in place of the
+Builds csrc/flash_fwd.cu, csrc/flash_bwd.cu and csrc/flash_f32.cu as they
+are and with each named text change of `VARIANTS` (one nvcc each, run
+together), and times each build through the port's own wrappers
+(`flash_attention`, `flash_bwd`, `local_attention`, `local_bwd`, on fp32
+tensors for the fp32 entries, with the build's C entry in place of the
 library's) at the main path's shapes with CUDA events: each build in its
 own process, in the order as_is, variants..., variants reversed..., as_is,
 so drift of the card shows. The entries named on the command line (C entry
-names without `_bf16`: flash_fwd, flash_bwd, local_fwd, local_bwd) are
-timed, all by default. A banded entry's source is the flash source that
+names without `_bf16`: flash_fwd, flash_bwd, local_fwd, local_bwd,
+flash_f32_fwd, flash_f32_bwd) are timed, all by default. A banded entry's source is the flash source that
 holds it (`flash_attention._LIBRARY_OF`), so a text change there applies to
 both kernels of the source. Each timing also gives the largest error
 against the plain version, relative to the largest |ref| (a variant that
@@ -37,6 +38,27 @@ REPO = Path(__file__).resolve().parents[2]
 # the per-pair predicate on every tile, not only where a pair is invalid
 _FWD_MASK_ALWAYS = [("if (need) softmax_tile<true, BAND>(", "if (true) softmax_tile<true, BAND>(")]
 _BWD_MASK_ALWAYS = [("if (need) p_and_ds<true, BAND>(", "if (true) p_and_ds<true, BAND>(")]
+# the fp32 kernels' split step skipped (the producer only loads and signals)
+_F32_NO_SPLIT = [("for (int o = pt * 16; o < BYTES;", "for (int o = pt * 16; o < 0;"),
+                 ("for (int w = pt >> 5; w < ITEMS;", "for (int w = pt >> 5; w < 0;"),
+                 ("  for (int i = 0; i < PER; ++i) {\n    const int w = (pt >> 5) + 4 * i;\n    x[i]",
+                  "  for (int i = 0; i < 0; ++i) {\n    const int w = (pt >> 5) + 4 * i;\n    x[i]"),
+                 ("  for (int i = 0; i < PER; ++i) {\n    const int w = (pt >> 5) + 4 * i, c",
+                  "  for (int i = 0; i < 0; ++i) {\n    const int w = (pt >> 5) + 4 * i, c")]
+# one TF32 pass per product (hi . hi) in place of three
+_F32_ONE_PASS = [("""    sm90::wgmma_tf32_ss<N>(d, dal, dbh, kk > 0);
+    sm90::wgmma_tf32_ss<N>(d, dah, dbl, 1);
+    sm90::wgmma_tf32_ss<N>(d, dah, dbh, 1);""", "    sm90::wgmma_tf32_ss<N>(d, dah, dbh, kk > 0);"),
+                 ("""    sm90::wgmma_tf32_rs<N>(d, pl[kk], dbh, 1);
+    sm90::wgmma_tf32_rs<N>(d, ph[kk], dbl, 1);
+    sm90::wgmma_tf32_rs<N>(d, ph[kk], dbh, 1);""", "    sm90::wgmma_tf32_rs<N>(d, ph[kk], dbh, 1);")]
+_F32_INT_ROUND = [("sm90::split_tf32(", "split_int("),
+                  ("__device__ __forceinline__ void split4(", """__device__ __forceinline__ void split_int(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split4(""")]
 # (C entry, variant) -> text replacements applied to the source that holds it
 VARIANTS = {
     ("flash_fwd", "as_is"): [],
@@ -64,6 +86,22 @@ VARIANTS = {
     ("local_fwd", "mask_always"): _FWD_MASK_ALWAYS,
     ("local_bwd", "as_is"): [],
     ("local_bwd", "mask_always"): _BWD_MASK_ALWAYS,
+    # the fp32 kernels: where their time goes, by taking work out (each of
+    # these gives wrong results on purpose)
+    ("flash_f32_fwd", "as_is"): [],
+    ("flash_f32_fwd", "no_split"): _F32_NO_SPLIT,
+    ("flash_f32_fwd", "one_pass"): _F32_ONE_PASS,
+    # tf32 rounding by integer ops ((bits + 0x1000) & ~0x1fff: the same
+    # value for finite inputs) in place of cvt.rna.tf32.f32
+    ("flash_f32_fwd", "int_round"): _F32_INT_ROUND,
+    ("flash_f32_bwd", "as_is"): [],
+    ("flash_f32_bwd", "no_split"): _F32_NO_SPLIT,
+    ("flash_f32_bwd", "one_pass"): _F32_ONE_PASS,
+    ("flash_f32_bwd", "int_round"): _F32_INT_ROUND,
+    ("flash_f32_bwd", "no_dq"): [("  flash_f32_dq_kernel<BAND, D><<<",
+                                  "  if (0) flash_f32_dq_kernel<BAND, D><<<")],
+    ("flash_f32_bwd", "no_dkv"): [("  flash_f32_dkv_kernel<BAND, D><<<",
+                                   "  if (0) flash_f32_dkv_kernel<BAND, D><<<")],
 }
 # flash entries: (name, B, Tq, Tk, Hq, Hkv, D, causal); banded entries:
 # (name, B, T, Hq, Hkv, D, window, shortest valid length of the right pads)
@@ -80,6 +118,12 @@ SHAPES = {
                   ("encoder_T2048", 4, 2048, 2048, 16, 16, 64, False)],
     "local_fwd": _BAND_SHAPES,
     "local_bwd": _BAND_SHAPES,
+    # fp32: flash shapes as above, band shapes with their window last
+    "flash_f32_fwd": [("prefill_P896", 8, 896, 960, 16, 8, 128, True),
+                      ("sft_T512", 8, 512, 512, 16, 8, 128, True),
+                      ("band_b_T2048_W256", 4, 2048, 2048, 16, 16, 64, False, 256)],
+    "flash_f32_bwd": [("sft_T512", 8, 512, 512, 16, 8, 128, True),
+                      ("band_b_T2048_W256", 4, 2048, 2048, 16, 16, 64, False, 256)],
 }
 
 
@@ -116,6 +160,8 @@ def _calls(entry, shape):
     from bioreason_tpu_torch.ops import flash_attention as fa
     from bioreason_tpu_torch.ops import local_attention as la
     g = torch.Generator(device="cuda").manual_seed(0)
+    if entry.startswith("flash_f32"):
+        return _f32_calls(entry, shape, g)
     if entry.startswith("local"):
         _, b, t, hq, hkv, d, window, lo = shape
         tq = tk = t
@@ -139,6 +185,30 @@ def _calls(entry, shape):
     o, lse = la.local_attention_ref(q, k, v, window, mask)
     return (lambda: la.local_bwd(q, k, v, window, mask, o, lse, do),
             la.local_attention_bwd_ref(q, k, v, window, mask, o, lse, do))
+
+
+def _f32_calls(entry, shape, g):
+    """`_calls` of an fp32 entry: the flash route, or the band where the
+    shape names a window; all keys valid."""
+    import torch
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    from bioreason_tpu_torch.ops import local_attention as la
+    _, b, tq, tk, hq, hkv, d, causal, *window = shape
+    mask = torch.ones((b, tk), dtype=torch.int32, device="cuda")
+    q, k, v, do = (torch.randn(s, generator=g, device="cuda")
+                   for s in ((b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, d), (b, tq, hq, d)))
+    if window:
+        w = window[0]
+        o, lse = la.local_attention_ref(q, k, v, w, mask)
+        if entry == "flash_f32_fwd":
+            return lambda: (la.local_attention(q, k, v, w, mask),), (o,)
+        return (lambda: la.local_bwd(q, k, v, w, mask, o, lse, do),
+                la.local_attention_bwd_ref(q, k, v, w, mask, o, lse, do))
+    o, lse = fa.flash_attention_ref(q, k, v, mask, causal, 0)
+    if entry == "flash_f32_fwd":
+        return lambda: (fa.flash_attention(q, k, v, mask, causal=causal, q_offset=0),), (o,)
+    return (lambda: fa.flash_bwd(q, k, v, mask, causal, 0, o, lse, do),
+            fa.flash_attention_bwd_ref(q, k, v, mask, causal, 0, o, lse, do))
 
 
 def time_build(entry: str, path: str) -> dict:

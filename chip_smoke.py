@@ -14,10 +14,13 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               and band) with nvcc for sm_90a, one nvcc each, started
               together; print each kernel's ptxas report (registers,
               spills) and, from `cuobjdump -sass`, its count of wgmma
-              (HGMMA) and TMA (UTMALDG, UBLKCP, UBLKRED, ...) instructions.
-              Fails on a spill in any kernel, or where flash_fwd_kernel,
-              flash_bwd_kernel, local_fwd_kernel or local_bwd_kernel lacks
-              either kind of instruction.
+              (HGMMA) and TMA (UTMALDG, UBLKCP, UBLKRED, ...) instructions
+              and of wgmma waits (WARPGROUP.DEPBAR). Fails on a spill in
+              any kernel, where flash_fwd_kernel, flash_bwd_kernel,
+              local_fwd_kernel, local_bwd_kernel, flash_f32_fwd_kernel,
+              flash_f32_dq_kernel or flash_f32_dkv_kernel lacks either kind
+              of instruction, or where an fp32 kernel waits after every
+              wgmma (ptxas serialized its products).
   3. kernels  flash_fwd against its plain version (`flash_attention_ref`,
               fp32 math) in bf16 on the card at the encoder, prefill and
               q_offset shapes and the training encoder's shape, and flash_bwd
@@ -42,14 +45,19 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               flash_fwd / flash_bwd at the long-DNA encoder's shape without
               the band beside them. Then the fp32 kernels (flash_f32_fwd,
               flash_f32_bwd, reached through the same wrappers on fp32
-              tensors) against the plain fp32 versions, TF32 off on both
-              sides, out and LSE within 1e-5 and the gradients within 1e-4
-              of their largest magnitude: the served prefill
+              tensors; split TF32 on the tensor cores) against the plain
+              fp32 versions, TF32 off on the plain side, out and LSE within
+              1e-5 and the gradients within 1e-4 of their largest magnitude
+              (floored at 0.5 where the exact gradient is 0, at W = 0), two
+              backward calls bitwise equal: the served prefill
               [8,896,16/8,128] causal with its left pads (forward), the
               rehearsal's SFT step [8,512,16/8,128] forward and backward, a
-              batch row with no visible key, and the band (b)
-              [4,2048,16,64] at W=256 forward and backward; event, graph,
-              plain, SDPA-on-fp32 and bound (67 TFLOP/s fp32) times.
+              batch row with no visible key, the band (b) [4,2048,16,64] at
+              W=256, a causal chunk [2,136/330,16/8,128] at q_offset 194,
+              the band at W=64 and W=0, flash at D=64 and the band at
+              D=128, forward and backward; event, graph, plain, SDPA-on-fp32
+              and bound times (three TF32 passes at 495 TFLOP/s, with the
+              FFMA bound at 67 TFLOP/s beside it).
   4. serve    the port's InferenceServer at Qwen3-0.6B + NT-v2-500M width,
               bf16, weights from a fixed seed: the kernel route against the
               plain route on one request, then 8 concurrent greedy requests
@@ -413,11 +421,22 @@ BWD_SCALE_FLOOR = 1e-2
 # 1e-5 of their largest magnitude, the gradients (sums over every query or
 # key of a tile walk) to 1e-4 of theirs
 F32_OUT_RTOL_OF_MAX, F32_LSE_RTOL_OF_MAX, F32_BWD_RTOL_OF_MAX = 1e-5, 1e-5, 1e-4
-# H100 SXM fp32 outside the tensor cores (NVIDIA data sheet), for their bound
+# ... of the larger of max |ref| and this floor: at W = 0 the exact dq and dk
+# are 0 (P = 1, dS = P * (dP - delta) cancels) and both versions give fp32
+# rounding noise (~1e-5); every other fp32 case's gradients have max |ref|
+# above 0.8, where the floor does not bind
+F32_BWD_SCALE_FLOOR = 0.5
+# H100 SXM TF32 on the tensor cores and fp32 outside them (NVIDIA data
+# sheet), for the fp32 kernels' bounds: split TF32 runs three TF32 passes
+# per product, so their bound is 3 * FLOPs / PEAK_TF32_FLOPS; the FFMA bound
+# (FLOPs / PEAK_FP32_FLOPS) of the CUDA-core design they replaced is printed
+# beside it as a yardstick
+PEAK_TF32_FLOPS, TF32_PASSES = 495e12, 3
 PEAK_FP32_FLOPS = 67e12
 
 # the redesigned kernels (wgmma + TMA) and the SASS opcodes counted as TMA
-REDESIGNED = ("flash_fwd_kernel", "flash_bwd_kernel", "local_fwd_kernel", "local_bwd_kernel")
+REDESIGNED = ("flash_fwd_kernel", "flash_bwd_kernel", "local_fwd_kernel", "local_bwd_kernel",
+              "flash_f32_fwd_kernel", "flash_f32_dq_kernel", "flash_f32_dkv_kernel")
 TMA_OPS = ("UTMALDG", "UTMASTG", "UTMAREDG", "UTMAPF", "UBLKCP", "UBLKRED")
 
 ENCODER_LAYERS, DECODER_LAYERS = 29, 28
@@ -483,7 +502,8 @@ def ptxas_report(log_text: str) -> dict:
 
 
 def sass_counts(path) -> dict:
-    """function -> {"HGMMA": n, "TMA": n} from `cuobjdump -sass` of a library."""
+    """function -> {"HGMMA": n, "TMA": n, "DEPBAR": n} from `cuobjdump -sass` of a
+    library (DEPBAR: wgmma waits, one per HGMMA where ptxas serialized them)."""
     from bioreason_tpu_torch.ops.cuda_build import cuda_tool
     res = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(path)], capture_output=True,
                          text=True, timeout=300)
@@ -494,7 +514,7 @@ def sass_counts(path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = {"HGMMA": 0, "TMA": 0}
+            out[fn] = {"HGMMA": 0, "TMA": 0, "DEPBAR": 0}
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
         if m and fn is not None:
@@ -503,6 +523,8 @@ def sass_counts(path) -> dict:
                 out[fn]["HGMMA"] += 1
             elif op in TMA_OPS:
                 out[fn]["TMA"] += 1
+            elif op == "WARPGROUP":
+                out[fn]["DEPBAR"] += "WARPGROUP.DEPBAR" in line
     return out
 
 
@@ -531,6 +553,10 @@ def phase_build():
         mine = {fn: row for fn, row in kernels.items() if want in fn}
         if not mine or any(not row.get("HGMMA") or not row.get("TMA") for row in mine.values()):
             fail(f"{want}: every build needs HGMMA and TMA instructions, got {mine}")
+        # the fp32 kernels issue their products in batches: a wait after every
+        # wgmma means ptxas serialized them (its C7515 note)
+        if "f32" in want and any(row["DEPBAR"] >= row["HGMMA"] for row in mine.values()):
+            fail(f"{want}: ptxas serialized the wgmma products, got {mine}")
     return kernels
 
 
@@ -1013,18 +1039,29 @@ def phase_kernels(torch, max_new):
     return rows, bwd_rows, band_rows
 
 
+def f32_bound(flops, nbytes):
+    """(bound_ms, bound_by, ffma_bound_ms) of an fp32 kernel: the larger of
+    three TF32 passes of its FLOPs at PEAK_TF32_FLOPS and its bytes at
+    PEAK_HBM_BYTES; and the FFMA bound (FLOPs at PEAK_FP32_FLOPS)."""
+    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops / PEAK_FP32_FLOPS * 1e3)
+
+
 def f32_case(torch, name, b, tq, tk, hq, hkv, d, causal, mask, seed, window=None,
-             backward=True):
+             backward=True, q_offset=0):
     """flash_f32_fwd (and flash_f32_bwd) against the plain fp32 versions on
     one shape: the flash route (`flash_attention` / `flash_bwd` on fp32
-    tensors) or, with `window`, the band (`local_attention` / `local_bwd`).
-    Out on the rows that see a key and the LSE there within
-    F32_*_RTOL_OF_MAX of their largest magnitude, rows that see none
-    exactly (0, -1e30) with dq = 0, the gradients within
-    F32_BWD_RTOL_OF_MAX; event and graph times, the plain versions', SDPA's
-    on the same fp32 inputs (the lowest of three repetitions) and the
-    bound (FLOPs / 67e12 against fp32 bytes / 3.35e12). Returns the
-    forward's row and the backward's (or None)."""
+    tensors, causal with `q_offset`) or, with `window`, the band
+    (`local_attention` / `local_bwd`). Out on the rows that see a key and
+    the LSE there within F32_*_RTOL_OF_MAX of their largest magnitude, rows
+    that see none exactly (0, -1e30) with dq = 0, the gradients within
+    F32_BWD_RTOL_OF_MAX and bitwise equal over two calls; event and graph
+    times, the plain versions', SDPA's on the same fp32 inputs (the lowest
+    of three repetitions; the forward's also from a CUDA graph) and the bound (`f32_bound`: three TF32 passes at
+    495e12 against fp32 bytes at 3.35e12, and the FFMA bound beside it).
+    Returns the forward's row and the backward's (or None)."""
     import torch.nn.functional as F
     from bioreason_tpu_torch.ops import flash_attention as fa
     from bioreason_tpu_torch.ops import local_attention as la
@@ -1034,16 +1071,18 @@ def f32_case(torch, name, b, tq, tk, hq, hkv, d, causal, mask, seed, window=None
                      for shape in ((b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, d),
                                    (b, tq, hq, d)))
     if window is None:
-        # causal with q_offset 0: a prefill into a cache of Tk >= Tq slots
+        # causal with q_offset: 0 for a prefill into a cache of Tk >= Tq
+        # slots, Tk - Tq for a chunk after earlier ones
         vis = mask.bool()[:, None, :].expand(b, tq, tk)
         if causal:
             vis = vis & (torch.arange(tk, device=dev)[None, :]
-                         <= torch.arange(tq, device=dev)[:, None])
-        fwd = lambda: fa.flash_attention(q, k, v, mask, causal=causal, q_offset=0,
+                         <= torch.arange(tq, device=dev)[:, None] + q_offset)
+        fwd = lambda: fa.flash_attention(q, k, v, mask, causal=causal, q_offset=q_offset,
                                          return_lse=True)
-        ref_fwd = lambda: fa.flash_attention_ref(q, k, v, mask, causal, 0)
-        bwd = lambda o, l: fa.flash_bwd(q, k, v, mask, causal, 0, o, l, dout)
-        ref_bwd = lambda o, l: fa.flash_attention_bwd_ref(q, k, v, mask, causal, 0, o, l, dout)
+        ref_fwd = lambda: fa.flash_attention_ref(q, k, v, mask, causal, q_offset)
+        bwd = lambda o, l: fa.flash_bwd(q, k, v, mask, causal, q_offset, o, l, dout)
+        ref_bwd = lambda o, l: fa.flash_attention_bwd_ref(q, k, v, mask, causal, q_offset, o, l,
+                                                          dout)
     else:
         vis = band_visible(torch, tq, window, mask)
         fwd = lambda: la.local_attention(q, k, v, window, mask, return_lse=True)
@@ -1083,26 +1122,28 @@ def f32_case(torch, name, b, tq, tk, hq, hkv, d, causal, mask, seed, window=None
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
                                                   enable_gqa=hkv != hq)
     shape = {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d, "causal": causal,
-             "window": window, "visible_pairs": pairs, "rows_without_key": n_empty}
+             "q_offset": q_offset if window is None else None, "window": window,
+             "visible_pairs": pairs, "rows_without_key": n_empty}
     kfwd = lambda: fwd()
     ms, gms = cuda_ms(kfwd, iters=20), graph_ms(kfwd)
     plain_ms = cuda_ms(ref_fwd, iters=3, warmup=1)
-    lib_ms = library_min_ms(library)
+    lib_ms, lib_gms = library_min_ms(library), graph_ms(library)
     flops = 4.0 * d * hq * pairs
     nbytes = 4 * (q_rows * hq * d + 2 * kv_rows * hkv * d + out.numel() + lse.numel()
                   + mask.numel())
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound, bound_by, ffma = f32_bound(flops, nbytes)
     frow = {"shape": name, "kernel": "flash_f32_fwd", **shape, "max_abs_err": err,
             "out_max": out_max, "lse_max_abs_err": lse_err, "ms": ms, "graph_ms": gms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "plain_ms": plain_ms, "library_ms": lib_ms, "library_graph_ms": lib_gms,
+            "bound_ms": bound, "bound_by": bound_by, "ffma_bound_ms": ffma,
             "tflops": flops / (ms * 1e-3) / 1e12}
     log(f"kernel {name} (fp32 fwd): B={b} Tq={tq} Tk={tk} Hq={hq} Hkv={hkv} D={d} "
-        f"causal={causal} window={window}: {pairs:.4g} visible pairs, {n_empty} rows without "
-        f"a key; max abs err {err:.3g} of max |ref| {out_max:.3g} (lse {lse_err:.3g} of "
-        f"{lse_max:.3g}); ms {ms:.4f} (graph {gms:.4f}) plain_ms {plain_ms:.3f} library_ms "
-        f"{lib_ms:.4f} bound_ms {frow['bound_ms']:.4f} ({frow['bound_by']}), "
-        f"{frow['tflops']:.2f} TFLOP/s")
+        f"causal={causal} q_offset={shape['q_offset']} window={window}: {pairs:.4g} visible "
+        f"pairs, {n_empty} rows without a key; max abs err {err:.3g} of max |ref| "
+        f"{out_max:.3g} (lse {lse_err:.3g} of {lse_max:.3g}); ms {ms:.4f} (graph {gms:.4f}) "
+        f"plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} (graph {lib_gms:.4f}) bound_ms "
+        f"{bound:.4f} ({bound_by}, 3xTF32; FFMA bound {ffma:.4f}), {frow['tflops']:.2f} "
+        f"TFLOP/s")
     if not backward:
         return frow, None
     grads = bwd(out, lse)
@@ -1116,12 +1157,20 @@ def f32_case(torch, name, b, tq, tk, hq, hkv, d, causal, mask, seed, window=None
             fail(f"kernel {name} (fp32): {gname} is not finite")
         errs[gname] = float((got - ref).abs().max())
         errs[gname + "_ref_max"] = float(ref.abs().max())
-        if errs[gname] > F32_BWD_RTOL_OF_MAX * errs[gname + "_ref_max"]:
+        if errs[gname] > F32_BWD_RTOL_OF_MAX * max(errs[gname + "_ref_max"],
+                                                   F32_BWD_SCALE_FLOOR):
             fail(f"kernel {name} (fp32): {gname} differs from the plain version by "
-                 f"{errs[gname]:.4g} (max |ref| {errs[gname + '_ref_max']:.4g})")
+                 f"{errs[gname]:.4g} (max |ref| {errs[gname + '_ref_max']:.4g}, floor "
+                 f"{F32_BWD_SCALE_FLOOR})")
     if n_empty and bool(grads[0][empty].ne(0).any()):
         fail(f"kernel {name} (fp32): rows with no visible key have dq != 0")
-    del refs
+    again = bwd(out, lse)
+    torch.cuda.synchronize()
+    for gname, got, got2 in zip(("dq", "dk", "dv"), grads, again):
+        if not torch.equal(got, got2):
+            fail(f"kernel {name} (fp32): two backward calls give different {gname}: every "
+                 f"gradient element is written once, in a fixed order")
+    del refs, again
     kbwd = lambda: bwd(out, lse)
     bms, bgms = cuda_ms(kbwd, iters=20), graph_ms(kbwd)
     plain_bms = cuda_ms(lambda: ref_bwd(out, lse), iters=3, warmup=1)
@@ -1133,25 +1182,28 @@ def f32_case(torch, name, b, tq, tk, hq, hkv, d, causal, mask, seed, window=None
     flops = 10.0 * d * hq * pairs
     nbytes = 4 * (3 * q_rows * hq * d + 2 * kv_rows * hkv * d + q_rows * hq + mask.numel()
                   + q.numel() + 2 * k.numel())
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound, bound_by, ffma = f32_bound(flops, nbytes)
     brow = {"shape": name, "kernel": "flash_f32_bwd", **shape,
             "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]), **errs, "ms": bms,
             "graph_ms": bgms, "plain_ms": plain_bms, "library_ms": lib_bms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": flops / (bms * 1e-3) / 1e12}
+            "bound_ms": bound, "bound_by": bound_by, "ffma_bound_ms": ffma,
+            "bitwise_repeat": True, "tflops": flops / (bms * 1e-3) / 1e12}
     log(f"kernel {name} (fp32 bwd): max abs err dq {errs['dq']:.3g} dk {errs['dk']:.3g} dv "
         f"{errs['dv']:.3g} (max |ref| {errs['dq_ref_max']:.3g} {errs['dk_ref_max']:.3g} "
-        f"{errs['dv_ref_max']:.3g}); ms {bms:.4f} (graph {bgms:.4f}) plain_ms "
-        f"{plain_bms:.3f} library_ms {lib_bms:.4f} bound_ms {brow['bound_ms']:.4f} "
-        f"({brow['bound_by']}), {brow['tflops']:.2f} TFLOP/s")
+        f"{errs['dv_ref_max']:.3g}), bitwise equal over two calls; ms {bms:.4f} (graph "
+        f"{bgms:.4f}) plain_ms {plain_bms:.3f} library_ms {lib_bms:.4f} bound_ms {bound:.4f} "
+        f"({bound_by}, 3xTF32; FFMA bound {ffma:.4f}), {brow['tflops']:.2f} TFLOP/s")
     return frow, brow
 
 
 def f32_kernel_cases(torch, max_new):
     """The fp32 kernels at the shapes the fp32 route gives them: the served
     prefill with its left pads, the rehearsal's SFT step forward and
-    backward, a batch row with no visible key, and the long-DNA band (b)."""
+    backward, a batch row with no visible key, and the long-DNA band (b);
+    then the tile walk's edges: a causal chunk at q_offset 194 (Tq 136 is
+    two 64-row tiles and a ragged one), the band at W = 64 (the D = 64
+    key tile) and W = 0, and the two instantiations the route does not
+    reach above (flash at D = 64, the band at D = 128)."""
     g = torch.Generator(device="cuda").manual_seed(41)
     _, (ids, mask, _, _) = served_inputs()
     b, p = ids.shape
@@ -1160,16 +1212,26 @@ def f32_kernel_cases(torch, max_new):
     empty[1] = 0
     cases = [
         ("f32_prefill_served_P%d" % p, b, p, p + max_new, 16, 8, 128, True, cmask, 42, None,
-         False),
+         False, 0),
         ("f32_sft_T512_leftpad", 8, 512, 512, 16, 8, 128, True,
-         left_padded(torch, 8, 512, 0, 100, g), 43, None, True),
-        ("f32_empty_row_T300", 2, 300, 300, 16, 8, 128, True, empty, 44, None, True),
+         left_padded(torch, 8, 512, 0, 100, g), 43, None, True, 0),
+        ("f32_empty_row_T300", 2, 300, 300, 16, 8, 128, True, empty, 44, None, True, 0),
         ("f32_band_T2048_W256", 4, 2048, 2048, 16, 16, 64, False,
-         right_padded(torch, 4, 2048, 1024, g), 45, LONG_WINDOW, True)]
+         right_padded(torch, 4, 2048, 1024, g), 45, LONG_WINDOW, True, 0),
+        ("f32_chunk_q_offset194", 2, 136, 330, 16, 8, 128, True,
+         right_padded(torch, 2, 330, 300, g), 46, None, True, 194),
+        ("f32_band_T1000_W64", 2, 1000, 1000, 8, 4, 64, False,
+         right_padded(torch, 2, 1000, 700, g), 47, 64, True, 0),
+        ("f32_band_T1000_W0", 2, 1000, 1000, 8, 4, 64, False,
+         right_padded(torch, 2, 1000, 700, g), 48, 0, True, 0),
+        ("f32_bidir_T300_D64", 3, 300, 300, 8, 8, 64, False, empty.repeat(2, 1)[:3], 49, None,
+         True, 0),
+        ("f32_band_T520_W100_D128", 2, 520, 520, 8, 2, 128, False,
+         right_padded(torch, 2, 520, 400, g), 50, 100, True, 0)]
     rows = []
-    for (name, b_, tq, tk, hq, hkv, d, causal, m, seed, window, backward) in cases:
+    for (name, b_, tq, tk, hq, hkv, d, causal, m, seed, window, backward, q_offset) in cases:
         frow, brow = f32_case(torch, name, b_, tq, tk, hq, hkv, d, causal, m, seed, window,
-                              backward)
+                              backward, q_offset)
         rows += [frow] + ([brow] if brow else [])
     return rows
 
@@ -5401,9 +5463,14 @@ def phase_fp32_api(torch, card):
         trainer = SFTTrainer(c, sft, model=init_fusion(c, seed=0, device=DEV), device=DEV)
         reset_counts()
         t0 = time.perf_counter()
-        losses = [trainer.train_step(batch)["loss"] for _ in range(FP32_STEPS)]
-        torch.cuda.synchronize()
-        runs[impl] = {"losses": losses, "s": time.perf_counter() - t0, "launches": all_counts()}
+        losses, step_ms = [], []
+        for _ in range(FP32_STEPS):
+            t1 = time.perf_counter()
+            losses.append(trainer.train_step(batch)["loss"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        runs[impl] = {"losses": losses, "s": time.perf_counter() - t0, "step_ms": step_ms,
+                      "launches": all_counts()}
         if impl == "auto":
             model = trainer.model
         del trainer
@@ -5413,9 +5480,11 @@ def phase_fp32_api(torch, card):
     want = {kk: 0 for kk in k["launches"]}
     want.update(flash_f32_fwd=FP32_STEPS * per, flash_f32_bwd=FP32_STEPS * DECODER_LAYERS)
     log(f"fp32 (b) SFTTrainer [{card}]: {FP32_STEPS} steps at B=4 T=512 in fp32: kernels "
-        f"{[round(v, 7) for v in k['losses']]} in {k['s']:.2f} s (launches {k['launches']}), "
-        f"plain {[round(v, 7) for v in x['losses']]} in {x['s']:.2f} s; largest relative "
-        f"difference {rel:.3g} (held to {FP32_LOSS_RTOL})")
+        f"{[round(v, 7) for v in k['losses']]} in {k['s']:.2f} s (ms a step "
+        f"{[round(v, 1) for v in k['step_ms']]}; launches {k['launches']}), plain "
+        f"{[round(v, 7) for v in x['losses']]} in {x['s']:.2f} s (ms a step "
+        f"{[round(v, 1) for v in x['step_ms']]}); largest relative difference {rel:.3g} "
+        f"(held to {FP32_LOSS_RTOL})")
     if (rel > FP32_LOSS_RTOL or k["launches"] != want or any(x["launches"].values())
             or not all(math.isfinite(v) for v in k["losses"])):
         fail(f"fp32 (b): the kernel route's losses {k['losses']} against the plain route's "
@@ -5438,7 +5507,7 @@ def phase_fp32_api(torch, card):
     secs = time.perf_counter() - t0
     got = all_counts()
     log(f"fp32 (c) DnaLLM.generate_text [{card}]: {len(answers)} KEGG prompts, 32 greedy "
-        f"tokens, in {secs:.2f} s; launches {got}; first answer {answers[0][:60]!r}")
+        f"tokens, in {secs * 1e3:.1f} ms; launches {got}; first answer {answers[0][:60]!r}")
     if (len(answers) != FP32_API_PROMPTS or got.get("flash_f32_fwd") != DECODER_LAYERS
             or any(v for kk, v in got.items() if kk != "flash_f32_fwd")):
         fail(f"fp32 (c): DnaLLM.generate_text gave {len(answers)} answers, launched {got}")
@@ -5698,7 +5767,8 @@ def main():
             "api_launches": fp32["api"]["launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": at["ms"],
             "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-            "library_ms": at["library_ms"], "at_shape": at["shape"],
+            "ffma_bound_ms": at["ffma_bound_ms"], "library_ms": at["library_ms"],
+            "at_shape": at["shape"],
             "build": {fn: r for fn, r in built.items() if any(f in fn for f in fns)},
             "shapes": mine})
     log(f"evo2 goldens: largest error on the card {golden_err:.3g}")

@@ -183,6 +183,30 @@ def test_dtype_rule_names_the_kernel(dtype, backward, want):
         assert tfa.C_NAME[want] in ("flash_f32_fwd", "flash_f32_bwd", f"{want}_bf16")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bad", [None, "base", "stride", "last_stride"])
+def test_layout_rule_is_one_for_both_dtypes(dtype, bad):
+    """The layout rule of the wrappers on the card (`_check_card`, which
+    `_check` applies to CUDA tensors): every kernel, bf16 and fp32 alike,
+    reads q, k and v by TMA, so each needs a unit last stride, strides of
+    16-byte multiples and a 16-byte aligned base (`_aligned`); `_strides_ok`
+    is the part of it the CPU path keeps. Checked here on CPU tensors."""
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in inputs(2, 8, 8, 4, 2, 64, seed=10))
+    if bad == "base":
+        # one element past an aligned allocation: 4 (fp32) or 2 (bf16) bytes off
+        q = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape).copy_(q)
+    elif bad == "stride":
+        q = torch.zeros((2, 8, 4, 68), dtype=dtype)[..., :64].copy_(q)
+    elif bad == "last_stride":
+        q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert tfa._aligned(q) == (bad is None)
+    if bad is None:
+        tfa._check_card(q, k, v, None)
+    else:
+        with pytest.raises(ValueError, match="q needs"):
+            tfa._check_card(q, k, v, None)
+
+
 # -- backward ----------------------------------------------------------------------
 # (name, B, Tq, Tk, Hq, Hkv, D, causal, q_offset, block_q, block_k, mask kind)
 BWD_CASES = [
