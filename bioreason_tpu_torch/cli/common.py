@@ -66,3 +66,116 @@ def load_items(dataset_type: str, data_dir: Optional[str], n_synthetic: int,
     raw = [truncate_dna(dict(x), truncate_per_side) for x in raw]
     train, val, test = split_dataset(raw, seed=seed)
     return [fmt(x) for x in train], [fmt(x) for x in val], [fmt(x) for x in test]
+
+
+# -- the mesh (parallel/) ------------------------------------------------------
+
+def add_mesh_flags(p) -> None:
+    """--mesh and --cpu_devices (JAX cli/common.py:98-128)."""
+    p.add_argument("--mesh", default=None,
+                   help="'auto' | 'd,f,m' (data,fsdp,model) | 'multislice[:f,m]': train as one "
+                        "rank of this mesh (parallel/mesh.py); unset: one device, no mesh")
+    p.add_argument("--cpu_devices", type=int, default=0,
+                   help="spawn N ranks on the CPU over gloo (an explicit ask for the CPU); "
+                        "rank 0 alone writes checkpoints and logs")
+
+
+def build_mesh(spec: Optional[str], device=None):
+    """'auto' | 'd,f,m' | 'multislice[:f,m]' -> a DeviceMesh over the
+    default process group."""
+    from bioreason_tpu_torch.config import MeshConfig
+    from bioreason_tpu_torch.parallel.mesh import make_mesh, make_multislice_mesh
+    if spec in (None, "auto"):
+        return make_mesh(MeshConfig(), device)
+    if spec.startswith("multislice"):
+        f, m = (int(x) for x in spec.split(":", 1)[1].split(",")) if ":" in spec else (1, 1)
+        return make_multislice_mesh(MeshConfig(fsdp=f, model=m), device)
+    d, f, m = (int(x) for x in spec.split(","))
+    return make_mesh(MeshConfig(data=d, fsdp=f, model=m), device)
+
+
+def _quiet(args) -> None:
+    """A rank other than 0: no output, no logs, no profile (rank 0 writes)."""
+    import os
+    import sys
+    sys.stdout = open(os.devnull, "w")
+    for key in ("log_dir", "profile_dir"):
+        if hasattr(args, key):
+            setattr(args, key, None)
+
+
+def _spawned(rank: int, world: int, store: str, fn, args, queue) -> None:
+    import os
+    import sys
+
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    if rank:
+        _quiet(args)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        out = fn(args, build_mesh(args.mesh, "cpu"))
+        if rank == 0:               # what the caller reads of a trainer
+            import types
+            queue.put(types.SimpleNamespace(**{
+                k: getattr(out, k) for k in ("history", "metrics_history") if hasattr(out, k)}))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_with_mesh(args, fn, wanted: bool = False):
+    """fn(args, mesh) as the flags ask: `--cpu_devices N` spawns N gloo
+    ranks on the CPU (returns rank 0's result, which must pickle); under a
+    launcher (RANK / WORLD_SIZE set, e.g. torchrun) this process is one
+    rank, over NCCL on CUDA (gloo on the CPU); `--mesh` alone (or
+    `wanted`, e.g. sequence parallelism) makes a world of 1; otherwise
+    fn(args, None)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    if args.cpu_devices:
+        import torch.multiprocessing as mp
+        args.device = "cpu"
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        store = os.path.join(tempfile.mkdtemp(prefix="mesh_store_"), "store")
+        procs = [ctx.Process(target=_spawned, args=(r, args.cpu_devices, store, fn, args, queue))
+                 for r in range(args.cpu_devices)]
+        for proc in procs:
+            proc.start()
+        out = None
+        while out is None:
+            try:
+                out = queue.get(timeout=1.0)
+            except Exception:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    for p in procs:
+                        p.kill()
+                    raise RuntimeError("a spawned rank failed (its traceback is above)")
+        for proc in procs:
+            proc.join()
+        return out
+    if not (args.mesh is not None or wanted or "WORLD_SIZE" in os.environ):
+        return fn(args, None)
+    from bioreason_tpu_torch.utils.devices import resolve_device
+    device = resolve_device(args.device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    own = not dist.is_initialized()
+    if own and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            import torch
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+        if dist.get_rank():
+            _quiet(args)
+    elif own:
+        store = os.path.join(tempfile.mkdtemp(prefix="mesh_store_"), "store")
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        return fn(args, build_mesh(args.mesh, device))
+    finally:
+        if own:
+            dist.destroy_process_group()

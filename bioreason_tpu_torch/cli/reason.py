@@ -45,10 +45,11 @@ import dataclasses
 import os
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("mesh", "cpu_devices", "wandb")
+LATER_FLAGS = ("wandb",)
 
 
 def parse_args(argv=None):
+    from bioreason_tpu_torch.cli.common import add_mesh_flags
     from bioreason_tpu_torch.cli.common import DATASET_TYPES, DECODER_PRESETS, ENCODER_PRESETS
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -109,6 +110,7 @@ def parse_args(argv=None):
     p.add_argument("--use_vllm", default=None,
                    help="accepted for reference-CLI compatibility and ignored "
                         "(sh_reason.sh:53): rollouts run through the port's engine")
+    add_mesh_flags(p)
     for flag in LATER_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                        help="not ported yet (raises)")
@@ -129,12 +131,17 @@ def main(argv=None):
     """Train; returns the trainer, with `trainer.metrics_history` the
     per-step metrics."""
     args = parse_args(argv)
+    from bioreason_tpu_torch.cli.common import run_with_mesh
+    return run_with_mesh(args, _run_mesh)
+
+
+def _run_mesh(args, mesh):
     from bioreason_tpu_torch.utils.debug_nans import nan_checks
     with nan_checks(args.debug_nans):
-        return _run(args)
+        return _run(args, mesh)
 
 
-def _run(args):
+def _run(args, mesh=None):
     import torch
     from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS, load_items
     from bioreason_tpu_torch.config import (FusionConfig, GRPOConfig, LoRAConfig, OptimConfig,
@@ -233,7 +240,7 @@ def _run(args):
         lora=lora_cfg, guided_decoding_regex=args.guided_decoding_regex,
         rollout_int8=args.rollout_int8, seed=args.seed)
     trainer = GRPOTrainer(fusion_cfg, cfg, proc, get_reward_funcs(args.reward_funcs),
-                          model=model, device=device)
+                          model=model, device=device, mesh=mesh)
     state_path = os.path.join(args.checkpoint_dir, "grpo_state")
     if args.resume and os.path.exists(state_path):
         trainer.restore(state_path)

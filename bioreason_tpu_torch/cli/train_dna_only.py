@@ -30,10 +30,11 @@ import os
 import numpy as np
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("wandb", "mesh", "cpu_devices")
+LATER_FLAGS = ("wandb",)
 
 
 def parse_args(argv=None):
+    from bioreason_tpu_torch.cli.common import add_mesh_flags
     from bioreason_tpu_torch.cli.common import DATASET_TYPES, ENCODER_PRESETS
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -59,6 +60,7 @@ def parse_args(argv=None):
     p.add_argument("--debug_nans", action="store_true",
                    help="raise FloatingPointError at the first op that makes a NaN "
                         "(jax_debug_nans' counterpart; syncs every op)")
+    add_mesh_flags(p)
     for flag in LATER_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                        help="not ported yet (raises)")
@@ -71,12 +73,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    from bioreason_tpu_torch.cli.common import run_with_mesh
+    return run_with_mesh(args, _run_mesh)
+
+
+def _run_mesh(args, mesh):
     from bioreason_tpu_torch.utils.debug_nans import nan_checks
     with nan_checks(args.debug_nans):
-        return _run(args)
+        return _run(args, mesh)
 
 
-def _run(args):
+def _run(args, mesh=None):
     from bioreason_tpu_torch.cli.common import ENCODER_PRESETS
     from bioreason_tpu_torch.config import OptimConfig
     from bioreason_tpu_torch.data.collate import classifier_collate
@@ -104,7 +111,8 @@ def _run(args):
         cfg, num_classes=len(labels),
         optim=OptimConfig(learning_rate=args.learning_rate or 1e-3, total_steps=steps),
         train_just_classifier=args.train_just_classifier,
-        encoder_lr_scale=args.encoder_lr_scale, seed=args.seed, device=args.device)
+        encoder_lr_scale=args.encoder_lr_scale, seed=args.seed, device=args.device,
+        mesh=mesh)
 
     collate = functools.partial(classifier_collate, dna_tokenizer=tok, label2id=label2id,
                                 max_length=args.max_length_dna, bucket=128)

@@ -64,11 +64,12 @@ import os
 import numpy as np
 
 # flags of the JAX CLI whose paths are not ported yet
-LATER_FLAGS = ("sp_dna", "wandb", "mesh", "cpu_devices")
+LATER_FLAGS = ("wandb",)
 
 
 def parse_args(argv=None):
-    from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS, HYENA_PRESETS
+    from bioreason_tpu_torch.cli.common import (DECODER_PRESETS, ENCODER_PRESETS, HYENA_PRESETS,
+                                                add_mesh_flags)
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--decoder", default="qwen3-0.6b", choices=sorted(DECODER_PRESETS))
@@ -153,6 +154,10 @@ def parse_args(argv=None):
     p.add_argument("--debug_nans", action="store_true",
                    help="raise FloatingPointError at the first op that makes a NaN "
                         "(jax_debug_nans' counterpart; syncs every op)")
+    add_mesh_flags(p)
+    p.add_argument("--sp_dna", action="store_true",
+                   help="shard the DNA token axis over the mesh's 'model' axis "
+                        "(parallel/sp.py; the same as --dna_attention sp)")
     for flag in LATER_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                        help="not ported yet (raises)")
@@ -160,13 +165,17 @@ def parse_args(argv=None):
     asked = [f"--{f}" for f in LATER_FLAGS if getattr(args, f) is not None]
     if asked:
         raise NotImplementedError(f"{', '.join(asked)}: not ported to bioreason_tpu_torch yet")
+    if args.sp_dna and args.dna_attention is None:
+        args.dna_attention = "sp"
     impl = args.dna_attention
-    if impl in ("sp", "sp_pallas") or (impl or "").startswith("sp_local:"):
-        raise NotImplementedError(f"--dna_attention {impl}: sequence parallelism is not ported "
-                                  f"to bioreason_tpu_torch yet")
-    if impl is not None and impl not in ("xla", "pallas") and not (
-            impl.startswith("local:") and impl[6:].isdigit()):
-        p.error(f"--dna_attention {impl!r}: expected xla, pallas or local:<W>")
+    if impl is not None and impl not in ("xla", "pallas", "sp", "sp_pallas") and not (
+            impl.split(":", 1)[0] in ("local", "sp_local") and impl.split(":", 1)[-1].isdigit()):
+        p.error(f"--dna_attention {impl!r}: expected xla, pallas, sp, sp_pallas, local:<W> "
+                f"or sp_local:<W>")
+    if (args.mesh is not None or args.cpu_devices) and (
+            args.test_generative or args.probe_markers or args.sample_every):
+        p.error("--test_generative, --probe_markers and --sample_every run the one-device "
+                "engine: not under --mesh / --cpu_devices")
     if args.hf_llm_dir and not (args.hf_dna_dir or args.evo2_dir or args.llm_only):
         p.error("--hf_llm_dir requires --hf_dna_dir or --evo2_dir (or --llm_only)")
     if (args.hf_dna_dir or args.evo2_dir) and not args.hf_llm_dir:
@@ -174,7 +183,7 @@ def parse_args(argv=None):
     if args.keep_top_k and not args.eval_every:
         p.error("--keep_top_k needs --eval_every")
     evo2 = args.evo2_dir or (args.encoder in HYENA_PRESETS and not args.hf_dna_dir)
-    if impl is not None and impl.startswith("local") and evo2:
+    if impl is not None and impl.split(":")[0] in ("local", "sp_local") and evo2:
         p.error("the Evo2 tower's striped attention is causal; banded local kernels "
                 "(local:/sp_local:) are bidirectional-only — use xla, pallas, sp or "
                 "sp_pallas")
@@ -185,12 +194,18 @@ def main(argv=None):
     """Train; returns the trainer, with `trainer.history` the per-step metrics
     (and `trainer.test_result` the generative test's `EvalResult`)."""
     args = parse_args(argv)
+    from bioreason_tpu_torch.cli.common import run_with_mesh
+    return run_with_mesh(args, _run_mesh,
+                         wanted=(args.dna_attention or "").startswith("sp"))
+
+
+def _run_mesh(args, mesh):
     from bioreason_tpu_torch.utils.debug_nans import nan_checks
     with nan_checks(args.debug_nans):
-        return _run(args)
+        return _run(args, mesh)
 
 
-def _run(args):
+def _run(args, mesh=None):
     import contextlib
 
     import torch
@@ -265,7 +280,7 @@ def _run(args):
                                                   dropout=args.lora_dropout),
         freeze_encoder=not args.dna_model_finetune, focal_gamma=args.focal_gamma,
         seed=args.seed)
-    trainer = SFTTrainer(fusion_cfg, sft_cfg, model=model, device=device, base=base)
+    trainer = SFTTrainer(fusion_cfg, sft_cfg, model=model, device=device, base=base, mesh=mesh)
     trainer.history, trainer.test_result = [], None
     state_path = os.path.join(args.checkpoint_dir, "sft_state")
     if args.resume and os.path.exists(state_path):

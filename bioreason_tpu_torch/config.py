@@ -219,6 +219,15 @@ class SamplingConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes (JAX config.py:218-223): data (DP / ZeRO-2), fsdp
+    (parameter sharding), model (tensor / expert / sequence / pipeline)."""
+    data: int = -1                   # -1: fill with the remaining ranks
+    fsdp: int = 1
+    model: int = 1
+
+
+@dataclass(frozen=True)
 class LoRAConfig:
     r: int = 32
     alpha: int = 64
@@ -258,16 +267,12 @@ class SFTConfig:
     # frozen towers' denses int8 (train/quant.py) and the other frozen float
     # leaves bf16; it needs LoRA and a frozen encoder (the trainer checks)
     frozen_dtype: str = "bfloat16"
-    pp_micro: int = 0                # pipeline parallelism: not ported (raises)
+    # GPipe microbatches over the mesh's 'model' axis (parallel/pp.py); 0 =
+    # off, and a mesh whose 'model' axis is 1 runs no pipeline either
+    pp_micro: int = 0
     # detached focal CE weighting on the TRAIN loss only (eval stays plain CE)
     focal_gamma: float = 0.0
     seed: int = 0
-
-    def __post_init__(self):
-        if self.pp_micro > 0:
-            raise NotImplementedError(
-                "SFTConfig.pp_micro > 0: pipeline parallelism is not ported yet "
-                "(ROADMAP.md, queue 1: multi-device)")
 
 
 @dataclass(frozen=True)

@@ -87,11 +87,24 @@ def attention(q, k, v, kv_mask=None, causal=False, q_offset=None, impl="auto",
     impl: 'auto' (see `kernel_rule`), 'pallas' (always the flash kernel's
     wrapper, which raises on a CUDA call outside its contract; the name is
     the JAX config's), 'xla' (always the grouped einsums) or
-    'local:<W>' (banded, |i - j| <= W; bidirectional only). An int8 cache
+    'local:<W>' (banded, |i - j| <= W; bidirectional only), or the
+    sequence-parallel routes of parallel/sp.py on this rank's chunk: 'sp'
+    (the local queries through 'auto'), 'sp_pallas' (through the kernel's
+    wrapper) and 'sp_local:<W>' (the band by a halo exchange). An int8 cache
     (`k_scale` / `v_scale`) goes to `xla_attention`, as in the JAX dispatch
     (attention.py:101-103): the flash kernel reads float K/V. Its callers
     are decode steps; an int8 prefill attends over its fresh float K/V
     (`qwen3._layer_forward`) and keeps the kernel."""
+    if impl.startswith("sp_local:"):
+        # banded + sequence-parallel halo exchange (parallel/sp.py)
+        if causal:
+            raise NotImplementedError("sp_local attention is bidirectional-only")
+        from bioreason_tpu_torch.parallel.sp import sp_local_attention
+        return sp_local_attention(q, k, v, int(impl.split(":", 1)[1]), kv_mask=kv_mask)
+    if impl in ("sp", "sp_pallas"):
+        from bioreason_tpu_torch.parallel.sp import sp_attention
+        return sp_attention(q, k, v, kv_mask=kv_mask, causal=causal,
+                            impl="pallas" if impl == "sp_pallas" else "auto")
     if impl.startswith("local:"):
         if causal:
             raise NotImplementedError("local attention is bidirectional-only")

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from bioreason_tpu_torch.config import HyenaConfig
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.attention import attention
+from bioreason_tpu_torch.parallel import sp as SP
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
 
@@ -235,15 +236,24 @@ def _hyena_mixer(block: HyenaBlock, h: torch.Tensor, cfg: HyenaConfig,
                  mask: torch.Tensor) -> torch.Tensor:
     dtype = h.dtype
     mix, fp = block.hyena, block.hyena.filter
+    # sequence-sharded (parallel/sp_hyena.py, JAX evo2.py:198-231): the
+    # convs cross chunk boundaries by halos and modal states
+    sp = SP.sequence_sharding_enabled() and str(cfg.attention_impl).startswith("sp")
+    if sp:
+        from bioreason_tpu_torch.parallel.sp_hyena import sp_causal_conv, sp_li_conv
+    conv = sp_causal_conv if sp else depthwise_causal_conv
     x = L.rmsnorm(block.ln1, h, cfg.norm_eps)
     x = x * mask[..., None].to(dtype)                 # pads zeroed for the convs
-    z = depthwise_causal_conv(L.dense(mix.in_proj, x, dtype), mix.short_filter)
+    z = conv(L.dense(mix.in_proj, x, dtype), mix.short_filter)
     x2, x1, v = z.chunk(3, dim=-1)
     g = x1 * v
     if block.flavor == "se":
-        inner = depthwise_causal_conv(g, fp.h)
+        inner = conv(g, fp.h)
     elif block.flavor == "mr":
-        inner = fft_causal_conv(g, materialize_mr_filter(fp.h, fp.decay))
+        inner = (sp_causal_conv(g, materialize_mr_filter(fp.h, fp.decay)) if sp
+                 else fft_causal_conv(g, materialize_mr_filter(fp.h, fp.decay)))
+    elif sp:
+        inner = sp_li_conv(g, fp.poles, fp.residues)
     else:
         inner = fft_causal_conv(g, materialize_li_filter(fp.poles, fp.residues, g.shape[1]))
     inner = inner + g * mix.filter_bias.to(dtype)
@@ -293,12 +303,19 @@ def hyena_forward(tower: HyenaTower, cfg: HyenaConfig, input_ids: torch.Tensor,
     block after it runs, since none can change it), else the final norm's
     output. Each block is recomputed in backward when `cfg.remat` and
     autograd records."""
-    h = L.embed(tower.embed, input_ids, torch_dtype(cfg.dtype))
-    b, t, _ = h.shape
+    b, t = input_ids.shape
     if attention_mask is None:
-        attention_mask = torch.ones((b, t), dtype=torch.int32, device=h.device)
+        attention_mask = torch.ones((b, t), dtype=torch.int32, device=input_ids.device)
     positions = L.positions_from_mask(attention_mask)
+    sp = SP.tower_sharded(cfg.attention_impl)
+    if sp:
+        # sequence parallelism: this rank's chunk of the right-padded
+        # sequence (causal ops never see the pads of later steps)
+        input_ids, attention_mask, positions = (
+            SP.shard_sequence(x) for x in (input_ids, attention_mask, positions))
+    h = L.embed(tower.embed, input_ids, torch_dtype(cfg.dtype))
     tap = cfg.embedding_tap_layer if tap_layer is None else tap_layer
+    out = None
     for i, block in enumerate(tower.blocks):
         if cfg.remat and torch.is_grad_enabled():
             h, mlp_out = checkpoint(_block_forward, block, h, cfg, attention_mask, positions,
@@ -306,5 +323,8 @@ def hyena_forward(tower: HyenaTower, cfg: HyenaConfig, input_ids: torch.Tensor,
         else:
             h, mlp_out = _block_forward(block, h, cfg, attention_mask, positions)
         if i == tap:
-            return mlp_out
-    return L.rmsnorm(tower.final_norm, h, cfg.norm_eps)
+            out = mlp_out
+            break
+    if out is None:
+        out = L.rmsnorm(tower.final_norm, h, cfg.norm_eps)
+    return SP.unshard_sequence(out, t) if sp else out

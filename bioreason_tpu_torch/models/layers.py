@@ -219,6 +219,8 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
     to a float weight, as in the JAX package."""
     dtype = x.dtype if dtype is None else dtype
     x = x.to(dtype)
+    if getattr(lin, "tp", None) is not None:
+        return tp_dense(lin, x, dtype, dropout)
     bias = None if lin.bias is None else lin.bias.to(dtype)
     if not is_int8(lin):
         y = F.linear(x, lin.weight.to(dtype), bias)
@@ -229,6 +231,34 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
         y = Int8Linear.apply(x, lin.weight, lin.scale, bias)
     d = lora_delta(lin, x, dtype, dropout)
     return y if d is None else y + d
+
+
+def tp_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+             dropout: Dropout = None) -> torch.Tensor:
+    """`dense` of a tensor-parallel linear (parallel/partition.py), `lin.tp`
+    = (kind, axis). Colwise: x is replicated over the axis and the weight
+    holds this rank's output rows; x's gradient is summed over the axis
+    (`comm.copy_to`) on the weight's path and on the adapter's, whose
+    [.., r] intermediate is replicated. Rowwise: x holds this rank's input
+    columns; the product and the adapter's intermediate are summed over the
+    axis (`comm.reduce_from`) before the replicated `lora_b`. Float weights
+    without bias, as the decoder's."""
+    from bioreason_tpu_torch.parallel import comm
+    kind, axis = lin.tp
+    if is_int8(lin) or lin.bias is not None:
+        raise ValueError("tensor parallelism takes float linears without bias")
+    xl = _adapter_input(x, dropout) if has_adapter(lin) else x
+    if kind == "col":
+        y = F.linear(comm.copy_to(x, axis), lin.weight.to(dtype))
+        if has_adapter(lin):
+            u = comm.copy_to(xl @ lin.lora_a.to(dtype), axis)
+            y = y + (u @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
+        return y
+    y = comm.reduce_from(F.linear(x, lin.weight.to(dtype)), axis)
+    if has_adapter(lin):
+        u = comm.reduce_from(xl @ lin.lora_a.to(dtype), axis)
+        y = y + (u @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
+    return y
 
 
 def add_adapter(lin: nn.Module, a: torch.Tensor, b: torch.Tensor, scale: float,
@@ -247,7 +277,9 @@ def add_adapter(lin: nn.Module, a: torch.Tensor, b: torch.Tensor, scale: float,
 
 
 def has_adapter(lin: nn.Module) -> bool:
-    return isinstance(getattr(lin, "lora_a", None), nn.Parameter)
+    # a Tensor, not only a Parameter: under FSDP the forward reads the
+    # gathered adapter in its place (parallel/partition.py)
+    return isinstance(getattr(lin, "lora_a", None), torch.Tensor)
 
 
 def lora_delta(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
@@ -257,12 +289,18 @@ def lora_delta(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
     inverted dropout to the adapter input only (PEFT lora_dropout)."""
     if not has_adapter(lin):
         return None
-    xl = x.to(dtype)
-    if dropout is not None:
-        gen, rate = dropout
-        keep = torch.rand(xl.shape, generator=gen, device=xl.device) < 1.0 - rate
-        xl = torch.where(keep, xl / (1.0 - rate), torch.zeros_like(xl))
+    xl = _adapter_input(x.to(dtype), dropout)
     return ((xl @ lin.lora_a.to(dtype)) @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
+
+
+def _adapter_input(x: torch.Tensor, dropout: Dropout) -> torch.Tensor:
+    """x with the adapter's inverted dropout applied (`dropout` = (generator,
+    rate), or None)."""
+    if dropout is None:
+        return x
+    gen, rate = dropout
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _split_delta(parent: nn.Module, name: str, base: torch.Tensor, x: torch.Tensor,
@@ -473,13 +511,50 @@ def moe_apply(moe: MoE, x: torch.Tensor, top_k: int, norm_topk_prob: bool = True
     n = b * t
     dtype = x.dtype if dtype is None else dtype
     xf = x.reshape(n, h).to(dtype)
-    e = moe.experts.gate.weight.shape[0]
+    ep, dp = getattr(moe.experts, "ep", None), getattr(moe.experts, "dp", None)
+    e = moe.experts.gate.weight.shape[0] * (1 if ep is None else ep.size)
     vals, idx = moe_route(moe, xf, top_k, norm_topk_prob, dtype)
-    cap = moe_capacity(n, e, top_k, capacity_factor)
-    slot, keep = moe_slots(idx, e, cap)
+    if dp is None:
+        cap = moe_capacity(n, e, top_k, capacity_factor)
+        slot, keep = moe_slots(idx, e, cap)
+    else:
+        slot, keep, cap = _moe_slots_dp(idx, e, n, top_k, capacity_factor, dp)
+    if ep is not None:
+        return _moe_ep(moe, xf, vals, idx, slot, keep, e, cap, dtype, ep).view(b, t, h)
     ein, dest = moe_dispatch(xf, idx, slot, keep, e, cap)
     oe = moe_experts(moe, ein, dtype)
     return moe_combine(oe, vals, dest, keep, dtype).view(b, t, h)
+
+
+def _moe_slots_dp(idx, e: int, n: int, top_k: int, capacity_factor: float, dp):
+    """`moe_slots` over the global batch when its rows are split over the
+    data-parallel axis `dp` (parallel/partition.py): the capacity counts
+    every rank's rows, and a token's slot counts the tokens of the ranks
+    before this one too (the global row order is rank-major), so the drops
+    are the one-device call's. Returns (slot, keep, cap)."""
+    from bioreason_tpu_torch.parallel import comm
+    cap = moe_capacity(n * dp.size, e, top_k, capacity_factor)
+    slot, _ = moe_slots(idx, e, cap)
+    counts = torch.bincount(idx.reshape(-1), minlength=e).to(torch.int32)
+    before = comm.all_gather(counts[None], dp, 0)[:dp.index].sum(0).to(torch.int32)
+    slot = slot + before[idx]
+    return slot, slot < cap, cap
+
+
+def _moe_ep(moe: MoE, xf, vals, idx, slot, keep, e: int, cap: int, dtype, ep):
+    """Expert parallelism (parallel/partition.py): the routing, capacity and
+    drops are `moe_apply`'s on every rank; this rank runs its E/m experts
+    on their slots, the other experts' rows stay zero, and the combine is
+    summed over the axis. The expert inputs and the gates sum their
+    gradients over the axis (`comm.copy_to`): each rank's path covers only
+    its own experts."""
+    from bioreason_tpu_torch.parallel import comm
+    el = e // ep.size
+    ein, dest = moe_dispatch(comm.copy_to(xf, ep), idx, slot, keep, e, cap)
+    own = moe_experts(moe, ein[ep.index * el:(ep.index + 1) * el], dtype)
+    oe = torch.cat([own.new_zeros(ep.index * el * cap, own.shape[1]), own,
+                    own.new_zeros((e - (ep.index + 1) * el) * cap, own.shape[1])])
+    return comm.reduce_from(moe_combine(oe, comm.copy_to(vals, ep), dest, keep, dtype), ep)
 
 
 def gelu_mlp(mlp: GeluMLP, x: torch.Tensor, dtype: Optional[torch.dtype] = None,

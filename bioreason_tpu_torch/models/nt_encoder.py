@@ -16,6 +16,7 @@ from torch import nn
 from bioreason_tpu_torch.config import EncoderConfig
 from bioreason_tpu_torch.models import layers as L
 from bioreason_tpu_torch.models.attention import attention
+from bioreason_tpu_torch.parallel.sp import shard_sequence, tower_sharded, unshard_sequence
 from bioreason_tpu_torch.utils.devices import torch_dtype
 
 
@@ -71,23 +72,31 @@ def encoder_forward(enc: NTEncoder, cfg: EncoderConfig, input_ids: torch.Tensor,
                     attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Returns the last hidden state [B, T, H] in the compute dtype. Layers
     are recomputed in backward when `cfg.remat` and autograd records."""
-    h = L.embed(enc.embed, input_ids, torch_dtype(cfg.dtype))
-    b, t, _ = h.shape
+    b, t = input_ids.shape
     if attention_mask is None:
-        attention_mask = torch.ones((b, t), dtype=torch.int32, device=h.device)
+        attention_mask = torch.ones((b, t), dtype=torch.int32, device=input_ids.device)
     # HF EsmEmbeddings fidelity: ESM token dropout rescales embeddings by
     # (1-0.12)/(1-observed mask ratio) with <mask> embeds zeroed, and pad
     # positions are zeroed
+    is_mask = input_ids == cfg.mask_token_id
+    src_len = attention_mask.sum(-1).clamp(min=1).float()
+    observed = is_mask.sum(-1).float() / src_len
+    positions = L.positions_from_mask(attention_mask)
+    sp = tower_sharded(cfg.attention_impl)
+    if sp:
+        # sequence parallelism (parallel/sp.py): from here on this rank
+        # holds its chunk of the (right-padded) sequence; the row sums and
+        # positions above are the whole sequence's
+        input_ids, is_mask, attention_mask, positions = (
+            shard_sequence(x) for x in (input_ids, is_mask, attention_mask, positions))
+    h = L.embed(enc.embed, input_ids, torch_dtype(cfg.dtype))
     if cfg.token_dropout:
-        is_mask = input_ids == cfg.mask_token_id
         h = h.masked_fill(is_mask[..., None], 0.0)
-        src_len = attention_mask.sum(-1).clamp(min=1).float()
-        observed = is_mask.sum(-1).float() / src_len
         h = h * ((1.0 - 0.15 * 0.8) / (1.0 - observed))[:, None, None].to(h.dtype)
     h = h * attention_mask[..., None].to(h.dtype)
-    positions = L.positions_from_mask(attention_mask)
 
     layer = L.remat(_layer_forward, cfg)
     for lp in enc.layers:
         h = layer(lp, h, cfg, positions, attention_mask)
-    return L.layernorm(enc.final_norm, h, cfg.norm_eps)
+    h = L.layernorm(enc.final_norm, h, cfg.norm_eps)
+    return unshard_sequence(h, t) if sp else h

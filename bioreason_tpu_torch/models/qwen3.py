@@ -140,9 +140,10 @@ def _layer_forward(lp: DecoderLayer, h, cfg: DecoderConfig, positions, kv_mask,
     a8 = cfg.act_int8
     x = L.rmsnorm(lp.ln1, h, cfg.rms_norm_eps)
     q, k, v = L.qkv_proj(lp.attn, x, dtype, (drop, drop, drop), a8)
-    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    # heads from the widths: a tensor-parallel rank holds Hq/m and Hkv/m
+    q = q.reshape(b, t, -1, cfg.head_dim)
+    k = k.reshape(b, t, -1, cfg.head_dim)
+    v = v.reshape(b, t, -1, cfg.head_dim)
     q = L.rmsnorm(lp.attn.q_norm, q, cfg.rms_norm_eps)
     k = L.rmsnorm(lp.attn.k_norm, k, cfg.rms_norm_eps)
     q = L.apply_rope(q, positions, cfg.rope_theta)
@@ -219,10 +220,19 @@ def decoder_forward(
         if lora_dropout_gen is not None and lora_dropout_rate > 0.0:
             seeds = torch.randint(0, 2 ** 62, (len(dec.layers),),
                                   generator=lora_dropout_gen).tolist()
-        layer = L.remat(_layer_forward, cfg)
-        for lp, seed in zip(dec.layers, seeds):
-            h = layer(lp, h, cfg, positions, attention_mask, True,
-                      dropout_seed=seed, dropout_rate=lora_dropout_rate)
+        from bioreason_tpu_torch.parallel import pp
+        if pp.pipeline_enabled():
+            # GPipe over this rank's stage (parallel/pp.py, JAX qwen3.py:235-246)
+            axis, n_micro = pp.pipeline_state()
+            own = pp._STATE["layers"] or range(len(dec.layers))
+            h = pp.pp_decoder_layers([dec.layers[i] for i in own], h, cfg, positions,
+                                     attention_mask, axis, n_micro, pp._STATE["dp"],
+                                     [seeds[i] for i in own], lora_dropout_rate)
+        else:
+            layer = L.remat(_layer_forward, cfg)
+            for lp, seed in zip(dec.layers, seeds):
+                h = layer(lp, h, cfg, positions, attention_mask, True,
+                          dropout_seed=seed, dropout_rate=lora_dropout_rate)
     h = L.rmsnorm(dec.final_norm, h, cfg.rms_norm_eps)
     out = h if return_hidden else L.lm_logits(dec, h)
     return out, cache

@@ -1,0 +1,307 @@
+"""Partition rules for the port's parameters, and their execution (the port
+of bioreason_tpu/parallel/partition.py).
+
+The rules are (regex, spec) pairs matched against the port's parameter
+names (`decoder.layers.3.attn.q.weight`), first match wins. A spec is a
+`P` tuple with one entry per dim: a mesh axis name or None. Where the JAX
+package stacks a tower's layers [L, ...], a per-layer parameter's spec
+carries that layer axis as its first entry, so every rule reads as its JAX
+counterpart: an `nn.Linear` weight is [out, in] where JAX's kernel is
+[in, out], so colwise (q/k/v/gate/up) is `model` on dim 0 and rowwise
+(o/down) `model` on dim 1; adapters and expert banks keep JAX's layout.
+`tests/test_torch_mesh.py` holds every parameter's spec to JAX's.
+
+Execution (`ShardPlan`) is explicit, as torch gives no GSPMD:
+  * `fsdp` entries: the rank stores its slice of the parameter along that
+    dim; `gathered` all-gathers it for a forward (its backward
+    reduce-scatters the gradient, `comm.all_gather_sum`);
+  * `model` entries of the decoder's layers: Megatron tensor parallelism
+    on local shards. Colwise linears hold Hq/m, Hkv/m heads or I/m MLP
+    rows, rowwise ones the matching input columns; `layers.dense` adds
+    `comm.copy_to` / `comm.reduce_from` around them (`tp_dense`), so each
+    rank's attention is the unchanged kernel on its own heads. A layer
+    whose head counts (or MLP width) do not divide by the axis keeps that
+    block replicated, as `_valid_spec` drops an axis that does not divide;
+  * `model` on an expert bank's E axis: expert parallelism; each rank runs
+    its E/m experts on all tokens and the combine sums over `model`
+    (`layers.moe_apply`), with JAX's capacity and drops;
+  * `model` entries elsewhere (the embedding and lm_head tables, the
+    projection, the DNA tower) are not executed: those stay replicated over
+    `model`, which the tower's sequence parallelism also shards;
+  * under pipeline parallelism (`pp=True`) a decoder layer's leading
+    `model` entry is its stage: a rank keeps only its stage's layers.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from bioreason_tpu_torch.parallel import comm
+
+
+class P(tuple):
+    """A partition spec: one mesh axis name (or a tuple of names, or None)
+    per dim, as jax.sharding.PartitionSpec."""
+
+    def __new__(cls, *entries):
+        return tuple.__new__(cls, entries)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+Rules = List[Tuple[str, P]]
+_LAYER = r"layers\.\d+\."
+
+
+def partition_rules_decoder(prefix: str = "") -> Rules:
+    p = re.escape(prefix) + _LAYER
+    return [
+        (re.escape(prefix) + r"embed\.weight$", P("model", "fsdp")),
+        (re.escape(prefix) + r"lm_head\.weight$", P("model", "fsdp")),
+        (p + r"attn\.(q|k|v)\.lora_a$", P(None, "fsdp", None)),
+        (p + r"attn\.(q|k|v)\.lora_b$", P(None, None, "model")),
+        (p + r"attn\.o\.lora_a$", P(None, "model", None)),
+        (p + r"attn\.o\.lora_b$", P(None, None, "fsdp")),
+        (p + r"mlp\.(gate|up)\.lora_a$", P(None, "fsdp", None)),
+        (p + r"mlp\.(gate|up)\.lora_b$", P(None, None, "model")),
+        (p + r"mlp\.down\.lora_a$", P(None, "model", None)),
+        (p + r"mlp\.down\.lora_b$", P(None, None, "fsdp")),
+        (p + r"attn\.(q|k|v)\.weight$", P(None, "model", "fsdp")),
+        (p + r"attn\.o\.weight$", P(None, "fsdp", "model")),
+        (p + r"mlp\.(gate|up)\.weight$", P(None, "model", "fsdp")),
+        (p + r"mlp\.down\.weight$", P(None, "fsdp", "model")),
+        # MoE: expert parallelism, E over 'model', the hidden dim over 'fsdp'
+        (p + r"mlp\.experts\.(gate|up)\.weight$", P(None, "model", "fsdp", None)),
+        (p + r"mlp\.experts\.down\.weight$", P(None, "model", None, "fsdp")),
+        (re.escape(prefix) + r".*(scale|bias)$", P()),
+        (re.escape(prefix) + r".*", P()),
+    ]
+
+
+def partition_rules_encoder(prefix: str = "") -> Rules:
+    p = re.escape(prefix) + _LAYER
+    return [
+        (re.escape(prefix) + r"embed\.weight$", P(None, "fsdp")),
+        (p + r"attn\.(q|k|v)\.weight$", P(None, "model", "fsdp")),
+        (p + r"attn\.o\.weight$", P(None, "fsdp", "model")),
+        (p + r"mlp\.(gate|up)\.weight$", P(None, "model", "fsdp")),
+        (p + r"mlp\.down\.weight$", P(None, "fsdp", "model")),
+        (re.escape(prefix) + r".*(scale|bias)$", P()),
+        (re.escape(prefix) + r".*", P()),
+    ]
+
+
+def partition_rules_fusion(pp: bool = False) -> Rules:
+    """pp=True: each decoder layer belongs to one GPipe stage on 'model'
+    (its leading layer entry), and the embedding table is replicated (JAX
+    partition.py:71-97)."""
+    decoder_rules = ([(r"^decoder\." + _LAYER + ".*", P("model"))] if pp
+                     else partition_rules_decoder("decoder."))
+    return (decoder_rules
+            + ([(r"^decoder\.embed\.weight$", P()),
+                (r"^decoder\.lm_head\.weight$", P(None, "fsdp"))] if pp else [])
+            + partition_rules_encoder("encoder.")
+            + [(r"dna_projection\.weight$", P("model", "fsdp")),
+               (r"dna_projection\.bias$", P()),
+               (r".*", P())])
+
+
+def spec_for_path(path_str: str, rules: Rules) -> P:
+    for pattern, spec in rules:
+        if re.search(pattern, path_str):
+            return spec
+    return P()
+
+
+def is_layer_param(name: str) -> bool:
+    """Whether `name` is a per-layer parameter of a tower JAX stacks."""
+    return re.search(r"^(decoder|encoder)\." + _LAYER, name) is not None
+
+
+def _valid_spec(spec: Sequence, shape: Sequence[int], mesh_shape: Dict[str, int]) -> P:
+    """Drop sharding on axes that don't divide evenly (tiny test shapes)."""
+    out = []
+    for i, names in enumerate(spec):
+        if names is None:
+            out.append(None)
+            continue
+        axis_names = names if isinstance(names, tuple) else (names,)
+        size = 1
+        for a in axis_names:
+            size *= mesh_shape[a]
+        out.append(names if i < len(shape) and shape[i] % size == 0 and shape[i] > 0 else None)
+    return P(*out)
+
+
+def batch_spec() -> P:
+    """Batch arrays: the leading (batch) dim over data + fsdp."""
+    return P(("data", "fsdp"))
+
+
+def zero2_sharding(shape: Sequence[int], mesh_shape: Dict[str, int]) -> P:
+    """ZeRO-2: an optimizer-state leaf sharded over 'data' on the first
+    dim that the data size divides (JAX partition.py:158-172)."""
+    dp = mesh_shape["data"]
+    names = [None] * len(shape)
+    if dp > 1:
+        for i, s in enumerate(shape):
+            if s % dp == 0 and s >= dp:
+                names[i] = "data"
+                break
+    return P(*names)
+
+
+def param_specs(model: nn.Module, rules: Rules, mesh_shape: Dict[str, int]) -> Dict[str, P]:
+    """Every parameter's valid spec in the stacked view (layer entry first
+    for per-layer parameters; the layer count is the tower's)."""
+    counts = {t: len(getattr(model, t).layers) for t in ("decoder", "encoder")
+              if hasattr(getattr(model, t, None), "layers")}
+    out = {}
+    for name, p in model.named_parameters():
+        spec = spec_for_path(name, rules)
+        shape = tuple(p.shape)
+        if is_layer_param(name):
+            shape = (counts[name.split(".")[0]],) + shape
+        spec = P(*(tuple(spec) + (None,) * (len(shape) - len(spec))))
+        out[name] = _valid_spec(spec, shape, mesh_shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# execution
+# ---------------------------------------------------------------------------
+
+def _module(model: nn.Module, name: str) -> Tuple[nn.Module, str]:
+    path, leaf = name.rsplit(".", 1)
+    return model.get_submodule(path), leaf
+
+
+def _tp_ok(cfg, name: str, m: int) -> bool:
+    """Whether a decoder layer parameter's block divides over m model
+    ranks along whole heads, MLP rows or experts."""
+    if ".attn." in name:
+        return cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    if ".experts." in name:
+        return cfg.num_experts % m == 0
+    if ".mlp." in name:
+        return not cfg.num_experts and cfg.intermediate_size % m == 0
+    return False
+
+
+class ShardPlan:
+    """How one rank stores and runs a model under a mesh (`topology`);
+    `apply` is the counterpart of JAX's `shard_params`.
+
+    `placements[name]` lists (axis, dim) in the order the parameter was
+    sliced: `model` first, then `fsdp`. `stage_layers` is the range of
+    decoder layers this rank runs under pipeline parallelism (None
+    without)."""
+
+    def __init__(self, model: nn.Module, decoder_cfg, topo, pp: bool = False):
+        self.topo = topo
+        self.pp = pp
+        sizes = {"data": topo.data.size, "fsdp": topo.fsdp.size, "model": topo.model.size}
+        self.mesh_shape = sizes
+        self.specs = param_specs(model, partition_rules_fusion(pp), sizes)
+        m = topo.model.size
+        self.placements: Dict[str, List[Tuple[str, int]]] = {}
+        self.stage_layers: Optional[range] = None
+        if pp:
+            n = decoder_cfg.num_layers
+            if n % m:
+                raise ValueError(f"num_layers {n} not divisible by {m} stages")
+            s = n // m
+            self.stage_layers = range(topo.model.index * s, (topo.model.index + 1) * s)
+        for name, spec in self.specs.items():
+            dims = spec[1:] if is_layer_param(name) else spec
+            place = []
+            if ("model" in dims and m > 1 and name.startswith("decoder.layers.") and not pp
+                    and _tp_ok(decoder_cfg, name, m)):
+                place.append(("model", dims.index("model")))
+            if "fsdp" in dims and topo.fsdp.size > 1:
+                place.append(("fsdp", dims.index("fsdp")))
+            self.placements[name] = place
+        # replicated parameters that act on a tensor-parallel rank's own heads
+        # (the per-head q / k norms): each rank's gradient covers its heads
+        self.partial_over_model = {
+            n for n in self.placements
+            if re.search(r"\.attn\.(q|k)_norm\.scale$", n)
+            and any(ax == "model" for ax, _ in
+                    self.placements.get(n.rsplit(".attn.", 1)[0] + ".attn.q.weight", []))}
+
+    def axis(self, name: str) -> comm.Axis:
+        return getattr(self.topo, name)
+
+    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of the full tensor of parameter `name`."""
+        for ax, dim in self.placements[name]:
+            full = comm.local_slice(full, self.axis(ax), dim)
+        return full.contiguous()
+
+    def unshard(self, name: str, piece: torch.Tensor) -> torch.Tensor:
+        """The full tensor of `name` from every rank's piece (a collective)."""
+        for ax, dim in reversed(self.placements[name]):
+            piece = comm.all_gather(piece, self.axis(ax), dim)
+        return piece
+
+    @torch.no_grad()
+    def apply(self, model: nn.Module) -> None:
+        """Slice every parameter to this rank's piece, drop the layers of
+        other stages, and mark the tensor / expert parallel modules."""
+        if self.stage_layers is not None:
+            layers = model.decoder.layers
+            for i in range(len(layers)):
+                if i not in self.stage_layers:
+                    layers[i] = nn.Module()          # another stage's layer
+        for name, p in list(model.named_parameters()):
+            if not self.placements.get(name):
+                continue
+            mod, leaf = _module(model, name)
+            mod._parameters[leaf] = nn.Parameter(self.shard(name, p.data),
+                                                 requires_grad=p.requires_grad)
+        model_axis = self.topo.model
+        for name in self.placements:
+            place = dict(self.placements[name])
+            if "model" not in place or not name.endswith(".weight"):
+                continue
+            mod, _ = _module(model, name)
+            if ".experts." in name:
+                model.get_submodule(name.rsplit(".experts.", 1)[0]).experts.ep = model_axis
+            else:
+                mod.tp = ("col" if place["model"] == 0 else "row", model_axis)
+
+    def gathered(self, model: nn.Module):
+        """Context: the fsdp-sharded parameters all-gathered (autograd
+        all-gather for trainable ones) in place of their shards."""
+        return _Gathered(self, model)
+
+
+class _Gathered:
+    def __init__(self, plan: ShardPlan, model: nn.Module):
+        self.plan, self.model, self.saved = plan, model, []
+
+    def __enter__(self):
+        fsdp = self.plan.topo.fsdp
+        if fsdp.size == 1:
+            return self
+        for name, p in self.model.named_parameters():
+            dims = [d for ax, d in self.plan.placements.get(name, []) if ax == "fsdp"]
+            if not dims:
+                continue
+            mod, leaf = _module(self.model, name)
+            full = (comm.all_gather_sum(p, fsdp, dims[0]) if p.requires_grad
+                    else comm.all_gather(p, fsdp, dims[0]))
+            self.saved.append((mod, leaf, p))
+            mod._parameters[leaf] = full
+        return self
+
+    def __exit__(self, *exc):
+        for mod, leaf, p in self.saved:
+            mod._parameters[leaf] = p
+        self.saved = []
+        return False

@@ -499,9 +499,15 @@ def parse_args(argv=None):
                    help="int8 activations on top of --int8 weights (cfg.act_int8): prefill "
                         "denses take an int8 x int8 product; continuous decode windows stay "
                         "weight-only int8")
+    p.add_argument("--cpu_devices", type=int, default=0,
+                   help="serve on the CPU (JAX serve.py:406-408 forces N virtual CPU "
+                        "devices; the port's server is one process whose engine keeps the "
+                        "whole model, so N > 0 only asks for the CPU)")
     args = p.parse_args(argv)
     if args.w8a8 and not args.int8:
         p.error("--w8a8 requires --int8 (act_int8 needs int8 kernels)")
+    if args.cpu_devices:
+        args.device = "cpu"
     return args
 
 

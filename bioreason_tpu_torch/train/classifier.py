@@ -20,6 +20,7 @@ mismatch.
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Any, Dict, List, Optional
 
@@ -78,10 +79,14 @@ class ClassifierTrainer:
     def __init__(self, cfg: EncoderConfig, num_classes: int,
                  optim: OptimConfig = OptimConfig(learning_rate=1e-3),
                  train_just_classifier: bool = True, encoder_lr_scale: float = 0.1,
-                 model: Optional[DnaClassifier] = None, seed: int = 0, device=None):
+                 model: Optional[DnaClassifier] = None, seed: int = 0, device=None,
+                 mesh=None):
         """`model`: weights to train (e.g. `weights.from_jax_params` of a JAX
         classifier tree); default: drawn from `seed` on `device` (CUDA
-        unless "cpu")."""
+        unless "cpu"). `mesh`: data parallelism over its 'data' and 'fsdp'
+        axes (model 1): each rank takes its rows of every batch, the loss is
+        the global batch's mean, the moments are ZeRO-2 shards; 'fsdp' also
+        shards the encoder's parameters, gathered for each step."""
         self.cfg = cfg
         self.num_classes = num_classes
         self.train_just_classifier = train_just_classifier
@@ -95,36 +100,68 @@ class ClassifierTrainer:
         scales = None
         if not train_just_classifier:
             scales = [encoder_lr_scale if n.startswith("encoder") else 1.0 for n in self.names]
-        self.opt = AdamW(self.params, optim, lr_scales=scales)
+        self.run = None
+        if mesh is None:
+            self.opt = AdamW(self.params, optim, lr_scales=scales)
+        else:
+            from bioreason_tpu_torch.parallel.trainer import DistAdamW, MeshRun
+            if mesh.mesh.shape[2] != 1:
+                raise ValueError("the classifier shards over 'data' and 'fsdp' only "
+                                 "(mesh model must be 1)")
+            self.run = MeshRun(mesh, self.model)
+            named = dict(self.model.named_parameters())
+            self.params = [named[n] for n in self.names]       # the shards
+            self.opt = DistAdamW(self.params, self.names, optim, self.run, lr_scales=scales)
         self.step_count = 0
 
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
+        # under a mesh, this rank's rows; a batch whose rows do not split
+        # (an eval tail) runs whole on every rank
+        self._split = (self.run is not None
+                       and len(batch["labels"]) % self.run.dp.size == 0)
+        rows = self.run.rows if self._split else (lambda x: x)
+        return {k: torch.as_tensor(rows(np.asarray(batch[k])), device=self.device)
                 for k in BATCH_KEYS}
 
     def _loss(self, db: Dict[str, torch.Tensor]):
         logits = classifier_forward(
             self.model, self.cfg, db["ref_ids"], db["alt_ids"], db["ref_attention_mask"],
             db["alt_attention_mask"], train_encoder=not self.train_just_classifier)
-        return F.cross_entropy(logits, db["labels"].long()), logits
+        loss = F.cross_entropy(logits, db["labels"].long())
+        if self.run is not None:
+            # equal rows per rank: the global mean is the mean of the ranks'
+            # means; the metrics read every rank's logits
+            loss = loss / self.run.dp.size
+            if self._split:
+                logits = self.run.gather_rows(logits.detach())
+        return loss, logits
 
     def _metrics(self, loss, logits, labels) -> Dict[str, float]:
         preds = logits.argmax(-1).cpu().numpy()
         m = multiclass_prf(preds, np.asarray(labels), self.num_classes)
-        m["loss"] = float(loss.detach())
+        m["loss"] = float(loss.detach() if self.run is None
+                          else self.run.sum_dp(loss.detach()))
         return m
+
+    def _scope(self):
+        """Under a mesh, `MeshRun.scope` (the gathered parameters) for the
+        forward and the backward."""
+        return contextlib.nullcontext() if self.run is None else self.run.scope()
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
         db = self._device_batch(batch)
-        loss, logits = self._loss(db)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        with self._scope():
+            loss, logits = self._loss(db)
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         self.opt.step(grads)
         self.step_count += 1
         return self._metrics(loss, logits, batch["labels"])
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
-        loss, logits = self._loss(self._device_batch(batch))
+        db = self._device_batch(batch)
+        with self._scope():
+            loss, logits = self._loss(db)
         return self._metrics(loss, logits, batch["labels"])
 
     def save(self, path: str, encoder: str, labels: List[str]) -> str:
@@ -138,5 +175,12 @@ class ClassifierTrainer:
                 "init_device": self.init_device, "num_classes": self.num_classes,
                 "labels": list(labels), "train_just_classifier": self.train_just_classifier,
                 "dtype": self.cfg.dtype}
+        if self.run is not None:      # gathered on every rank; rank 0 writes
+            from bioreason_tpu_torch.parallel.trainer import full_named, is_writer
+            params = full_named(self.run, dict(zip(self.names, self.params)))
+            opt_state = self.opt.full_state(self.names)
+            if is_writer():
+                save_checkpoint(path, params, opt_state, self.step_count, meta)
+            return path
         return save_checkpoint(path, dict(zip(self.names, self.params)),
                                self.opt.state_dict(), self.step_count, meta)

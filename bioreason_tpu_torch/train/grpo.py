@@ -38,6 +38,7 @@ an int8 KV cache (the grouped decode reads it with its scales).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -113,12 +114,17 @@ def _set_parameter(module: torch.nn.Module, name: str, param: torch.nn.Parameter
 class GRPOTrainer:
     def __init__(self, fusion_cfg: FusionConfig, cfg: GRPOConfig, processor: BioProcessor,
                  reward_funcs: Sequence[Callable], model: Optional[FusionModel] = None,
-                 device=None):
+                 device=None, mesh=None):
         """`model`: the policy to train (e.g. `checkpoint.load_sft_for_grpo`
         or `weights.from_jax_params`); default: drawn from `cfg.seed`.
         Adapters are attached unless the model carries some already. Runs
         on `device` (CUDA unless "cpu"); sampling draws come from a
-        generator seeded with `cfg.seed`."""
+        generator seeded with `cfg.seed`. `mesh`: data parallelism over its
+        'data' and 'fsdp' axes (model 1): each rank rolls out, scores and
+        updates its share of the prompts, each prompt's G completions on
+        one rank, with ZeRO-2 moments; 'fsdp' also shards the parameters,
+        gathered for each rollout, logp pass and update; rank r draws from
+        cfg.seed + r."""
         if cfg.batch_size % cfg.num_generations:
             raise ValueError(f"batch {cfg.batch_size} not divisible by G={cfg.num_generations}"
                              " (reference grpo_trainer.py:429-446)")
@@ -158,9 +164,24 @@ class GRPOTrainer:
         # state, no fp32 master
         self.params = T.set_trainable(model, regex, cfg.frozen_dtype)
         self.names = T.trainable_names(model)
-        self.opt = AdamW(self.params, cfg.optim)
+        self.run = None
+        if mesh is None:
+            self.opt = AdamW(self.params, cfg.optim)
+        else:
+            from bioreason_tpu_torch.parallel.trainer import DistAdamW, MeshRun
+            _, fsdp, tp = mesh.mesh.shape
+            if tp != 1:
+                raise ValueError("GRPO shards over 'data' and 'fsdp' only: its rollouts' KV "
+                                 "caches hold every head (mesh model must be 1)")
+            if fsdp > 1 and (cfg.rollout_int8 or cfg.frozen_dtype == "int8"):
+                raise ValueError("int8 weights and rollouts shard over 'data' only")
+            self.run = MeshRun(mesh, model, fusion_cfg.decoder)
+            self.run.split_rows(True)
+            self.params = [p for p in model.parameters() if p.requires_grad]
+            self.opt = DistAdamW(self.params, self.names, cfg.optim, self.run)
         self.ref_model = self._make_ref() if cfg.beta > 0.0 else None
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        rank_seed = 0 if self.run is None else self.run.dp.index
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + rank_seed)
         self.engine = GenerationEngine(fusion_cfg, processor.text_tokenizer.eos_token_id,
                                        device=self.device, kv_int8=cfg.rollout_kv_int8)
         # the int8 rollout policy (`rollout_model`), built at the first rollout
@@ -245,6 +266,11 @@ class GRPOTrainer:
             _set_parameter(self.ref_model, name, torch.nn.Parameter(
                 (fa * p.to(r.dtype) + fb * r).to(r.dtype), requires_grad=False))
 
+    def _gathered(self, model: FusionModel):
+        """Under an fsdp mesh, `model` (the policy or its reference) with its
+        sharded parameters gathered for the dynamic extent."""
+        return contextlib.nullcontext() if self.run is None else self.run.plan.gathered(model)
+
     def _prepare_prompts(self, items: Sequence[Dict[str, Any]]):
         """Chat rendering and the processor, left-padded; `max_prompt_length`
         keeps the LAST N tokens (TRL prompt_ids[:, -N:])."""
@@ -299,9 +325,19 @@ class GRPOTrainer:
         """One micro-step on a rollout buffer; the optimizer applies the mean
         gradient of every `grad_accum_steps` micro-steps. grad_norm is that
         of this micro-step's raw gradients."""
-        loss, kl, clip_frac = self._loss(batch, completion_len)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        with self._gathered(self.model):            # forward and backward
+            loss, kl, clip_frac = self._loss(batch, completion_len)
+            if self.run is not None:
+                # every rank holds as many rows: the global mean of the per-row
+                # losses is the mean of the ranks' means (kl and the clip
+                # ratio are reported as the mean over the ranks)
+                n = self.run.dp.size
+                loss = loss / n
+                kl, clip_frac = (self.run.sum_dp(x.detach()) / n for x in (kl, clip_frac))
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grad_norm = self.opt.accumulate(grads, self.cfg.grad_accum_steps)
+        if self.run is not None:
+            loss = self.run.sum_dp(loss.detach())
         return {"loss": float(loss.detach()), "kl": float(kl.detach()),
                 "clip_ratio": float(clip_frac.detach()),
                 "grad_norm": grad_norm}
@@ -326,12 +362,20 @@ class GRPOTrainer:
             t1 = clk()
             tm["prep"] = tm.get("prep", 0.0) + (t1 - t0)
             t0 = t1
-        completion_ids, completion_mask = self.engine.generate(
-            self.rollout_model(), out.input_ids, out.attention_mask, out.dna_input_ids,
-            out.dna_attention_mask, sampling=cfg.sampling,
-            max_new_tokens=cfg.max_completion_length, generator=self.generator, group_size=g,
-            guided=self.guided)
+        if self.run is not None:
+            # the rollout's calls differ in count between ranks (EOS): its
+            # MoE capacity stays per rank; the logp passes count every rank
+            self.run.split_rows(False)
+        policy = self.rollout_model()
+        with self._gathered(policy):
+            completion_ids, completion_mask = self.engine.generate(
+                policy, out.input_ids, out.attention_mask, out.dna_input_ids,
+                out.dna_attention_mask, sampling=cfg.sampling,
+                max_new_tokens=cfg.max_completion_length, generator=self.generator,
+                group_size=g, guided=self.guided)
         nonfinite = self.engine.last_stats["nonfinite_rows"]
+        if self.run is not None:
+            self.run.split_rows(True)
         if tm is not None:
             t1 = clk()
             tm["rollout"] = tm.get("rollout", 0.0) + (t1 - t0)
@@ -352,9 +396,11 @@ class GRPOTrainer:
                 batch["dna_input_ids"], batch["dna_attention_mask"], clen)
         with torch.no_grad():
             if cfg.beta > 0.0:
-                batch["ref_logps"] = per_token_logps(self.ref_model, *args)
+                with self._gathered(self.ref_model):
+                    batch["ref_logps"] = per_token_logps(self.ref_model, *args)
             if cfg.num_iterations > 1:
-                batch["old_logps"] = per_token_logps(self.model, *args)
+                with self._gathered(self.model):
+                    batch["old_logps"] = per_token_logps(self.model, *args)
         if tm is not None:
             t1 = clk()
             tm["logps_dispatch"] = tm.get("logps_dispatch", 0.0) + (t1 - t0)
@@ -376,6 +422,12 @@ class GRPOTrainer:
         for i, fn in enumerate(self.reward_funcs):
             metrics[f"rewards/{getattr(fn, '__name__', f'fn{i}')}"] = float(
                 rewards_per_func[:, i].mean())
+        if self.run is not None:     # means over equal shares; the count summed
+            keys = list(metrics)
+            vals = self.run.sum_dp(torch.tensor([metrics[k] for k in keys], dtype=torch.float64,
+                                                device=self.device)).tolist()
+            n = self.run.dp.size
+            metrics = {k: v if k == "nonfinite_rows" else v / n for k, v in zip(keys, vals)}
         if tm is not None:
             tm["rewards"] = tm.get("rewards", 0.0) + (clk() - t0)
         return {"batch": batch, "completion_len": clen, "metrics": metrics,
@@ -391,7 +443,7 @@ class GRPOTrainer:
         slot = self.step_count % cfg.grad_accum_steps
         eff_step = self.step_count // cfg.grad_accum_steps
         if eff_step % cfg.num_iterations == 0 or self._buffers[slot] is None:
-            self._buffers[slot] = self._generate_and_score(items)
+            self._buffers[slot] = self._generate_and_score(self._rank_items(items))
         buf = self._buffers[slot]
 
         tm = self.timers
@@ -413,7 +465,22 @@ class GRPOTrainer:
         self.metrics_history.append(out)
         return out
 
+    def _rank_items(self, items: Sequence[Dict[str, Any]]) -> Sequence[Dict[str, Any]]:
+        """This rank's whole prompts of `items` (each repeated G times)."""
+        if self.run is None:
+            return items
+        g = self.cfg.num_generations
+        prompts = np.arange(len(items) // g)
+        if len(prompts) * g != len(items):
+            raise ValueError(f"{len(items)} items are not prompts repeated G={g} times")
+        return [items[int(p) * g + j] for p in self.run.rows(prompts) for j in range(g)]
+
     def trainable_state(self) -> Dict[str, torch.Tensor]:
+        """name -> parameter; under a mesh the whole tensors, gathered from
+        every rank's pieces (a collective every rank takes)."""
+        if self.run is not None:
+            from bioreason_tpu_torch.parallel.trainer import full_named
+            return full_named(self.run, dict(zip(self.names, self.params)))
         return dict(zip(self.names, self.params))
 
     def save(self, path: str, extra_metadata: Optional[Dict] = None,
@@ -422,6 +489,12 @@ class GRPOTrainer:
         `block=False` hands the write to an `AsyncSaver` after a device copy
         (JAX grpo.py:511-519; `finish_saves` joins it)."""
         meta = {"stage": "grpo", **(extra_metadata or {})}
+        if self.run is not None:      # gathered on every rank; rank 0 writes
+            from bioreason_tpu_torch.parallel.trainer import is_writer
+            params, opt_state = self.trainable_state(), self.opt.full_state(self.names)
+            if is_writer():
+                save_checkpoint(path, params, opt_state, self.step_count, meta)
+            return path
         if block:
             return save_checkpoint(path, self.trainable_state(), self.opt.state_dict(),
                                    self.step_count, meta)
@@ -440,8 +513,12 @@ class GRPOTrainer:
         if sorted(state["trainable"]) != sorted(self.names):
             raise ValueError(f"checkpoint {path} holds other trainable parameters")
         for name, p in zip(self.names, self.params):
-            p.copy_(state["trainable"][name])
-        self.opt.load_state_dict(state["opt_state"])
+            full = state["trainable"][name]
+            p.copy_(full if self.run is None else self.run.plan.shard(name, full.to(p.device)))
+        if self.run is not None:
+            self.opt.load_full_state({**state["opt_state"], "names": list(state["trainable"])})
+        else:
+            self.opt.load_state_dict(state["opt_state"])
         self.step_count = int(state["step"])
         if self.cfg.beta > 0.0:
             self.ref_model = self._make_ref()

@@ -90,11 +90,19 @@ class AdamW:
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> float:
         """Apply one update from `grads` (None = zero). Returns the global
         norm of the raw gradients."""
-        cfg = self.cfg
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(self.params, grads)]
         gnorm = global_norm(grads)
-        norm = float(gnorm)            # the one host sync of the step
+        return self._apply(self.params, grads, gnorm, float(gnorm))   # the one host sync
+
+    @torch.no_grad()
+    def _apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               gnorm: torch.Tensor, norm: float) -> float:
+        """The guard, the clip and the AdamW update of `params` (the
+        parameters or, under ZeRO-2, this rank's shards of them) from
+        `grads` of the same shapes, whose global norm is `gnorm` (`norm` on
+        the host). Returns `norm`."""
+        cfg = self.cfg
         finite = math.isfinite(norm)
         self.last_finite = finite
         if cfg.skip_nonfinite_after:
@@ -118,9 +126,9 @@ class AdamW:
         upd = torch._foreach_div(self.mu, 1.0 - b1 ** self.count)
         torch._foreach_div_(upd, denom)
         if cfg.weight_decay:
-            torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
+            torch._foreach_add_(upd, params, alpha=cfg.weight_decay)
         for scale, idx in self._groups.items():
-            torch._foreach_add_([self.params[i] for i in idx], [upd[i] for i in idx],
+            torch._foreach_add_([params[i] for i in idx], [upd[i] for i in idx],
                                 alpha=-lr * scale)
         return norm
 

@@ -24,6 +24,7 @@ scales are stored in bf16, as JAX stores them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -38,6 +39,7 @@ from bioreason_tpu_torch.train.checkpoint import AsyncSaver, load_checkpoint, mo
     save_checkpoint
 from bioreason_tpu_torch.train.lora import attach_lora, has_lora
 from bioreason_tpu_torch.train.optim import AdamW
+from bioreason_tpu_torch.parallel.trainer import DistAdamW
 from bioreason_tpu_torch.train.quant import quantize_frozen_int8
 from bioreason_tpu_torch.utils.devices import resolve_device
 
@@ -48,13 +50,16 @@ BATCH_KEYS = ("input_ids", "attention_mask", "dna_input_ids", "dna_attention_mas
 class SFTTrainer:
     def __init__(self, fusion_cfg: FusionConfig, cfg: SFTConfig,
                  model: Optional[FusionModel] = None, device=None,
-                 base: Optional[Dict[str, Any]] = None):
+                 base: Optional[Dict[str, Any]] = None, mesh=None):
         """`model`: weights to fine-tune (e.g. `pretrained.load_pretrained_fusion`
         or `weights.from_jax_params`); default: drawn from `cfg.seed`.
         `base`: the `pretrained.base_record` of the checkpoints `model` was
         loaded from, recorded in every checkpoint. Adapters are attached
         unless the model carries some already. Runs on `device` (CUDA unless
-        "cpu")."""
+        "cpu"). `mesh` (`parallel.mesh.make_mesh`): run as one rank of it
+        (parallel/trainer.py): every rank builds the same model from the
+        same seed, keeps its shards, and takes the same global batches;
+        None is the one-device trainer."""
         self.fusion_cfg, self.cfg = fusion_cfg, cfg
         self.device = resolve_device(device)
         # what builds the frozen base again (checkpoint.BASE_KEYS, with the
@@ -89,13 +94,45 @@ class SFTTrainer:
                                  "(quantized weights don't train)")
             quantize_frozen_int8(model)
         self.params = T.set_trainable(model, regex, cfg.frozen_dtype)
+        self.run = None
+        if mesh is not None:
+            self._mesh_run(mesh)
         self.names = T.trainable_names(model)
         self.opt = AdamW(self.params, cfg.optim)
+        if self.run is not None:
+            self.params = [p for p in model.parameters() if p.requires_grad]
+            self.opt = DistAdamW(self.params, self.names, cfg.optim, self.run)
         self.step = 0
         self._saver = AsyncSaver()
         self._dropout_gen = torch.Generator().manual_seed(cfg.seed + 2)   # per-step seeds
 
+    def _mesh_run(self, mesh) -> None:
+        """Shard the model over `mesh` (parallel/partition.py): sequence
+        parallelism when a tower's attention asks for it ("sp..."), GPipe
+        when `pp_micro` > 0 and the model axis is above 1."""
+        from bioreason_tpu_torch.parallel.trainer import MeshRun
+        fc, cfg = self.fusion_cfg, self.cfg
+        if cfg.pp_micro > 0 and cfg.frozen_dtype == "int8":
+            raise ValueError("pp_micro with int8 frozen weights is untested; "
+                             "use bf16 frozen weights under PP")
+        sizes = dict(zip(("data", "fsdp", "model"), mesh.mesh.shape))
+        if cfg.frozen_dtype == "int8" and (sizes["fsdp"] > 1 or sizes["model"] > 1):
+            raise ValueError("int8 frozen weights shard over 'data' only")
+        if cfg.focal_gamma > 0.0 and sizes["data"] * sizes["fsdp"] > 1:
+            raise ValueError("focal_gamma needs the global weight sum; not split over data")
+        tower = fc.hyena if fc.encoder_kind == "evo2" else fc.encoder
+        sp = str(tower.attention_impl).startswith("sp")
+        self.run = MeshRun(mesh, self.model, fc.decoder, sp=sp, pp_micro=cfg.pp_micro)
+
+    def _scope(self):
+        """Under a mesh, `MeshRun.scope`: it holds for the forward and the
+        backward, which recomputes remat layers (gathered parameters, the
+        sequence axis)."""
+        return contextlib.nullcontext() if self.run is None else self.run.scope()
+
     def _loss(self, db: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
+        """The batch's loss; under a mesh this rank's share of the global
+        batch's, inside `_scope`."""
         cfg = self.cfg
         rate = cfg.lora.dropout if (train and cfg.lora is not None) else 0.0
         _, loss = fusion_forward(
@@ -108,7 +145,7 @@ class SFTTrainer:
             lora_dropout_gen=self._dropout_gen if rate > 0.0 else None,
             lora_dropout_rate=rate,
             focal_gamma=cfg.focal_gamma if train else 0.0)
-        return loss
+        return loss if self.run is None else loss * db["share"]
 
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         validate_splice(batch["input_ids"], batch.get("dna_input_ids"),
@@ -118,26 +155,60 @@ class SFTTrainer:
             pos, tgt, val = gather_label_positions(batch["labels"])
             batch = {**batch, "label_positions": pos, "label_targets": tgt,
                      "label_valid": val}
-        return {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
+        if self.run is None:
+            return {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
+                    for k in BATCH_KEYS if batch.get(k) is not None}
+        # this rank's rows; its loss weighs by its share of the global
+        # supervised tokens (the CE's denominator, at least 1 per rank). A
+        # batch whose rows do not split over dp runs whole on every rank
+        valid = np.asarray(batch["label_valid"])
+        split = valid.shape[0] % self.run.dp.size == 0
+        self.run.split_rows(split)
+        rows = {k: self.run.rows(np.asarray(batch[k])) if split else np.asarray(batch[k])
                 for k in BATCH_KEYS if batch.get(k) is not None}
+        share = (max(int(rows["label_valid"].sum()), 1) / max(int(valid.sum()), 1) if split
+                 else 1.0 / self.run.dp.size)
+        out = {k: torch.as_tensor(v, device=self.device) for k, v in rows.items()}
+        out["share"] = share
+        return out
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
         """One micro-step; the optimizer applies the mean gradient of every
         `grad_accum_steps` micro-steps. Returns loss, grad_norm (of this
         micro-step's raw gradients) and the schedule's lr at the new step."""
-        loss = self._loss(self._device_batch(batch), train=True)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        loss, grads = self.loss_and_grads(self._device_batch(batch))
         grad_norm = self.opt.accumulate(grads, self.cfg.grad_accum_steps)
         self.step += 1
+        if self.run is not None:
+            loss = self.run.sum_dp(loss.detach())
         return {"loss": float(loss.detach()), "grad_norm": grad_norm,
                 "lr": self.opt.schedule(self.step)}
+
+    def loss_and_grads(self, db: Dict[str, torch.Tensor]):
+        """(loss, gradients of `params`) of a device batch, the training
+        loss; under a mesh this rank's share and its unreduced gradients."""
+        with self._scope():
+            loss = self._loss(db, train=True)
+            # under the pipeline every rank holds the loss; the last stage
+            # alone differentiates it (parallel/pp.py)
+            root = loss if self.run is None or self.run.last_stage else loss * 0.0
+            grads = torch.autograd.grad(root, self.params, allow_unused=True)
+        return loss, grads
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> float:
         """The plain (not focal) CE of a batch, no dropout."""
-        return float(self._loss(self._device_batch(batch), train=False))
+        db = self._device_batch(batch)
+        with self._scope():
+            loss = self._loss(db, train=False)
+        return float(loss if self.run is None else self.run.sum_dp(loss))
 
     def trainable_state(self) -> Dict[str, torch.Tensor]:
+        """name -> parameter; under a mesh the whole tensors, gathered from
+        every rank's pieces (a collective every rank takes)."""
+        if self.run is not None:
+            from bioreason_tpu_torch.parallel.trainer import full_named
+            return full_named(self.run, dict(zip(self.names, self.params)))
         return dict(zip(self.names, self.params))
 
     def save(self, path: str, metadata: Optional[Dict] = None, params_only: bool = False,
@@ -149,10 +220,21 @@ class SFTTrainer:
         eval or a fresh GRPO optimizer); `block=False` hands the write to
         an `AsyncSaver` after a device copy (`finish_saves` joins it)."""
         meta = {**(self.base_metadata or {}), **(metadata or {})}
+        if self.run is not None:
+            return self._save_mesh(path, meta, params_only)
         opt_state = None if params_only else self.opt.state_dict()
         if block:
             return save_checkpoint(path, self.trainable_state(), opt_state, self.step, meta)
         return self._saver.save(path, self.trainable_state(), opt_state, self.step, meta)
+
+    def _save_mesh(self, path: str, meta: Dict, params_only: bool) -> str:
+        """`save` under a mesh: every rank gathers, rank 0 writes (blocking)."""
+        from bioreason_tpu_torch.parallel.trainer import is_writer
+        params = self.trainable_state()
+        opt_state = None if params_only else self.opt.full_state(list(params))
+        if is_writer():
+            save_checkpoint(path, params, opt_state, self.step, meta)
+        return path
 
     def finish_saves(self) -> None:
         """Join the write in flight; re-raises its failure."""
@@ -161,11 +243,19 @@ class SFTTrainer:
     @torch.no_grad()
     def restore(self, path: str) -> "SFTTrainer":
         state = load_checkpoint(path)
-        if sorted(state["trainable"]) != sorted(self.names):
+        held = sorted(state["trainable"])
+        if (held != sorted(self.names) if self.run is None
+                else not set(self.names) <= set(held)):
             raise ValueError(f"checkpoint {path} holds other trainable parameters")
         if "opt_state" not in state:
             raise ValueError(f"checkpoint {path} holds parameters alone (params_only): it "
                              f"does not resume training")
+        if self.run is not None:       # every rank takes its pieces
+            for name, p in zip(self.names, self.params):
+                p.copy_(self.run.plan.shard(name, state["trainable"][name].to(p.device)))
+            self.opt.load_full_state({**state["opt_state"], "names": list(state["trainable"])})
+            self.step = int(state["step"])
+            return self
         for name, p in zip(self.names, self.params):
             p.copy_(state["trainable"][name])
         self.opt.load_state_dict(state["opt_state"])

@@ -365,6 +365,18 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               `DnaLLM.generate_text` on 8 KEGG prompts over that fp32 model
               (28 flash_f32_fwd) and `make_traces --backend engine` on 4
               variant rows (its int8 bf16 storage: 28 flash_fwd).
+ 20-23. multi-device on the one card (parallel/): (21-22) two processes
+              sharing the card over gloo: a probe of which collectives gloo
+              takes on CUDA tensors (each in its own pair of processes),
+              long-DNA SFT on sp_local:256 (loss and encoder gradients
+              against local:256), NT-v2-500M on sp_pallas and Evo2-1B on
+              sp (against one device), Qwen3-0.6B as two GPipe stages of
+              14 layers at M=4 (loss and LoRA gradients against the plain
+              decoder), each rank's launches counted; the kernels at those
+              per-rank shapes; (20) a world of one NCCL rank: its
+              collectives and SFTTrainer(mesh=) beside the one-device
+              trainer at bench.py's shape; (23) the rigged-reward GRPO
+              check through flash_fwd / flash_bwd (late > 1.5x early).
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -5555,6 +5567,515 @@ def phase_fp32_api(torch, card):
 
 # -- main ---------------------------------------------------------------------
 
+# -- phases 20-23: multi-device on one card ------------------------------------
+#
+# 20 (mesh): a real NCCL group of one rank and the trainer's mesh code path
+# at bench.py's shape; 21 (sp) and 22 (pp): two ranks in two processes
+# sharing the card over gloo (NCCL refuses two ranks on one card), each
+# rank's kernels at the shapes a world of 2 gives them; 23 (grpo_learns):
+# the rigged-reward GRPO check through the kernels. Nothing across cards
+# is measured here: one card has no NVLink peer.
+
+MESH_STEPS = 3
+MESH_LOSS_RTOL, MESH_NORM_RTOL = 2e-3, 2e-2   # flash_bwd's dq sums in no fixed order
+SP_COS = 0.99                                 # kernel frames vs one-device kernel, bf16
+PP_MICRO = 4
+GRPO_LEARN_STEPS = 30
+
+
+def _store(tag):
+    build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
+    os.makedirs(build_dir, exist_ok=True)
+    return os.path.join(tempfile.mkdtemp(prefix=f"smoke_{tag}_", dir=build_dir), "store")
+
+
+def _cos(torch, a, b):
+    a, b = a.float().flatten(), b.float().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp(min=1e-30))
+
+
+def phase_mesh(torch, card):
+    """(20) A world of one rank over NCCL: the collectives the mesh code
+    uses on CUDA tensors, then SFTTrainer(mesh=make_mesh(MeshConfig())) at
+    bench.py's shape for MESH_STEPS steps beside the one-device trainer on
+    the same weights and batches (loss within MESH_LOSS_RTOL, grad-norm
+    within MESH_NORM_RTOL)."""
+    import torch.distributed as dist
+    from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
+                                            LoRAConfig, MeshConfig, OptimConfig, SFTConfig)
+    from bioreason_tpu_torch.parallel.mesh import make_mesh
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    dist.init_process_group("nccl", init_method=f"file://{_store('mesh')}", rank=0,
+                            world_size=1)
+    try:
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        y = x.clone()
+        dist.all_reduce(y)
+        g = torch.empty(8, device="cuda")
+        dist.all_gather_into_tensor(g, x)
+        r = torch.empty(8, device="cuda")
+        dist.reduce_scatter_tensor(r, x)
+        dist.broadcast(y, src=0)
+        if not all(torch.equal(t, x) for t in (y, g, r)):
+            fail("NCCL collectives of one rank did not return their input")
+        log(f"mesh [{card}]: NCCL world of 1 ({dist.get_backend()}): all_reduce, "
+            f"all_gather_into_tensor, reduce_scatter_tensor, broadcast on CUDA tensors")
+        dec = dataclasses.replace(DecoderConfig.qwen3_0_6b(), remat=False)
+        enc = dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False)
+        cfg = FusionConfig(decoder=dec, encoder=enc, dna_pad_token_id=151938)
+        sft = SFTConfig(batch_size=4, lora=LoRAConfig(r=32, alpha=64, dropout=0.0),
+                        optim=OptimConfig(total_steps=100, warmup_ratio=0.0), seed=0)
+        batch = bench_batch(cfg)
+        out = {}
+        for label, mesh in (("one_device", None), ("mesh", make_mesh(MeshConfig()))):
+            trainer = SFTTrainer(cfg, sft, mesh=mesh)
+            trainer.train_step(batch)                    # warm-up (not compared)
+            torch.cuda.synchronize()
+            reset_counts()
+            ms, metrics = [], []
+            for _ in range(MESH_STEPS):
+                t0 = time.perf_counter()
+                metrics.append(trainer.train_step(batch))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            got = counts()
+            out[label] = {"metrics": metrics, "ms": ms, "launches": got,
+                          "dist_opt": type(trainer.opt).__name__}
+            log(f"mesh: {label} trainer ({out[label]['dist_opt']}): step ms "
+                f"{[round(v, 1) for v in ms]}, losses "
+                f"{[round(m['loss'], 5) for m in metrics]}, grad norms "
+                f"{[round(m['grad_norm'], 5) for m in metrics]}; launches {got}")
+            del trainer
+            torch.cuda.empty_cache()
+        for a, b in zip(out["mesh"]["metrics"], out["one_device"]["metrics"]):
+            if not (math.isclose(a["loss"], b["loss"], rel_tol=MESH_LOSS_RTOL)
+                    and math.isclose(a["grad_norm"], b["grad_norm"], rel_tol=MESH_NORM_RTOL)):
+                fail(f"the mesh trainer's step {a} differs from the one-device {b}")
+        if out["mesh"]["dist_opt"] != "DistAdamW":
+            fail("the mesh trainer did not take the mesh code path")
+        got = out["mesh"]["launches"]
+        if got["flash_fwd"] == 0 or got["flash_bwd"] == 0 or got != out["one_device"]["launches"]:
+            fail(f"the mesh trainer's launches {got} are not the one-device trainer's "
+                 f"{out['one_device']['launches']}")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_long(torch, mesh, axis):
+    """(21a) The long-DNA SFT step of phase 7 (2 x 12 kb, NT-v2-500M
+    finetuned, W=256) on sp_local:256: loss and gradients; rank 0 then
+    runs the one-device local:256 step and compares."""
+    from bioreason_tpu_torch.config import LoRAConfig, OptimConfig, SFTConfig
+    from bioreason_tpu_torch.serve import build_config
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    import torch.distributed as dist
+    cfg, _ = build_config("qwen3-0.6b", "nt-500m", max_length_dna=2048)
+    sft = SFTConfig(batch_size=2, lora=LoRAConfig(r=32, alpha=64, dropout=0.0),
+                    freeze_encoder=False, optim=OptimConfig(total_steps=10), seed=0)
+    batch = long_batch(long_items())
+
+    def loss_grads(impl, mesh):
+        c = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                                 attention_impl=impl))
+        tr = SFTTrainer(c, sft, mesh=mesh)
+        db = tr._device_batch(batch)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = tr.loss_and_grads(db)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = counts()
+        t0 = time.perf_counter()
+        if mesh is not None:
+            grads = tr.opt.reduce(grads)                 # summed over the ranks
+            loss = tr.run.sum_dp(loss.detach())
+        torch.cuda.synchronize()
+        reduce_ms = (time.perf_counter() - t0) * 1e3
+        enc = {n: g for n, g in zip(tr.names, grads) if n.startswith("encoder.")}
+        return float(loss.detach()), enc, got, ms, reduce_ms
+
+    loss, enc, got, ms, reduce_ms = loss_grads(f"sp_local:{LONG_WINDOW}", mesh)
+    res = {"loss": loss, "launches": got, "ms": ms, "reduce_ms": reduce_ms}
+    dist.barrier()
+    if axis.index == 0:
+        ref_loss, ref_enc, ref_got, ref_ms, _ = loss_grads(f"local:{LONG_WINDOW}", None)
+        flat = lambda d: torch.cat([d[n].float().flatten() for n in sorted(d)])
+        a, b = flat(enc), flat(ref_enc)
+        res.update(ref_loss=ref_loss, ref_launches=ref_got, ref_ms=ref_ms, cos=_cos(torch, a, b),
+                   rel_l2=float((a - b).norm() / b.norm()), n_leaves=len(enc))
+        del ref_enc
+    del enc
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sp_encoder(torch, axis):
+    """(21b) The NT-v2-500M encoder forward on sp_pallas over the long
+    batch's 4 x 2049 tokens; rank 0 compares with the one-device kernel."""
+    import torch.distributed as dist
+    from bioreason_tpu_torch.cli.common import build_encoder_config
+    from bioreason_tpu_torch.models.layers import init_normal_
+    from bioreason_tpu_torch.models.nt_encoder import NTEncoder, encoder_forward
+    from bioreason_tpu_torch.parallel.sp import sequence_sharding
+    from bioreason_tpu_torch.utils.devices import torch_dtype
+    _, enc_cfg, _, _ = build_encoder_config("nt-500m")
+    batch = long_batch(long_items())
+    ids = torch.as_tensor(batch["dna_input_ids"], device="cuda")
+    mask = torch.as_tensor(batch["dna_attention_mask"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tower = init_normal_(NTEncoder(enc_cfg, "cuda", torch_dtype(enc_cfg.dtype)), gen)
+    res = {"shape": list(ids.shape)}
+    with torch.no_grad():
+        cfg = dataclasses.replace(enc_cfg, attention_impl="sp_pallas")
+        reset_counts()
+        t0 = time.perf_counter()
+        with sequence_sharding(axis):
+            h = encoder_forward(tower, cfg, ids, mask)
+        torch.cuda.synchronize()
+        res.update(ms=(time.perf_counter() - t0) * 1e3, launches=counts())
+        if axis.index == 0:
+            ref = encoder_forward(tower, dataclasses.replace(enc_cfg, attention_impl="pallas"),
+                                  ids, mask)
+            valid = mask.bool()
+            a, b = h.float()[valid], ref.float()[valid]
+            res.update(cos=_cos(torch, a, b), max_abs_err=float((a - b).abs().max()),
+                       max_ref=float(b.abs().max()))
+    del tower
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sp_evo2(torch, axis):
+    """(21c) The Evo2-1B tower forward on phase 9's served DNA with sp:
+    rank 1's causal attention runs flash_fwd at q_offset = chunk; rank 0
+    compares with the one-device tower."""
+    import torch.distributed as dist
+    from bioreason_tpu_torch.models.evo2 import hyena_forward, init_hyena
+    from bioreason_tpu_torch.parallel.sp import sequence_sharding
+    from bioreason_tpu_torch.serve import build_config
+    cfg, _ = build_config("qwen3-0.6b", "evo2-1b", max_length_dna=EVO2_BP)
+    _, (_, _, dna, dmask) = evo2_served_inputs()
+    ids = torch.as_tensor(dna, device="cuda")
+    mask = torch.as_tensor(dmask, device="cuda")
+    tower = init_hyena(cfg.hyena, seed=0, device="cuda")
+    res = {"shape": list(ids.shape)}
+    with torch.no_grad():
+        reset_counts()
+        t0 = time.perf_counter()
+        with sequence_sharding(axis):
+            h = hyena_forward(tower, dataclasses.replace(cfg.hyena, attention_impl="sp"),
+                              ids, mask)
+        torch.cuda.synchronize()
+        res.update(ms=(time.perf_counter() - t0) * 1e3, launches=counts())
+        if axis.index == 0:
+            ref = hyena_forward(tower, cfg.hyena, ids, mask)
+            valid = mask.bool()
+            a, b = h.float()[valid], ref.float()[valid]
+            res.update(cos=_cos(torch, a, b), max_abs_err=float((a - b).abs().max()),
+                       max_ref=float(b.abs().max()))
+    del tower
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pp_stage(torch, axis):
+    """(22) Qwen3-0.6B's 28 layers as 2 GPipe stages of 14 with M=PP_MICRO
+    at bench.py's shape (B=4, T=768, the last 128 positions supervised),
+    LoRA r32 with nonzero B: the loss and this stage's LoRA gradients
+    against the plain decoder_forward on the same rank."""
+    import torch.distributed as dist
+    from bioreason_tpu_torch.config import DecoderConfig, LoRAConfig
+    from bioreason_tpu_torch.models.layers import init_normal_
+    from bioreason_tpu_torch.models.qwen3 import Qwen3Decoder, decoder_forward
+    from bioreason_tpu_torch.ops.fused_ce import decoder_lm_loss
+    from bioreason_tpu_torch.parallel.pp import pipeline_sharding
+    from bioreason_tpu_torch.train.lora import attach_lora
+    cfg = dataclasses.replace(DecoderConfig.qwen3_0_6b(), remat=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dec = init_normal_(Qwen3Decoder(cfg, "cuda", torch.bfloat16), gen)
+    attach_lora(dec, LoRAConfig(r=32, alpha=64, dropout=0.0), gen)
+    for n, p in dec.named_parameters():
+        p.requires_grad_(n.endswith(("lora_a", "lora_b")))
+        if n.endswith("lora_b"):
+            with torch.no_grad():
+                p.normal_(0, 0.01, generator=gen)
+    npr = np.random.default_rng(0)
+    ids = torch.as_tensor(npr.integers(0, 150000, (4, 768)), device="cuda")
+    labels = torch.where(torch.arange(768, device="cuda")[None] >= 640, ids, -100)
+    s = cfg.num_layers // axis.size
+    own = range(axis.index * s, (axis.index + 1) * s)
+    names = [n for n, p in dec.named_parameters()
+             if p.requires_grad and int(n.split(".")[1]) in own]
+    params = [dict(dec.named_parameters())[n] for n in names]
+
+    def run(pipelined):
+        scope = (pipeline_sharding(axis, PP_MICRO, layers=own) if pipelined
+                 else pipeline_sharding(None))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with scope:
+            h, _ = decoder_forward(dec, cfg, ids, return_hidden=True)
+        loss = decoder_lm_loss(h.to(torch.bfloat16), dec.embed.weight, labels)
+        last = not pipelined or axis.index == axis.size - 1
+        grads = torch.autograd.grad(loss if last else loss * 0.0, params, allow_unused=True)
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, (time.perf_counter() - t0) * 1e3
+
+    run(True)                                            # warm-up
+    reset_counts()
+    loss, grads, ms = run(True)
+    got = counts()
+    ref_loss, ref_grads, ref_ms = run(False)
+    flat = lambda gs: torch.cat([g.float().flatten() for g in gs])
+    a, b = flat(grads), flat(ref_grads)
+    res = {"loss": loss, "ref_loss": ref_loss, "ms": ms, "ref_ms": ref_ms, "launches": got,
+           "cos": _cos(torch, a, b), "rel_l2": float((a - b).norm() / b.norm()),
+           "n_lora": len(params), "layers": [own.start, own.stop]}
+    del dec, grads, ref_grads
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _two_rank_world(rank, world, store, queue):
+    """One of the two processes of phases 21-22: rank `rank` on cuda:0."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        from bioreason_tpu_torch.config import MeshConfig
+        from bioreason_tpu_torch.parallel.mesh import make_mesh, topology
+        mesh = make_mesh(MeshConfig(data=1, fsdp=1, model=world), device="cuda")
+        axis = topology(mesh).model
+        out = {}
+        for name, fn in (("sp_long", lambda: _sp_long(torch, mesh, axis)),
+                         ("sp_encoder", lambda: _sp_encoder(torch, axis)),
+                         ("sp_evo2", lambda: _sp_evo2(torch, axis)),
+                         ("pp", lambda: _pp_stage(torch, axis))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out[name]["seconds"] = round(time.perf_counter() - t0, 1)
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        import traceback
+        queue.put((rank, None, traceback.format_exc()))
+
+
+# one rank of the probe: a gloo group of two processes on cuda:0 running
+# one collective natively on CUDA tensors and checking its values
+GLOO_PROBE = r"""
+import sys, torch, torch.distributed as dist
+rank, op, store = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
+x = torch.arange(4, dtype=torch.float32, device="cuda") + rank
+base = torch.arange(4, dtype=torch.float32, device="cuda")
+if op == "all_reduce":
+    dist.all_reduce(x); want = 2 * base + 1
+elif op == "all_gather":
+    y = torch.empty(8, device="cuda"); dist.all_gather_into_tensor(y, x)
+    x, want = y, torch.cat([base, base + 1])
+elif op == "reduce_scatter":
+    y = torch.empty(2, device="cuda"); dist.reduce_scatter_tensor(y, x)
+    x, want = y, (2 * base + 1)[2 * rank:2 * rank + 2]
+elif op == "broadcast":
+    dist.broadcast(x, src=0); want = base
+else:
+    if rank == 0:
+        dist.send(x, 1); want = base
+    else:
+        dist.recv(x, 0); want = base
+torch.cuda.synchronize()
+print("ok" if torch.equal(x, want) else "wrong values", flush=True)
+"""
+
+
+def gloo_cuda_probe():
+    """Which collectives gloo takes on CUDA tensors between two processes on
+    the card: each op in its own pair of processes (a native gloo send of
+    a CUDA tensor can abort the process), all pairs at once. Returns op ->
+    'native' or what refused it; recorded in PERF.md. `comm.GLOO_CUDA_STAGED`
+    must name every op gloo refuses (the script fails otherwise)."""
+    ops = ("all_reduce", "all_gather", "reduce_scatter", "broadcast", "p2p")
+    procs = {}
+    for op in ops:
+        store = _store(f"probe_{op}")
+        procs[op] = [subprocess.Popen([sys.executable, "-c", GLOO_PROBE, str(r), op, store],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True) for r in range(2)]
+    out = {}
+    for op, pair in procs.items():
+        texts = []
+        for p in pair:
+            try:
+                so, se = p.communicate(timeout=180)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+                se = "hung (killed after 180 s)"
+            texts.append((p.returncode, so.strip(), se.strip()))
+        if all(rc == 0 and so == "ok" for rc, so, _ in texts):
+            out[op] = "native"
+        else:
+            rc, so, se = next(t for t in texts if not (t[0] == 0 and t[1] == "ok"))
+            last = [ln for ln in (se or so).splitlines() if ln.strip()][-1:] or [""]
+            out[op] = f"refused (exit {rc}): {last[0][:160]}"
+    return out
+
+
+def phase_two_ranks(torch, card):
+    """(21, 22) Two processes on the one card over gloo (module note above):
+    sequence parallelism (a) long-DNA SFT on sp_local:256, (b) NT-v2-500M on
+    sp_pallas, (c) Evo2-1B on sp; then GPipe over two stages."""
+    import multiprocessing as mp
+    from bioreason_tpu_torch.parallel.comm import GLOO_CUDA_STAGED
+    probe = gloo_cuda_probe()
+    log(f"sp/pp [{card}]: gloo on CUDA tensors between two processes: {probe}; staged "
+        f"through host memory by the port: {sorted(GLOO_CUDA_STAGED)}")
+    unstaged = [op for op, v in probe.items() if v != "native" and op not in GLOO_CUDA_STAGED]
+    if unstaged:
+        fail(f"gloo refuses {unstaged} on CUDA tensors, which the port does not stage")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = _store("two")
+    procs = [ctx.Process(target=_two_rank_world, args=(r, 2, store, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    results = [None, None]
+    t0 = time.perf_counter()
+    try:
+        while None in results:
+            try:
+                rank, out, err = queue.get(timeout=5)
+            except Exception:                    # queue.Empty: is every rank alive?
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() - t0 > 900:
+                    fail(f"the two-rank world died or hung (exit codes "
+                         f"{[p.exitcode for p in procs]}; its stderr is above)")
+                continue
+            if err is not None:
+                fail(f"rank {rank} of the two-rank world raised:\n{err}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    r0, r1 = results
+    # (a)
+    a0, a1 = r0["sp_long"], r1["sp_long"]
+    log(f"sp (a) long-DNA SFT step, sp_local:{LONG_WINDOW} over 2 ranks: loss {a0['loss']:.6f} "
+        f"vs one-device local:{LONG_WINDOW} {a0['ref_loss']:.6f}; the {a0['n_leaves']} encoder "
+        f"gradients: cosine {a0['cos']:.6f}, relative L2 {a0['rel_l2']:.4g}; forward+backward ms "
+        f"rank 0 {a0['ms']:.1f}, rank 1 {a1['ms']:.1f}, one device {a0['ref_ms']:.1f}; the "
+        f"gradients' sum over the ranks (gloo) ms {a0['reduce_ms']:.1f}; launches "
+        f"rank 0 {a0['launches']}, rank 1 {a1['launches']}, one device {a0['ref_launches']}")
+    if not math.isclose(a0["loss"], a0["ref_loss"], rel_tol=MESH_LOSS_RTOL) or a0["cos"] < SP_COS:
+        fail(f"sp_local:{LONG_WINDOW} disagrees with local:{LONG_WINDOW}: {a0}")
+    for r in (a0, a1):
+        if r["launches"]["local_fwd"] == 0 or r["launches"]["local_bwd"] == 0:
+            fail(f"a rank ran no local_fwd / local_bwd on its halo frame: {r['launches']}")
+    # (b), (c)
+    for key, label in (("sp_encoder", "(b) NT-v2-500M encoder, sp_pallas"),
+                       ("sp_evo2", "(c) Evo2-1B tower, sp")):
+        x0, x1 = r0[key], r1[key]
+        log(f"sp {label}, DNA {x0['shape']}: cosine to one device {x0['cos']:.6f}, max abs "
+            f"err {x0['max_abs_err']:.4g} (max |ref| {x0['max_ref']:.4g}); forward ms rank 0 "
+            f"{x0['ms']:.1f}, rank 1 {x1['ms']:.1f}; launches rank 0 {x0['launches']}, "
+            f"rank 1 {x1['launches']}")
+        if x0["cos"] < SP_COS:
+            fail(f"sp {label} disagrees with one device: cosine {x0['cos']}")
+        if x0["launches"]["flash_fwd"] == 0 or x1["launches"]["flash_fwd"] == 0:
+            fail(f"sp {label}: a rank launched no flash_fwd")
+    # (22)
+    p0, p1 = r0["pp"], r1["pp"]
+    for st, r in enumerate((p0, p1)):
+        log(f"pp stage {st} (layers {r['layers']}), M={PP_MICRO}: loss {r['loss']:.6f} vs "
+            f"plain {r['ref_loss']:.6f}; its {r['n_lora']} LoRA gradients: cosine "
+            f"{r['cos']:.6f}, relative L2 {r['rel_l2']:.4g}; step ms {r['ms']:.1f} (plain "
+            f"decoder on one rank {r['ref_ms']:.1f}); launches {r['launches']}")
+        if (not math.isclose(r["loss"], r["ref_loss"], rel_tol=MESH_LOSS_RTOL)
+                or r["cos"] < SP_COS):
+            fail(f"pp stage {st} disagrees with the plain decoder: {r}")
+        if r["launches"]["flash_fwd"] == 0 or r["launches"]["flash_bwd"] == 0:
+            fail(f"pp stage {st} launched no flash_fwd / flash_bwd: {r['launches']}")
+    log(f"sp/pp: seconds by part, rank 0 "
+        f"{ {k: v['seconds'] for k, v in r0.items()} }, rank 1 "
+        f"{ {k: v['seconds'] for k, v in r1.items()} }")
+    return {"probe": probe, "ranks": results}
+
+
+def sp_kernel_cases(torch):
+    """The kernels at the per-rank shapes of a world of 2: Evo2-1B's causal
+    rank 1 (q_offset = chunk), NT-v2-500M's sp_pallas rank, the halo-framed
+    band of sp_local:256 and the gather fallback's zero-padded frame."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    t = EVO2_BP
+    c = t // 2
+    rows = [kernel_case(torch, f"sp_rank1_evo2_causal_q{c}_k{t}", 16, c, t, 15, 15, 128, True,
+                        c, right_padded(torch, 16, t, t - 64, gen), 16),
+            kernel_case(torch, "sp_rank0_nt500m_q1025_k2050", 4, 1025, 2050, 16, 16, 64, False,
+                        None, right_padded(torch, 4, 2050, 1900, gen), 17)]
+    halo = torch.ones((4, 1025 + 2 * LONG_WINDOW), dtype=torch.int32, device="cuda")
+    halo[:, :LONG_WINDOW] = 0                             # rank 0: nothing on its left
+    band = [local_case(torch, f"sp_local_halo_frame_T{1025 + 2 * LONG_WINDOW}", 4,
+                       1025 + 2 * LONG_WINDOW, 16, 16, 64, LONG_WINDOW, halo, 18),
+            local_case(torch, "sp_local_gather_T384", 4, 384, 16, 16, 64, LONG_WINDOW,
+                       right_padded(torch, 4, 384, 300, gen), 19)]
+    return rows, [r for pair in band for r in pair]
+
+
+def phase_grpo_learns(torch, card):
+    """(23) tests/test_torch_grpo_learning_slow.py on the card: the tiny
+    fusion (decoder head dim 64 in bf16 on 'auto', so prefill, logp and
+    update passes take flash_fwd / flash_bwd), the reward min(count('a'),
+    8) / 4, 30 steps; the last 5 steps' mean reward must exceed 1.5x the
+    first 5's."""
+    from bioreason_tpu_torch.config import (DecoderConfig, FusionConfig, GRPOConfig,
+                                            OptimConfig, SamplingConfig)
+    from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
+    from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only, synthetic_kegg_items
+    from bioreason_tpu_torch.train.grpo import GRPOTrainer
+    tok = ByteTextTokenizer()
+    fusion = FusionConfig.tiny(text_vocab=tok.vocab_size, dna_pad_token_id=tok.dna_pad_id)
+    fusion = dataclasses.replace(fusion, decoder=dataclasses.replace(
+        fusion.decoder, head_dim=64, dtype="bfloat16", attention_impl="auto"))
+    cfg = GRPOConfig(num_generations=4, batch_size=8, beta=0.0, num_iterations=1,
+                     max_completion_length=16,
+                     sampling=SamplingConfig(temperature=1.0, top_k=40, top_p=1.0,
+                                             max_new_tokens=16),
+                     optim=OptimConfig(learning_rate=3e-3, total_steps=40, warmup_ratio=0.0),
+                     lora=None, seed=0)
+
+    def letter_reward(prompts, completions, answer=None, **kw):
+        return [min(c.count("a"), 8) / 4.0 for c in completions]
+    trainer = GRPOTrainer(fusion, cfg, BioProcessor(tok, KmerTokenizer()), [letter_reward])
+    prompts = [format_kegg_prompt_only(it) for it in synthetic_kegg_items(2, seq_len=24)]
+    items = [p for p in prompts for _ in range(4)]
+    reset_counts()
+    t0 = time.perf_counter()
+    rewards = [trainer.step(items)["reward"] for _ in range(GRPO_LEARN_STEPS)]
+    dt = time.perf_counter() - t0
+    got = all_counts()
+    early, late = float(np.mean(rewards[:5])), float(np.mean(rewards[-5:]))
+    log(f"grpo_learns [{card}]: {GRPO_LEARN_STEPS} steps in {dt:.1f} s; mean reward first 5 "
+        f"{early:.4f}, last 5 {late:.4f}; rewards {[round(r, 3) for r in rewards]}; "
+        f"launches {got}")
+    if got["flash_fwd"] == 0 or got["flash_bwd"] == 0:
+        fail(f"the GRPO learning check ran no flash_fwd / flash_bwd: {got}")
+    if not late > 1.5 * early:
+        fail(f"GRPO did not learn the rigged reward on the card: {early} -> {late}")
+    return {"early": early, "late": late, "launches": got, "seconds": dt}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5629,11 +6150,28 @@ def main():
     mark("moe_train")
     fp32 = phase_fp32_api(torch, card)
     mark("fp32_api")
+    torch.cuda.empty_cache()
+    two = phase_two_ranks(torch, card)
+    mark("sp_pp")
+    sp_rows, sp_band_rows = sp_kernel_cases(torch)
+    mark("sp_kernels")
+    mesh = phase_mesh(torch, card)
+    torch.cuda.empty_cache()
+    mark("mesh")
+    learns = phase_grpo_learns(torch, card)
+    mark("grpo_learns")
     log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows += (grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows + qlora_rows + reh_rows
-             + moe_rows + [moe_train["fwd_row"]])
+             + moe_rows + [moe_train["fwd_row"]] + sp_rows)
+    band_rows += sp_band_rows
+    r0, r1 = two["ranks"]
+    rank_launches = lambda name: {
+        "sp_long": [r["sp_long"]["launches"][name] for r in (r0, r1)],
+        "sp_encoder": [r["sp_encoder"]["launches"][name] for r in (r0, r1)],
+        "sp_evo2": [r["sp_evo2"]["launches"][name] for r in (r0, r1)],
+        "pp_stages": [r["pp"]["launches"][name] for r in (r0, r1)]}
     bwd_rows += (grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows + qlora_bwd_rows + reh_bwd_rows
                  + [moe_train["bwd_row"]])
     moe_train_launches = {k: {kk: v for kk, v in moe_train[k]["launches"].items() if v}
@@ -5691,6 +6229,9 @@ def main():
                                   "prefill_alone": moe["serve"]["prefill_alone"],
                                   "per_decode_step": moe["serve"]["per_decode_step"],
                                   "bench": moe["continuous"]["launches"]},
+                 "two_rank_launches": rank_launches("flash_fwd"),
+                 "mesh_launches": mesh["mesh"]["launches"]["flash_fwd"],
+                 "grpo_learns_launches": learns["launches"]["flash_fwd"],
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -5721,6 +6262,9 @@ def main():
                                                      for k, v in reh["a"]["per_call"].items()}},
                  "moe_train_launches": {k: v.get("flash_bwd", 0)
                                         for k, v in moe_train_launches.items()},
+                 "two_rank_launches": rank_launches("flash_bwd"),
+                 "mesh_launches": mesh["mesh"]["launches"]["flash_bwd"],
+                 "grpo_learns_launches": learns["launches"]["flash_bwd"],
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],
@@ -5740,6 +6284,7 @@ def main():
             "name": f"local_{kind}", "route": "cuda",
             "source": f"bioreason_tpu_torch/csrc/flash_{kind}.cu", "replaces": replaces,
             "also_replaces": also, "launches": long[f"local_{kind}"],
+            "two_rank_launches": rank_launches(f"local_{kind}"),
             "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": at["ms"],
             "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "at_shape": at["shape"],

@@ -547,10 +547,22 @@ def test_an_sft_final_without_the_base_keys_is_refused(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--mesh=1,1,1",
                                   "--cpu_devices=2", "--wandb"])
-def test_reason_cli_refuses_later_slices(flag):
+def test_reason_cli_refuses_later_slices(flag, tmp_path):
+    """--wandb is still refused. --mesh and --cpu_devices are ported
+    (parallel/): each runs one finite GRPO step (a world of one rank, two
+    spawned gloo ranks over 'data')."""
     from bioreason_tpu_torch.cli import reason
-    with pytest.raises(NotImplementedError):
-        reason.main(["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag])
+    argv = ["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag]
+    if flag == "--wandb":
+        with pytest.raises(NotImplementedError):
+            reason.main(argv)
+        return
+    out = reason.main(argv + ["--seed", "3", "--num_generations", "2", "--batch_size", "4",
+                              "--max_steps", "1", "--max_completion_length", "4",
+                              "--max_length_dna", "64", "--n_synthetic", "16",
+                              "--checkpoint_dir", str(tmp_path / "ck"),
+                              "--log_dir", str(tmp_path / "logs")])
+    assert len(out.metrics_history) == 1 and math.isfinite(out.metrics_history[0]["loss"])
 
 
 def test_reason_cli_debug_nans_raises_at_a_planted_nan(tmp_path, monkeypatch):

@@ -178,8 +178,9 @@ def test_adamw_gives_up_after_consecutive_nonfinite():
 
 
 def test_config_refuses_later_slices():
-    with pytest.raises(NotImplementedError):
-        TC.SFTConfig(pp_micro=2)
+    """Pipeline parallelism is ported (parallel/pp.py): pp_micro constructs,
+    and the trainer runs it under a mesh whose model axis is above 1."""
+    assert TC.SFTConfig(pp_micro=2).pp_micro == 2
     # QLoRA is ported: the config constructs, and the trainer checks it
     assert TC.SFTConfig(frozen_dtype="int8").frozen_dtype == "int8"
 
@@ -357,10 +358,19 @@ def test_cli_rejects_an_unknown_dna_attention():
 @pytest.mark.parametrize("flag", ["--sp_dna", "--dna_attention=sp_local:64",
                                   "--dna_attention=sp", "--mesh=1,1,1",
                                   "--cpu_devices=2", "--wandb"])
-def test_cli_refuses_later_slices(flag):
+def test_cli_refuses_later_slices(flag, tmp_path):
+    """--wandb is still refused. The multi-device flags are ported
+    (parallel/): each trains one finite step (--sp_dna and the sp routes on
+    a world of one rank, --cpu_devices=2 on two spawned gloo ranks)."""
     from bioreason_tpu_torch.cli import train_sft
-    with pytest.raises(NotImplementedError):
-        train_sft.main(["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag])
+    argv = ["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", flag]
+    if flag == "--wandb":
+        with pytest.raises(NotImplementedError):
+            train_sft.main(argv)
+        return
+    out = train_sft.main(argv + ["--max_steps", "1", "--max_length_dna", "64",
+                                 "--checkpoint_dir", str(tmp_path)])
+    assert len(out.history) == 1 and math.isfinite(out.history[0]["loss"])
 
 
 def plant_nan(monkeypatch):
