@@ -120,16 +120,29 @@ def _spawned(rank: int, world: int, store: str, fn, args, queue) -> None:
         if rank == 0:               # what the caller reads of a trainer
             import types
             queue.put(types.SimpleNamespace(**{
-                k: getattr(out, k) for k in ("history", "metrics_history") if hasattr(out, k)}))
+                k: getattr(out, k) for k in ("history", "metrics_history", "test_result")
+                if hasattr(out, k)}))
     finally:
         dist.destroy_process_group()
+
+
+def check_cards(local_world: int, local_rank: int, cards: int) -> None:
+    """A launcher's ranks on this host against its CUDA cards: NCCL takes
+    one rank per card, so more ranks than cards (or a local rank past the
+    last card) raises, before any rank picks a card."""
+    if local_world > cards or local_rank >= cards:
+        raise RuntimeError(
+            f"the launcher started {local_world} ranks on this host (local rank {local_rank}) "
+            f"for {cards} CUDA card(s): NCCL takes one rank per card; start at most {cards} "
+            f"ranks per host, or spawn CPU ranks with --cpu_devices N --device cpu")
 
 
 def run_with_mesh(args, fn, wanted: bool = False):
     """fn(args, mesh) as the flags ask: `--cpu_devices N` spawns N gloo
     ranks on the CPU (returns rank 0's result, which must pickle); under a
     launcher (RANK / WORLD_SIZE set, e.g. torchrun) this process is one
-    rank, over NCCL on CUDA (gloo on the CPU); `--mesh` alone (or
+    rank, over NCCL on CUDA, one rank per card (`check_cards`), or gloo
+    on the CPU; `--mesh` alone (or
     `wanted`, e.g. sequence parallelism) makes a world of 1; otherwise
     fn(args, None)."""
     import os
@@ -167,7 +180,10 @@ def run_with_mesh(args, fn, wanted: bool = False):
     if own and "WORLD_SIZE" in os.environ:
         if device.type == "cuda":
             import torch
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            local_rank = int(os.environ.get("LOCAL_RANK", 0))
+            check_cards(int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"])),
+                        local_rank, torch.cuda.device_count())
+            torch.cuda.set_device(local_rank)
         dist.init_process_group(backend, init_method="env://")
         if dist.get_rank():
             _quiet(args)

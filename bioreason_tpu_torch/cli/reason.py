@@ -34,8 +34,13 @@ constrains every rollout to a regex (generate/guided.py); `--rollout_int8`
 rolls out with int8 base weights (train/grpo.py); the --save_every
 checkpoint is written off the training thread; --debug_nans raises
 FloatingPointError at the first op that makes a NaN (utils/debug_nans.py).
-The device mesh and wandb come with later slices: `main` refuses their
-flags.
+`--mesh d,f,m` / `--cpu_devices N` run GRPO as ranks of a mesh: the prompts
+split over data x fsdp, and model > 1 runs the rollouts, the logp passes
+and the update tensor-parallel (train/grpo.py), e.g. on the CPU:
+  python -m bioreason_tpu_torch.cli.reason --decoder tiny --encoder tiny \
+      --device cpu --cpu_devices 2 --mesh 1,1,2 --num_generations 2 \
+      --batch_size 4 --max_steps 2 --max_completion_length 16
+`--wandb` stays refused.
 """
 
 from __future__ import annotations

@@ -48,9 +48,11 @@ sampled generation; --test_generative scores the test split
 JAX CLI's rows (`train/<k>` every step, `val/loss`, `val/probe_<k>`, the
 test summary) to <log_dir>/metrics.jsonl; --debug_nans raises
 FloatingPointError at the first op that makes a NaN
-(utils/debug_nans.py). Sequence parallelism (`--sp_dna`, `--dna_attention
-sp`, `sp_pallas`, `sp_local:<W>`), the device mesh and wandb come with
-later slices: `main` refuses their flags.
+(utils/debug_nans.py). `--mesh d,f,m` / `--cpu_devices N` train as ranks
+of a mesh (parallel/; `--sp_dna` and the `sp*` attentions shard the DNA
+sequence over 'model'); there the eval flags run the generation engine and
+the probe on the trainer's shards, every rank on the whole eval batch, and
+rank 0 alone prints and writes. `--wandb` stays refused.
 """
 
 from __future__ import annotations
@@ -172,10 +174,6 @@ def parse_args(argv=None):
             impl.split(":", 1)[0] in ("local", "sp_local") and impl.split(":", 1)[-1].isdigit()):
         p.error(f"--dna_attention {impl!r}: expected xla, pallas, sp, sp_pallas, local:<W> "
                 f"or sp_local:<W>")
-    if (args.mesh is not None or args.cpu_devices) and (
-            args.test_generative or args.probe_markers or args.sample_every):
-        p.error("--test_generative, --probe_markers and --sample_every run the one-device "
-                "engine: not under --mesh / --cpu_devices")
     if args.hf_llm_dir and not (args.hf_dna_dir or args.evo2_dir or args.llm_only):
         p.error("--hf_llm_dir requires --hf_dna_dir or --evo2_dir (or --llm_only)")
     if (args.hf_dna_dir or args.evo2_dir) and not args.hf_llm_dir:
@@ -217,6 +215,7 @@ def _run(args, mesh=None):
     from bioreason_tpu_torch.data.chat_template import render_chat
     from bioreason_tpu_torch.data.collate import sft_collate
     from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.parallel.trainer import is_writer
     from bioreason_tpu_torch.train.checkpoint import TopKKeeper
     from bioreason_tpu_torch.train.dataflow import batch_iterator, prefetch
     from bioreason_tpu_torch.train.eval import (evaluate_generative,
@@ -289,7 +288,9 @@ def _run(args, mesh=None):
     keeper = (TopKKeeper(os.path.join(args.checkpoint_dir, "best"), k=args.keep_top_k)
               if args.keep_top_k else None)
     markers = json.loads(args.probe_markers) if args.probe_markers else None
-    engine = GenerationEngine(fusion_cfg, eos_token_id=tok.eos_token_id, device=device)
+    # under a mesh the engine runs on the trainer's shards (generate/engine.py)
+    engine = GenerationEngine(fusion_cfg, eos_token_id=tok.eos_token_id, device=device,
+                              run=trainer.run)
 
     collate = functools.partial(sft_collate, processor=proc,
                                 max_length_text=args.max_length_text,
@@ -335,10 +336,12 @@ def _run(args, mesh=None):
                         if save_best(val_loss, step):
                             last_kept = val_loss
                 if markers:
-                    probe = teacher_forced_probe(
-                        trainer.model, fusion_cfg, proc, val_items[:args.probe_n], markers,
-                        batch_size=args.batch_size, max_length_text=args.max_length_text,
-                        max_length_dna=args.max_length_dna, supervise_eos=args.supervise_eos)
+                    with trainer.inference_scope():
+                        probe = teacher_forced_probe(
+                            trainer.model, fusion_cfg, proc, val_items[:args.probe_n], markers,
+                            batch_size=args.batch_size, max_length_text=args.max_length_text,
+                            max_length_dna=args.max_length_dna,
+                            supervise_eos=args.supervise_eos)
                     logger.log({f"val/probe_{k}": v for k, v in probe.items()}, step=step)
                     metrics.update({f"probe_{k}": v for k, v in probe.items()})
                     accs = [v for k, v in probe.items() if k != "span_acc"]
@@ -387,7 +390,8 @@ def _run(args, mesh=None):
             sampling=SamplingConfig(max_new_tokens=args.max_new_tokens),
             max_new_tokens=args.max_new_tokens, batch_size=args.batch_size,
             generator=torch.Generator(device=device).manual_seed(args.seed),
-            csv_path=os.path.join(args.checkpoint_dir, "test_generations.csv"),
+            csv_path=(os.path.join(args.checkpoint_dir, "test_generations.csv")
+                      if is_writer() else None),
             max_length_text=args.max_length_text, max_length_dna=args.max_length_dna)
         trainer.test_result = res
         summary = {**res.summary(),

@@ -21,12 +21,26 @@ after, frozen once the row has finished. With `kv_int8` the cache is int8
 with per-(token, head) scales: the prefill writes it and attends over its
 own float K/V (flash_fwd on the card), decode steps read it with the scales
 on the logits and probabilities; grouped, both the shared prompt cache and
-the per-completion decode cache are int8. The device mesh comes with a
-later slice.
+the per-completion decode cache are int8.
+
+Under a mesh (`run`, a `parallel.trainer.MeshRun`) the engine is one rank
+of it and runs on the model as the run shards it: the fsdp pieces are
+gathered for the call (`MeshRun.scope`), the decoder's tensor-parallel
+layers stay on this rank's heads, so the prefill, the ungrouped and the
+grouped decode all run on Hq/m and Hkv/m heads with caches of Hkv/m heads
+(`partition.local_heads`; every head where they do not divide), and the
+encoder, the projection, the embedding and the head stay replicated. The
+rows are the caller's: a trainer gives each rank its rows of data x fsdp,
+and the model ranks of one data index give the same rows. Every model rank
+samples from its own generator (the model ranks of one data index seed
+theirs alike, so they stay in step), then takes model rank 0's ids, one
+broadcast of [B] ids over 'model' per step: the ranks' tokens are equal
+without relying on bitwise-equal logits after the all-reduce.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -41,15 +55,24 @@ from bioreason_tpu_torch.models.fusion import FusionModel, fused_input_embedding
 from bioreason_tpu_torch.models.qwen3 import (decoder_decode_step_grouped, decoder_forward,
                                               init_cache)
 from bioreason_tpu_torch.ops.sampling import completion_mask_from_eos, sample_logits
+from bioreason_tpu_torch.parallel import comm
+from bioreason_tpu_torch.parallel.partition import local_heads
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
 
 class GenerationEngine:
     def __init__(self, fusion_cfg: FusionConfig, eos_token_id: int,
-                 pad_token_id: Optional[int] = None, device=None, kv_int8: bool = False):
+                 pad_token_id: Optional[int] = None, device=None, kv_int8: bool = False,
+                 run=None):
         """Runs on `device`: CUDA unless the caller passes "cpu". `kv_int8`:
         store the KV cache int8 with per-(token, head) scales (JAX
-        engine.py:37-50)."""
+        engine.py:37-50). `run`: generate as one rank of its mesh, on the
+        model's shards (module docstring); None: one device."""
+        if run is not None and run.pp:
+            raise ValueError("the engine does not run on GPipe stages: a rank holds only "
+                             "its stage's layers")
+        self.run = run
+        self.kv_heads = local_heads(fusion_cfg.decoder, run)[1]
         self.cfg = fusion_cfg
         self.kv_int8 = kv_int8
         self.eos_token_id = eos_token_id
@@ -65,6 +88,11 @@ class GenerationEngine:
             return None
         return torch.as_tensor(arr, device=self.device)
 
+    def _scope(self, model: FusionModel):
+        """Under a run, `MeshRun.scope_unsplit` over `model`: each rank's
+        rows are its own."""
+        return contextlib.nullcontext() if self.run is None else self.run.scope_unsplit(model)
+
     @torch.inference_mode()
     def prefill(self, model: FusionModel, input_ids, attention_mask,
                 dna_input_ids=None, dna_attention_mask=None, max_new_tokens: int = 0
@@ -75,12 +103,18 @@ class GenerationEngine:
         the cache mask [B, P + max_new_tokens] with the prompt's slots set).
         Prompts are LEFT-padded, so the last column is every row's last real
         token (engine.py:96-97)."""
+        with self._scope(model):
+            return self._prefill(model, input_ids, attention_mask, dna_input_ids,
+                                 dna_attention_mask, max_new_tokens)
+
+    def _prefill(self, model, input_ids, attention_mask, dna_input_ids, dna_attention_mask,
+                 max_new_tokens):
         cfg = self.cfg.decoder
         b, p = input_ids.shape
         embeds = fused_input_embeddings(model, self.cfg, input_ids,
                                         dna_input_ids, dna_attention_mask)
         cache = init_cache(cfg, b, p + max_new_tokens, torch_dtype(cfg.dtype), self.device,
-                           quantize=self.kv_int8)
+                           quantize=self.kv_int8, num_kv_heads=self.kv_heads)
         cache_mask = F.pad(attention_mask.to(torch.int32), (0, max_new_tokens))
         hidden, cache = decoder_forward(
             model.decoder, cfg, inputs_embeds=embeds, attention_mask=attention_mask,
@@ -104,7 +138,17 @@ class GenerationEngine:
 
         `guided`: regex-constrained decoding (engine.py:123-146); every
         completion matches the pattern, or is a prefix of a match where
-        max_new_tokens ends it first. Its tables must be on this device."""
+        max_new_tokens ends it first. Its tables must be on this device.
+
+        Under a run every model rank returns model rank 0's ids (module
+        docstring)."""
+        with self._scope(model):
+            return self._generate(model, input_ids, attention_mask, dna_input_ids,
+                                  dna_attention_mask, sampling, max_new_tokens, greedy,
+                                  generator, group_size, guided)
+
+    def _generate(self, model, input_ids, attention_mask, dna_input_ids, dna_attention_mask,
+                  sampling, max_new_tokens, greedy, generator, group_size, guided):
         mnt = max_new_tokens if max_new_tokens is not None else sampling.max_new_tokens
         cfg = self.cfg.decoder
         input_ids, attention_mask = self._put(input_ids), self._put(attention_mask)
@@ -121,8 +165,9 @@ class GenerationEngine:
             bad.add_((~torch.isfinite(logits).all(-1)).sum())
             if guided is not None:
                 logits = G.mask_logits(logits, gstate, guided)
-            return sample_logits(logits, sampling.temperature, sampling.top_k,
-                                 sampling.top_p, greedy, generator)
+            tok = sample_logits(logits, sampling.temperature, sampling.top_k,
+                                sampling.top_p, greedy, generator)
+            return tok if self.run is None else comm.broadcast(tok, self.run.topo.model, 0)
 
         def advance(tok, done_prev=None):
             """The rows' next DFA states; frozen where `done_prev`."""
@@ -134,7 +179,7 @@ class GenerationEngine:
         t0 = time.perf_counter()
         # grouped: the prompt cache holds the P prompt slots only; the decode
         # slots live per completion in `dec_cache`
-        last_logits, cache, cache_mask = self.prefill(
+        last_logits, cache, cache_mask = self._prefill(
             model, input_ids, attention_mask, dna_input_ids, dna_attention_mask,
             0 if grouped else mnt)
         prompt_lens = attention_mask.sum(-1)
@@ -142,7 +187,7 @@ class GenerationEngine:
             last_logits = last_logits.repeat_interleave(group_size, dim=0)
             prompt_lens = prompt_lens.repeat_interleave(group_size)
             dec_cache = init_cache(cfg, bg, mnt, torch_dtype(cfg.dtype), self.device,
-                                   quantize=self.kv_int8)
+                                   quantize=self.kv_int8, num_kv_heads=self.kv_heads)
             dec_mask = torch.zeros((bg, mnt), dtype=torch.int32, device=self.device)
         out = torch.full((bg, mnt), self.pad_token_id, dtype=torch.int64, device=self.device)
         tok = sample(last_logits)

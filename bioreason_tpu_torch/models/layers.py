@@ -240,9 +240,11 @@ def tp_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
     holds this rank's output rows; x's gradient is summed over the axis
     (`comm.copy_to`) on the weight's path and on the adapter's, whose
     [.., r] intermediate is replicated. Rowwise: x holds this rank's input
-    columns; the product and the adapter's intermediate are summed over the
-    axis (`comm.reduce_from`) before the replicated `lora_b`. Float weights
-    without bias, as the decoder's."""
+    columns; the partial product and the adapter's partial intermediate
+    come out of the products in fp32 and are summed over the axis in one
+    `comm.reduce_from` before their one rounding to `dtype`, as one
+    device's product accumulates in fp32 and rounds once; then the
+    replicated `lora_b`. Float weights without bias, as the decoder's."""
     from bioreason_tpu_torch.parallel import comm
     kind, axis = lin.tp
     if is_int8(lin) or lin.bias is not None:
@@ -254,11 +256,34 @@ def tp_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
             u = comm.copy_to(xl @ lin.lora_a.to(dtype), axis)
             y = y + (u @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
         return y
-    y = comm.reduce_from(F.linear(x, lin.weight.to(dtype)), axis)
+    lead, n = x.shape[:-1], lin.out_features
+    parts = [MmF32.apply(x.reshape(-1, x.shape[-1]), lin.weight.to(dtype).t())]
     if has_adapter(lin):
-        u = comm.reduce_from(xl @ lin.lora_a.to(dtype), axis)
+        parts.append(MmF32.apply(xl.reshape(-1, xl.shape[-1]), lin.lora_a.to(dtype)))
+    summed = comm.reduce_from(torch.cat(parts, -1) if len(parts) > 1 else parts[0], axis)
+    y = summed[:, :n].to(dtype).reshape(*lead, n)
+    if has_adapter(lin):
+        u = summed[:, n:].to(dtype).reshape(*lead, -1)
         y = y + (u @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
     return y
+
+
+class MmF32(torch.autograd.Function):
+    """`mm_f32` (a @ b accumulated and returned in fp32), differentiable:
+    the gradient is cast to the operands' dtype for its two products, as it
+    reaches a product whose output is in that dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ b.t() if ctx.needs_input_grad[0] else None,
+                a.t() @ g if ctx.needs_input_grad[1] else None)
 
 
 def add_adapter(lin: nn.Module, a: torch.Tensor, b: torch.Tensor, scale: float,

@@ -75,11 +75,15 @@ class Qwen3Decoder(nn.Module):
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None, quantize: bool = False) -> List[Dict[str, torch.Tensor]]:
+               device=None, quantize: bool = False,
+               num_kv_heads: Optional[int] = None) -> List[Dict[str, torch.Tensor]]:
     """Per-layer KV cache: a list of {k, v} [B, S, Hkv, D] zero buffers;
     `quantize` stores them int8 beside fp32 `k_scale` / `v_scale`
-    [B, S, Hkv, 1] (JAX qwen3.py:66-88)."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    [B, S, Hkv, 1] (JAX qwen3.py:66-88). `num_kv_heads`: the heads this
+    rank holds (Hkv/m on a tensor-parallel rank, `partition.local_heads`);
+    default all of cfg's."""
+    hkv = cfg.num_kv_heads if num_kv_heads is None else num_kv_heads
+    shape = (batch, max_len, hkv, cfg.head_dim)
     if quantize:
         sshape = shape[:-1] + (1,)
         return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -326,9 +330,10 @@ def decoder_decode_step_grouped(dec: Qwen3Decoder, cfg: DecoderConfig,
     for lp, pe, de in zip(dec.layers, prompt_cache, dec_cache):
         x = L.rmsnorm(lp.ln1, h, cfg.rms_norm_eps)
         q, k, v = L.qkv_proj(lp.attn, x, dtype)
-        q = q.reshape(bg, t, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(bg, t, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(bg, t, cfg.num_kv_heads, cfg.head_dim)
+        # heads from the widths, as `_layer_forward` reads them
+        q = q.reshape(bg, t, -1, cfg.head_dim)
+        k = k.reshape(bg, t, -1, cfg.head_dim)
+        v = v.reshape(bg, t, -1, cfg.head_dim)
         q = L.rmsnorm(lp.attn.q_norm, q, cfg.rms_norm_eps)
         k = L.rmsnorm(lp.attn.k_norm, k, cfg.rms_norm_eps)
         q = L.apply_rope(q, positions, cfg.rope_theta)

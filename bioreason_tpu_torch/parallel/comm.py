@@ -54,6 +54,12 @@ class Axis:
     index: int
     ranks: Tuple[int, ...]
 
+    def __deepcopy__(self, memo):
+        # a handle on the process's groups (which do not copy): a copied
+        # module tree (GRPO's reference policy) keeps its tensor-parallel
+        # markers on the same axis
+        return self
+
 
 def _staged(axis: Axis, t: torch.Tensor, op: str) -> bool:
     return (t.is_cuda and op in GLOO_CUDA_STAGED

@@ -193,6 +193,18 @@ def _tp_ok(cfg, name: str, m: int) -> bool:
     return False
 
 
+def local_heads(cfg, run=None) -> Tuple[int, int]:
+    """(Hq, Hkv) of the decoder's attention on this rank of `run` (a
+    `trainer.MeshRun`, or None for one device): Hq/m and Hkv/m under
+    tensor parallelism, every head where the heads do not divide over the
+    m model ranks (`_tp_ok` leaves the attention replicated) or the model
+    axis holds pipeline stages."""
+    m = 1 if run is None or run.pp else run.topo.model.size
+    if m > 1 and _tp_ok(cfg, ".attn.", m):
+        return cfg.num_heads // m, cfg.num_kv_heads // m
+    return cfg.num_heads, cfg.num_kv_heads
+
+
 class ShardPlan:
     """How one rank stores and runs a model under a mesh (`topology`);
     `apply` is the counterpart of JAX's `shard_params`.

@@ -6,7 +6,9 @@ trainers' sharded steps, written out (GSPMD derives them in JAX).
     applied to the model when the run is made;
   * `scope()`: the context of a forward: the fsdp-sharded parameters
     gathered, and the sequence (`sp.sequence_sharding`) and pipeline
-    (`pp.pipeline_sharding`) scopes when the trainer asked for them;
+    (`pp.pipeline_sharding`) scopes when the trainer asked for them; the
+    tensor-parallel shards stay as they are (the generation engine runs
+    on them too, `generate/engine.py`);
   * `rows(x)`: this rank's rows of a global host batch (the batch splits
     over data x fsdp, JAX's `batch_spec`).
 
@@ -57,16 +59,25 @@ class MeshRun:
     def last_stage(self) -> bool:
         return not self.pp or self.topo.model.index == self.topo.model.size - 1
 
-    def scope(self):
+    def scope(self, model: Optional[torch.nn.Module] = None):
+        """The context of a forward of `model` (default: the run's own; any
+        tree that holds its pieces under the same names, such as GRPO's
+        reference policy)."""
         from bioreason_tpu_torch.parallel.pp import pipeline_sharding
         from bioreason_tpu_torch.parallel.sp import sequence_sharding
         stack = contextlib.ExitStack()
-        stack.enter_context(self.plan.gathered(self.model))
+        stack.enter_context(self.plan.gathered(self.model if model is None else model))
         stack.enter_context(sequence_sharding(self.topo.model if self.sp else None))
         stack.enter_context(pipeline_sharding(
             self.topo.model if self.pp else None, self.pp_micro, self.dp.size,
             self.plan.stage_layers))
         return stack
+
+    def scope_unsplit(self, model: Optional[torch.nn.Module] = None):
+        """`scope` for rows that every rank holds whole (a rollout, an eval
+        batch), not split over dp: the MoE counts its capacity per rank."""
+        self.split_rows(False)
+        return self.scope(model)
 
     def rows(self, x):
         """This rank's contiguous 1/dp of the leading dim (a host array or a

@@ -1,5 +1,6 @@
 """GRPO trainer: grouped rollouts + the group-normalized clipped-surrogate
-loss (the port of bioreason_tpu/train/grpo.py, on one device: no mesh).
+loss (the port of bioreason_tpu/train/grpo.py; on one device, or as one
+rank of a mesh: `GRPOTrainer(mesh=)`).
 
 One `step` is:
   rollout   - the prompts of `items` (each repeated G times contiguously,
@@ -119,12 +120,17 @@ class GRPOTrainer:
         or `weights.from_jax_params`); default: drawn from `cfg.seed`.
         Adapters are attached unless the model carries some already. Runs
         on `device` (CUDA unless "cpu"); sampling draws come from a
-        generator seeded with `cfg.seed`. `mesh`: data parallelism over its
-        'data' and 'fsdp' axes (model 1): each rank rolls out, scores and
-        updates its share of the prompts, each prompt's G completions on
-        one rank, with ZeRO-2 moments; 'fsdp' also shards the parameters,
-        gathered for each rollout, logp pass and update; rank r draws from
-        cfg.seed + r."""
+        generator seeded with `cfg.seed`. `mesh`: one rank of it
+        (parallel/trainer.py). The prompts split over 'data' x 'fsdp': each
+        dp index rolls out, scores and updates its share, each prompt's G
+        completions on one index, with ZeRO-2 moments; 'fsdp' also shards
+        the parameters, gathered for each rollout, logp pass and update;
+        'model' > 1 is Megatron tensor parallelism of the decoder's layers,
+        whose shards stay on their ranks through the rollout (the engine's
+        caches hold Hkv/m heads), the logp passes and the update, while the
+        model ranks of one dp index take the same rows. Dp index i draws
+        from cfg.seed + i, so the model ranks of one index share their
+        draws."""
         if cfg.batch_size % cfg.num_generations:
             raise ValueError(f"batch {cfg.batch_size} not divisible by G={cfg.num_generations}"
                              " (reference grpo_trainer.py:429-446)")
@@ -170,11 +176,10 @@ class GRPOTrainer:
         else:
             from bioreason_tpu_torch.parallel.trainer import DistAdamW, MeshRun
             _, fsdp, tp = mesh.mesh.shape
-            if tp != 1:
-                raise ValueError("GRPO shards over 'data' and 'fsdp' only: its rollouts' KV "
-                                 "caches hold every head (mesh model must be 1)")
-            if fsdp > 1 and (cfg.rollout_int8 or cfg.frozen_dtype == "int8"):
-                raise ValueError("int8 weights and rollouts shard over 'data' only")
+            if (fsdp > 1 or tp > 1) and (cfg.rollout_int8 or cfg.frozen_dtype == "int8"):
+                # tensor parallelism takes float linears (layers.tp_dense)
+                raise ValueError("int8 weights and rollouts shard over 'data' only (int8 "
+                                 "under 'fsdp' or 'model' is open in ROADMAP.md, queue 1)")
             self.run = MeshRun(mesh, model, fusion_cfg.decoder)
             self.run.split_rows(True)
             self.params = [p for p in model.parameters() if p.requires_grad]
@@ -183,7 +188,8 @@ class GRPOTrainer:
         rank_seed = 0 if self.run is None else self.run.dp.index
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + rank_seed)
         self.engine = GenerationEngine(fusion_cfg, processor.text_tokenizer.eos_token_id,
-                                       device=self.device, kv_int8=cfg.rollout_kv_int8)
+                                       device=self.device, kv_int8=cfg.rollout_kv_int8,
+                                       run=self.run)
         # the int8 rollout policy (`rollout_model`), built at the first rollout
         self._rollout: Optional[FusionModel] = None
         # the vLLM guided-decoding knob (grpo_config.py:278-280): compiled once,
@@ -268,7 +274,8 @@ class GRPOTrainer:
 
     def _gathered(self, model: FusionModel):
         """Under an fsdp mesh, `model` (the policy or its reference) with its
-        sharded parameters gathered for the dynamic extent."""
+        fsdp-sharded parameters gathered for the dynamic extent; the
+        tensor-parallel shards stay as they are."""
         return contextlib.nullcontext() if self.run is None else self.run.plan.gathered(model)
 
     def _prepare_prompts(self, items: Sequence[Dict[str, Any]]):
@@ -362,17 +369,14 @@ class GRPOTrainer:
             t1 = clk()
             tm["prep"] = tm.get("prep", 0.0) + (t1 - t0)
             t0 = t1
-        if self.run is not None:
-            # the rollout's calls differ in count between ranks (EOS): its
-            # MoE capacity stays per rank; the logp passes count every rank
-            self.run.split_rows(False)
-        policy = self.rollout_model()
-        with self._gathered(policy):
-            completion_ids, completion_mask = self.engine.generate(
-                policy, out.input_ids, out.attention_mask, out.dna_input_ids,
-                out.dna_attention_mask, sampling=cfg.sampling,
-                max_new_tokens=cfg.max_completion_length, generator=self.generator,
-                group_size=g, guided=self.guided)
+        # under a mesh the engine runs on the run's shards, its MoE capacity
+        # per rank (the rollout's calls differ in count between ranks at
+        # EOS); the logp passes count every rank's rows
+        completion_ids, completion_mask = self.engine.generate(
+            self.rollout_model(), out.input_ids, out.attention_mask, out.dna_input_ids,
+            out.dna_attention_mask, sampling=cfg.sampling,
+            max_new_tokens=cfg.max_completion_length, generator=self.generator,
+            group_size=g, guided=self.guided)
         nonfinite = self.engine.last_stats["nonfinite_rows"]
         if self.run is not None:
             self.run.split_rows(True)

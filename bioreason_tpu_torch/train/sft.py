@@ -130,6 +130,11 @@ class SFTTrainer:
         sequence axis)."""
         return contextlib.nullcontext() if self.run is None else self.run.scope()
 
+    def inference_scope(self):
+        """The context of a forward of a batch that every rank holds whole
+        (the CLI's probe): under a mesh `MeshRun.scope_unsplit`."""
+        return contextlib.nullcontext() if self.run is None else self.run.scope_unsplit()
+
     def _loss(self, db: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
         """The batch's loss; under a mesh this rank's share of the global
         batch's, inside `_scope`."""

@@ -377,6 +377,26 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               collectives and SFTTrainer(mesh=) beside the one-device
               trainer at bench.py's shape; (23) the rigged-reward GRPO
               check through flash_fwd / flash_bwd (late > 1.5x early).
+ 24. tp       generation and GRPO under the mesh's 'model' axis: two
+              processes on the card over gloo in a mesh (1, 1, 2), the
+              decoder's layers split over them (8/4 heads of 128 a rank),
+              phase 8's configuration from seed 0, rank 0 holding the
+              one-device model beside: (a) 8 prompts, greedy, 32 new tokens:
+              the first tokens equal one device's, every (row, step) logit
+              row teacher-forced on one device's stream at cosine >=
+              CONT_STEP_COS, each rank's caches exactly half one device's
+              bytes, 29 + 28 flash_fwd per engine call with the decoder's
+              at the rank's heads; (b) the same on the grouped rollout (4
+              prompts x G = 4, 16 new tokens); (c) GRPOTrainer(mesh=) for
+              1 + 2 timed steps: the ranks' sampled rollouts equal, finite
+              losses, kl and rewards, the LoRA B leaves
+              moved, flash_fwd and flash_bwd launched exactly as phase 8
+              counts on each rank at its heads, step ms per rank against one
+              device, one update on the last rollout buffer against one
+              device (loss within MESH_LOSS_RTOL, LoRA gradients cosine >=
+              SP_COS); (d) flash_fwd / flash_bwd at a rank's grouped prefill
+              [4,P,8/4,128] against their plain versions. A hang guard of
+              TP_HANG_S.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -2035,7 +2055,7 @@ def phase_grpo(torch, card, sft_final):
     torch.cuda.empty_cache()
     log(f"grpo: phase done in {time.perf_counter() - t_phase:.1f} s (trainer part "
         f"{secs_trainer:.1f} s)")
-    return got, rows, bwd_rows
+    return got, rows, bwd_rows, dt / steps * 1e3
 
 
 # -- phase 9 -----------------------------------------------------------------
@@ -6076,6 +6096,357 @@ def phase_grpo_learns(torch, card):
     return {"early": early, "late": late, "launches": got, "seconds": dt}
 
 
+# -- phase 24: generation and GRPO under the 'model' axis ------------------------
+#
+# Two processes share the card over gloo as phases 21-22 do, in a mesh
+# (1, 1, 2): the decoder's layers split their heads and MLP rows over the two
+# ranks, the engine's caches hold Hkv/2 heads, and GRPO rolls out, scores and
+# updates on those shards. Rank 0 also holds the one-device model from the
+# same seed and compares; rank 1 waits at a barrier meanwhile.
+
+TP_PROMPTS, TP_NEW = 8, 32           # (a): 8 prompts, greedy, 32 new tokens
+TP_GRPO_STEPS = 2                    # (c): timed, after 1 warm-up
+TP_HANG_S = 600
+
+
+def _tp_record_shapes():
+    """Count flash_fwd / flash_bwd launches in this process by their
+    (B, Tq, Tk, Hq, Hkv, D), read from the arguments the wrappers hand the
+    kernels (the counts the wrappers keep are unchanged)."""
+    from bioreason_tpu_torch.ops import flash_attention as fa
+    seen = {"flash_fwd": {}, "flash_bwd": {}}
+    real = fa.kernel_fn
+
+    def kernel_fn(entry):
+        fn = real(entry)
+        if entry not in seen:
+            return fn
+        lo = 6 if entry == "flash_fwd" else 13
+
+        def call(*a):
+            key = tuple(int(x) for x in a[lo:lo + 6])
+            seen[entry][key] = seen[entry].get(key, 0) + 1
+            return fn(*a)
+        return call
+    fa.kernel_fn = kernel_fn
+    return seen
+
+
+def _tp_engine_call(torch, engine, model, out, seen, group, new, forced=None, **kw):
+    """One engine call: the ids, every logit row it sampled from (fp32 on
+    the card), the bytes of the caches it made, flash_fwd's launches and
+    their shapes, and its ms. `forced` [B*G, new] replaces each step's
+    sampled ids (teacher forcing on a given stream)."""
+    from bioreason_tpu_torch.generate import engine as E
+    rows, nbytes = [], [0]
+    real_sample, real_init = E.sample_logits, E.init_cache
+
+    def sample(logits, *a, **k):
+        tok = real_sample(logits, *a, **k)
+        step = len(rows)
+        rows.append(logits.float().clone())
+        return tok if forced is None else forced[:, step].to(tok.dtype)
+
+    def init(*a, **k):
+        cache = real_init(*a, **k)
+        nbytes[0] += sum(t.numel() * t.element_size() for e in cache for t in e.values())
+        return cache
+    E.sample_logits, E.init_cache = sample, init
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        for d in seen.values():
+            d.clear()
+        t0 = time.perf_counter()
+        ids, _ = engine.generate(model, out.input_ids, out.attention_mask, out.dna_input_ids,
+                                 out.dna_attention_mask, max_new_tokens=new,
+                                 group_size=group, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        E.sample_logits, E.init_cache = real_sample, real_init
+    return {"ids": ids, "rows": rows, "cache_bytes": nbytes[0], "ms": ms,
+            "launches": counts()["flash_fwd"], "shapes": dict(seen["flash_fwd"])}
+
+
+def _tp_cos_floor(torch, got, want):
+    """The lowest cosine over (step, row) of two lists of [B, V] logits."""
+    a, b = torch.stack(got), torch.stack(want)
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+
+
+def _tp_engine_checks(torch, dist, axis, tp, one, out, seen, group, new, label):
+    """(a) / (b) on one rank: the one-device greedy call (rank 0), then the
+    tensor-parallel call teacher-forced on its stream (broadcast to rank 1),
+    whose first logit rows give the ranks' first greedy tokens."""
+    res = {}
+    ref = [None]
+    if axis.index == 0:
+        r1 = _tp_engine_call(torch, one.engine, one.model, out, seen, group, new, greedy=True)
+        ref = [r1["ids"]]
+        res.update(one_ms=r1["ms"], one_cache_bytes=r1["cache_bytes"],
+                   one_launches=r1["launches"])
+    dist.barrier()
+    dist.broadcast_object_list(ref, src=0)
+    forced = torch.as_tensor(ref[0], device="cuda")
+    tf = _tp_engine_call(torch, tp.engine, tp.model, out, seen, group, new, forced=forced,
+                         greedy=True)
+    res.update(ms=tf["ms"], cache_bytes=tf["cache_bytes"], launches=tf["launches"],
+               shapes=tf["shapes"], first=tf["rows"][0].argmax(-1).cpu().numpy())
+    if axis.index == 0:
+        res["cos"] = _tp_cos_floor(torch, tf["rows"], r1["rows"])
+        res["one_first"] = r1["ids"][:, 0]
+        gap = r1["rows"][0].topk(2, dim=-1).values
+        res["one_top2_gap"] = float((gap[:, 0] - gap[:, 1]).min())
+    log(f"tp ({label}) rank {axis.index}: engine call {tf['ms']:.1f} ms "
+        f"(one device {res.get('one_ms', float('nan')):.1f}), cache {tf['cache_bytes']} B, "
+        f"flash_fwd {tf['launches']} at {tf['shapes']}")
+    return res
+
+
+def _tp_rank(torch, mesh, axis, one_step_ms):
+    """Phase 24 on one rank (module note above the constants). Rank 0 times
+    the one-device trainer's steps unless `one_step_ms` (phase 8's, the same
+    configuration in this run) is given."""
+    import torch.distributed as dist
+    from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only, synthetic_kegg_items
+    from bioreason_tpu_torch.train.grpo import GRPOTrainer
+    from bioreason_tpu_torch.train.rewards import get_reward_funcs
+    seen = _tp_record_shapes()
+    cfg, gcfg, proc, items = grpo_setup()
+    rewards = get_reward_funcs(["xmlcount", "correctness"]) + [acgt_share_reward]
+    t_rank = time.perf_counter()
+    tp = GRPOTrainer(cfg, gcfg, proc, rewards, mesh=mesh)
+    one = GRPOTrainer(cfg, gcfg, proc, rewards) if axis.index == 0 else None
+    parts = {}
+    res = {"parts": parts}
+
+    def part(name):
+        """Seconds since the previous part."""
+        torch.cuda.synchronize()
+        parts[name] = round(time.perf_counter() - t_rank - sum(parts.values()), 1)
+    part("build")
+    # (a) 8 prompts, greedy, ungrouped
+    served = [format_kegg_prompt_only(it)
+              for it in synthetic_kegg_items(TP_PROMPTS, seq_len=600, seed=1)]
+    out_a, _ = tp._prepare_prompts(served)
+    res["a"] = _tp_engine_checks(torch, dist, axis, tp, one, out_a, seen, 1, TP_NEW, "a")
+    part("a")
+    # (b) the grouped rollout at GRPO's shape, greedy
+    out_b, _ = tp._prepare_prompts(items[::GRPO_G])
+    res["b"] = _tp_engine_checks(torch, dist, axis, tp, one, out_b, seen, GRPO_G, GRPO_NEW,
+                                 "b")
+    res["b"]["prompt_mask"] = np.asarray(out_b.attention_mask)
+    part("b")
+    # (c) GRPOTrainer(mesh): 1 warm-up + TP_GRPO_STEPS timed steps
+    b0 = {k: v.clone() for k, v in tp.trainable_state().items() if k.endswith("lora_b")}
+    hist = [tp.step(items)]
+    part("c_warmup")
+    reset_counts()
+    for d in seen.values():
+        d.clear()
+    t0 = time.perf_counter()
+    completions = []
+    for _ in range(TP_GRPO_STEPS):
+        hist.append(tp.step(items))
+        completions.append(list(tp.last_completions))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TP_GRPO_STEPS
+    got = counts()
+    shapes = {k: dict(v) for k, v in seen.items()}
+    state = tp.trainable_state()                 # whole, gathered from both ranks
+    moved = [k for k, v in b0.items() if not torch.equal(state[k], v)]
+    res["c"] = {"hist": hist, "step_ms": step_ms, "launches": got, "shapes": shapes,
+                "moved": len(moved), "n_b": len(b0), "completions": completions}
+    # one update on the last rollout buffer: loss and the whole gradients
+    buf = tp._buffers[0]
+    loss, _, _ = tp._loss(buf["batch"], buf["completion_len"])
+    grads = torch.autograd.grad(loss, tp.params, allow_unused=True)
+    whole = {n: tp.run.plan.unshard(n, torch.zeros_like(p) if g is None else g)
+             for n, p, g in zip(tp.names, tp.params, grads) if "lora_" in n}
+    res["c"]["update_loss"] = float(loss.detach())
+    part("c_steps_update")
+    log(f"tp (c) rank {axis.index}: GRPO step {step_ms:.1f} ms over {TP_GRPO_STEPS} steps; "
+        f"launches {got}; shapes {shapes}")
+    del grads
+    dist.barrier()
+    if axis.index == 0:
+        with torch.no_grad():
+            for n, p in zip(one.names, one.params):
+                p.copy_(state[n].to(p.device, p.dtype))
+        ref_loss, _, _ = one._loss(buf["batch"], buf["completion_len"])
+        ref_grads = dict(zip(one.names, torch.autograd.grad(ref_loss, one.params,
+                                                            allow_unused=True)))
+        names = sorted(whole)
+        flat = lambda d: torch.cat([(torch.zeros_like(whole[n]) if d[n] is None else d[n])
+                                    .float().flatten() for n in names])
+        a, b = flat(whole), flat(ref_grads)
+        # the loss is -mean(advantage) (0 per group by construction; the ratio
+        # is exactly 1) + beta * kl: its error is held against the size of the
+        # terms that cancel in it
+        res["c"].update(ref_loss=float(ref_loss.detach()), cos=_cos(torch, a, b),
+                        rel_l2=float((a - b).norm() / b.norm()), n_lora=len(names),
+                        loss_scale=float(buf["batch"]["advantages"].abs().mean()))
+        part("c_one_device_update")
+        del ref_grads, a, b
+        res["c"]["one_step_ms"] = one_step_ms
+        if one_step_ms is None:
+            # warm already: its engine, model and kernels ran in (a), (b), above
+            t0 = time.perf_counter()
+            for _ in range(TP_GRPO_STEPS):
+                one.step(items)
+            torch.cuda.synchronize()
+            res["c"]["one_step_ms"] = (time.perf_counter() - t0) * 1e3 / TP_GRPO_STEPS
+            part("c_one_device_steps")
+    del whole, one, tp, buf
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_world(rank, world, store, queue, one_step_ms):
+    """One of the two processes of phase 24: rank `rank` on cuda:0."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        from bioreason_tpu_torch.config import MeshConfig
+        from bioreason_tpu_torch.parallel.mesh import make_mesh, topology
+        mesh = make_mesh(MeshConfig(data=1, fsdp=1, model=world), device="cuda")
+        t0 = time.perf_counter()
+        out = _tp_rank(torch, mesh, topology(mesh).model, one_step_ms)
+        out["seconds"] = round(time.perf_counter() - t0, 1)
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        import traceback
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def tp_kernel_cases(torch, prompt_mask, hq, hkv, d):
+    """(24d) flash_fwd and flash_bwd at a tensor-parallel rank's grouped
+    prefill: [B_u, P, Hq/2, D] over Hkv/2, causal, the prompts' left pads."""
+    bu, p = prompt_mask.shape
+    name = f"tp_rank_prefill_P{p}_H{hq}_{hkv}"
+    return ([kernel_case(torch, name, bu, p, p, hq, hkv, d, True, 0, prompt_mask, 51)],
+            [bwd_case(torch, name, bu, p, p, hq, hkv, d, True, 0, prompt_mask, 52)])
+
+
+def phase_tp(torch, card, one_step_ms=None):
+    """(24) Generation and GRPO under the mesh's 'model' axis: two ranks in
+    two processes on the card over gloo, mesh (1, 1, 2), Qwen3-0.6B +
+    NT-v2-500M in bf16 from seed 0 at phase 8's GRPO configuration; each
+    check against rank 0's one-device model (module note above), the step
+    time against `one_step_ms` (phase 8's; else rank 0 times its own)."""
+    import multiprocessing as mp
+    t_phase = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = _store("tp")
+    procs = [ctx.Process(target=_tp_world, args=(r, 2, store, queue, one_step_ms))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = [None, None]
+    try:
+        while None in results:
+            try:
+                rank, out, err = queue.get(timeout=5)
+            except Exception:                    # queue.Empty: is every rank alive?
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() - t_phase > TP_HANG_S:
+                    fail(f"the tensor-parallel world died or hung (exit codes "
+                         f"{[p.exitcode for p in procs]}; its stderr is above)")
+                continue
+            if err is not None:
+                fail(f"rank {rank} of the tensor-parallel world raised:\n{err}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    r0, r1 = results
+    cfg = grpo_setup()[0]
+    hq, hkv = cfg.decoder.num_heads // 2, cfg.decoder.num_kv_heads // 2
+    per_call = ENCODER_LAYERS + DECODER_LAYERS
+    # (a), (b)
+    for part, label in (("a", f"{TP_PROMPTS} prompts, greedy, {TP_NEW} new tokens"),
+                        ("b", f"grouped {GRPO_PROMPTS} prompts x G={GRPO_G}, greedy, "
+                              f"{GRPO_NEW} new tokens")):
+        x0, x1 = r0[part], r1[part]
+        firsts = [bool((x["first"] == x0["one_first"]).all()) for x in (x0, x1)]
+        log(f"tp ({part}) [{card}] {label}: first tokens equal to one device's on rank 0, "
+            f"rank 1 {firsts} (one device's smallest top-2 logit gap "
+            f"{x0['one_top2_gap']:.4g}); "
+            f"teacher-forced logits cosine floor {x0['cos']:.6f} (floor {CONT_STEP_COS}); "
+            f"cache bytes rank 0 {x0['cache_bytes']}, rank 1 {x1['cache_bytes']}, one device "
+            f"{x0['one_cache_bytes']}; engine call ms rank 0 {x0['ms']:.1f}, rank 1 "
+            f"{x1['ms']:.1f}, one device {x0['one_ms']:.1f}; flash_fwd per call rank 0 "
+            f"{x0['launches']}, rank 1 {x1['launches']}, one device {x0['one_launches']}")
+        if not all(firsts):
+            fail(f"tp ({part}): the first tokens differ from one device's")
+        if x0["cos"] < CONT_STEP_COS:
+            fail(f"tp ({part}): teacher-forced logits cosine {x0['cos']} under {CONT_STEP_COS}")
+        for x in (x0, x1):
+            if 2 * x["cache_bytes"] != x0["one_cache_bytes"]:
+                fail(f"tp ({part}): a rank's cache of {x['cache_bytes']} B is not half of one "
+                     f"device's {x0['one_cache_bytes']} B")
+            if x["launches"] != per_call:
+                fail(f"tp ({part}): {x['launches']} flash_fwd in an engine call, not {per_call}")
+            dec = {k: n for k, n in x["shapes"].items() if k[5] == cfg.decoder.head_dim}
+            if sum(dec.values()) != DECODER_LAYERS or any(k[3:5] != (hq, hkv) for k in dec):
+                fail(f"tp ({part}): the decoder's flash_fwd ran at {dec}, not "
+                     f"{DECODER_LAYERS} launches of {hq}/{hkv} heads")
+    # (c)
+    c0, c1 = r0["c"], r1["c"]
+    if c0["completions"] != c1["completions"]:
+        fail("tp (c): the ranks' sampled rollouts differ")
+    per_step = {"flash_fwd": 3 * ENCODER_LAYERS + 4 * DECODER_LAYERS,
+                "flash_bwd": DECODER_LAYERS}
+    want = {k: TP_GRPO_STEPS * per_step.get(k, 0) for k in c0["launches"]}
+    loss_tol = MESH_LOSS_RTOL * max(abs(c0["ref_loss"]), c0["loss_scale"])
+    log(f"tp (c) [{card}] GRPOTrainer(mesh 1,1,2), {GRPO_PROMPTS} prompts x G={GRPO_G}, "
+        f"{GRPO_NEW} new tokens: step ms rank 0 {c0['step_ms']:.1f}, rank 1 "
+        f"{c1['step_ms']:.1f}, one device {c0['one_step_ms']:.1f} "
+        f"({'phase 8' if one_step_ms is not None else 'rank 0'}); per step " + "; ".join(
+            f"loss {m['loss']:.5g} kl {m['kl']:.4g} reward {m['reward']:.3g}"
+            for m in c0["hist"]) + f"; launches rank 0 {c0['launches']}, rank 1 "
+        f"{c1['launches']} (expected {want}); {c0['moved']} of {c0['n_b']} LoRA B leaves "
+        f"moved; the ranks' {sum(map(len, c0['completions']))} sampled completions equal; "
+        f"one update on the last buffer: loss {c0['update_loss']:.6g} vs one device "
+        f"{c0['ref_loss']:.6g} (held within {loss_tol:.3g}: MESH_LOSS_RTOL of the larger "
+        f"of |loss| and the mean |advantage| {c0['loss_scale']:.4g}), the {c0['n_lora']} "
+        f"LoRA gradients cosine {c0['cos']:.6f}, relative L2 {c0['rel_l2']:.4g}")
+    for c in (c0, c1):
+        if any(not math.isfinite(m[k]) for m in c["hist"] for k in ("loss", "kl", "reward")):
+            fail(f"tp (c): non-finite GRPO loss, kl or reward: {c['hist']}")
+        if c["launches"] != want:
+            fail(f"tp (c): a rank launched {c['launches']} in {TP_GRPO_STEPS} steps, "
+                 f"expected {want}")
+        dec_bwd = list(c["shapes"]["flash_bwd"])
+        if not dec_bwd or any(k[3:5] != (hq, hkv) for k in dec_bwd):
+            fail(f"tp (c): flash_bwd ran at {dec_bwd}, not at {hq}/{hkv} heads")
+    if c0["moved"] != c0["n_b"]:
+        fail(f"tp (c): only {c0['moved']} of {c0['n_b']} LoRA B leaves moved")
+    if abs(c0["update_loss"] - c0["ref_loss"]) > loss_tol or c0["cos"] < SP_COS:
+        fail(f"tp (c): the tensor-parallel update disagrees with one device: {c0}")
+    # (d)
+    pmask = torch.as_tensor(r0["b"]["prompt_mask"], dtype=torch.int32, device="cuda")
+    rows, bwd_rows = tp_kernel_cases(torch, pmask, hq, hkv, cfg.decoder.head_dim)
+    log(f"tp: phase done in {time.perf_counter() - t_phase:.1f} s (rank seconds "
+        f"{r0['seconds']}, {r1['seconds']}; by part, rank 0 {r0['parts']}, rank 1 "
+        f"{r1['parts']})")
+    launches = {"fwd": {"engine_per_call": [r0["a"]["launches"], r1["a"]["launches"]],
+                        "grouped_per_call": [r0["b"]["launches"], r1["b"]["launches"]],
+                        "grpo_steps": [c0["launches"]["flash_fwd"], c1["launches"]["flash_fwd"]]},
+                "bwd": {"grpo_steps": [c0["launches"]["flash_bwd"], c1["launches"]["flash_bwd"]]}}
+    return {"ranks": results, "launches": launches}, rows, bwd_rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6114,8 +6485,8 @@ def main():
         long = phase_train_long(torch, card)
         torch.cuda.empty_cache()
         mark("train-long")
-        grpo, grpo_rows, grpo_bwd_rows = phase_grpo(torch, card,
-                                                    os.path.join(ckpt, "sft_final"))
+        grpo, grpo_rows, grpo_bwd_rows, grpo_step_ms = phase_grpo(
+            torch, card, os.path.join(ckpt, "sft_final"))
         mark("grpo")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
@@ -6160,11 +6531,14 @@ def main():
     mark("mesh")
     learns = phase_grpo_learns(torch, card)
     mark("grpo_learns")
+    torch.cuda.empty_cache()
+    tp, tp_rows, tp_bwd_rows = phase_tp(torch, card, grpo_step_ms)
+    mark("tp")
     log(f"chip_smoke: seconds of the script's clock by phase {seconds}")
     log(f"chip_smoke: all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows += (grpo_rows + evo2_rows + cont_rows + cls_rows + int8_rows + qlora_rows + reh_rows
-             + moe_rows + [moe_train["fwd_row"]] + sp_rows)
+             + moe_rows + [moe_train["fwd_row"]] + sp_rows + tp_rows)
     band_rows += sp_band_rows
     r0, r1 = two["ranks"]
     rank_launches = lambda name: {
@@ -6173,7 +6547,7 @@ def main():
         "sp_evo2": [r["sp_evo2"]["launches"][name] for r in (r0, r1)],
         "pp_stages": [r["pp"]["launches"][name] for r in (r0, r1)]}
     bwd_rows += (grpo_bwd_rows + evo2_bwd_rows + cls_bwd_rows + qlora_bwd_rows + reh_bwd_rows
-                 + [moe_train["bwd_row"]])
+                 + [moe_train["bwd_row"]] + tp_bwd_rows)
     moe_train_launches = {k: {kk: v for kk, v in moe_train[k]["launches"].items() if v}
                           for k in ("sft", "grpo", "qlora_sft", "qlora_grpo")}
     qlora_launches = {"sft_int8": qlora["sft"]["int8"]["launches"],
@@ -6232,6 +6606,7 @@ def main():
                  "two_rank_launches": rank_launches("flash_fwd"),
                  "mesh_launches": mesh["mesh"]["launches"]["flash_fwd"],
                  "grpo_learns_launches": learns["launches"]["flash_fwd"],
+                 "tp_launches": tp["launches"]["fwd"],
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  "ms": served["ms"], "plain_ms": served["plain_ms"],
                  "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
@@ -6265,6 +6640,7 @@ def main():
                  "two_rank_launches": rank_launches("flash_bwd"),
                  "mesh_launches": mesh["mesh"]["launches"]["flash_bwd"],
                  "grpo_learns_launches": learns["launches"]["flash_bwd"],
+                 "tp_launches": tp["launches"]["bwd"],
                  "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                  "ms": sft["ms"], "plain_ms": sft["plain_ms"], "bound_ms": sft["bound_ms"],
                  "bound_by": sft["bound_by"], "library_ms": sft["library_ms"],
