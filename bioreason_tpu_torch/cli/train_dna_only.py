@@ -17,8 +17,11 @@ follows training, then the trained parameters go to
 (`train.checkpoint.load_classifier` rebuilds it). As in the JAX CLI, the
 learning rate is --learning_rate (its common default 2e-5), not the
 trainer's own 1e-3 default. --debug_nans raises FloatingPointError at the
-first op that makes a NaN (utils/debug_nans.py). The device mesh and wandb
-come with later slices: `main` refuses their flags.
+first op that makes a NaN (utils/debug_nans.py). `--mesh d,f,m` (with
+`--cpu_devices N`, or under a launcher) splits the rows over data x fsdp,
+the encoder's parameters over fsdp, and its layers tensor-parallel over
+model (num_heads / m heads a rank); rank 0 logs and writes. --wandb is
+refused.
 """
 
 from __future__ import annotations

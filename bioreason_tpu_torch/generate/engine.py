@@ -28,8 +28,10 @@ of it and runs on the model as the run shards it: the fsdp pieces are
 gathered for the call (`MeshRun.scope`), the decoder's tensor-parallel
 layers stay on this rank's heads, so the prefill, the ungrouped and the
 grouped decode all run on Hq/m and Hkv/m heads with caches of Hkv/m heads
-(`partition.local_heads`; every head where they do not divide), and the
-encoder, the projection, the embedding and the head stay replicated. The
+(`partition.local_heads`; every head where they do not divide); the NT
+encoder's layers run on num_heads / m heads and I / m MLP rows where the
+run splits the tower (`partition.encoder_local_heads`), and the
+projection, the embedding and the head stay replicated. The
 rows are the caller's: a trainer gives each rank its rows of data x fsdp,
 and the model ranks of one data index give the same rows. Every model rank
 samples from its own generator (the model ranks of one data index seed

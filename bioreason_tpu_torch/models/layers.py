@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -233,25 +233,48 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
     return y if d is None else y + d
 
 
+def tp_shared_dense(lins, x: torch.Tensor, dtype: Optional[torch.dtype],
+                    drops: Sequence[Dropout]) -> Optional[Tuple[torch.Tensor, ...]]:
+    """`dense` of colwise tensor-parallel linears that read one input (q, k
+    and v; gate and up) through one Megatron f: `comm.copy_to(x)` once,
+    whose backward sums the weight paths' gradients of x over the axis in
+    one all-reduce, not one a linear. None unless every linear is colwise
+    on one axis (the caller then calls `dense` on each)."""
+    from bioreason_tpu_torch.parallel import comm
+    tps = [getattr(lin, "tp", None) for lin in lins]
+    if tps[0] is None or tps[0][0] != "col" or any(t != tps[0] for t in tps[1:]):
+        return None
+    dtype = x.dtype if dtype is None else dtype
+    x = x.to(dtype)
+    xc = comm.copy_to(x, tps[0][1])
+    return tuple(tp_dense(lin, x, dtype, dr, xc) for lin, dr in zip(lins, drops))
+
+
 def tp_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
-             dropout: Dropout = None) -> torch.Tensor:
+             dropout: Dropout = None, xc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`dense` of a tensor-parallel linear (parallel/partition.py), `lin.tp`
     = (kind, axis). Colwise: x is replicated over the axis and the weight
     holds this rank's output rows; x's gradient is summed over the axis
-    (`comm.copy_to`) on the weight's path and on the adapter's, whose
-    [.., r] intermediate is replicated. Rowwise: x holds this rank's input
+    (`comm.copy_to`, or `xc` where `tp_shared_dense` made it for several
+    linears) on the weight's path and on the adapter's, whose [.., r]
+    intermediate is replicated. Rowwise: x holds this rank's input
     columns; the partial product and the adapter's partial intermediate
     come out of the products in fp32 and are summed over the axis in one
     `comm.reduce_from` before their one rounding to `dtype`, as one
     device's product accumulates in fp32 and rounds once; then the
-    replicated `lora_b`. Float weights without bias, as the decoder's."""
+    replicated `lora_b`. A bias stays whole on every rank (JAX's `P()`):
+    a colwise rank adds its slice of the output rows inside its product,
+    a rowwise one adds it once to the summed product before the rounding,
+    as `F.linear(x, W, b)` adds it on one device. Float weights only."""
     from bioreason_tpu_torch.parallel import comm
     kind, axis = lin.tp
-    if is_int8(lin) or lin.bias is not None:
-        raise ValueError("tensor parallelism takes float linears without bias")
+    if is_int8(lin):
+        raise ValueError("tensor parallelism takes float linears (int8 under 'model' is "
+                         "open in ROADMAP.md, queue 1)")
     xl = _adapter_input(x, dropout) if has_adapter(lin) else x
     if kind == "col":
-        y = F.linear(comm.copy_to(x, axis), lin.weight.to(dtype))
+        bias = None if lin.bias is None else comm.local_slice(lin.bias, axis, 0).to(dtype)
+        y = F.linear(comm.copy_to(x, axis) if xc is None else xc, lin.weight.to(dtype), bias)
         if has_adapter(lin):
             u = comm.copy_to(xl @ lin.lora_a.to(dtype), axis)
             y = y + (u @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
@@ -261,7 +284,10 @@ def tp_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
     if has_adapter(lin):
         parts.append(MmF32.apply(xl.reshape(-1, xl.shape[-1]), lin.lora_a.to(dtype)))
     summed = comm.reduce_from(torch.cat(parts, -1) if len(parts) > 1 else parts[0], axis)
-    y = summed[:, :n].to(dtype).reshape(*lead, n)
+    y = summed[:, :n]
+    if lin.bias is not None:
+        y = y + lin.bias.to(dtype).float()
+    y = y.to(dtype).reshape(*lead, n)
     if has_adapter(lin):
         u = summed[:, n:].to(dtype).reshape(*lead, -1)
         y = y + (u @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
@@ -351,6 +377,9 @@ def qkv_proj(attn: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype] = No
         q, k, v = y.split((q_dim, kv_dim, kv_dim), dim=-1)
         return tuple(_split_delta(attn, n, base, x, dtype, dr)
                      for n, base, dr in zip("qkv", (q, k, v), drops))
+    shared = tp_shared_dense((attn.q, attn.k, attn.v), x, dtype, drops)
+    if shared is not None:
+        return shared
     return (dense(attn.q, x, dtype, drops[0], act8), dense(attn.k, x, dtype, drops[1], act8),
             dense(attn.v, x, dtype, drops[2], act8))
 
@@ -432,8 +461,9 @@ def swiglu(mlp: SwiGLU, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
         g = _split_delta(mlp, "gate", g, x, dtype, dropout)
         u = _split_delta(mlp, "up", u, x, dtype, dropout)
     else:
-        g = dense(mlp.gate, x, dtype, dropout, act8)
-        u = dense(mlp.up, x, dtype, dropout, act8)
+        shared = tp_shared_dense((mlp.gate, mlp.up), x, dtype, (dropout, dropout))
+        g, u = shared if shared is not None else (dense(mlp.gate, x, dtype, dropout, act8),
+                                                  dense(mlp.up, x, dtype, dropout, act8))
     return dense(mlp.down, F.silu(g) * u, dtype, dropout, act8)
 
 

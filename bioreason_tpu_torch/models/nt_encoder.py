@@ -3,7 +3,9 @@ bioreason_tpu/models/nt_encoder.py; ESM-family pre-norm transformer with
 rotary embeddings, SwiGLU MLPs and LayerNorm). The fusion model consumes its
 last hidden state (reference dna_llm.py:156); no MLM head. Its denses may
 be int8 or fused for serving (train/quant.py, train/fuse.py) and take
-cfg.act_int8 (JAX nt_encoder.py:73-89).
+cfg.act_int8 (JAX nt_encoder.py:73-89). Under a mesh's 'model' axis a rank
+holds num_heads / m heads and I / m MLP rows of every layer
+(parallel/partition.py), and runs the same code on them.
 """
 
 from __future__ import annotations
@@ -54,13 +56,15 @@ class NTEncoder(nn.Module):
 def _layer_forward(lp: EncoderLayer, h, cfg: EncoderConfig, positions, attention_mask):
     b, t, _ = h.shape
     dtype = h.dtype
-    nh, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     a8 = cfg.act_int8
     x = L.layernorm(lp.ln1, h, cfg.norm_eps)
     q, k, v = L.qkv_proj(lp.attn, x, dtype, act8=a8)
-    q = L.apply_rope(q.reshape(b, t, nh, hd), positions, cfg.rope_theta)
-    k = L.apply_rope(k.reshape(b, t, nh, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, t, nh, hd)
+    # heads from the widths: a tensor-parallel rank holds num_heads / m
+    # (parallel/partition.encoder_local_heads)
+    q = L.apply_rope(q.reshape(b, t, -1, hd), positions, cfg.rope_theta)
+    k = L.apply_rope(k.reshape(b, t, -1, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, t, -1, hd)
     a = attention(q, k, v, kv_mask=attention_mask, causal=False, impl=cfg.attention_impl)
     h = h + L.dense(lp.attn.o, a.reshape(b, t, -1), dtype, None, a8)
     x = L.layernorm(lp.ln2, h, cfg.norm_eps)

@@ -15,19 +15,27 @@ Execution (`ShardPlan`) is explicit, as torch gives no GSPMD:
   * `fsdp` entries: the rank stores its slice of the parameter along that
     dim; `gathered` all-gathers it for a forward (its backward
     reduce-scatters the gradient, `comm.all_gather_sum`);
-  * `model` entries of the decoder's layers: Megatron tensor parallelism
-    on local shards. Colwise linears hold Hq/m, Hkv/m heads or I/m MLP
-    rows, rowwise ones the matching input columns; `layers.dense` adds
-    `comm.copy_to` / `comm.reduce_from` around them (`tp_dense`), so each
-    rank's attention is the unchanged kernel on its own heads. A layer
-    whose head counts (or MLP width) do not divide by the axis keeps that
-    block replicated, as `_valid_spec` drops an axis that does not divide;
+  * `model` entries of the decoder's layers, and of the NT encoder's
+    (`encoder_cfg`): Megatron tensor parallelism on local shards. Colwise
+    linears hold Hq/m, Hkv/m heads or I/m MLP rows, rowwise ones the
+    matching input columns; `layers.dense` adds `comm.copy_to` /
+    `comm.reduce_from` around them (`tp_dense`), so each rank's attention
+    is the unchanged kernel on its own heads. Biases keep JAX's `P()`: a
+    colwise bias is stored whole and each rank adds its slice of the
+    output rows (its gradient is then a partial sum over `model`,
+    `partial_over_model`); a rowwise bias is added once, after the sum. A
+    layer whose head counts (or MLP width) do not divide by the axis keeps
+    that block replicated, as `_valid_spec` drops an axis that does not
+    divide;
   * `model` on an expert bank's E axis: expert parallelism; each rank runs
     its E/m experts on all tokens and the combine sums over `model`
     (`layers.moe_apply`), with JAX's capacity and drops;
   * `model` entries elsewhere (the embedding and lm_head tables, the
-    projection, the DNA tower) are not executed: those stay replicated over
-    `model`, which the tower's sequence parallelism also shards;
+    projection) are not executed: those stay replicated over `model`. So
+    does the NT tower when sequence parallelism shards its sequence over
+    `model` (an `sp*` attention) or GPipe stages hold the axis; the Evo2
+    tower's parameters (`encoder.blocks.*`) match no `model` rule, as in
+    JAX;
   * under pipeline parallelism (`pp=True`) a decoder layer's leading
     `model` entry is its stage: a rank keeps only its stage's layers.
 """
@@ -181,9 +189,14 @@ def _module(model: nn.Module, name: str) -> Tuple[nn.Module, str]:
     return model.get_submodule(path), leaf
 
 
-def _tp_ok(cfg, name: str, m: int) -> bool:
+def _tp_ok(cfg, name: str, m: int, encoder: bool = False) -> bool:
     """Whether a decoder layer parameter's block divides over m model
-    ranks along whole heads, MLP rows or experts."""
+    ranks along whole heads, MLP rows or experts; with `encoder`, an NT
+    encoder layer's (`cfg` an EncoderConfig: heads and MLP rows)."""
+    if encoder:
+        if ".attn." in name:
+            return cfg.num_heads % m == 0
+        return ".mlp." in name and cfg.intermediate_size % m == 0
     if ".attn." in name:
         return cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
     if ".experts." in name:
@@ -205,6 +218,16 @@ def local_heads(cfg, run=None) -> Tuple[int, int]:
     return cfg.num_heads, cfg.num_kv_heads
 
 
+def encoder_local_heads(cfg, run=None) -> int:
+    """The NT encoder's attention heads on this rank of `run` (None: one
+    device): cfg.num_heads / m where the run's plan splits the tower over
+    its m model ranks (`ShardPlan.tower_tp`), else every head."""
+    if run is None or not run.plan.tower_tp:
+        return cfg.num_heads
+    m = run.topo.model.size
+    return cfg.num_heads // m if _tp_ok(cfg, ".attn.", m, encoder=True) else cfg.num_heads
+
+
 class ShardPlan:
     """How one rank stores and runs a model under a mesh (`topology`);
     `apply` is the counterpart of JAX's `shard_params`.
@@ -212,9 +235,13 @@ class ShardPlan:
     `placements[name]` lists (axis, dim) in the order the parameter was
     sliced: `model` first, then `fsdp`. `stage_layers` is the range of
     decoder layers this rank runs under pipeline parallelism (None
-    without)."""
+    without). `encoder_cfg`: the NT encoder's config, whose layers then
+    run tensor-parallel over `model` (`tower_tp`) unless its attention is
+    sequence-parallel (`sp*`) or the axis holds GPipe stages; None (an
+    Evo2 tower, or no tower) leaves the tower replicated."""
 
-    def __init__(self, model: nn.Module, decoder_cfg, topo, pp: bool = False):
+    def __init__(self, model: nn.Module, decoder_cfg, topo, pp: bool = False,
+                 encoder_cfg=None):
         self.topo = topo
         self.pp = pp
         sizes = {"data": topo.data.size, "fsdp": topo.fsdp.size, "model": topo.model.size}
@@ -229,22 +256,30 @@ class ShardPlan:
                 raise ValueError(f"num_layers {n} not divisible by {m} stages")
             s = n // m
             self.stage_layers = range(topo.model.index * s, (topo.model.index + 1) * s)
+        self.tower_tp = (encoder_cfg is not None and m > 1 and not pp
+                         and not str(encoder_cfg.attention_impl).startswith("sp"))
         for name, spec in self.specs.items():
             dims = spec[1:] if is_layer_param(name) else spec
             place = []
-            if ("model" in dims and m > 1 and name.startswith("decoder.layers.") and not pp
-                    and _tp_ok(decoder_cfg, name, m)):
+            if name.startswith("encoder.layers."):
+                tp = self.tower_tp and _tp_ok(encoder_cfg, name, m, encoder=True)
+            else:
+                tp = name.startswith("decoder.layers.") and not pp and _tp_ok(decoder_cfg, name, m)
+            if "model" in dims and m > 1 and tp:
                 place.append(("model", dims.index("model")))
             if "fsdp" in dims and topo.fsdp.size > 1:
                 place.append(("fsdp", dims.index("fsdp")))
             self.placements[name] = place
         # replicated parameters that act on a tensor-parallel rank's own heads
-        # (the per-head q / k norms): each rank's gradient covers its heads
+        # or rows (the per-head q / k norms, a colwise linear's bias): each
+        # rank's gradient covers its own
         self.partial_over_model = {
             n for n in self.placements
-            if re.search(r"\.attn\.(q|k)_norm\.scale$", n)
-            and any(ax == "model" for ax, _ in
-                    self.placements.get(n.rsplit(".attn.", 1)[0] + ".attn.q.weight", []))}
+            if (re.search(r"\.attn\.(q|k)_norm\.scale$", n)
+                and any(ax == "model" for ax, _ in
+                        self.placements.get(n.rsplit(".attn.", 1)[0] + ".attn.q.weight", [])))
+            or (n.endswith(".bias")
+                and ("model", 0) in self.placements.get(n[:-len("bias")] + "weight", []))}
 
     def axis(self, name: str) -> comm.Axis:
         return getattr(self.topo, name)

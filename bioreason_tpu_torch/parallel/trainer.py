@@ -3,7 +3,8 @@ trainers' sharded steps, written out (GSPMD derives them in JAX).
 
 `MeshRun` holds one rank's view of a mesh for one model:
   * `plan` (`partition.ShardPlan`): fsdp / tensor / expert / stage shards,
-    applied to the model when the run is made;
+    applied to the model when the run is made; with `encoder_cfg` the NT
+    tower's layers are tensor-parallel too;
   * `scope()`: the context of a forward: the fsdp-sharded parameters
     gathered, and the sequence (`sp.sequence_sharding`) and pipeline
     (`pp.pipeline_sharding`) scopes when the trainer asked for them; the
@@ -40,14 +41,22 @@ from bioreason_tpu_torch.parallel.partition import ShardPlan, is_layer_param, ze
 from bioreason_tpu_torch.train.optim import AdamW
 
 
+def nt_tower(fusion_cfg):
+    """The config of a fusion model's NT encoder, whose layers a mesh splits
+    over 'model' (`MeshRun(encoder_cfg=)`); None for the Evo2 tower, which
+    stays replicated, as no JAX rule names its parameters."""
+    return None if fusion_cfg.encoder_kind == "evo2" else fusion_cfg.encoder
+
+
 class MeshRun:
     def __init__(self, mesh, model: torch.nn.Module, decoder_cfg=None, sp: bool = False,
-                 pp_micro: int = 0):
+                 pp_micro: int = 0, encoder_cfg=None):
         self.topo = topology(mesh)
         self.pp = pp_micro > 0 and self.topo.model.size > 1
         self.pp_micro = pp_micro
         self.sp = sp
-        self.plan = ShardPlan(model, decoder_cfg, self.topo, pp=self.pp)
+        self.plan = ShardPlan(model, decoder_cfg, self.topo, pp=self.pp,
+                              encoder_cfg=encoder_cfg)
         self.plan.apply(model)
         self.model = model
 
@@ -110,7 +119,8 @@ class MeshRun:
         computed another part (the DNA tower under sequence parallelism;
         under the pipeline, whatever runs outside the layers: the first
         stage alone feeds them, the last stage alone takes the loss; the
-        per-head q / k norms of a tensor-parallel attention)."""
+        per-head q / k norms of a tensor-parallel attention and the
+        biases of colwise linears, each rank's slice of them)."""
         axes = []
         if not any(ax == "fsdp" for ax, _ in self.plan.placements.get(name, [])):
             axes.append(self.topo.fsdp)
@@ -122,7 +132,8 @@ class MeshRun:
 
     def pieces(self, name: str) -> int:
         """How many distinct pieces of `name` the model and fsdp axes hold
-        (1 where it is replicated over both)."""
+        (1 where it is replicated over both: a colwise bias is stored whole
+        on every rank)."""
         n = 1
         for ax, _ in self.plan.placements.get(name, []):
             n *= getattr(self.topo, ax).size
@@ -238,7 +249,8 @@ class DistAdamW(AdamW):
 
 def full_named(run: MeshRun, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """name -> whole tensor on every rank, from each rank's pieces (the
-    pipeline's stages each contribute their own layers)."""
+    tensor-parallel shards of both towers gathered along their `model`
+    dim; the pipeline's stages each contribute their own layers)."""
     out = {n: run.plan.unshard(n, t.detach()).cpu() for n, t in named.items()}
     if run.pp:
         parts: List[Optional[Dict]] = [None] * run.topo.model.size

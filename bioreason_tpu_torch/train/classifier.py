@@ -1,5 +1,5 @@
 """DNA-only classifier trainer (the port of bioreason_tpu/train/classifier.py;
-reference train_dna_only.py:22-270), on one device.
+reference train_dna_only.py:22-270), on one device or a mesh.
 
 CE loss over (ref, alt) pairs; `train_step` / `eval_step` return accuracy,
 macro precision / recall / F1 and the loss, as the reference logs them.
@@ -84,9 +84,12 @@ class ClassifierTrainer:
         """`model`: weights to train (e.g. `weights.from_jax_params` of a JAX
         classifier tree); default: drawn from `seed` on `device` (CUDA
         unless "cpu"). `mesh`: data parallelism over its 'data' and 'fsdp'
-        axes (model 1): each rank takes its rows of every batch, the loss is
-        the global batch's mean, the moments are ZeRO-2 shards; 'fsdp' also
-        shards the encoder's parameters, gathered for each step."""
+        axes: each rank takes its rows of every batch, the loss is the
+        global batch's mean, the moments are ZeRO-2 shards; 'fsdp' also
+        shards the encoder's parameters, gathered for each step; 'model'
+        splits the encoder's layers tensor-parallel (num_heads / m heads and
+        I / m MLP rows a rank, JAX's `partition_rules_encoder` under
+        `^encoder/`), the pooler and the head replicated."""
         self.cfg = cfg
         self.num_classes = num_classes
         self.train_just_classifier = train_just_classifier
@@ -105,10 +108,7 @@ class ClassifierTrainer:
             self.opt = AdamW(self.params, optim, lr_scales=scales)
         else:
             from bioreason_tpu_torch.parallel.trainer import DistAdamW, MeshRun
-            if mesh.mesh.shape[2] != 1:
-                raise ValueError("the classifier shards over 'data' and 'fsdp' only "
-                                 "(mesh model must be 1)")
-            self.run = MeshRun(mesh, self.model)
+            self.run = MeshRun(mesh, self.model, encoder_cfg=cfg)
             named = dict(self.model.named_parameters())
             self.params = [named[n] for n in self.names]       # the shards
             self.opt = DistAdamW(self.params, self.names, optim, self.run, lr_scales=scales)

@@ -174,13 +174,14 @@ class GRPOTrainer:
         if mesh is None:
             self.opt = AdamW(self.params, cfg.optim)
         else:
-            from bioreason_tpu_torch.parallel.trainer import DistAdamW, MeshRun
+            from bioreason_tpu_torch.parallel.trainer import DistAdamW, MeshRun, nt_tower
             _, fsdp, tp = mesh.mesh.shape
             if (fsdp > 1 or tp > 1) and (cfg.rollout_int8 or cfg.frozen_dtype == "int8"):
                 # tensor parallelism takes float linears (layers.tp_dense)
                 raise ValueError("int8 weights and rollouts shard over 'data' only (int8 "
                                  "under 'fsdp' or 'model' is open in ROADMAP.md, queue 1)")
-            self.run = MeshRun(mesh, model, fusion_cfg.decoder)
+            self.run = MeshRun(mesh, model, fusion_cfg.decoder,
+                               encoder_cfg=nt_tower(fusion_cfg))
             self.run.split_rows(True)
             self.params = [p for p in model.parameters() if p.requires_grad]
             self.opt = DistAdamW(self.params, self.names, cfg.optim, self.run)

@@ -109,8 +109,10 @@ class SFTTrainer:
     def _mesh_run(self, mesh) -> None:
         """Shard the model over `mesh` (parallel/partition.py): sequence
         parallelism when a tower's attention asks for it ("sp..."), GPipe
-        when `pp_micro` > 0 and the model axis is above 1."""
-        from bioreason_tpu_torch.parallel.trainer import MeshRun
+        when `pp_micro` > 0 and the model axis is above 1; tensor
+        parallelism over 'model' in the decoder's layers (without GPipe)
+        and the NT tower's (without sequence parallelism)."""
+        from bioreason_tpu_torch.parallel.trainer import MeshRun, nt_tower
         fc, cfg = self.fusion_cfg, self.cfg
         if cfg.pp_micro > 0 and cfg.frozen_dtype == "int8":
             raise ValueError("pp_micro with int8 frozen weights is untested; "
@@ -122,7 +124,8 @@ class SFTTrainer:
             raise ValueError("focal_gamma needs the global weight sum; not split over data")
         tower = fc.hyena if fc.encoder_kind == "evo2" else fc.encoder
         sp = str(tower.attention_impl).startswith("sp")
-        self.run = MeshRun(mesh, self.model, fc.decoder, sp=sp, pp_micro=cfg.pp_micro)
+        self.run = MeshRun(mesh, self.model, fc.decoder, sp=sp, pp_micro=cfg.pp_micro,
+                           encoder_cfg=nt_tower(fc))
 
     def _scope(self):
         """Under a mesh, `MeshRun.scope`: it holds for the forward and the

@@ -90,7 +90,7 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               (64 in bench_grpo.py; 64 before phase 11 came, 32 before
               phases 13-14 came),
               max_length_dna 128, beta 0.04, LoRA r32/a64, bf16 frozen
-              weights from seed 0): the GRPOTrainer for 1 + 3 timed steps
+              weights from seed 0): the GRPOTrainer for 1 + 2 timed steps
               with phase timers, rewarded by xmlcount, correctness and the
               share of ACGT characters (which random weights vary on),
               (completions/s, seconds per phase, flash_fwd
@@ -163,7 +163,8 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               bfloat16` (phase 14 runs its int8 default; 64 slots,
               96 requests here, 1.5 x capacity in place of its 3 x so the
               phase keeps its budget: 256 text + 128 DNA tokens each,
-              128/64/32 new tokens sampled, windows of 16, pipelined):
+              64/32/16 new tokens sampled (half the bench's default, for the
+              script's time), windows of 16, pipelined):
               decoded tokens/s, the admit / decode split, windows and mean
               occupancy, prefill calls, pool GiB, peak memory, exactly 57
               flash_fwd per prefill chunk and none in a decode window; (b)
@@ -219,14 +220,16 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               the dequantized product at the prefill's own shapes (relative
               error, times); flash_fwd at the int8 prefill's Tk = P; (f)
               `tools/bench_serve.py` at the JAX bench's default (--frozen
-              int8) and with --kv int8 --fuse --w8a8 (96 requests each):
+              int8) and with --kv int8 --fuse --w8a8 (96 requests each,
+              64/32/16 new tokens, half the bench's default):
               tokens/s, occupancy, pool and weight GiB, peak memory, 57
               flash_fwd per prefill chunk. At most 120 s.
  15. qlora    QLoRA and int8 rollouts at NT-v2-500M + Qwen3-4B width (36
               layers, hidden 2560, 32/8 heads of 128; seed 0, bf16
               compute): (a) `tools/bench_sft.py --decoder qwen3-4b --frozen
-              int8` (bench.py's shape, 2 warm-up steps, 3 repetitions of 4
-              timed steps, one profiled step): examples/s, ms per step,
+              int8` (bench.py's shape, 2 warm-up steps, 1 repetition of 4
+              timed steps, cut from 3 for the script's time, one profiled
+              step): examples/s, ms per step,
               device-busy ms, resident frozen and peak GiB, every dense of
               both towers int8 with bf16 scales, exactly 29 + 36 flash_fwd
               and 36 flash_bwd a step; (b) the same at --frozen bfloat16:
@@ -241,13 +244,15 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               gradient cosine between that floor's reading and a planted
               fault's; (d) `tools/bench_grpo.py --decoder
               qwen3-4b --frozen int8 --rollout_int8` (4 prompts x G=4, 16 new
-              tokens, 1 + 2 steps): completions/s, the phase timers, peak
+              tokens, 1 + 1 steps, cut from 1 + 2): completions/s, the phase
+              timers, peak
               GiB, a finite loss and kl, exactly 3 x 29 + 4 x 36 flash_fwd
               and 36 flash_bwd a step, the reference and the rollout policy
               holding the training model's int8 weights and scales (the same
               data_ptr) and the rollout its live adapters; (e)
               `tools/bench_rollout.py` at 16 prompts x G=8 with 32 new tokens
-              (1 + 3 calls), --frozen bfloat16 --kv bfloat16 and --frozen
+              (1 + 1 calls, cut from 1 + 3), --frozen bfloat16 --kv bfloat16
+              and --frozen
               int8 --kv int8, at Qwen3-0.6B and at Qwen3-4B: tokens/s, weight
               and peak GiB, exactly 29 + layers flash_fwd per call, and the
               grouped int8-KV decode's first-step logits against the
@@ -262,7 +267,8 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               with it: (a) `tools/rehearsal.py --scale bench` at its widths
               (Qwen3-0.6B + NT-v2-50M, 1-mer DNA of 32 bp), cut for time to
               96 items, 2 SFT epochs of 9 steps with a validation every 8,
-              64 tokens generated in the tests and rollouts and 1 GRPO step
+              16 tokens generated in the tests and rollouts (cut from 64)
+              and 1 GRPO step
               (the bench run: 1,280 items, 40 epochs at most with the probe's
               stop, every 96, 288 tokens, 80 steps): exactly 56 flash_fwd +
               28 flash_bwd per SFT step (remat full), 28 flash_fwd per eval
@@ -298,7 +304,7 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               drawn from seed 0 in bf16 directly on the card (an fp32 stage
               would need 114 GiB): parameters, resident GiB, build seconds;
               (b) `InferenceServer` in micro-batch mode, phase 4's 8
-              requests of 2 x 2 kb twice, 64 greedy tokens, equal tokens,
+              requests of 2 x 2 kb twice, 32 greedy tokens, equal tokens,
               exactly 29 + 48 = 77 flash_fwd per engine call, all of them
               in its prefill (one prefill alone counts 77): prefill ms,
               decode tokens/s; (c) the served prefill's drops per layer (the
@@ -314,7 +320,7 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               2 prompts x G = 4, greedy, twice: a prompt's completions equal,
               the runs equal; (e) `tools/bench_serve.drive` on this
               model at 16 slots, 32 requests of 256 text + 128 DNA tokens,
-              64/32/16 new tokens:
+              32/16/8 new tokens (cut from 64/32/16):
               tokens/s, pool GiB, 77 flash_fwd per prefill chunk and none in
               a window, the rows that lost a choice in each decode window;
               (g) one prefill and one decode step profiled, device ms by
@@ -344,9 +350,10 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               trainable gradients through the kernels against the plain
               route, then flash_fwd / flash_bwd alone at [4,768,32/4,128]
               causal (GQA 8) against their plain versions, SDPA's backward
-              the lowest of 3 runs; (d) 2 GRPOTrainer steps at
-              bench_grpo.py's shape (4 prompts x G=4, P=332, 64 new
-              tokens, beta 0.04, no int8 rollout, no sync): completions/s,
+              the lowest of 3 runs; (d) 1 GRPOTrainer step (cut from 2) at
+              bench_grpo.py's shape (4 prompts x G=4, P=332, 32 new
+              tokens, half of bench_grpo.py's 64, beta 0.04, no int8
+              rollout, no sync): completions/s,
               seconds by phase, peak GiB, 48 + 3 x 29 + 3 x 48 flash_fwd and
               48 flash_bwd a step, the reference and the rollout policy
               holding the model's banks (data_ptr); (e) QLoRA in place:
@@ -377,26 +384,37 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               collectives and SFTTrainer(mesh=) beside the one-device
               trainer at bench.py's shape; (23) the rigged-reward GRPO
               check through flash_fwd / flash_bwd (late > 1.5x early).
- 24. tp       generation and GRPO under the mesh's 'model' axis: two
-              processes on the card over gloo in a mesh (1, 1, 2), the
-              decoder's layers split over them (8/4 heads of 128 a rank),
-              phase 8's configuration from seed 0, rank 0 holding the
-              one-device model beside: (a) 8 prompts, greedy, 32 new tokens:
-              the first tokens equal one device's, every (row, step) logit
-              row teacher-forced on one device's stream at cosine >=
-              CONT_STEP_COS, each rank's caches exactly half one device's
-              bytes, 29 + 28 flash_fwd per engine call with the decoder's
-              at the rank's heads; (b) the same on the grouped rollout (4
-              prompts x G = 4, 16 new tokens); (c) GRPOTrainer(mesh=) for
-              1 + 2 timed steps: the ranks' sampled rollouts equal, finite
-              losses, kl and rewards, the LoRA B leaves
-              moved, flash_fwd and flash_bwd launched exactly as phase 8
-              counts on each rank at its heads, step ms per rank against one
-              device, one update on the last rollout buffer against one
-              device (loss within MESH_LOSS_RTOL, LoRA gradients cosine >=
-              SP_COS); (d) flash_fwd / flash_bwd at a rank's grouped prefill
-              [4,P,8/4,128] against their plain versions. A hang guard of
-              TP_HANG_S.
+ 24. tp       generation, GRPO and the classifier under the mesh's 'model'
+              axis: two processes on the card over gloo in a mesh (1, 1, 2),
+              the decoder's layers split over them (8/4 heads of 128 a rank)
+              and the NT-v2-500M encoder's (8 heads of 64 and 2048 MLP rows
+              a rank), phase 8's configuration from seed 0, rank 0 holding
+              the one-device model beside: (a) 8 prompts, greedy, 8 new
+              tokens (cut from 32): the first tokens equal one device's,
+              every (row, step) logit row teacher-forced on one device's
+              stream at cosine >= CONT_STEP_COS, each rank's caches exactly
+              half one device's bytes, 29 + 28 flash_fwd per engine call,
+              the encoder's at 8 heads and the decoder's at 8/4; (b) the
+              same on the grouped rollout (4 prompts x G = 4, 16 new
+              tokens); (c) GRPOTrainer(mesh=) for 1 timed step (cut from
+              a warm-up + 2; its schedule without warm-up, so that the one
+              step moves the adapters; the engine warm from (a) and (b)):
+              the ranks' sampled rollouts equal, finite losses,
+              kl and rewards, the LoRA B leaves moved, flash_fwd and
+              flash_bwd launched exactly as phase 8 counts on each rank at
+              its heads (the encoder's 3 x 29 a step at 8), step ms per rank
+              against one device, one update on the last rollout buffer
+              against one device (loss within MESH_LOSS_RTOL, LoRA
+              gradients cosine >= SP_COS); (e) ClassifierTrainer(mesh=) at
+              NT-v2-500M, bf16, the encoder trained, remat off, on phase
+              13's [16, 512] batch for TP_CLS_STEPS steps: each step's loss
+              within MESH_LOSS_RTOL of the one-device trainer's on the same
+              parameters, the first step's encoder gradients cosine >=
+              SP_COS, each step's launches equal to one device's (58
+              flash_fwd, 58 flash_bwd) with every one at [16, 512, 8, 64];
+              (d) flash_fwd / flash_bwd at a rank's grouped prefill
+              [4,P,8/4,128] and at the classifier's [16,512,8,64] against
+              their plain versions. A hang guard of TP_HANG_S.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -1900,7 +1918,7 @@ def phase_grpo(torch, card, sft_final):
     log(f"grpo: warm-up step {time.perf_counter() - t_sub:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     trainer.timers = {}
-    steps = 3
+    steps = 2                                            # cut from 3 for the script's time
     # --- the main path: counts from 0 just before, read just after ---------
     reset_counts()
     t0 = time.perf_counter()
@@ -2979,8 +2997,9 @@ CONT_BUDGET_S = 75.0
 CONT_NEW, CONT_WINDOW = 24, 16
 # (a)'s requests: 1.5 x capacity, not the bench's 3 x, so that the phase and
 # the script keep their budgets on a slower host (the queue stays: 96
-# requests over 64 slots)
-CONT_REQUESTS = 96
+# requests over 64 slots); its and phase 14 (f)'s longest completion: 64
+# tokens, not the bench's 128, for the script's time
+CONT_REQUESTS, CONT_MAX_NEW = 96, 64
 
 
 def teacher_forced(torch, engine, model, batch, streams):
@@ -3093,11 +3112,13 @@ def phase_continuous(torch, card):
     per_chunk = ENCODER_LAYERS + DECODER_LAYERS
     out = {}
 
-    # (a) the serving bench, at its defaults but CONT_REQUESTS: the main
+    # (a) the serving bench, at its defaults but CONT_REQUESTS and
+    # CONT_MAX_NEW: the main
     # path, counts from 0 just before and read just after (its warmup's one
     # prefill included)
     reset_counts()
-    res = bench_serve.main(["--probe", "--requests", str(CONT_REQUESTS), "--frozen", "bfloat16"])
+    res = bench_serve.main(["--probe", "--requests", str(CONT_REQUESTS), "--max_new",
+                            str(CONT_MAX_NEW), "--frozen", "bfloat16"])
     got = counts()
     torch.cuda.empty_cache()
     log(f"continuous bench [{card}]: {res['value']:.1f} decoded tokens/s ({res['decoded_tokens']} "
@@ -3637,7 +3658,8 @@ def phase_int8(torch, card):
     benches = {}
     for label, extra in (("int8", []), ("all", ["--kv", "int8", "--fuse", "--w8a8"])):
         reset_counts()
-        res = bench_serve.main(["--requests", str(CONT_REQUESTS)] + extra)
+        res = bench_serve.main(["--requests", str(CONT_REQUESTS), "--max_new",
+                                str(CONT_MAX_NEW)] + extra)
         got = counts()
         torch.cuda.empty_cache()
         log(f"int8 bench [{card}] --frozen int8 {' '.join(extra)}: {res['value']:.1f} decoded "
@@ -3663,9 +3685,10 @@ def phase_int8(torch, card):
 # -- phase 15 ----------------------------------------------------------------
 
 QWEN4B_LAYERS = 36                     # Qwen3-4B: 36 layers, 32/8 heads of 128
-QLORA_STEPS, QLORA_REPS = 4, 3         # bench_sft: 2 warm-up + 3 x 4 timed + 1 profiled
-QLORA_GRPO_STEPS = 2                   # bench_grpo: 1 warm-up + 2 timed
-QLORA_ROLLOUT_NEW, QLORA_ROLLOUT_REPS = 32, 3   # bench_rollout: 1 warm-up + 3 timed calls
+# cut for the script's time (from 3, 2 and 3)
+QLORA_STEPS, QLORA_REPS = 4, 1         # bench_sft: 2 warm-up + 1 x 4 timed + 1 profiled
+QLORA_GRPO_STEPS = 1                   # bench_grpo: 1 warm-up + 1 timed
+QLORA_ROLLOUT_NEW, QLORA_ROLLOUT_REPS = 32, 1   # bench_rollout: 1 warm-up + 1 timed call
 # (c) a QLoRA step against a bf16 model holding its dequantized weights: the
 # int8 dense dequantizes in bf16 and calls the same GEMM on the same values,
 # forward and backward, so on a deterministic route (the plain attention,
@@ -4006,9 +4029,10 @@ def phase_qlora(torch, card):
 
 # the rehearsal's bench widths (Qwen3-0.6B + NT-v2-50M, 1-mer DNA of 32 bp),
 # cut for time: 96 items (1,280 in the bench run), 2 SFT epochs of 9 steps
-# (40 at most, with the probe's stop), a validation every 8 steps (96), 64
-# tokens generated in the tests and rollouts (288), 1 GRPO step (80)
-REH_ITEMS, REH_EPOCHS, REH_EVAL, REH_NEW, REH_GRPO = 96, 2, 8, 64, 1
+# (40 at most, with the probe's stop), a validation every 8 steps (96), 16
+# tokens generated in the tests and rollouts (288; cut from 64), 1 GRPO step
+# (80)
+REH_ITEMS, REH_EPOCHS, REH_EVAL, REH_NEW, REH_GRPO = 96, 2, 8, 16, 1
 REH_SEQ_LEN, REH_BATCH, REH_SEED = 32, 8, 7
 REH_BUDGET_S = 150.0
 # one SFT step: remat full runs every decoder layer's forward twice; the
@@ -4387,9 +4411,9 @@ def phase_rehearsal(torch, card):
 # depth, bf16 weights drawn from seed 0 on the card
 MOE_LAYERS = 48
 MOE_BUDGET_S = 180.0
-MOE_NEW = 64                            # served new tokens, as phase 4
+MOE_NEW = 32                            # served new tokens (cut from phase 4's 64)
 MOE_GROUP_NEW = 16                      # (d)'s grouped completions
-MOE_BENCH_NEW = 64                      # (e)'s longest completion (bench: 128)
+MOE_BENCH_NEW = 32                      # (e)'s longest completion (bench: 128; cut from 64)
 # (c) kernel vs plain route, last-column prefill logits of one request: the
 # two attention routes round apart (bf16 P against fp32), which can move a
 # near-tie of the router in some layer and send a token to another expert
@@ -5041,8 +5065,8 @@ def phase_moe(torch, card):
 DEV = "cuda"
 MOE_TRAIN_BUDGET_S = 240.0
 MOE_SFT_STEPS = 3
-MOE_GRPO_STEPS = 2
-MOE_GRPO_NEW = 64                      # bench_grpo.py's completion length
+MOE_GRPO_STEPS = 1                     # cut from 2 for the script's time
+MOE_GRPO_NEW = 32                      # half bench_grpo.py's 64, for the script's time
 MOE_SFT_LR = 1e-3                      # no warm-up: the loss must fall in 3 steps
 # (c) the kernel route against the plain route, one step's loss and trainable
 # gradients: the routes round apart (bf16 P against fp32), and a token whose
@@ -6099,13 +6123,15 @@ def phase_grpo_learns(torch, card):
 # -- phase 24: generation and GRPO under the 'model' axis ------------------------
 #
 # Two processes share the card over gloo as phases 21-22 do, in a mesh
-# (1, 1, 2): the decoder's layers split their heads and MLP rows over the two
-# ranks, the engine's caches hold Hkv/2 heads, and GRPO rolls out, scores and
-# updates on those shards. Rank 0 also holds the one-device model from the
+# (1, 1, 2): the decoder's and the NT encoder's layers split their heads and
+# MLP rows over the two ranks, the engine's caches hold Hkv/2 heads, GRPO
+# rolls out, scores and updates on those shards, and the DNA-only classifier
+# trains its encoder on them. Rank 0 also holds the one-device model from the
 # same seed and compares; rank 1 waits at a barrier meanwhile.
 
-TP_PROMPTS, TP_NEW = 8, 32           # (a): 8 prompts, greedy, 32 new tokens
-TP_GRPO_STEPS = 2                    # (c): timed, after 1 warm-up
+TP_PROMPTS, TP_NEW = 8, 8            # (a): 8 prompts, greedy, 8 new tokens (cut from 32)
+TP_GRPO_STEPS = 1                    # (c): timed, no warm-up step (cut from 1 + 2)
+TP_CLS_STEPS = 2                     # (e): the classifier's steps on phase 13's batch
 TP_HANG_S = 600
 
 
@@ -6214,6 +6240,8 @@ def _tp_rank(torch, mesh, axis, one_step_ms):
     from bioreason_tpu_torch.train.rewards import get_reward_funcs
     seen = _tp_record_shapes()
     cfg, gcfg, proc, items = grpo_setup()
+    # no warm-up in the schedule: the one step of (c) moves the adapters
+    gcfg = dataclasses.replace(gcfg, optim=dataclasses.replace(gcfg.optim, warmup_ratio=0.0))
     rewards = get_reward_funcs(["xmlcount", "correctness"]) + [acgt_share_reward]
     t_rank = time.perf_counter()
     tp = GRPOTrainer(cfg, gcfg, proc, rewards, mesh=mesh)
@@ -6238,10 +6266,10 @@ def _tp_rank(torch, mesh, axis, one_step_ms):
                                  "b")
     res["b"]["prompt_mask"] = np.asarray(out_b.attention_mask)
     part("b")
-    # (c) GRPOTrainer(mesh): 1 warm-up + TP_GRPO_STEPS timed steps
+    # (c) GRPOTrainer(mesh): TP_GRPO_STEPS timed steps, the engine and its
+    # kernels warm from (a) and (b)
     b0 = {k: v.clone() for k, v in tp.trainable_state().items() if k.endswith("lora_b")}
-    hist = [tp.step(items)]
-    part("c_warmup")
+    hist = []
     reset_counts()
     for d in seen.values():
         d.clear()
@@ -6301,6 +6329,104 @@ def _tp_rank(torch, mesh, axis, one_step_ms):
     del whole, one, tp, buf
     dist.barrier()
     torch.cuda.empty_cache()
+    # (e) the DNA-only classifier, its encoder trained on the ranks' shards
+    res["e"] = _tp_classifier(torch, dist, axis, mesh, seen)
+    part("e")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_classifier(torch, dist, axis, mesh, seen):
+    """(24e) ClassifierTrainer(mesh) at NT-v2-500M width in bf16, the encoder
+    trained (remat off, as phase 13's (b)), on phase 13's batch [16, 512]:
+    TP_CLS_STEPS steps, each step's launches and their shapes, its ms and
+    loss; rank 0 runs the one-device trainer from the same seed beside it,
+    its parameters set to the tensor-parallel model's whole ones before
+    each step after the first, and holds the first step's encoder
+    gradients (summed over the ranks, gathered) to its own."""
+    from bioreason_tpu_torch.config import EncoderConfig, OptimConfig
+    from bioreason_tpu_torch.train.classifier import ClassifierTrainer
+    cfg = dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False)
+    # train_dna_only's default learning rate: at phase 13's 1e-3 one step
+    # drives this fixed batch's loss to ~2e-3, where the gate compares two
+    # bf16 summation orders of a near-zero CE
+    optim = OptimConfig(learning_rate=2e-5, total_steps=100, warmup_ratio=0.0)
+    batch = classifier_batch()
+    tp = ClassifierTrainer(cfg, CLS_CLASSES, optim=optim, train_just_classifier=False,
+                           device="cuda", mesh=mesh)
+    one = (ClassifierTrainer(cfg, CLS_CLASSES, optim=optim, train_just_classifier=False,
+                             device="cuda") if axis.index == 0 else None)
+    grads = {}
+    real_tp = tp.opt._step_shards
+
+    def tp_shards(shards):               # the first step's summed gradients
+        if "tp" not in grads:
+            grads["tp"] = {n: g.clone() for n, g in zip(tp.names, shards)
+                           if n.startswith("encoder.")}
+        return real_tp(shards)
+    tp.opt._step_shards = tp_shards
+    if one is not None:
+        real_one = one.opt.step
+
+        def one_step(gs):
+            if "one" not in grads:
+                grads["one"] = {n: g.float().clone() for n, g in zip(one.names, gs)
+                                if n.startswith("encoder.")}
+            return real_one(gs)
+        one.opt.step = one_step
+    res = {k: [] for k in ("loss", "ms", "launches", "shapes", "one_loss", "one_ms",
+                           "one_launches")}
+    for i in range(TP_CLS_STEPS):
+        if i:                            # the one-device model on the same parameters
+            with torch.no_grad():
+                named = dict(zip(one.names, one.params)) if one is not None else {}
+                for n, p in zip(tp.names, tp.params):
+                    whole = tp.run.plan.unshard(n, p.detach())
+                    if one is not None:
+                        named[n].copy_(whole)
+                    del whole
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts()
+        for d in seen.values():
+            d.clear()
+        t0 = time.perf_counter()
+        m = tp.train_step(batch)
+        torch.cuda.synchronize()
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["loss"].append(m["loss"])
+        res["launches"].append(counts())
+        res["shapes"].append({k: dict(v) for k, v in seen.items()})
+        if i == 0:                       # gathered on both ranks, compared on rank 0
+            whole = {n: tp.run.plan.unshard(n, g) for n, g in grads.pop("tp").items()}
+        dist.barrier()
+        if one is not None:
+            reset_counts()
+            t0 = time.perf_counter()
+            m = one.train_step(batch)
+            torch.cuda.synchronize()
+            res["one_ms"].append((time.perf_counter() - t0) * 1e3)
+            res["one_loss"].append(m["loss"])
+            res["one_launches"].append(counts())
+            if i == 0:                   # cosine and relative L2, leaf by leaf
+                dot = sq_a = sq_b = sq_d = 0.0
+                for n in sorted(whole):
+                    a, b = whole[n].float().flatten(), grads["one"][n].flatten()
+                    dot += float(a @ b)
+                    sq_a += float(a @ a)
+                    sq_b += float(b @ b)
+                    sq_d += float((a - b) @ (a - b))
+                res.update(cos=dot / math.sqrt(sq_a * sq_b), n_enc=len(whole),
+                           rel_l2=math.sqrt(sq_d / sq_b))
+                del grads["one"]
+        if i == 0:
+            del whole
+        dist.barrier()
+    log(f"tp (e) rank {axis.index}: classifier steps {[round(x, 1) for x in res['ms']]} ms "
+        f"(one device {[round(x, 1) for x in res['one_ms']]}); losses {res['loss']} (one "
+        f"device {res['one_loss']}); launches {res['launches']}; shapes {res['shapes']}")
+    del tp, one
     return res
 
 
@@ -6336,10 +6462,11 @@ def tp_kernel_cases(torch, prompt_mask, hq, hkv, d):
 
 
 def phase_tp(torch, card, one_step_ms=None):
-    """(24) Generation and GRPO under the mesh's 'model' axis: two ranks in
-    two processes on the card over gloo, mesh (1, 1, 2), Qwen3-0.6B +
-    NT-v2-500M in bf16 from seed 0 at phase 8's GRPO configuration; each
-    check against rank 0's one-device model (module note above), the step
+    """(24) Generation, GRPO and the classifier under the mesh's 'model'
+    axis: two ranks in two processes on the card over gloo, mesh (1, 1, 2),
+    Qwen3-0.6B + NT-v2-500M in bf16 from seed 0 at phase 8's GRPO
+    configuration, then the classifier at phase 13's shape; each check
+    against rank 0's one-device model (module note above), the GRPO step
     time against `one_step_ms` (phase 8's; else rank 0 times its own)."""
     import multiprocessing as mp
     t_phase = time.perf_counter()
@@ -6372,6 +6499,7 @@ def phase_tp(torch, card, one_step_ms=None):
     r0, r1 = results
     cfg = grpo_setup()[0]
     hq, hkv = cfg.decoder.num_heads // 2, cfg.decoder.num_kv_heads // 2
+    eh = cfg.encoder.num_heads // 2                  # the NT tower's heads a rank
     per_call = ENCODER_LAYERS + DECODER_LAYERS
     # (a), (b)
     for part, label in (("a", f"{TP_PROMPTS} prompts, greedy, {TP_NEW} new tokens"),
@@ -6401,6 +6529,10 @@ def phase_tp(torch, card, one_step_ms=None):
             if sum(dec.values()) != DECODER_LAYERS or any(k[3:5] != (hq, hkv) for k in dec):
                 fail(f"tp ({part}): the decoder's flash_fwd ran at {dec}, not "
                      f"{DECODER_LAYERS} launches of {hq}/{hkv} heads")
+            enc = {k: n for k, n in x["shapes"].items() if k[5] == cfg.encoder.head_dim}
+            if sum(enc.values()) != ENCODER_LAYERS or any(k[3:5] != (eh, eh) for k in enc):
+                fail(f"tp ({part}): the encoder's flash_fwd ran at {enc}, not "
+                     f"{ENCODER_LAYERS} launches of {eh} heads")
     # (c)
     c0, c1 = r0["c"], r1["c"]
     if c0["completions"] != c1["completions"]:
@@ -6430,20 +6562,58 @@ def phase_tp(torch, card, one_step_ms=None):
         dec_bwd = list(c["shapes"]["flash_bwd"])
         if not dec_bwd or any(k[3:5] != (hq, hkv) for k in dec_bwd):
             fail(f"tp (c): flash_bwd ran at {dec_bwd}, not at {hq}/{hkv} heads")
+        enc_fwd = {k: n for k, n in c["shapes"]["flash_fwd"].items()
+                   if k[5] == cfg.encoder.head_dim}
+        if (sum(enc_fwd.values()) != TP_GRPO_STEPS * 3 * ENCODER_LAYERS
+                or any(k[3:5] != (eh, eh) for k in enc_fwd)):
+            fail(f"tp (c): the encoder's flash_fwd ran at {enc_fwd}, not "
+                 f"{TP_GRPO_STEPS * 3 * ENCODER_LAYERS} launches of {eh} heads")
     if c0["moved"] != c0["n_b"]:
         fail(f"tp (c): only {c0['moved']} of {c0['n_b']} LoRA B leaves moved")
     if abs(c0["update_loss"] - c0["ref_loss"]) > loss_tol or c0["cos"] < SP_COS:
         fail(f"tp (c): the tensor-parallel update disagrees with one device: {c0}")
+    # (e)
+    e0, e1 = r0["e"], r1["e"]
+    shape = (CLS_B, CLS_L, CLS_L, eh, eh, cfg.encoder.head_dim)
+    log(f"tp (e) [{card}] ClassifierTrainer(mesh 1,1,2) at NT-v2-500M, bf16, the encoder "
+        f"trained, remat off, [{CLS_B}, {CLS_L}] pairs: step ms rank 0 "
+        f"{[round(x, 1) for x in e0['ms']]}, rank 1 {[round(x, 1) for x in e1['ms']]}, one "
+        f"device {[round(x, 1) for x in e0['one_ms']]}; losses {e0['loss']} vs one device "
+        f"{e0['one_loss']} (MESH_LOSS_RTOL {MESH_LOSS_RTOL}); the {e0['n_enc']} encoder "
+        f"gradients of the first step cosine {e0['cos']:.6f} (floor {SP_COS}), relative L2 "
+        f"{e0['rel_l2']:.4g}; launches a step rank 0 {e0['launches']}, rank 1 "
+        f"{e1['launches']}, one device {e0['one_launches']}; shapes {e0['shapes'][0]}")
+    for i, (got, want) in enumerate(zip(e0["loss"], e0["one_loss"])):
+        if not math.isfinite(got) or abs(got - want) > MESH_LOSS_RTOL * abs(want):
+            fail(f"tp (e): step {i}'s loss {got} against one device's {want}")
+    if e0["cos"] < SP_COS:
+        fail(f"tp (e): the encoder gradients' cosine {e0['cos']} is under {SP_COS}")
+    for e in (e0, e1):
+        for got, want, shapes in zip(e["launches"], e0["one_launches"], e["shapes"]):
+            if got != want or not got["flash_fwd"] or not got["flash_bwd"]:
+                fail(f"tp (e): a rank launched {got} in a step, one device {want}")
+            if any(set(shapes[k]) != {shape} for k in ("flash_fwd", "flash_bwd")):
+                fail(f"tp (e): the classifier's kernels ran at {shapes}, not at {shape}")
     # (d)
     pmask = torch.as_tensor(r0["b"]["prompt_mask"], dtype=torch.int32, device="cuda")
     rows, bwd_rows = tp_kernel_cases(torch, pmask, hq, hkv, cfg.decoder.head_dim)
+    ones = torch.ones((CLS_B, CLS_L), dtype=torch.int32, device="cuda")
+    rows.append(kernel_case(torch, f"tp_rank_classifier_encoder_B{CLS_B}_T{CLS_L}_H{eh}",
+                            CLS_B, CLS_L, CLS_L, eh, eh, cfg.encoder.head_dim, False, None,
+                            ones, 241))
+    bwd_rows.append(bwd_case(torch, f"tp_rank_classifier_finetune_B{CLS_B}_T{CLS_L}_H{eh}",
+                             CLS_B, CLS_L, CLS_L, eh, eh, cfg.encoder.head_dim, False, 0,
+                             ones, 242))
     log(f"tp: phase done in {time.perf_counter() - t_phase:.1f} s (rank seconds "
         f"{r0['seconds']}, {r1['seconds']}; by part, rank 0 {r0['parts']}, rank 1 "
         f"{r1['parts']})")
+    cls = lambda k: [sum(st[k] for st in e["launches"]) for e in (e0, e1)]
     launches = {"fwd": {"engine_per_call": [r0["a"]["launches"], r1["a"]["launches"]],
                         "grouped_per_call": [r0["b"]["launches"], r1["b"]["launches"]],
-                        "grpo_steps": [c0["launches"]["flash_fwd"], c1["launches"]["flash_fwd"]]},
-                "bwd": {"grpo_steps": [c0["launches"]["flash_bwd"], c1["launches"]["flash_bwd"]]}}
+                        "grpo_steps": [c0["launches"]["flash_fwd"], c1["launches"]["flash_fwd"]],
+                        "classifier_steps": cls("flash_fwd")},
+                "bwd": {"grpo_steps": [c0["launches"]["flash_bwd"], c1["launches"]["flash_bwd"]],
+                        "classifier_steps": cls("flash_bwd")}}
     return {"ranks": results, "launches": launches}, rows, bwd_rows
 
 
