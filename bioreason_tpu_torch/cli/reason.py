@@ -31,7 +31,10 @@ steps (read back by --resume) and to <checkpoint_dir>/grpo_final at the end.
 `--use_vllm` is accepted and ignored, as the JAX CLI and the reference do:
 rollouts always run through the port's engine. `--guided_decoding_regex`
 constrains every rollout to a regex (generate/guided.py); `--rollout_int8`
-rolls out with int8 base weights (train/grpo.py); the --save_every
+rolls out with int8 base weights (train/grpo.py), `--rollout_kv_int8` with
+an int8 KV cache (under a mesh too: the int8 weights whole on every rank,
+as JAX places them, e.g. `--cpu_devices 2 --mesh 1,1,2 --rollout_int8
+--rollout_kv_int8`); the --save_every
 checkpoint is written off the training thread; --debug_nans raises
 FloatingPointError at the first op that makes a NaN (utils/debug_nans.py).
 `--mesh d,f,m` / `--cpu_devices N` run GRPO as ranks of a mesh: the prompts
@@ -106,6 +109,9 @@ def parse_args(argv=None):
                    help="roll out with int8 base weights, the embedding and the head "
                         "included (GRPOConfig.rollout_int8; the training passes stay in "
                         "the compute dtype, so sampling is slightly off-policy)")
+    p.add_argument("--rollout_kv_int8", action="store_true",
+                   help="roll out with an int8 KV cache (GRPOConfig.rollout_kv_int8; a "
+                        "flag of the port: the JAX CLI leaves the cache float)")
     p.add_argument("--guided_decoding_regex", default=None,
                    help="constrain every rollout completion to match this regex "
                         "(vllm_guided_decoding_regex, grpo_config.py:278-280)")
@@ -243,7 +249,7 @@ def _run(args, mesh=None):
         sampling=SamplingConfig(max_new_tokens=args.max_completion_length),
         optim=OptimConfig(learning_rate=args.learning_rate or 5e-6, total_steps=steps),
         lora=lora_cfg, guided_decoding_regex=args.guided_decoding_regex,
-        rollout_int8=args.rollout_int8, seed=args.seed)
+        rollout_int8=args.rollout_int8, rollout_kv_int8=args.rollout_kv_int8, seed=args.seed)
     trainer = GRPOTrainer(fusion_cfg, cfg, proc, get_reward_funcs(args.reward_funcs),
                           model=model, device=device, mesh=mesh)
     state_path = os.path.join(args.checkpoint_dir, "grpo_state")

@@ -161,6 +161,7 @@ def fusion_forward(
     label_targets: Optional[torch.Tensor] = None,
     label_valid: Optional[torch.Tensor] = None,
     focal_gamma: float = 0.0,
+    focal_axis=None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Fused forward. Returns (logits, loss or None).
 
@@ -168,7 +169,9 @@ def fusion_forward(
     states and `logits` is None. With `label_positions/targets/valid` (from
     fused_ce.gather_label_positions) instead, the head runs only on the
     supervised positions, at the same loss. `focal_gamma` > 0 weighs the CE
-    by the detached (1 - p)^gamma. Without either, returns fp32 logits."""
+    by the detached (1 - p)^gamma; `focal_axis`: the rows are one rank's of
+    a batch split over that mesh axis, whose weight sum the focal mean
+    takes (ops/fused_ce.py). Without either, returns fp32 logits."""
     embeds = fused_input_embeddings(model, cfg, input_ids, dna_input_ids,
                                     dna_attention_mask, train_encoder)
     gathered = label_positions is not None
@@ -188,10 +191,11 @@ def fusion_forward(
         if gathered:
             loss = CE.decoder_lm_loss_focal_gathered(
                 h, head, label_positions, label_targets, label_valid, focal_gamma,
-                need_embedding_grad=train_embeddings)
+                need_embedding_grad=train_embeddings, axis=focal_axis)
         else:
             loss = CE.decoder_lm_loss_focal(h, head, labels, focal_gamma,
-                                            need_embedding_grad=train_embeddings)
+                                            need_embedding_grad=train_embeddings,
+                                            axis=focal_axis)
     elif gathered:
         loss = CE.decoder_lm_loss_gathered(h, head, label_positions, label_targets,
                                            label_valid, need_embedding_grad=train_embeddings,

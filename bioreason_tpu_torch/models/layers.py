@@ -220,6 +220,9 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
     dtype = x.dtype if dtype is None else dtype
     x = x.to(dtype)
     if getattr(lin, "tp", None) is not None:
+        if act8 and is_int8(lin):
+            raise ValueError("W8A8 (act_int8) under tensor parallelism is not ported: a "
+                             "rowwise rank's activation absmax covers its own columns only")
         return tp_dense(lin, x, dtype, dropout)
     bias = None if lin.bias is None else lin.bias.to(dtype)
     if not is_int8(lin):
@@ -265,26 +268,43 @@ def tp_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
     replicated `lora_b`. A bias stays whole on every rank (JAX's `P()`):
     a colwise rank adds its slice of the output rows inside its product,
     a rowwise one adds it once to the summed product before the rounding,
-    as `F.linear(x, W, b)` adds it on one device. Float weights only."""
+    as `F.linear(x, W, b)` adds it on one device.
+
+    An int8 weight and its scale are whole on every rank (JAX places its
+    `{q, scale}` leaves `P()`, parallel/partition.py); each rank computes
+    on its own part of them. Colwise: its output rows of the weight and of
+    the scale, through `Int8Linear`. Rowwise: its input columns of the int8
+    weight (`Int8MmF32`: the fp32 partial product of x and the int8 values,
+    its backward keeping the int8 slice); the per-output-channel scale
+    factors out of the sum over the columns, so it is applied once, in
+    fp32, to the product summed over the axis, before the one rounding;
+    then the bias."""
     from bioreason_tpu_torch.parallel import comm
     kind, axis = lin.tp
-    if is_int8(lin):
-        raise ValueError("tensor parallelism takes float linears (int8 under 'model' is "
-                         "open in ROADMAP.md, queue 1)")
+    int8 = is_int8(lin)
     xl = _adapter_input(x, dropout) if has_adapter(lin) else x
     if kind == "col":
         bias = None if lin.bias is None else comm.local_slice(lin.bias, axis, 0).to(dtype)
-        y = F.linear(comm.copy_to(x, axis) if xc is None else xc, lin.weight.to(dtype), bias)
+        xin = comm.copy_to(x, axis) if xc is None else xc
+        if int8:
+            y = Int8Linear.apply(xin, comm.local_slice(lin.weight, axis, 0),
+                                 comm.local_slice(lin.scale, axis, 0), bias)
+        else:
+            y = F.linear(xin, lin.weight.to(dtype), bias)
         if has_adapter(lin):
             u = comm.copy_to(xl @ lin.lora_a.to(dtype), axis)
             y = y + (u @ lin.lora_b.to(dtype)) * lin.lora_scale.to(dtype)
         return y
     lead, n = x.shape[:-1], lin.out_features
-    parts = [MmF32.apply(x.reshape(-1, x.shape[-1]), lin.weight.to(dtype).t())]
+    x2 = x.reshape(-1, x.shape[-1])
+    parts = [Int8MmF32.apply(x2, comm.local_slice(lin.weight, axis, 1)) if int8
+             else MmF32.apply(x2, lin.weight.to(dtype).t())]
     if has_adapter(lin):
         parts.append(MmF32.apply(xl.reshape(-1, xl.shape[-1]), lin.lora_a.to(dtype)))
     summed = comm.reduce_from(torch.cat(parts, -1) if len(parts) > 1 else parts[0], axis)
     y = summed[:, :n]
+    if int8:
+        y = y * lin.scale.reshape(-1).float()
     if lin.bias is not None:
         y = y + lin.bias.to(dtype).float()
     y = y.to(dtype).reshape(*lead, n)
@@ -310,6 +330,26 @@ class MmF32(torch.autograd.Function):
         g = g.to(a.dtype)
         return (g @ b.t() if ctx.needs_input_grad[0] else None,
                 a.t() @ g if ctx.needs_input_grad[1] else None)
+
+
+class Int8MmF32(torch.autograd.Function):
+    """x [M, K] @ q^T of an int8 weight q [N, K] (a rowwise rank's input
+    columns), accumulated and returned in fp32 without its scale: the int8
+    values are exact in x's dtype. The backward keeps the int8 q, not a
+    float copy (as `Int8Linear`), and forms dx in x's dtype; q takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q):
+        ctx.save_for_backward(q)
+        ctx.dtype = x.dtype
+        return mm_f32(x, q.to(x.dtype).t())
+
+    @staticmethod
+    def backward(ctx, g):
+        q, = ctx.saved_tensors
+        dx = g.to(ctx.dtype) @ q.to(ctx.dtype) if ctx.needs_input_grad[0] else None
+        return dx, None
 
 
 def add_adapter(lin: nn.Module, a: torch.Tensor, b: torch.Tensor, scale: float,
@@ -377,7 +417,7 @@ def qkv_proj(attn: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype] = No
         q, k, v = y.split((q_dim, kv_dim, kv_dim), dim=-1)
         return tuple(_split_delta(attn, n, base, x, dtype, dr)
                      for n, base, dr in zip("qkv", (q, k, v), drops))
-    shared = tp_shared_dense((attn.q, attn.k, attn.v), x, dtype, drops)
+    shared = None if act8 else tp_shared_dense((attn.q, attn.k, attn.v), x, dtype, drops)
     if shared is not None:
         return shared
     return (dense(attn.q, x, dtype, drops[0], act8), dense(attn.k, x, dtype, drops[1], act8),
@@ -461,7 +501,8 @@ def swiglu(mlp: SwiGLU, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
         g = _split_delta(mlp, "gate", g, x, dtype, dropout)
         u = _split_delta(mlp, "up", u, x, dtype, dropout)
     else:
-        shared = tp_shared_dense((mlp.gate, mlp.up), x, dtype, (dropout, dropout))
+        shared = None if act8 else tp_shared_dense((mlp.gate, mlp.up), x, dtype,
+                                                   (dropout, dropout))
         g, u = shared if shared is not None else (dense(mlp.gate, x, dtype, dropout, act8),
                                                   dense(mlp.up, x, dtype, dropout, act8))
     return dense(mlp.down, F.silu(g) * u, dtype, dropout, act8)
@@ -522,21 +563,36 @@ def moe_dispatch(xf: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor,
     return xpad[src[:-1]].view(num_experts, cap, h), dest
 
 
-def bank_product(x: torch.Tensor, bank: ExpertBank, dtype: torch.dtype) -> torch.Tensor:
+def bank_product(x: torch.Tensor, bank: ExpertBank, dtype: torch.dtype,
+                 ep=None) -> torch.Tensor:
     """x [E, C, in] @ the bank [E, in, out] in `dtype`: `torch.bmm` on a
-    float bank, `Int8Bank` on an int8 one."""
+    float bank, `Int8Bank` on an int8 one. Under expert parallelism (`ep`,
+    the 'model' axis) x holds this rank's E/m experts: a float bank holds
+    only those, an int8 bank and its scale are whole on every rank (JAX's
+    `P()`) and this rank's experts are sliced out of them."""
     if is_int8(bank):
-        return Int8Bank.apply(x.to(dtype), bank.weight, bank.scale)
+        q, scale = bank.weight, bank.scale
+        if ep is not None:
+            from bioreason_tpu_torch.parallel import comm
+            q, scale = comm.local_slice(q, ep, 0), comm.local_slice(scale, ep, 0)
+        return Int8Bank.apply(x.to(dtype), q, scale)
     return torch.bmm(x, bank.weight.to(dtype))
+
+
+def num_experts(moe: MoE) -> int:
+    """E of the layer: a float bank under expert parallelism holds E/m."""
+    bank, ep = moe.experts.gate, getattr(moe.experts, "ep", None)
+    return bank.weight.shape[0] * (1 if ep is None or is_int8(bank) else ep.size)
 
 
 def moe_experts(moe: MoE, ein: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """silu(x @ gate) * (x @ up) @ down of every expert on its buffer
-    [E, C, H]: three batched products over E in `dtype` (`bank_product`).
-    Returns [E * C, H]."""
-    g = bank_product(ein, moe.experts.gate, dtype)
-    u = bank_product(ein, moe.experts.up, dtype)
-    out = bank_product(F.silu(g) * u, moe.experts.down, dtype)
+    [E, C, H] (this rank's experts under expert parallelism): three batched
+    products over E in `dtype` (`bank_product`). Returns [E * C, H]."""
+    ep = getattr(moe.experts, "ep", None)
+    g = bank_product(ein, moe.experts.gate, dtype, ep)
+    u = bank_product(ein, moe.experts.up, dtype, ep)
+    out = bank_product(F.silu(g) * u, moe.experts.down, dtype, ep)
     return out.view(-1, ein.shape[-1])
 
 
@@ -567,7 +623,7 @@ def moe_apply(moe: MoE, x: torch.Tensor, top_k: int, norm_topk_prob: bool = True
     dtype = x.dtype if dtype is None else dtype
     xf = x.reshape(n, h).to(dtype)
     ep, dp = getattr(moe.experts, "ep", None), getattr(moe.experts, "dp", None)
-    e = moe.experts.gate.weight.shape[0] * (1 if ep is None else ep.size)
+    e = num_experts(moe)
     vals, idx = moe_route(moe, xf, top_k, norm_topk_prob, dtype)
     if dp is None:
         cap = moe_capacity(n, e, top_k, capacity_factor)

@@ -217,19 +217,26 @@ def decoder_lm_loss_gathered(hidden, embedding, positions, targets, valid,
                               -100, chunk, need_embedding_grad, save_logits)
 
 
-def _focal_weighted_mean(logps, valid, gamma: float):
+def _focal_weighted_mean(logps, valid, gamma: float, axis=None):
     """loss = sum(w * CE) / sum(w) with detached weights w = (1 - p)^gamma:
     fitted tokens contribute ~nothing, so the step concentrates on unfit
-    ones; gamma = 0 is the mean CE."""
+    ones; gamma = 0 is the mean CE. `axis` (a `parallel.comm.Axis`): the
+    rows are this rank's share of a batch split over it, and sum(w) is
+    summed over the axis (no gradient, as w has none), so the ranks'
+    losses add up to the whole batch's."""
     ce = -logps
     p = torch.exp(torch.clamp(logps, max=0.0))
     w = ((1.0 - p) ** gamma).detach() * valid
-    return (w * ce).sum() / torch.clamp(w.sum(), min=1e-6)
+    total = w.sum()
+    if axis is not None:
+        from bioreason_tpu_torch.parallel import comm
+        total = comm.all_reduce(total, axis)
+    return (w * ce).sum() / torch.clamp(total, min=1e-6)
 
 
 def decoder_lm_loss_focal(hidden, embedding, labels, gamma: float,
                           ignore_index: int = -100, chunk: int = DEFAULT_CHUNK,
-                          need_embedding_grad: bool = False):
+                          need_embedding_grad: bool = False, axis=None):
     """Focal-weighted variant of decoder_lm_loss (same shift semantics)."""
     hdim = hidden.shape[-1]
     h = hidden[:, :-1].reshape(-1, hdim)
@@ -237,14 +244,14 @@ def decoder_lm_loss_focal(hidden, embedding, labels, gamma: float,
     valid = (y != ignore_index).float()
     logps = chunked_token_logps(h, embedding, torch.where(y == ignore_index, 0, y),
                                 chunk, need_embedding_grad)
-    return _focal_weighted_mean(logps, valid, gamma)
+    return _focal_weighted_mean(logps, valid, gamma, axis)
 
 
 def decoder_lm_loss_focal_gathered(hidden, embedding, positions, targets, valid,
                                    gamma: float, chunk: int = DEFAULT_CHUNK,
-                                   need_embedding_grad: bool = False):
+                                   need_embedding_grad: bool = False, axis=None):
     """Focal-weighted variant of decoder_lm_loss_gathered."""
     logps = chunked_token_logps(_gather_rows(hidden, positions), embedding,
                                 targets.reshape(-1).long(), chunk, need_embedding_grad)
-    return _focal_weighted_mean(logps, valid.reshape(-1).float(), gamma)
+    return _focal_weighted_mean(logps, valid.reshape(-1).float(), gamma, axis)
 

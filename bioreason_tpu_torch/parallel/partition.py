@@ -37,7 +37,17 @@ Execution (`ShardPlan`) is explicit, as torch gives no GSPMD:
     tower's parameters (`encoder.blocks.*`) match no `model` rule, as in
     JAX;
   * under pipeline parallelism (`pp=True`) a decoder layer's leading
-    `model` entry is its stage: a rank keeps only its stage's layers.
+    `model` entry is its stage: a rank keeps only its stage's layers;
+  * int8 storage (train/quant.py: an int8 `weight` buffer and its `scale`
+    buffer): JAX's int8 leaves are `{q, scale}` subtrees whose paths end
+    in `kernel/q`, `kernel/scale` or `experts/<bank>/q`, which no anchored
+    rule matches, so they fall to `P()` and every device holds them whole.
+    `param_specs` gives the buffers that `P()` and `ShardPlan` stores them
+    whole on every rank, but it decides tensor and expert parallelism by
+    the float weight's rule all the same: a colwise int8 linear computes on
+    its rank's rows of the replicated weight and scale, a rowwise one on
+    its rank's input columns, an int8 bank on its rank's E/m experts
+    (`layers.tp_dense`, `layers.bank_product`).
 """
 
 from __future__ import annotations
@@ -164,19 +174,44 @@ def zero2_sharding(shape: Sequence[int], mesh_shape: Dict[str, int]) -> P:
     return P(*names)
 
 
+def int8_buffers(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """name -> tensor of every int8 storage buffer: the int8 `weight` of a
+    linear, an embedding or an expert bank and its `scale`."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        w = mod._buffers.get("weight")
+        if w is not None and w.dtype == torch.int8:
+            prefix = f"{mod_name}." if mod_name else ""
+            out[prefix + "weight"] = w
+            out[prefix + "scale"] = mod._buffers["scale"]
+    return out
+
+
+def _stacked_shape(model: nn.Module, name: str, t: torch.Tensor) -> Tuple[int, ...]:
+    """t's shape in the stacked view: the tower's layer count first for a
+    per-layer tensor."""
+    shape = tuple(t.shape)
+    if is_layer_param(name):
+        shape = (len(getattr(model, name.split(".")[0]).layers),) + shape
+    return shape
+
+
+def _padded(spec: Sequence, ndim: int) -> P:
+    return P(*(tuple(spec) + (None,) * (ndim - len(spec))))
+
+
 def param_specs(model: nn.Module, rules: Rules, mesh_shape: Dict[str, int]) -> Dict[str, P]:
     """Every parameter's valid spec in the stacked view (layer entry first
-    for per-layer parameters; the layer count is the tower's)."""
-    counts = {t: len(getattr(model, t).layers) for t in ("decoder", "encoder")
-              if hasattr(getattr(model, t, None), "layers")}
+    for per-layer parameters; the layer count is the tower's), and every
+    int8 buffer's: `P()`, as JAX's `{q, scale}` leaves get (module
+    docstring)."""
     out = {}
     for name, p in model.named_parameters():
-        spec = spec_for_path(name, rules)
-        shape = tuple(p.shape)
-        if is_layer_param(name):
-            shape = (counts[name.split(".")[0]],) + shape
-        spec = P(*(tuple(spec) + (None,) * (len(shape) - len(spec))))
-        out[name] = _valid_spec(spec, shape, mesh_shape)
+        shape = _stacked_shape(model, name, p)
+        out[name] = _valid_spec(_padded(spec_for_path(name, rules), len(shape)), shape,
+                                mesh_shape)
+    for name, b in int8_buffers(model).items():
+        out[name] = _padded((), len(_stacked_shape(model, name, b)))
     return out
 
 
@@ -233,9 +268,12 @@ class ShardPlan:
     `apply` is the counterpart of JAX's `shard_params`.
 
     `placements[name]` lists (axis, dim) in the order the parameter was
-    sliced: `model` first, then `fsdp`. `stage_layers` is the range of
-    decoder layers this rank runs under pipeline parallelism (None
-    without). `encoder_cfg`: the NT encoder's config, whose layers then
+    sliced: `model` first, then `fsdp` (none for an int8 buffer, stored
+    whole). `model_dims[name]` is the dim of a weight run tensor or expert
+    parallel that 'model' splits: in storage for a float weight, at use
+    for an int8 one, whose float rule decides it. `stage_layers` is the
+    range of decoder layers this rank runs under pipeline parallelism
+    (None without). `encoder_cfg`: the NT encoder's config, whose layers then
     run tensor-parallel over `model` (`tower_tp`) unless its attention is
     sequence-parallel (`sp*`) or the axis holds GPipe stages; None (an
     Evo2 tower, or no tower) leaves the tower replicated."""
@@ -246,9 +284,12 @@ class ShardPlan:
         self.pp = pp
         sizes = {"data": topo.data.size, "fsdp": topo.fsdp.size, "model": topo.model.size}
         self.mesh_shape = sizes
-        self.specs = param_specs(model, partition_rules_fusion(pp), sizes)
+        rules = partition_rules_fusion(pp)
+        self.specs = param_specs(model, rules, sizes)
+        int8 = int8_buffers(model)
         m = topo.model.size
         self.placements: Dict[str, List[Tuple[str, int]]] = {}
+        self.model_dims: Dict[str, int] = {}
         self.stage_layers: Optional[range] = None
         if pp:
             n = decoder_cfg.num_layers
@@ -259,16 +300,23 @@ class ShardPlan:
         self.tower_tp = (encoder_cfg is not None and m > 1 and not pp
                          and not str(encoder_cfg.attention_impl).startswith("sp"))
         for name, spec in self.specs.items():
+            if name in int8:           # whole on every rank; TP by the float rule
+                shape = _stacked_shape(model, name, int8[name])
+                spec = _valid_spec(_padded(spec_for_path(name, rules), len(shape)), shape,
+                                   sizes)
             dims = spec[1:] if is_layer_param(name) else spec
-            place = []
             if name.startswith("encoder.layers."):
                 tp = self.tower_tp and _tp_ok(encoder_cfg, name, m, encoder=True)
             else:
                 tp = name.startswith("decoder.layers.") and not pp and _tp_ok(decoder_cfg, name, m)
             if "model" in dims and m > 1 and tp:
-                place.append(("model", dims.index("model")))
-            if "fsdp" in dims and topo.fsdp.size > 1:
-                place.append(("fsdp", dims.index("fsdp")))
+                self.model_dims[name] = dims.index("model")
+            place = []
+            if name not in int8:
+                if name in self.model_dims:
+                    place.append(("model", self.model_dims[name]))
+                if "fsdp" in dims and topo.fsdp.size > 1:
+                    place.append(("fsdp", dims.index("fsdp")))
             self.placements[name] = place
         # replicated parameters that act on a tensor-parallel rank's own heads
         # or rows (the per-head q / k norms, a colwise linear's bias): each
@@ -276,10 +324,8 @@ class ShardPlan:
         self.partial_over_model = {
             n for n in self.placements
             if (re.search(r"\.attn\.(q|k)_norm\.scale$", n)
-                and any(ax == "model" for ax, _ in
-                        self.placements.get(n.rsplit(".attn.", 1)[0] + ".attn.q.weight", [])))
-            or (n.endswith(".bias")
-                and ("model", 0) in self.placements.get(n[:-len("bias")] + "weight", []))}
+                and n.rsplit(".attn.", 1)[0] + ".attn.q.weight" in self.model_dims)
+            or (n.endswith(".bias") and self.model_dims.get(n[:-len("bias")] + "weight") == 0)}
 
     def axis(self, name: str) -> comm.Axis:
         return getattr(self.topo, name)
@@ -312,15 +358,14 @@ class ShardPlan:
             mod._parameters[leaf] = nn.Parameter(self.shard(name, p.data),
                                                  requires_grad=p.requires_grad)
         model_axis = self.topo.model
-        for name in self.placements:
-            place = dict(self.placements[name])
-            if "model" not in place or not name.endswith(".weight"):
+        for name, dim in self.model_dims.items():
+            if not name.endswith(".weight"):
                 continue
             mod, _ = _module(model, name)
             if ".experts." in name:
                 model.get_submodule(name.rsplit(".experts.", 1)[0]).experts.ep = model_axis
             else:
-                mod.tp = ("col" if place["model"] == 0 else "row", model_axis)
+                mod.tp = ("col" if dim == 0 else "row", model_axis)
 
     def gathered(self, model: nn.Module):
         """Context: the fsdp-sharded parameters all-gathered (autograd

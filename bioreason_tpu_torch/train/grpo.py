@@ -52,15 +52,14 @@ from bioreason_tpu_torch.data.processor import BioProcessor, ProcessorOutput
 from bioreason_tpu_torch.generate.engine import GenerationEngine
 from bioreason_tpu_torch.models.fusion import (FusionModel, fused_input_embeddings,
                                                init_fusion, validate_splice)
-from bioreason_tpu_torch.models.layers import has_adapter, is_int8
+from bioreason_tpu_torch.models.layers import has_adapter
 from bioreason_tpu_torch.models.qwen3 import decoder_forward
 from bioreason_tpu_torch.ops.fused_ce import chunked_token_logps
 from bioreason_tpu_torch.train import trainable as T
 from bioreason_tpu_torch.train.checkpoint import AsyncSaver, load_checkpoint, save_checkpoint
 from bioreason_tpu_torch.train.lora import attach_lora, has_lora, merged_weight, strip_lora
 from bioreason_tpu_torch.train.optim import AdamW
-from bioreason_tpu_torch.train.quant import (quantize_frozen_int8, quantize_kernel_int8,
-                                             store_int8)
+from bioreason_tpu_torch.train.quant import quantize_frozen_int8, quantize_whole
 from bioreason_tpu_torch.train.trainable import shared_copy
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
@@ -130,7 +129,9 @@ class GRPOTrainer:
         caches hold Hkv/m heads), the logp passes and the update, while the
         model ranks of one dp index take the same rows. Dp index i draws
         from cfg.seed + i, so the model ranks of one index share their
-        draws."""
+        draws. Int8 weights (QLoRA, `rollout_int8`) are whole on every
+        rank, as JAX places them; each rank computes on its heads, rows or
+        experts of them (parallel/partition.py)."""
         if cfg.batch_size % cfg.num_generations:
             raise ValueError(f"batch {cfg.batch_size} not divisible by G={cfg.num_generations}"
                              " (reference grpo_trainer.py:429-446)")
@@ -175,11 +176,6 @@ class GRPOTrainer:
             self.opt = AdamW(self.params, cfg.optim)
         else:
             from bioreason_tpu_torch.parallel.trainer import DistAdamW, MeshRun, nt_tower
-            _, fsdp, tp = mesh.mesh.shape
-            if (fsdp > 1 or tp > 1) and (cfg.rollout_int8 or cfg.frozen_dtype == "int8"):
-                # tensor parallelism takes float linears (layers.tp_dense)
-                raise ValueError("int8 weights and rollouts shard over 'data' only (int8 "
-                                 "under 'fsdp' or 'model' is open in ROADMAP.md, queue 1)")
             self.run = MeshRun(mesh, model, fusion_cfg.decoder,
                                encoder_cfg=nt_tower(fusion_cfg))
             self.run.split_rows(True)
@@ -240,19 +236,24 @@ class GRPOTrainer:
             the head are quantized for it (`include_embed=True`).
         JAX quantizes again for every rollout; the base is frozen under
         LoRA, so the quantized tensors are built once and reused. Weights
-        that train (no LoRA) are quantized again for every rollout."""
+        that train (no LoRA) are quantized again for every rollout. Under a
+        mesh each float weight is quantized from its whole rows (gathered
+        from the ranks' fsdp and tensor-parallel pieces) and the int8 copy
+        is whole on every rank, as JAX quantizes inside a jit over the
+        sharded tree and places the int8 leaves `P()` (train/quant.py)."""
         if not self.cfg.rollout_int8:
             return self.model
         if self._rollout is not None:
             return self._rollout
         rollout = shared_copy(self.model)
+        plan = None if self.run is None else self.run.plan
         if self.cfg.frozen_dtype == "int8":
             dec = rollout.decoder
-            for mod in (dec.embed, dec.lm_head):
-                if mod is not None and not is_int8(mod):
-                    store_int8(mod, *quantize_kernel_int8(mod.weight))
+            for name in ("embed", "lm_head"):
+                if getattr(dec, name) is not None:
+                    quantize_whole(getattr(dec, name), f"decoder.{name}.weight", plan)
         else:
-            quantize_frozen_int8(rollout, include_embed=True)
+            quantize_frozen_int8(rollout, include_embed=True, plan=plan)
         self._rollout = rollout if self.cfg.lora is not None else None
         return rollout
 

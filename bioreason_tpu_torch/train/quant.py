@@ -29,11 +29,19 @@ Mixture-of-Experts expert banks ([E, in, out] in both packages) take one
 scale per (expert, output channel), [E, 1, out], their absmax over the
 input axis -2 (JAX quant.py:83-89); the router is an `nn.Linear` like any
 other and goes int8 too, as the JAX walk quantizes its `kernel` leaf.
+
+Under a mesh (`plan`, a `parallel.partition.ShardPlan`) the float weights
+a rank holds may be fsdp or tensor-parallel pieces; `quantize_frozen_int8
+(plan=)` gathers each whole (`plan.unshard`) before it quantizes, so every
+scale comes from a whole row, and stores the int8 weight and scale whole
+on every rank, as JAX quantizes inside a jit over the sharded tree and
+places the `{q, scale}` leaves `P()`: the values equal one device's bit
+for bit.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -70,37 +78,46 @@ def dequantize_kernel(q: torch.Tensor, scale: torch.Tensor,
 
 
 @torch.no_grad()
-def store_int8(mod: nn.Module, q: torch.Tensor, scale: torch.Tensor) -> None:
+def store_int8(mod: nn.Module, q: torch.Tensor, scale: torch.Tensor,
+               shape: Optional[Sequence[int]] = None) -> None:
     """Replace `mod.weight` (an nn.Linear's, an Embedding's or an
     ExpertBank's) by the int8 buffer `q` and a `scale` buffer in the dtype
     it is given (fp32 from `quantize_kernel_int8`; bf16 when fused in a
     QLoRA model, whose trainer stored its scales so); the float weight is
-    dropped."""
-    if tuple(q.shape) != tuple(mod.weight.shape) or q.dtype != torch.int8:
-        raise ValueError(f"int8 {tuple(q.shape)} {q.dtype} does not replace a weight "
-                         f"{tuple(mod.weight.shape)}")
+    dropped. `shape`: the whole weight's, where `mod` holds a rank's piece
+    of it (default: the weight's own)."""
+    shape = tuple(mod.weight.shape) if shape is None else tuple(shape)
+    if tuple(q.shape) != shape or q.dtype != torch.int8:
+        raise ValueError(f"int8 {tuple(q.shape)} {q.dtype} does not replace a weight {shape}")
     device = mod.weight.device
     del mod.weight
     mod.register_buffer("weight", q.to(device))
     mod.register_buffer("scale", scale.to(device))
 
 
-def _quantize(mod: nn.Module) -> None:
-    if not L.is_int8(mod):
-        quant = quantize_bank_int8 if isinstance(mod, L.ExpertBank) else quantize_kernel_int8
-        store_int8(mod, *quant(mod.weight))
+def quantize_whole(mod: nn.Module, name: str, plan=None) -> None:
+    """Store `mod`'s float weight (parameter `name` of the model) int8 from
+    its whole rows: under a mesh `plan` gathers this rank's piece first
+    (a collective every rank takes); an int8 module is left as it is."""
+    if L.is_int8(mod):
+        return
+    w = mod.weight if plan is None else plan.unshard(name, mod.weight)
+    quant = quantize_bank_int8 if isinstance(mod, L.ExpertBank) else quantize_kernel_int8
+    store_int8(mod, *quant(w), shape=w.shape)
 
 
 @torch.no_grad()
 def quantize_frozen_int8(model: nn.Module, subtrees: Sequence[str] = ("decoder", "encoder"),
-                         include_embed: bool = False) -> nn.Module:
+                         include_embed: bool = False, plan: Optional[object] = None
+                         ) -> nn.Module:
     """Quantize, in place, every `nn.Linear` and MoE expert bank under the
     named submodules of a `FusionModel` (the decoder and the DNA tower, NT
     or Evo2: the JAX walk over the `kernel` and `experts` leaves of those
     subtrees). `include_embed` adds the
     decoder's embedding and its separate `lm_head`; otherwise an `lm_head`
     stays float, as the JAX walk leaves it (quant.py:76-78). Already int8
-    modules are left as they are. Returns the model."""
+    modules are left as they are. `plan`: the model's shards under a mesh
+    are gathered whole first (module docstring). Returns the model."""
     for name in subtrees:
         tower = getattr(model, name, None)
         if tower is None:
@@ -108,9 +125,9 @@ def quantize_frozen_int8(model: nn.Module, subtrees: Sequence[str] = ("decoder",
         for mod_name, mod in tower.named_modules():
             if (isinstance(mod, L.ExpertBank)
                     or isinstance(mod, nn.Linear) and (mod_name != "lm_head" or include_embed)):
-                _quantize(mod)
+                quantize_whole(mod, f"{name}.{mod_name}.weight", plan)
         if name == "decoder" and include_embed:
-            _quantize(tower.embed)
+            quantize_whole(tower.embed, "decoder.embed.weight", plan)
     return model
 
 

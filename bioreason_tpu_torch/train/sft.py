@@ -111,17 +111,14 @@ class SFTTrainer:
         parallelism when a tower's attention asks for it ("sp..."), GPipe
         when `pp_micro` > 0 and the model axis is above 1; tensor
         parallelism over 'model' in the decoder's layers (without GPipe)
-        and the NT tower's (without sequence parallelism)."""
+        and the NT tower's (without sequence parallelism). QLoRA's int8
+        weights stay whole on every rank (JAX's `P()`), each rank computing
+        on its heads, rows or experts of them."""
         from bioreason_tpu_torch.parallel.trainer import MeshRun, nt_tower
         fc, cfg = self.fusion_cfg, self.cfg
         if cfg.pp_micro > 0 and cfg.frozen_dtype == "int8":
             raise ValueError("pp_micro with int8 frozen weights is untested; "
                              "use bf16 frozen weights under PP")
-        sizes = dict(zip(("data", "fsdp", "model"), mesh.mesh.shape))
-        if cfg.frozen_dtype == "int8" and (sizes["fsdp"] > 1 or sizes["model"] > 1):
-            raise ValueError("int8 frozen weights shard over 'data' only")
-        if cfg.focal_gamma > 0.0 and sizes["data"] * sizes["fsdp"] > 1:
-            raise ValueError("focal_gamma needs the global weight sum; not split over data")
         tower = fc.hyena if fc.encoder_kind == "evo2" else fc.encoder
         sp = str(tower.attention_impl).startswith("sp")
         self.run = MeshRun(mesh, self.model, fc.decoder, sp=sp, pp_micro=cfg.pp_micro,
@@ -143,6 +140,11 @@ class SFTTrainer:
         batch's, inside `_scope`."""
         cfg = self.cfg
         rate = cfg.lora.dropout if (train and cfg.lora is not None) else 0.0
+        focal = cfg.focal_gamma if train else 0.0
+        # under a mesh the focal mean divides by the weights summed over
+        # every rank's rows (JAX's global sum): this rank's share is then
+        # its own weighted sum over that total, not its token share
+        focal_axis = self.run.dp if focal > 0.0 and db.get("split") else None
         _, loss = fusion_forward(
             self.model, self.fusion_cfg, db["input_ids"], db["attention_mask"],
             db.get("dna_input_ids"), db.get("dna_attention_mask"),
@@ -152,8 +154,10 @@ class SFTTrainer:
             train_embeddings=train and cfg.lora is None,
             lora_dropout_gen=self._dropout_gen if rate > 0.0 else None,
             lora_dropout_rate=rate,
-            focal_gamma=cfg.focal_gamma if train else 0.0)
-        return loss if self.run is None else loss * db["share"]
+            focal_gamma=focal, focal_axis=focal_axis)
+        if self.run is None or focal_axis is not None:
+            return loss
+        return loss * db["share"]
 
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         validate_splice(batch["input_ids"], batch.get("dna_input_ids"),
@@ -177,7 +181,7 @@ class SFTTrainer:
         share = (max(int(rows["label_valid"].sum()), 1) / max(int(valid.sum()), 1) if split
                  else 1.0 / self.run.dp.size)
         out = {k: torch.as_tensor(v, device=self.device) for k, v in rows.items()}
-        out["share"] = share
+        out["share"], out["split"] = share, split
         return out
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:

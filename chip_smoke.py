@@ -280,22 +280,23 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               metrics files, the val loss under its first reading, best-k's
               kept steps those of the JAX CLI's rule on that curve, params
               only; the artifact under the package; attention(impl=
-              "pallas") at D = 32 raising; (b) the best SFT checkpoint's test
-              answers under serve's --int8 storage and with W8A8: accuracy
-              and the share equal to bf16's, printed only (phase 14 holds
-              both paths to teacher-forced cosine floors); (f) flash_fwd and flash_bwd
+              "pallas") at D = 32 raising; (f) flash_fwd and flash_bwd
               against their plain versions at the rehearsal's decoder shape
               (B=8, the collate's bucketed T, 16/8 heads of 128, causal, its
               pads); (c) `tools/bench_sft.py` at bench.py's shape with
               --remat off, full and dots (examples/s, peak GiB, launches per
-              step, one step's device-busy and wall ms, the dots step's top
-              kernels), one step's loss and gradients of dots against off (the
+              step, one step's device-busy and wall ms), one step's loss and
+              gradients of dots against off (the
               loss equal, the gradients' cosine beside off's against
               itself); (d) an async save between two steps: the step's time
               around it, then around a blocking save at the same point, and
               the async file equal to the snapshot, not to the stepped
               parameters; (e) --debug_nans raising FloatingPointError
-              at a NaN out of flash_fwd and out of an aten op. At most 150 s.
+              at a NaN out of flash_fwd and out of an aten op. Its seconds by
+              stage are printed. At most 150 s. The best checkpoint's int8 /
+              W8A8 answers are not printed (phases 14-15 hold those paths to
+              limits), nor is the dots step profiled a second time (bench_sft
+              reports its busy and wall ms).
  17. moe      Qwen3-MoE serving at Qwen3-30B-A3B + NT-v2-500M, full width
               and depth (48 layers, hidden 2048, 32/4 heads of 128, 128
               experts of 768 with 8 active, capacity factor 1.25, untied
@@ -412,9 +413,26 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               parameters, the first step's encoder gradients cosine >=
               SP_COS, each step's launches equal to one device's (58
               flash_fwd, 58 flash_bwd) with every one at [16, 512, 8, 64];
-              (d) flash_fwd / flash_bwd at a rank's grouped prefill
-              [4,P,8/4,128] and at the classifier's [16,512,8,64] against
-              their plain versions. A hang guard of TP_HANG_S.
+              (f) QLoRA at phase 8's GRPO configuration on the same mesh
+              (frozen_dtype="int8", rollout_int8, rollout_kv_int8; the int8
+              weights and scales whole on both ranks, as JAX places them):
+              the int8 rollout copy's grouped greedy call (8 new tokens)
+              teacher-forced on one device's int8 rollout stream as in (b),
+              each rank's KV
+              cache half one device's bytes, each rank's int8 bytes (the
+              training model's and the rollout copy's) one device's, then
+              one step as in (c) with its gates (ranks' completions equal,
+              launches and heads, LoRA B moved, the update against one
+              device's QLoRA update) and its ms against one device's; (g)
+              SFTTrainer(frozen_dtype="int8") at bench.py's shape on a
+              second mesh of the two processes, (1, 2, 1) (fsdp: 2 rows a
+              rank, the adapters sharded, the int8 weights whole), for
+              TP_SFT_STEPS steps: loss and grad-norm within MESH_LOSS_RTOL
+              of the one-device QLoRA trainer's, launches a step equal, int8
+              bytes equal, resident and peak GiB a rank; (d) flash_fwd /
+              flash_bwd at a rank's grouped prefill [4,P,8/4,128], at the
+              classifier's [16,512,8,64] and at (g)'s per-rank shapes
+              against their plain versions. A hang guard of TP_HANG_S.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -4096,15 +4114,14 @@ def jax_rule_kept(val_curve, k, stop_step):
     return sorted(step for _, step in kept)
 
 
-def rehearsal_fusion(torch, act_int8=False):
+def rehearsal_fusion(torch):
     """The rehearsal's FusionConfig and processor (tools/rehearsal.py)."""
     from bioreason_tpu_torch.cli.common import DECODER_PRESETS, ENCODER_PRESETS
     from bioreason_tpu_torch.config import FusionConfig
     from bioreason_tpu_torch.data import BioProcessor, ByteTextTokenizer, KmerTokenizer
     tok = ByteTextTokenizer()
-    dec = dataclasses.replace(DECODER_PRESETS["qwen3-0.6b"](vocab_size=tok.vocab_size),
-                              act_int8=act_int8)
-    enc = dataclasses.replace(ENCODER_PRESETS["nt-50m"](), act_int8=act_int8)
+    dec = DECODER_PRESETS["qwen3-0.6b"](vocab_size=tok.vocab_size)
+    enc = ENCODER_PRESETS["nt-50m"]()
     cfg = FusionConfig(decoder=dec, encoder=enc, dna_pad_token_id=tok.dna_pad_id,
                        max_length_text=512, max_length_dna=REH_SEQ_LEN + 8)
     return cfg, tok, BioProcessor(tok, KmerTokenizer(kmer=1))
@@ -4114,25 +4131,20 @@ def phase_rehearsal(torch, card):
     """The quality rehearsal at its bench widths, cut for time (REH_*), and
     the training-loop pieces that came with it (module docstring, phase 16).
     Returns (numbers, forward rows, backward rows)."""
-    import csv
-
     import torch.nn.functional as F
     from bioreason_tpu_torch.cli.common import load_items
     from bioreason_tpu_torch.data.collate import sft_collate
-    from bioreason_tpu_torch.config import SamplingConfig
     from bioreason_tpu_torch.generate.engine import GenerationEngine
     from bioreason_tpu_torch.models.attention import attention
     from bioreason_tpu_torch.ops import flash_attention as fa
-    from bioreason_tpu_torch.serve import serving_storage
     from bioreason_tpu_torch.tools import bench_sft, rehearsal
     from bioreason_tpu_torch.train import eval as TE
-    from bioreason_tpu_torch.train.checkpoint import TopKKeeper, load_checkpoint, load_sft_model
-    from bioreason_tpu_torch.train.eval import evaluate_generative, multilabel_substring_accuracy
+    from bioreason_tpu_torch.train.checkpoint import TopKKeeper, load_checkpoint
     from bioreason_tpu_torch.train.grpo import GRPOTrainer
     from bioreason_tpu_torch.train.sft import SFTTrainer
     from bioreason_tpu_torch.utils.debug_nans import nan_checks
     t_phase = time.perf_counter()
-    out, rows, bwd_rows = {}, [], []
+    out, rows, bwd_rows, stages = {}, [], [], {}
     build_dir = os.path.join(REPO, "bioreason_tpu_torch", "build")
     os.makedirs(build_dir, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_rehearsal_", dir=build_dir)
@@ -4240,33 +4252,7 @@ def phase_rehearsal(torch, card):
                     "acc_sft": art["test_accuracy_after_sft"],
                     "acc_grpo": art["test_accuracy_after_grpo"]}
 
-        # (b) the best SFT checkpoint under serve's int8 storage and W8A8
-        t_sub = time.perf_counter()
-        with open(os.path.join(work, "generations_sft.csv"), newline="") as f:
-            bf16_rows = list(csv.DictReader(f))
-        _, _, test_items = load_items("kegg", os.path.join(work, "corpus"), 0, 0, REH_SEED)
-        uniq = sorted({ex["answer"].strip() for ex in test_items})
-        out["b"] = {"bf16": {"accuracy": art["test_accuracy_after_sft"], "equal": 1.0}}
-        for mode in ("int8", "w8a8"):
-            cfg, tok, proc = rehearsal_fusion(torch, act_int8=mode == "w8a8")
-            model = load_sft_model(keeper.best_path(), rehearsal_fusion(torch)[0], REH_SEED,
-                                   "qwen3-0.6b", "nt-50m", "cuda")
-            serving_storage(model, int8=True)
-            engine = GenerationEngine(cfg, eos_token_id=tok.eos_token_id, device="cuda")
-            res = evaluate_generative(engine, model, proc, test_items, labels=tuple(uniq[:2]),
-                                      sampling=SamplingConfig(max_new_tokens=REH_NEW),
-                                      max_new_tokens=REH_NEW, batch_size=REH_BATCH, greedy=True,
-                                      max_length_text=512, max_length_dna=REH_SEQ_LEN + 8)
-            equal = sum(g["generation"] == r["generation"]
-                        for g, r in zip(res.generations, bf16_rows)) / len(bf16_rows)
-            out["b"][mode] = {"accuracy": multilabel_substring_accuracy(res.generations),
-                              "equal": equal}
-            del model, engine
-            torch.cuda.empty_cache()
-        log(f"rehearsal (b) [{card}] (print-only: phases 14-15 hold the int8 and W8A8 paths "
-            f"to limits): the best SFT checkpoint's {len(bf16_rows)} test answers, "
-            f"{REH_NEW} tokens greedy: accuracy and share of answers equal to bf16's "
-            f"{out['b']} ({time.perf_counter() - t_sub:.1f} s)")
+        stages["a"] = round(time.perf_counter() - t_phase, 1)
 
         # (f) the kernels at the rehearsal's decoder shape: a training batch
         items = load_items("kegg", os.path.join(work, "corpus"), 0, 0, REH_SEED)[0][:REH_BATCH]
@@ -4280,6 +4266,7 @@ def phase_rehearsal(torch, card):
                                  128, True, 0, mask, 162))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    stages["f"] = round(time.perf_counter() - t_phase - sum(stages.values()), 1)
 
     # (c) bench_sft at bench.py's shape, remat off, full and dots
     t_sub = time.perf_counter()
@@ -4298,9 +4285,6 @@ def phase_rehearsal(torch, card):
                            "ms_per_step": res["ms_per_step"],
                            "busy_ms": res["profiled_step_busy_ms"],
                            "wall_ms": res["profiled_step_wall_ms"]}
-        if remat == "dots":
-            profile_step(torch, card, "bench_sft --remat dots, one step",
-                         lambda: trainer.train_step(batch), ("flash", "gemm"))
         if remat != "off":
             del trainer, batch
             torch.cuda.empty_cache()
@@ -4381,6 +4365,7 @@ def phase_rehearsal(torch, card):
     log(f"rehearsal (c) [{card}] bench_sft at bench.py's shape: "
         f"{ {k: v for k, v in out['c'].items() if k != 'dots_vs_off'} } "
         f"({time.perf_counter() - t_sub:.1f} s)")
+    stages["c_d"] = round(time.perf_counter() - t_phase - sum(stages.values()), 1)
 
     # (e) --debug_nans: a NaN out of the flash kernel and out of an aten op
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -4399,7 +4384,10 @@ def phase_rehearsal(torch, card):
                 raised.append(str(e))
     log(f"rehearsal (e): --debug_nans raised {raised}")
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"rehearsal: phase done in {out['seconds']:.1f} s (budget {REH_BUDGET_S:g})")
+    stages["e"] = round(out["seconds"] - sum(stages.values()), 1)
+    out["stages"] = stages
+    log(f"rehearsal: phase done in {out['seconds']:.1f} s (budget {REH_BUDGET_S:g}); seconds "
+        f"by stage {stages}")
     if out["seconds"] > REH_BUDGET_S:
         fail(f"the rehearsal phase took {out['seconds']:.1f} s, over {REH_BUDGET_S:g}")
     return out, rows, bwd_rows
@@ -5238,7 +5226,7 @@ def moe_twin_and_saved_banks(torch, card, cfg, batch):
         return sum(saved), (torch.cuda.max_memory_allocated() - base) / 2**30
     int8_saved, int8_peak = step()
     real = L.bank_product
-    L.bank_product = lambda x, bank, dtype: torch.bmm(x, L.expert_bank(bank, dtype))
+    L.bank_product = lambda x, bank, dtype, ep=None: torch.bmm(x, L.expert_bank(bank, dtype))
     try:
         plain_saved, plain_peak = step()
     finally:
@@ -6130,8 +6118,9 @@ def phase_grpo_learns(torch, card):
 # same seed and compares; rank 1 waits at a barrier meanwhile.
 
 TP_PROMPTS, TP_NEW = 8, 8            # (a): 8 prompts, greedy, 8 new tokens (cut from 32)
-TP_GRPO_STEPS = 1                    # (c): timed, no warm-up step (cut from 1 + 2)
+TP_GRPO_STEPS = 1                    # (c), (f): timed, no warm-up step (cut from 1 + 2)
 TP_CLS_STEPS = 2                     # (e): the classifier's steps on phase 13's batch
+TP_SFT_STEPS = 2                     # (g): QLoRA SFT steps at bench.py's shape
 TP_HANG_S = 600
 
 
@@ -6230,10 +6219,77 @@ def _tp_engine_checks(torch, dist, axis, tp, one, out, seen, group, new, label):
     return res
 
 
+def _tp_grpo_step(torch, dist, axis, tp, one, items, seen, part):
+    """(24c) / (24f) on one rank: TP_GRPO_STEPS timed steps of the mesh
+    trainer `tp` (the engine and its kernels warm), their launches and
+    shapes, the LoRA B leaves moved, then one update on the last rollout
+    buffer: its loss and whole LoRA gradients, held on rank 0 against the
+    one-device trainer `one` set to the same adapters."""
+    b0 = {k: v.clone() for k, v in tp.trainable_state().items() if k.endswith("lora_b")}
+    hist = []
+    reset_counts()
+    for d in seen.values():
+        d.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    completions = []
+    for _ in range(TP_GRPO_STEPS):
+        hist.append(tp.step(items))
+        completions.append(list(tp.last_completions))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TP_GRPO_STEPS
+    got = counts()
+    shapes = {k: dict(v) for k, v in seen.items()}
+    state = tp.trainable_state()                 # whole, gathered from both ranks
+    moved = [k for k, v in b0.items() if not torch.equal(state[k], v)]
+    res = {"hist": hist, "step_ms": step_ms, "launches": got, "shapes": shapes,
+           "moved": len(moved), "n_b": len(b0), "completions": completions,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    # one update on the last rollout buffer: loss and the whole gradients
+    buf = tp._buffers[0]
+    loss, _, _ = tp._loss(buf["batch"], buf["completion_len"])
+    grads = torch.autograd.grad(loss, tp.params, allow_unused=True)
+    whole = {n: tp.run.plan.unshard(n, torch.zeros_like(p) if g is None else g)
+             for n, p, g in zip(tp.names, tp.params, grads) if "lora_" in n}
+    res["update_loss"] = float(loss.detach())
+    part("steps_update")
+    del grads
+    dist.barrier()
+    if axis.index == 0:
+        with torch.no_grad():
+            for n, p in zip(one.names, one.params):
+                p.copy_(state[n].to(p.device, p.dtype))
+        ref_loss, _, _ = one._loss(buf["batch"], buf["completion_len"])
+        ref_grads = dict(zip(one.names, torch.autograd.grad(ref_loss, one.params,
+                                                            allow_unused=True)))
+        names = sorted(whole)
+        flat = lambda d: torch.cat([(torch.zeros_like(whole[n]) if d[n] is None else d[n])
+                                    .float().flatten() for n in names])
+        a, b = flat(whole), flat(ref_grads)
+        # the loss is -mean(advantage) (0 per group by construction; the ratio
+        # is exactly 1) + beta * kl: its error is held against the size of the
+        # terms that cancel in it
+        res.update(ref_loss=float(ref_loss.detach()), cos=_cos(torch, a, b),
+                   rel_l2=float((a - b).norm() / b.norm()), n_lora=len(names),
+                   loss_scale=float(buf["batch"]["advantages"].abs().mean()))
+        part("one_device_update")
+        del ref_grads, a, b
+    del whole, buf
+    return res
+
+
+def _int8_bytes(model):
+    """Bytes of the int8 weights and scales `model` holds."""
+    from bioreason_tpu_torch.parallel.partition import int8_buffers
+    return sum(t.numel() * t.element_size() for t in int8_buffers(model).values())
+
+
 def _tp_rank(torch, mesh, axis, one_step_ms):
     """Phase 24 on one rank (module note above the constants). Rank 0 times
     the one-device trainer's steps unless `one_step_ms` (phase 8's, the same
     configuration in this run) is given."""
+    import types
+
     import torch.distributed as dist
     from bioreason_tpu_torch.data.kegg import format_kegg_prompt_only, synthetic_kegg_items
     from bioreason_tpu_torch.train.grpo import GRPOTrainer
@@ -6268,65 +6324,22 @@ def _tp_rank(torch, mesh, axis, one_step_ms):
     part("b")
     # (c) GRPOTrainer(mesh): TP_GRPO_STEPS timed steps, the engine and its
     # kernels warm from (a) and (b)
-    b0 = {k: v.clone() for k, v in tp.trainable_state().items() if k.endswith("lora_b")}
-    hist = []
-    reset_counts()
-    for d in seen.values():
-        d.clear()
-    t0 = time.perf_counter()
-    completions = []
-    for _ in range(TP_GRPO_STEPS):
-        hist.append(tp.step(items))
-        completions.append(list(tp.last_completions))
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / TP_GRPO_STEPS
-    got = counts()
-    shapes = {k: dict(v) for k, v in seen.items()}
-    state = tp.trainable_state()                 # whole, gathered from both ranks
-    moved = [k for k, v in b0.items() if not torch.equal(state[k], v)]
-    res["c"] = {"hist": hist, "step_ms": step_ms, "launches": got, "shapes": shapes,
-                "moved": len(moved), "n_b": len(b0), "completions": completions}
-    # one update on the last rollout buffer: loss and the whole gradients
-    buf = tp._buffers[0]
-    loss, _, _ = tp._loss(buf["batch"], buf["completion_len"])
-    grads = torch.autograd.grad(loss, tp.params, allow_unused=True)
-    whole = {n: tp.run.plan.unshard(n, torch.zeros_like(p) if g is None else g)
-             for n, p, g in zip(tp.names, tp.params, grads) if "lora_" in n}
-    res["c"]["update_loss"] = float(loss.detach())
-    part("c_steps_update")
-    log(f"tp (c) rank {axis.index}: GRPO step {step_ms:.1f} ms over {TP_GRPO_STEPS} steps; "
-        f"launches {got}; shapes {shapes}")
-    del grads
-    dist.barrier()
+    res["c"] = _tp_grpo_step(torch, dist, axis, tp, one, items, seen,
+                             lambda name: part(f"c_{name}"))
+    c = res["c"]
+    log(f"tp (c) rank {axis.index}: GRPO step {c['step_ms']:.1f} ms over {TP_GRPO_STEPS} "
+        f"steps; launches {c['launches']}; shapes {c['shapes']}")
     if axis.index == 0:
-        with torch.no_grad():
-            for n, p in zip(one.names, one.params):
-                p.copy_(state[n].to(p.device, p.dtype))
-        ref_loss, _, _ = one._loss(buf["batch"], buf["completion_len"])
-        ref_grads = dict(zip(one.names, torch.autograd.grad(ref_loss, one.params,
-                                                            allow_unused=True)))
-        names = sorted(whole)
-        flat = lambda d: torch.cat([(torch.zeros_like(whole[n]) if d[n] is None else d[n])
-                                    .float().flatten() for n in names])
-        a, b = flat(whole), flat(ref_grads)
-        # the loss is -mean(advantage) (0 per group by construction; the ratio
-        # is exactly 1) + beta * kl: its error is held against the size of the
-        # terms that cancel in it
-        res["c"].update(ref_loss=float(ref_loss.detach()), cos=_cos(torch, a, b),
-                        rel_l2=float((a - b).norm() / b.norm()), n_lora=len(names),
-                        loss_scale=float(buf["batch"]["advantages"].abs().mean()))
-        part("c_one_device_update")
-        del ref_grads, a, b
-        res["c"]["one_step_ms"] = one_step_ms
+        c["one_step_ms"] = one_step_ms
         if one_step_ms is None:
             # warm already: its engine, model and kernels ran in (a), (b), above
             t0 = time.perf_counter()
             for _ in range(TP_GRPO_STEPS):
                 one.step(items)
             torch.cuda.synchronize()
-            res["c"]["one_step_ms"] = (time.perf_counter() - t0) * 1e3 / TP_GRPO_STEPS
+            c["one_step_ms"] = (time.perf_counter() - t0) * 1e3 / TP_GRPO_STEPS
             part("c_one_device_steps")
-    del whole, one, tp, buf
+    del one, tp
     dist.barrier()
     torch.cuda.empty_cache()
     # (e) the DNA-only classifier, its encoder trained on the ranks' shards
@@ -6334,6 +6347,101 @@ def _tp_rank(torch, mesh, axis, one_step_ms):
     part("e")
     dist.barrier()
     torch.cuda.empty_cache()
+    # (f) QLoRA GRPO with int8 rollouts and an int8 KV cache on the same mesh
+    qcfg = dataclasses.replace(gcfg, frozen_dtype="int8", rollout_int8=True,
+                               rollout_kv_int8=True)
+    torch.cuda.reset_peak_memory_stats()
+    tp = GRPOTrainer(cfg, qcfg, proc, rewards, mesh=mesh)
+    one = GRPOTrainer(cfg, qcfg, proc, rewards) if axis.index == 0 else None
+    roll = types.SimpleNamespace(engine=tp.engine, model=tp.rollout_model())
+    one_roll = (types.SimpleNamespace(engine=one.engine, model=one.rollout_model())
+                if one is not None else None)
+    f = {"int8_bytes": _int8_bytes(tp.model), "rollout_int8_bytes": _int8_bytes(roll.model),
+         "resident_gib": torch.cuda.memory_allocated() / 2**30}
+    if one is not None:
+        f.update(one_int8_bytes=_int8_bytes(one.model),
+                 one_rollout_int8_bytes=_int8_bytes(one_roll.model))
+    part("f_build")
+    f["engine"] = _tp_engine_checks(torch, dist, axis, roll, one_roll, out_b, seen, GRPO_G,
+                                    TP_NEW, "f")
+    part("f_engine")
+    del roll, one_roll
+    f.update(_tp_grpo_step(torch, dist, axis, tp, one, items, seen,
+                           lambda name: part(f"f_{name}")))
+    if one is not None:                  # warm from its engine call and update
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one.step(items)
+        torch.cuda.synchronize()
+        f["one_step_ms"] = (time.perf_counter() - t0) * 1e3
+        part("f_one_device_step")
+    log(f"tp (f) rank {axis.index}: QLoRA GRPO step {f['step_ms']:.1f} ms (one device "
+        f"{f.get('one_step_ms', float('nan')):.1f}); launches {f['launches']}; shapes "
+        f"{f['shapes']}; int8 bytes {f['int8_bytes']} (rollout {f['rollout_int8_bytes']}); "
+        f"resident {f['resident_gib']:.3f} GiB, peak {f['peak_gib']:.3f} GiB")
+    res["f"] = f
+    del one, tp
+    dist.barrier()
+    torch.cuda.empty_cache()
+    # (g) QLoRA SFT at bench.py's shape on a second mesh, (1, 2, 1)
+    res["g"] = _tp_qlora_sft(torch, dist, axis, seen)
+    part("g")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_qlora_sft(torch, dist, axis, seen):
+    """(24g) SFTTrainer(frozen_dtype="int8") at bench.py's shape on the mesh
+    (1, 2, 1) of the same two processes (fsdp: each rank its 2 rows, the
+    adapters sharded and gathered, the int8 weights whole on both) for
+    TP_SFT_STEPS steps, beside the one-device QLoRA trainer on rank 0 from
+    the same seed: each step's loss, grad-norm, ms and launches, the ranks'
+    resident and peak GiB."""
+    from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
+                                            LoRAConfig, MeshConfig, OptimConfig, SFTConfig)
+    from bioreason_tpu_torch.parallel.mesh import make_mesh
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    dec = dataclasses.replace(DecoderConfig.qwen3_0_6b(), remat=False)
+    enc = dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False)
+    cfg = FusionConfig(decoder=dec, encoder=enc, dna_pad_token_id=151938)
+    sft = SFTConfig(batch_size=4, lora=LoRAConfig(r=32, alpha=64, dropout=0.0),
+                    optim=OptimConfig(total_steps=100, warmup_ratio=0.0), frozen_dtype="int8",
+                    seed=0)
+    batch = bench_batch(cfg)
+    mesh = make_mesh(MeshConfig(data=1, fsdp=2, model=1), device="cuda")
+    res = {}
+    runs = [("mesh", mesh)] + ([("one", None)] if axis.index == 0 else [])
+    for label, m in runs:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = SFTTrainer(cfg, sft, mesh=m)
+        r = {"resident_gib": torch.cuda.memory_allocated() / 2**30,
+             "int8_bytes": _int8_bytes(trainer.model), "ms": [], "metrics": [],
+             "launches": [], "shapes": []}
+        for _ in range(TP_SFT_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            for d in seen.values():
+                d.clear()
+            t0 = time.perf_counter()
+            r["metrics"].append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            r["launches"].append(counts())
+            r["shapes"].append({k: dict(v) for k, v in seen.items()})
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        r["fallback"] = trainer.run is None if m is not None else False
+        res[label] = r
+        del trainer
+        torch.cuda.empty_cache()
+        if label == "mesh":
+            dist.barrier()
+    log(f"tp (g) rank {axis.index}: QLoRA SFT at fsdp 2, step ms "
+        f"{[round(x, 1) for x in res['mesh']['ms']]} (one device "
+        f"{[round(x, 1) for x in res['one']['ms']] if 'one' in res else '-'}); losses "
+        f"{[round(m['loss'], 5) for m in res['mesh']['metrics']]}; launches "
+        f"{res['mesh']['launches']}; resident {res['mesh']['resident_gib']:.3f} GiB, peak "
+        f"{res['mesh']['peak_gib']:.3f} GiB")
     return res
 
 
@@ -6461,6 +6569,184 @@ def tp_kernel_cases(torch, prompt_mask, hq, hkv, d):
             [bwd_case(torch, name, bu, p, p, hq, hkv, d, True, 0, prompt_mask, 52)])
 
 
+def _tp_gates(torch, card, r0, r1, one_step_ms):
+    """Phase 24's gates and logs on the two ranks' results (module note
+    above the constants); returns the launches each part counted."""
+    cfg = grpo_setup()[0]
+    hq, hkv = cfg.decoder.num_heads // 2, cfg.decoder.num_kv_heads // 2
+    eh = cfg.encoder.num_heads // 2                  # the NT tower's heads a rank
+    per_call = ENCODER_LAYERS + DECODER_LAYERS
+    # (a), (b)
+    for part, label in (("a", f"{TP_PROMPTS} prompts, greedy, {TP_NEW} new tokens"),
+                        ("b", f"grouped {GRPO_PROMPTS} prompts x G={GRPO_G}, greedy, "
+                              f"{GRPO_NEW} new tokens"),
+                        ("f", f"QLoRA's int8 rollout copy, int8 KV cache, grouped "
+                              f"{GRPO_PROMPTS} prompts x G={GRPO_G}, greedy, {TP_NEW} "
+                              f"new tokens")):
+        x0, x1 = (r0[part], r1[part]) if part != "f" else (r0["f"]["engine"],
+                                                            r1["f"]["engine"])
+        firsts = [bool((x["first"] == x0["one_first"]).all()) for x in (x0, x1)]
+        log(f"tp ({part}) [{card}] {label}: first tokens equal to one device's on rank 0, "
+            f"rank 1 {firsts} (one device's smallest top-2 logit gap "
+            f"{x0['one_top2_gap']:.4g}); "
+            f"teacher-forced logits cosine floor {x0['cos']:.6f} (floor {CONT_STEP_COS}); "
+            f"cache bytes rank 0 {x0['cache_bytes']}, rank 1 {x1['cache_bytes']}, one device "
+            f"{x0['one_cache_bytes']}; engine call ms rank 0 {x0['ms']:.1f}, rank 1 "
+            f"{x1['ms']:.1f}, one device {x0['one_ms']:.1f}; flash_fwd per call rank 0 "
+            f"{x0['launches']}, rank 1 {x1['launches']}, one device {x0['one_launches']}")
+        if not all(firsts):
+            fail(f"tp ({part}): the first tokens differ from one device's")
+        if x0["cos"] < CONT_STEP_COS:
+            fail(f"tp ({part}): teacher-forced logits cosine {x0['cos']} under {CONT_STEP_COS}")
+        for x in (x0, x1):
+            if 2 * x["cache_bytes"] != x0["one_cache_bytes"]:
+                fail(f"tp ({part}): a rank's cache of {x['cache_bytes']} B is not half of one "
+                     f"device's {x0['one_cache_bytes']} B")
+            if x["launches"] != per_call:
+                fail(f"tp ({part}): {x['launches']} flash_fwd in an engine call, not {per_call}")
+            dec = {k: n for k, n in x["shapes"].items() if k[5] == cfg.decoder.head_dim}
+            if sum(dec.values()) != DECODER_LAYERS or any(k[3:5] != (hq, hkv) for k in dec):
+                fail(f"tp ({part}): the decoder's flash_fwd ran at {dec}, not "
+                     f"{DECODER_LAYERS} launches of {hq}/{hkv} heads")
+            enc = {k: n for k, n in x["shapes"].items() if k[5] == cfg.encoder.head_dim}
+            if sum(enc.values()) != ENCODER_LAYERS or any(k[3:5] != (eh, eh) for k in enc):
+                fail(f"tp ({part}): the encoder's flash_fwd ran at {enc}, not "
+                     f"{ENCODER_LAYERS} launches of {eh} heads")
+    # (c), (f)
+    per_step = {"flash_fwd": 3 * ENCODER_LAYERS + 4 * DECODER_LAYERS,
+                "flash_bwd": DECODER_LAYERS}
+    for part, label in (("c", "GRPOTrainer(mesh 1,1,2)"),
+                        ("f", "GRPOTrainer(mesh 1,1,2, frozen_dtype='int8', rollout_int8, "
+                              "rollout_kv_int8)")):
+        c0, c1 = r0[part], r1[part]
+        if c0["completions"] != c1["completions"]:
+            fail(f"tp ({part}): the ranks' sampled rollouts differ")
+        want = {k: TP_GRPO_STEPS * per_step.get(k, 0) for k in c0["launches"]}
+        loss_tol = MESH_LOSS_RTOL * max(abs(c0["ref_loss"]), c0["loss_scale"])
+        one_ms = c0["one_step_ms"] if c0.get("one_step_ms") is not None else float("nan")
+        log(f"tp ({part}) [{card}] {label}, {GRPO_PROMPTS} prompts x G={GRPO_G}, "
+            f"{GRPO_NEW} new tokens: step ms rank 0 {c0['step_ms']:.1f}, rank 1 "
+            f"{c1['step_ms']:.1f}, one device {one_ms:.1f} "
+            f"({'phase 8' if part == 'c' and one_step_ms is not None else 'rank 0'}); peak "
+            f"GiB a rank {c0['peak_gib']:.3f}, {c1['peak_gib']:.3f}; per step " + "; ".join(
+                f"loss {m['loss']:.5g} kl {m['kl']:.4g} reward {m['reward']:.3g}"
+                for m in c0["hist"]) + f"; launches rank 0 {c0['launches']}, rank 1 "
+            f"{c1['launches']} (expected {want}); {c0['moved']} of {c0['n_b']} LoRA B leaves "
+            f"moved; the ranks' {sum(map(len, c0['completions']))} sampled completions "
+            f"equal; one update on the last buffer: loss {c0['update_loss']:.6g} vs one "
+            f"device {c0['ref_loss']:.6g} (held within {loss_tol:.3g}: MESH_LOSS_RTOL of the "
+            f"larger of |loss| and the mean |advantage| {c0['loss_scale']:.4g}), the "
+            f"{c0['n_lora']} LoRA gradients cosine {c0['cos']:.6f}, relative L2 "
+            f"{c0['rel_l2']:.4g}")
+        for c in (c0, c1):
+            if any(not math.isfinite(m[k]) for m in c["hist"]
+                   for k in ("loss", "kl", "reward")):
+                fail(f"tp ({part}): non-finite GRPO loss, kl or reward: {c['hist']}")
+            if c["launches"] != want:
+                fail(f"tp ({part}): a rank launched {c['launches']} in {TP_GRPO_STEPS} steps, "
+                     f"expected {want}")
+            dec_bwd = list(c["shapes"]["flash_bwd"])
+            if not dec_bwd or any(k[3:5] != (hq, hkv) for k in dec_bwd):
+                fail(f"tp ({part}): flash_bwd ran at {dec_bwd}, not at {hq}/{hkv} heads")
+            dec_fwd = {k: n for k, n in c["shapes"]["flash_fwd"].items()
+                       if k[5] == cfg.decoder.head_dim}
+            if any(k[3:5] != (hq, hkv) for k in dec_fwd):
+                fail(f"tp ({part}): the decoder's flash_fwd ran at {dec_fwd}, not at "
+                     f"{hq}/{hkv} heads")
+            enc_fwd = {k: n for k, n in c["shapes"]["flash_fwd"].items()
+                       if k[5] == cfg.encoder.head_dim}
+            if (sum(enc_fwd.values()) != TP_GRPO_STEPS * 3 * ENCODER_LAYERS
+                    or any(k[3:5] != (eh, eh) for k in enc_fwd)):
+                fail(f"tp ({part}): the encoder's flash_fwd ran at {enc_fwd}, not "
+                     f"{TP_GRPO_STEPS * 3 * ENCODER_LAYERS} launches of {eh} heads")
+        if c0["moved"] != c0["n_b"]:
+            fail(f"tp ({part}): only {c0['moved']} of {c0['n_b']} LoRA B leaves moved")
+        if abs(c0["update_loss"] - c0["ref_loss"]) > loss_tol or c0["cos"] < SP_COS:
+            fail(f"tp ({part}): the tensor-parallel update disagrees with one device: "
+                 f"{ {k: v for k, v in c0.items() if k not in ('shapes', 'completions')} }")
+    # (f): the int8 storage replicated, as JAX places it
+    f0, f1 = r0["f"], r1["f"]
+    log(f"tp (f) [{card}] int8 bytes a rank: the training model {f0['int8_bytes']}, "
+        f"{f1['int8_bytes']} (one device {f0['one_int8_bytes']}); the rollout copy "
+        f"{f0['rollout_int8_bytes']}, {f1['rollout_int8_bytes']} (one device "
+        f"{f0['one_rollout_int8_bytes']}); resident GiB a rank {f0['resident_gib']:.3f} "
+        f"(with rank 0's one-device trainers), {f1['resident_gib']:.3f}")
+    for f in (f0, f1):
+        if (f["int8_bytes"] != f0["one_int8_bytes"] or not f["int8_bytes"]
+                or f["rollout_int8_bytes"] != f0["one_rollout_int8_bytes"]):
+            fail(f"tp (f): a rank holds {f['int8_bytes']} / {f['rollout_int8_bytes']} int8 "
+                 f"bytes, one device {f0['one_int8_bytes']} / {f0['one_rollout_int8_bytes']}")
+    # (g)
+    g0, g1 = r0["g"], r1["g"]
+    one = g0["one"]
+    log(f"tp (g) [{card}] SFTTrainer(mesh 1,2,1, frozen_dtype='int8') at bench.py's shape: "
+        f"step ms rank 0 {[round(x, 1) for x in g0['mesh']['ms']]}, rank 1 "
+        f"{[round(x, 1) for x in g1['mesh']['ms']]}, one device "
+        f"{[round(x, 1) for x in one['ms']]}; losses {[m['loss'] for m in g0['mesh']['metrics']]}"
+        f" vs one device {[m['loss'] for m in one['metrics']]}, grad norms "
+        f"{[m['grad_norm'] for m in g0['mesh']['metrics']]} vs "
+        f"{[m['grad_norm'] for m in one['metrics']]} (MESH_LOSS_RTOL {MESH_LOSS_RTOL}); "
+        f"launches a step rank 0 {g0['mesh']['launches']}, rank 1 {g1['mesh']['launches']}, "
+        f"one device {one['launches']}; resident / peak GiB rank 0 "
+        f"{g0['mesh']['resident_gib']:.3f} / {g0['mesh']['peak_gib']:.3f}, rank 1 "
+        f"{g1['mesh']['resident_gib']:.3f} / {g1['mesh']['peak_gib']:.3f}, one device "
+        f"{one['resident_gib']:.3f} / {one['peak_gib']:.3f}; int8 bytes a rank "
+        f"{g0['mesh']['int8_bytes']}, {g1['mesh']['int8_bytes']} (one device "
+        f"{one['int8_bytes']})")
+    for g in (g0["mesh"], g1["mesh"]):
+        if g["fallback"]:
+            fail("tp (g): the mesh trainer ran without its mesh")
+        for i, (got, want) in enumerate(zip(g["metrics"], one["metrics"])):
+            for k in ("loss", "grad_norm"):
+                if (not math.isfinite(got[k])
+                        or not math.isclose(got[k], want[k], rel_tol=MESH_LOSS_RTOL)):
+                    fail(f"tp (g): step {i}'s {k} {got[k]} against one device's {want[k]}")
+        for got, want in zip(g["launches"], one["launches"]):
+            if got != want or not got["flash_fwd"] or not got["flash_bwd"]:
+                fail(f"tp (g): a rank launched {got} in a step, one device {want}")
+        if g["int8_bytes"] != one["int8_bytes"] or not g["int8_bytes"]:
+            fail(f"tp (g): a rank holds {g['int8_bytes']} int8 bytes, one device "
+                 f"{one['int8_bytes']}")
+    # (e)
+    e0, e1 = r0["e"], r1["e"]
+    shape = (CLS_B, CLS_L, CLS_L, eh, eh, cfg.encoder.head_dim)
+    log(f"tp (e) [{card}] ClassifierTrainer(mesh 1,1,2) at NT-v2-500M, bf16, the encoder "
+        f"trained, remat off, [{CLS_B}, {CLS_L}] pairs: step ms rank 0 "
+        f"{[round(x, 1) for x in e0['ms']]}, rank 1 {[round(x, 1) for x in e1['ms']]}, one "
+        f"device {[round(x, 1) for x in e0['one_ms']]}; losses {e0['loss']} vs one device "
+        f"{e0['one_loss']} (MESH_LOSS_RTOL {MESH_LOSS_RTOL}); the {e0['n_enc']} encoder "
+        f"gradients of the first step cosine {e0['cos']:.6f} (floor {SP_COS}), relative L2 "
+        f"{e0['rel_l2']:.4g}; launches a step rank 0 {e0['launches']}, rank 1 "
+        f"{e1['launches']}, one device {e0['one_launches']}; shapes {e0['shapes'][0]}")
+    for i, (got, want) in enumerate(zip(e0["loss"], e0["one_loss"])):
+        if not math.isfinite(got) or abs(got - want) > MESH_LOSS_RTOL * abs(want):
+            fail(f"tp (e): step {i}'s loss {got} against one device's {want}")
+    if e0["cos"] < SP_COS:
+        fail(f"tp (e): the encoder gradients' cosine {e0['cos']} is under {SP_COS}")
+    for e in (e0, e1):
+        for got, want, shapes in zip(e["launches"], e0["one_launches"], e["shapes"]):
+            if got != want or not got["flash_fwd"] or not got["flash_bwd"]:
+                fail(f"tp (e): a rank launched {got} in a step, one device {want}")
+            if any(set(shapes[k]) != {shape} for k in ("flash_fwd", "flash_bwd")):
+                fail(f"tp (e): the classifier's kernels ran at {shapes}, not at {shape}")
+    cls = lambda k: [sum(st[k] for st in e["launches"]) for e in (e0, e1)]
+    grpo = lambda part, k: [r[part]["launches"][k] for r in (r0, r1)]
+    sft = lambda k: [sum(st[k] for st in g["mesh"]["launches"]) for g in (g0, g1)]
+    launches = {"fwd": {"engine_per_call": [r0["a"]["launches"], r1["a"]["launches"]],
+                        "grouped_per_call": [r0["b"]["launches"], r1["b"]["launches"]],
+                        "grpo_steps": grpo("c", "flash_fwd"),
+                        "classifier_steps": cls("flash_fwd"),
+                        "qlora_grouped_per_call": [f0["engine"]["launches"],
+                                                   f1["engine"]["launches"]],
+                        "qlora_grpo_steps": grpo("f", "flash_fwd"),
+                        "qlora_sft_fsdp_steps": sft("flash_fwd")},
+                "bwd": {"grpo_steps": grpo("c", "flash_bwd"),
+                        "classifier_steps": cls("flash_bwd"),
+                        "qlora_grpo_steps": grpo("f", "flash_bwd"),
+                        "qlora_sft_fsdp_steps": sft("flash_bwd")}}
+    return launches
+
+
 def phase_tp(torch, card, one_step_ms=None):
     """(24) Generation, GRPO and the classifier under the mesh's 'model'
     axis: two ranks in two processes on the card over gloo, mesh (1, 1, 2),
@@ -6497,103 +6783,11 @@ def phase_tp(torch, card, one_step_ms=None):
             if p.is_alive():
                 p.kill()
     r0, r1 = results
+    launches = _tp_gates(torch, card, r0, r1, one_step_ms)
     cfg = grpo_setup()[0]
     hq, hkv = cfg.decoder.num_heads // 2, cfg.decoder.num_kv_heads // 2
-    eh = cfg.encoder.num_heads // 2                  # the NT tower's heads a rank
-    per_call = ENCODER_LAYERS + DECODER_LAYERS
-    # (a), (b)
-    for part, label in (("a", f"{TP_PROMPTS} prompts, greedy, {TP_NEW} new tokens"),
-                        ("b", f"grouped {GRPO_PROMPTS} prompts x G={GRPO_G}, greedy, "
-                              f"{GRPO_NEW} new tokens")):
-        x0, x1 = r0[part], r1[part]
-        firsts = [bool((x["first"] == x0["one_first"]).all()) for x in (x0, x1)]
-        log(f"tp ({part}) [{card}] {label}: first tokens equal to one device's on rank 0, "
-            f"rank 1 {firsts} (one device's smallest top-2 logit gap "
-            f"{x0['one_top2_gap']:.4g}); "
-            f"teacher-forced logits cosine floor {x0['cos']:.6f} (floor {CONT_STEP_COS}); "
-            f"cache bytes rank 0 {x0['cache_bytes']}, rank 1 {x1['cache_bytes']}, one device "
-            f"{x0['one_cache_bytes']}; engine call ms rank 0 {x0['ms']:.1f}, rank 1 "
-            f"{x1['ms']:.1f}, one device {x0['one_ms']:.1f}; flash_fwd per call rank 0 "
-            f"{x0['launches']}, rank 1 {x1['launches']}, one device {x0['one_launches']}")
-        if not all(firsts):
-            fail(f"tp ({part}): the first tokens differ from one device's")
-        if x0["cos"] < CONT_STEP_COS:
-            fail(f"tp ({part}): teacher-forced logits cosine {x0['cos']} under {CONT_STEP_COS}")
-        for x in (x0, x1):
-            if 2 * x["cache_bytes"] != x0["one_cache_bytes"]:
-                fail(f"tp ({part}): a rank's cache of {x['cache_bytes']} B is not half of one "
-                     f"device's {x0['one_cache_bytes']} B")
-            if x["launches"] != per_call:
-                fail(f"tp ({part}): {x['launches']} flash_fwd in an engine call, not {per_call}")
-            dec = {k: n for k, n in x["shapes"].items() if k[5] == cfg.decoder.head_dim}
-            if sum(dec.values()) != DECODER_LAYERS or any(k[3:5] != (hq, hkv) for k in dec):
-                fail(f"tp ({part}): the decoder's flash_fwd ran at {dec}, not "
-                     f"{DECODER_LAYERS} launches of {hq}/{hkv} heads")
-            enc = {k: n for k, n in x["shapes"].items() if k[5] == cfg.encoder.head_dim}
-            if sum(enc.values()) != ENCODER_LAYERS or any(k[3:5] != (eh, eh) for k in enc):
-                fail(f"tp ({part}): the encoder's flash_fwd ran at {enc}, not "
-                     f"{ENCODER_LAYERS} launches of {eh} heads")
-    # (c)
-    c0, c1 = r0["c"], r1["c"]
-    if c0["completions"] != c1["completions"]:
-        fail("tp (c): the ranks' sampled rollouts differ")
-    per_step = {"flash_fwd": 3 * ENCODER_LAYERS + 4 * DECODER_LAYERS,
-                "flash_bwd": DECODER_LAYERS}
-    want = {k: TP_GRPO_STEPS * per_step.get(k, 0) for k in c0["launches"]}
-    loss_tol = MESH_LOSS_RTOL * max(abs(c0["ref_loss"]), c0["loss_scale"])
-    log(f"tp (c) [{card}] GRPOTrainer(mesh 1,1,2), {GRPO_PROMPTS} prompts x G={GRPO_G}, "
-        f"{GRPO_NEW} new tokens: step ms rank 0 {c0['step_ms']:.1f}, rank 1 "
-        f"{c1['step_ms']:.1f}, one device {c0['one_step_ms']:.1f} "
-        f"({'phase 8' if one_step_ms is not None else 'rank 0'}); per step " + "; ".join(
-            f"loss {m['loss']:.5g} kl {m['kl']:.4g} reward {m['reward']:.3g}"
-            for m in c0["hist"]) + f"; launches rank 0 {c0['launches']}, rank 1 "
-        f"{c1['launches']} (expected {want}); {c0['moved']} of {c0['n_b']} LoRA B leaves "
-        f"moved; the ranks' {sum(map(len, c0['completions']))} sampled completions equal; "
-        f"one update on the last buffer: loss {c0['update_loss']:.6g} vs one device "
-        f"{c0['ref_loss']:.6g} (held within {loss_tol:.3g}: MESH_LOSS_RTOL of the larger "
-        f"of |loss| and the mean |advantage| {c0['loss_scale']:.4g}), the {c0['n_lora']} "
-        f"LoRA gradients cosine {c0['cos']:.6f}, relative L2 {c0['rel_l2']:.4g}")
-    for c in (c0, c1):
-        if any(not math.isfinite(m[k]) for m in c["hist"] for k in ("loss", "kl", "reward")):
-            fail(f"tp (c): non-finite GRPO loss, kl or reward: {c['hist']}")
-        if c["launches"] != want:
-            fail(f"tp (c): a rank launched {c['launches']} in {TP_GRPO_STEPS} steps, "
-                 f"expected {want}")
-        dec_bwd = list(c["shapes"]["flash_bwd"])
-        if not dec_bwd or any(k[3:5] != (hq, hkv) for k in dec_bwd):
-            fail(f"tp (c): flash_bwd ran at {dec_bwd}, not at {hq}/{hkv} heads")
-        enc_fwd = {k: n for k, n in c["shapes"]["flash_fwd"].items()
-                   if k[5] == cfg.encoder.head_dim}
-        if (sum(enc_fwd.values()) != TP_GRPO_STEPS * 3 * ENCODER_LAYERS
-                or any(k[3:5] != (eh, eh) for k in enc_fwd)):
-            fail(f"tp (c): the encoder's flash_fwd ran at {enc_fwd}, not "
-                 f"{TP_GRPO_STEPS * 3 * ENCODER_LAYERS} launches of {eh} heads")
-    if c0["moved"] != c0["n_b"]:
-        fail(f"tp (c): only {c0['moved']} of {c0['n_b']} LoRA B leaves moved")
-    if abs(c0["update_loss"] - c0["ref_loss"]) > loss_tol or c0["cos"] < SP_COS:
-        fail(f"tp (c): the tensor-parallel update disagrees with one device: {c0}")
-    # (e)
-    e0, e1 = r0["e"], r1["e"]
-    shape = (CLS_B, CLS_L, CLS_L, eh, eh, cfg.encoder.head_dim)
-    log(f"tp (e) [{card}] ClassifierTrainer(mesh 1,1,2) at NT-v2-500M, bf16, the encoder "
-        f"trained, remat off, [{CLS_B}, {CLS_L}] pairs: step ms rank 0 "
-        f"{[round(x, 1) for x in e0['ms']]}, rank 1 {[round(x, 1) for x in e1['ms']]}, one "
-        f"device {[round(x, 1) for x in e0['one_ms']]}; losses {e0['loss']} vs one device "
-        f"{e0['one_loss']} (MESH_LOSS_RTOL {MESH_LOSS_RTOL}); the {e0['n_enc']} encoder "
-        f"gradients of the first step cosine {e0['cos']:.6f} (floor {SP_COS}), relative L2 "
-        f"{e0['rel_l2']:.4g}; launches a step rank 0 {e0['launches']}, rank 1 "
-        f"{e1['launches']}, one device {e0['one_launches']}; shapes {e0['shapes'][0]}")
-    for i, (got, want) in enumerate(zip(e0["loss"], e0["one_loss"])):
-        if not math.isfinite(got) or abs(got - want) > MESH_LOSS_RTOL * abs(want):
-            fail(f"tp (e): step {i}'s loss {got} against one device's {want}")
-    if e0["cos"] < SP_COS:
-        fail(f"tp (e): the encoder gradients' cosine {e0['cos']} is under {SP_COS}")
-    for e in (e0, e1):
-        for got, want, shapes in zip(e["launches"], e0["one_launches"], e["shapes"]):
-            if got != want or not got["flash_fwd"] or not got["flash_bwd"]:
-                fail(f"tp (e): a rank launched {got} in a step, one device {want}")
-            if any(set(shapes[k]) != {shape} for k in ("flash_fwd", "flash_bwd")):
-                fail(f"tp (e): the classifier's kernels ran at {shapes}, not at {shape}")
+    eh = cfg.encoder.num_heads // 2
+    g0 = r0["g"]
     # (d)
     pmask = torch.as_tensor(r0["b"]["prompt_mask"], dtype=torch.int32, device="cuda")
     rows, bwd_rows = tp_kernel_cases(torch, pmask, hq, hkv, cfg.decoder.head_dim)
@@ -6604,16 +6798,21 @@ def phase_tp(torch, card, one_step_ms=None):
     bwd_rows.append(bwd_case(torch, f"tp_rank_classifier_finetune_B{CLS_B}_T{CLS_L}_H{eh}",
                              CLS_B, CLS_L, CLS_L, eh, eh, cfg.encoder.head_dim, False, 0,
                              ones, 242))
+    # (g)'s per-rank shapes: 2 of bench.py's 4 rows a rank (fsdp), all valid
+    for key in sorted(set(g0["mesh"]["shapes"][0]["flash_fwd"])
+                      | set(g0["mesh"]["shapes"][0]["flash_bwd"])):
+        b, tq, tk, h, hk, d = key
+        causal = d == cfg.decoder.head_dim
+        mask = torch.ones((b, tk), dtype=torch.int32, device="cuda")
+        name = f"tp_fsdp_qlora_sft_B{b}_T{tq}_H{h}_{hk}_D{d}"
+        if key in g0["mesh"]["shapes"][0]["flash_fwd"]:
+            rows.append(kernel_case(torch, name, b, tq, tk, h, hk, d, causal,
+                                    0 if causal else None, mask, 243))
+        if key in g0["mesh"]["shapes"][0]["flash_bwd"]:
+            bwd_rows.append(bwd_case(torch, name, b, tq, tk, h, hk, d, causal, 0, mask, 244))
     log(f"tp: phase done in {time.perf_counter() - t_phase:.1f} s (rank seconds "
         f"{r0['seconds']}, {r1['seconds']}; by part, rank 0 {r0['parts']}, rank 1 "
         f"{r1['parts']})")
-    cls = lambda k: [sum(st[k] for st in e["launches"]) for e in (e0, e1)]
-    launches = {"fwd": {"engine_per_call": [r0["a"]["launches"], r1["a"]["launches"]],
-                        "grouped_per_call": [r0["b"]["launches"], r1["b"]["launches"]],
-                        "grpo_steps": [c0["launches"]["flash_fwd"], c1["launches"]["flash_fwd"]],
-                        "classifier_steps": cls("flash_fwd")},
-                "bwd": {"grpo_steps": [c0["launches"]["flash_bwd"], c1["launches"]["flash_bwd"]],
-                        "classifier_steps": cls("flash_bwd")}}
     return {"ranks": results, "launches": launches}, rows, bwd_rows
 
 

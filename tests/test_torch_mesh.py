@@ -178,6 +178,88 @@ def test_param_specs_match_jax(kind, pp):
     assert n > 40
 
 
+def _int8_jax_path(name):
+    """The JAX path of an int8 buffer's `{q, scale}` leaf (JAX quant.py:
+    a quantized kernel, bank or embedding becomes a `{q, scale}` subtree)
+    and whether the buffer is per-layer."""
+    base = name.rsplit(".", 1)[0] + ".weight"
+    path, _, layer = _jax_path(base)
+    return f"{path}/{'q' if name.endswith('.weight') else 'scale'}", layer
+
+
+@pytest.mark.parametrize("kind,embed", [("fusion", False), ("moe", False), ("fusion", True)])
+def test_int8_buffer_specs_match_jax(kind, embed):
+    """Every int8 buffer (QLoRA's frozen towers; with `embed` the serving /
+    rollout tree, the embedding int8 too) gets its JAX leaf's spec: the
+    anchored kernel rules match no path ending in `q` or `scale`, so JAX
+    places them `P()`; the port's spec is all None at the buffer's rank
+    (the layer entry included), while the float weight's rule, which the
+    plan's tensor parallelism reads, still names 'model'."""
+    from bioreason_tpu.parallel import partition as JP
+    from jax.sharding import PartitionSpec
+    from bioreason_tpu_torch.parallel import partition as TP
+    from bioreason_tpu_torch.train.quant import quantize_frozen_int8
+    model = quantize_frozen_int8(_port_model(kind), include_embed=embed)
+    jrules, trules = JP.partition_rules_fusion(), TP.partition_rules_fusion()
+    specs = TP.param_specs(model, trules, {"data": 1, "fsdp": 2, "model": 2})
+    buffers = TP.int8_buffers(model)
+    assert len(buffers) > 20 and ("decoder.embed.weight" in buffers) == embed
+    split_by_rule = 0
+    for name, b in buffers.items():
+        path, layer = _int8_jax_path(name)
+        assert JP.spec_for_path(path, jrules) == PartitionSpec(), path
+        assert specs[name] == (None,) * (b.dim() + (1 if layer else 0)), name
+        split_by_rule += "model" in TP.spec_for_path(name, trules)
+    assert split_by_rule > 0
+
+
+def _fake_topology(f, m, index=1):
+    """This rank's axes of a (1, f, m) mesh without a process group (no
+    collective runs): the plan slices and marks modules only."""
+    from bioreason_tpu_torch.parallel.comm import Axis
+    from bioreason_tpu_torch.parallel.mesh import Topology
+    ax = lambda name, n: Axis(name, None, n, min(index, n - 1), tuple(range(n)))
+    return Topology(ax("data", 1), ax("fsdp", f), ax("model", m), ax("dp", f))
+
+
+@pytest.mark.parametrize("kind", ["fusion", "moe"])
+def test_shard_plan_keeps_int8_whole_and_splits_its_compute(kind):
+    """`ShardPlan.apply` at fsdp 2, model 2 on a QLoRA tree: every int8
+    weight and scale is the same tensor as before (whole: no fsdp or model
+    slice); the linears run tensor-parallel and the banks expert-parallel
+    exactly where the float twin's are (`tp` kinds, `ep`), so the rank's
+    heads (`local_heads`) agree with the q / k / v it computes; the
+    adapters and other float leaves keep the float twin's placements."""
+    from bioreason_tpu_torch import config as TC
+    from bioreason_tpu_torch.parallel.partition import ShardPlan, int8_buffers
+    from bioreason_tpu_torch.train.quant import quantize_frozen_int8
+    dec = TC.DecoderConfig.tiny_moe() if kind == "moe" else TC.FusionConfig.tiny().decoder
+    enc = TC.FusionConfig.tiny().encoder
+    marks = {}
+    for label in ("float", "int8"):
+        model = _port_model(kind)
+        if label == "int8":
+            quantize_frozen_int8(model)
+        before = int8_buffers(model)
+        plan = ShardPlan(model, dec, _fake_topology(2, 2), encoder_cfg=enc)
+        plan.apply(model)
+        after = int8_buffers(model)
+        assert set(after) == set(before)
+        for name, t in after.items():
+            assert t is before[name] and plan.placements[name] == [], name
+        marks[label] = ({n: m.tp[0] for n, m in model.named_modules()
+                         if getattr(m, "tp", None) is not None},
+                        sorted(n for n, m in model.named_modules()
+                               if getattr(m, "ep", None) is not None),
+                        {n: pl for n, pl in plan.placements.items() if n not in after},
+                        plan.partial_over_model)
+    assert marks["int8"][0] == marks["float"][0] and len(marks["int8"][0]) > 8
+    assert marks["int8"][1] == marks["float"][1] and (kind == "moe") == bool(marks["int8"][1])
+    assert {n: marks["float"][2][n] for n in marks["int8"][2]} == marks["int8"][2]
+    assert any(pl for pl in marks["int8"][2].values())
+    assert marks["int8"][3] == marks["float"][3]
+
+
 @pytest.mark.parametrize("spec,shape,sizes", [
     (("fsdp", "model"), (6, 8), (1, 2, 4)),
     (("fsdp", "model"), (8, 6), (1, 2, 4)),

@@ -8,7 +8,14 @@ port's weights come from the JAX trainer's), ZeRO-2's moments sharded over
 data=2 (the capacity over the global batch), the MoE fully finetuned with
 its banks sharded, a GRPO update and a
 classifier step at data=2 against one device, and `train_sft --cpu_devices
-4 --mesh 2,2,1` for one step. LoRA dropout is 0: a rank draws the masks of
+4 --mesh 2,2,1` for one step. In the world of two: QLoRA under fsdp 2
+(1, 2, 1), its int8 weights whole on both ranks as JAX places them (two
+SFT steps against one device and the first against the JAX
+SFTTrainer(frozen_dtype="int8") on the same mesh; two GRPO updates with
+`rollout_int8` against one device and the JAX trainer; the rollout copy of
+a float tree bitwise one device's), and the focal CE split over data and
+over fsdp, two steps against the JAX SFTTrainer(focal_gamma=2.0) on the
+same mesh. LoRA dropout is 0: a rank draws the masks of
 its own rows. The mesh runs recompute their layers in the backward (remat),
 the one-device reference does not: the values are the same."""
 
@@ -58,12 +65,14 @@ def sft_setup(enc_impl=None, freeze_encoder=True, moe=False, batch=4, remat=Fals
     return fcfg, scfg, batches
 
 
-def sft_run(mesh=None, moe=False, model=None, remat=False, full=False):
+def sft_run(mesh=None, moe=False, model=None, remat=False, full=False, **kw):
     """Two steps: metrics, the final trainable parameters (whole) and, under
-    a mesh, each moment's local shape against its parameter's."""
+    a mesh, each moment's local shape against its parameter's. `kw`: other
+    SFTConfig fields (frozen_dtype, focal_gamma)."""
     from bioreason_tpu_torch.train.sft import SFTTrainer
     fcfg, scfg, batches = sft_setup(moe=moe, remat=remat, full=full)
-    tr = SFTTrainer(fcfg, scfg, device="cpu", mesh=mesh, model=model)
+    tr = SFTTrainer(fcfg, dataclasses.replace(scfg, **kw), device="cpu", mesh=mesh,
+                    model=model)
     metrics = [tr.train_step(b) for b in batches]
     state = {k: v.detach().numpy() for k, v in tr.trainable_state().items()}
     shapes = None
@@ -92,9 +101,11 @@ def _train_world(rank, world, jparams):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_sft():
-    """The JAX SFTTrainer on a (2, 2, 1) mesh of the CPU devices: its
-    initial parameters and first loss on the same global batch."""
+def jax_sft(mesh_shape=(2, 2, 1), steps=1, params=False, **kw):
+    """The JAX SFTTrainer on a mesh of the CPU devices (`kw`: its other
+    SFTConfig fields; `params`: start from the (2, 2, 1) trainer's initial
+    parameters, else draw them from its seed): its initial parameters and
+    the metrics of its first `steps` steps on the global batches."""
     import jax
     from bioreason_tpu import config as JC
     from bioreason_tpu.parallel import make_mesh
@@ -106,14 +117,17 @@ def jax_sft():
         "decoder": JC.DecoderConfig(**dataclasses.asdict(fcfg.decoder)),
         "encoder": JC.EncoderConfig(**dataclasses.asdict(fcfg.encoder)),
         "dna_pad_token_id": fcfg.dna_pad_token_id})
-    js = JC.SFTConfig(batch_size=4, max_length_dna=64, bucket=None, frozen_dtype="",
-                      optim=JC.OptimConfig(learning_rate=1e-2, total_steps=20,
-                                           warmup_ratio=0.0, eps=1e-3),
-                      lora=JC.LoRAConfig(r=4, alpha=8, dropout=0.0))
-    tr = JTrainer(jf, js, mesh=make_mesh(JC.MeshConfig(data=2, fsdp=2, model=1),
-                                         devices=jax.devices()[:4]))
+    js = JC.SFTConfig(**{"batch_size": 4, "max_length_dna": 64, "bucket": None,
+                         "frozen_dtype": "",
+                         "optim": JC.OptimConfig(learning_rate=1e-2, total_steps=20,
+                                                 warmup_ratio=0.0, eps=1e-3),
+                         "lora": JC.LoRAConfig(r=4, alpha=8, dropout=0.0), **kw})
+    n = int(np.prod(mesh_shape))
+    tr = JTrainer(jf, js, mesh=make_mesh(JC.MeshConfig(*mesh_shape), devices=jax.devices()[:n]),
+                  params=jax_sft()[0] if params else None)
     init = jax.tree.map(np.asarray, tr.params)
-    return init, tr.train_step(batches[0])
+    metrics = [tr.train_step(b) for b in batches[:steps]]
+    return init, metrics[0] if steps == 1 else metrics
 
 
 @pytest.fixture(scope="module")
@@ -255,19 +269,47 @@ def classifier_steps(mesh=None):
     return out, {n: p.detach().cpu().numpy() for n, p in state.items()}
 
 
-def _data2_world(rank, world):
+DATA2 = {"data": (2, 1, 1), "fsdp": (1, 2, 1)}
+FOCAL = 2.0
+
+
+# the QLoRA SFT case at (1, 2, 1) also takes the focal CE: one JAX trainer,
+# SFTTrainer(frozen_dtype="int8", focal_gamma=2.0), holds both
+QLORA_SFT = dict(frozen_dtype="int8", focal_gamma=FOCAL)
+
+
+def _data2_world(rank, world, jparams, buf8):
+    import test_torch_tp_generate as TG
     from bioreason_tpu_torch.config import MeshConfig
     from bioreason_tpu_torch.parallel.mesh import make_mesh
     out = {}
-    for label, cfg in (("data", MeshConfig(data=2)), ("fsdp", MeshConfig(data=1, fsdp=2))):
-        mesh = make_mesh(cfg, device="cpu")
+    for label, shape in DATA2.items():
+        mesh = make_mesh(MeshConfig(*shape), device="cpu")
         out[label] = {"grpo": grpo_update(mesh), "classifier": classifier_steps(mesh)}
+    out["data"]["focal"] = sft_run(make_mesh(MeshConfig(*DATA2["data"]), device="cpu"),
+                                   model=jax_model(jparams), focal_gamma=FOCAL)
+    out["fsdp"].update(
+        qlora_sft=sft_run(mesh, model=jax_model(jparams), **QLORA_SFT),
+        qlora_grpo=TG.grpo_updates(jparams, buf8, mesh, **TG.QLORA),
+        rollout=TG.int8_state(TG.port_grpo(jparams, mesh, rollout_int8=True).rollout_model()))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_grpo_fsdp():
+    """The JAX QLoRA GRPOTrainer (`rollout_int8`) at (1, 2, 1) from the
+    SFT trainer's initial tree (fp32; the same LoRA draws): the buffer with
+    its reference logps, and the first step's metrics on it."""
+    import test_torch_tp_generate as TG
+    _, buf8, jm = TG.run_jax_grpo(jax_sft()[0], DATA2["fsdp"], **TG.QLORA)
+    return buf8, jm
 
 
 @pytest.fixture(scope="module")
 def data2_world(tmp_path_factory):
-    return spawn_world(_data2_world, 2, tmp_path_factory.mktemp("data2"))
+    jparams, _ = jax_sft()
+    buf8, _ = jax_grpo_fsdp()
+    return spawn_world(_data2_world, 2, tmp_path_factory.mktemp("data2"), jparams, buf8)
 
 
 @pytest.mark.parametrize("axis", ["data", "fsdp"])
@@ -299,6 +341,76 @@ def test_classifier_step_at_data_2_matches_one_device(data2_world, axis):
             assert g["accuracy"] == w["accuracy"] and g["f1"] == pytest.approx(w["f1"])
         for k in want_s:
             np.testing.assert_allclose(got_s[k], want_s[k], atol=1e-5, rtol=0, err_msg=k)
+
+
+def test_qlora_sft_at_fsdp_2_matches_one_device_and_jax(data2_world):
+    """Two QLoRA SFT steps (with the focal CE) at (1, 2, 1): the int8
+    weights whole on both ranks (no fsdp slice, no gather), the adapters,
+    norms and projection sharded and gathered; losses, grad-norms and the
+    gathered trained leaves against one device (rel 1e-5, atol 1e-5), both
+    steps against the JAX SFTTrainer(frozen_dtype="int8", focal_gamma=2.0)
+    on its (1, 2, 1) mesh (rel 1e-5)."""
+    jparams, _ = jax_sft()
+    want = sft_run(model=jax_model(jparams), **QLORA_SFT)
+    _, jm = jax_sft(DATA2["fsdp"], steps=2, params=True, **QLORA_SFT)
+    for res in data2_world:
+        _same_run(res["fsdp"]["qlora_sft"], want)
+        for m, j in zip(res["fsdp"]["qlora_sft"][0], jm):
+            assert m["loss"] == pytest.approx(float(j["loss"]), rel=1e-5)
+            assert m["grad_norm"] == pytest.approx(float(j["grad_norm"]), rel=1e-5)
+
+
+@pytest.mark.parametrize("axis", ["data", "fsdp"])
+def test_focal_ce_over_data_x_fsdp_matches_jax(data2_world, axis):
+    """focal_gamma=2 with the rows split over 'data' (2, 1, 1; float frozen
+    weights) or 'fsdp' (1, 2, 1; the QLoRA case above): each rank divides
+    its weighted CE by the detached weights summed over both ranks, as
+    JAX's global sum; two steps' losses and grad-norms against the JAX
+    SFTTrainer(focal_gamma=2.0) on the same mesh (rel 1e-5), and against
+    the one-device trainer (rel 1e-5, leaves 1e-5)."""
+    jparams, _ = jax_sft()
+    kw = QLORA_SFT if axis == "fsdp" else {"focal_gamma": FOCAL}
+    _, jm = jax_sft(DATA2[axis], steps=2, params=True, **kw)
+    want = sft_run(model=jax_model(jparams), **kw)
+    for res in data2_world:
+        got = res[axis]["qlora_sft" if axis == "fsdp" else "focal"]
+        _same_run(got, want)
+        for m, j in zip(got[0], jm):
+            assert m["loss"] == pytest.approx(float(j["loss"]), rel=1e-5)
+            assert m["grad_norm"] == pytest.approx(float(j["grad_norm"]), rel=1e-5)
+
+
+def test_qlora_grpo_update_at_fsdp_2_matches_one_device_and_jax(data2_world):
+    """Two QLoRA updates (`rollout_int8`) at (1, 2, 1) on the JAX trainer's
+    buffer, each rank on its rows: loss, kl and grad norm (rel 1e-5, abs
+    1e-7) and the adapters (1e-5) against one device, the first loss
+    against the JAX trainer on the same mesh."""
+    import test_torch_tp_generate as TG
+    buf8, jm = jax_grpo_fsdp()
+    want_m, want_s = TG.grpo_updates(jax_sft()[0], buf8, None, **TG.QLORA)
+    assert data2_world[0]["fsdp"]["qlora_grpo"][0][0]["loss"] == pytest.approx(
+        float(jm["loss"]), rel=1e-5, abs=1e-7)
+    for res in data2_world:
+        got_m, got_s = res["fsdp"]["qlora_grpo"]
+        for g, w in zip(got_m, want_m):
+            for k in ("loss", "kl", "grad_norm"):
+                assert g[k] == pytest.approx(w[k], rel=1e-5, abs=1e-7), k
+        for k in want_s:
+            np.testing.assert_allclose(got_s[k], want_s[k], atol=1e-5, rtol=0, err_msg=k)
+
+
+def test_int8_rollout_copy_at_fsdp_2_is_one_devices_bitwise(data2_world):
+    """The `rollout_int8` copy of the float tree at (1, 2, 1): each weight
+    gathered whole from its fsdp shards before it is quantized, so every
+    int8 weight and scale on both ranks equals one device's bit for bit."""
+    import test_torch_tp_generate as TG
+    want = TG.int8_state(TG.port_grpo(jax_sft()[0], rollout_int8=True).rollout_model())
+    for res in data2_world:
+        got = res["fsdp"]["rollout"]
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_train_sft_cli_cpu_devices_4_mesh_2_2_1(tmp_path, capsys):

@@ -17,11 +17,21 @@ mesh, (1, 1, 2) and (2, 1, 2):
     (1, 1, 2) against one device, whose dp index draws as one device does;
     one at (2, 1, 2), where the model ranks of a data index emit the same
     completions;
-  * the int8 refusals (QLoRA and int8 rollouts under model > 1, int8
-    linears in `layers.tp_dense`), the launcher's check of ranks against
-    cards, and `reason` / `train_sft --test_generative` under
-    `--cpu_devices 2 --mesh 1,1,2` for one step against the one-device
-    CLIs."""
+  * int8 weights under the 'model' axis at (1, 1, 2), whole on every rank
+    as JAX places them: two QLoRA SFT steps against one device (1e-5) and
+    the first against the JAX SFTTrainer(frozen_dtype="int8") on the same
+    mesh (1e-5 relative); two QLoRA GRPO updates with `rollout_int8` on one
+    buffer against one device and the JAX trainer on its mesh (1e-5 / 1e-7
+    absolute); the int8 rollout copy of a float tree equal to one device's
+    bit for bit; the engine on it with an int8 KV cache against one device
+    (greedy ids, logit rows within the float engine's int8-KV tolerance, 1e-4); the tiny MoE's
+    QLoRA step with its int8 banks split over 'model' (1e-5); `tp_dense` on
+    int8 linears in-process over a fake axis of two threads;
+  * the launcher's check of ranks against cards, and `reason` /
+    `train_sft --test_generative` under `--cpu_devices 2 --mesh 1,1,2` for
+    one step against the one-device CLIs, and `reason --rollout_int8
+    --rollout_kv_int8` for two steps, its checkpoint restored on one
+    device."""
 
 import dataclasses
 import functools
@@ -36,6 +46,7 @@ from test_torch_mesh import spawn_world
 torch.set_num_threads(1)
 
 MESHES = [(1, 1, 2), (2, 1, 2)]
+INT8_MESH = MESHES[0]          # the int8 cases run in this world alone
 NEW = 6                       # the engine's new tokens
 G, CLEN = 2, 6                # GRPO: completions per prompt, completion length
 ENGINE_CASES = [(kv, group, kv8) for kv in (2, 1) for group in (1, G) for kv8 in (False, True)]
@@ -174,11 +185,22 @@ def fed(trainer, batch):
     return trainer
 
 
+QLORA = dict(frozen_dtype="int8", rollout_int8=True)
+
+
 @functools.lru_cache(maxsize=None)
-def jax_grpo(mesh_shape):
-    """The JAX GRPOTrainer on `mesh_shape` over the CPU devices: its initial
-    parameters (LoRA attached), the fixed buffer with reference logps, and
-    its first step's metrics on that buffer."""
+def jax_grpo(mesh_shape, **kw):
+    """The JAX GRPOTrainer on `mesh_shape` over the CPU devices (`kw` its
+    GRPOConfig's other fields): its initial parameters (LoRA attached; int8
+    leaves under QLoRA), the fixed buffer with its reference policy's
+    logps, and its first step's metrics on that buffer. A QLoRA trainer
+    quantizes the float trainer's initial tree, the one the port's models
+    are built from (its frozen leaves stored bf16)."""
+    return run_jax_grpo(jax_grpo(MESHES[0])[0] if kw else None, mesh_shape, **kw)
+
+
+def run_jax_grpo(params, mesh_shape, **kw):
+    """`jax_grpo` from `params` (None: drawn from PRNGKey(0))."""
     import jax
     import jax.numpy as jnp
     from bioreason_tpu import config as JC
@@ -190,11 +212,12 @@ def jax_grpo(mesh_shape):
     from bioreason_tpu.train import grpo as JG
     from bioreason_tpu.train import rewards as JR
     jcfg = jax_cfg()
-    params = jax.jit(j_init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    if params is None:
+        params = jax.jit(j_init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
     n = int(np.prod(mesh_shape))
     mesh = make_mesh(JC.MeshConfig(*mesh_shape), devices=jax.devices()[:n])
-    tr = JG.GRPOTrainer(jcfg, grpo_cfg(JC), JProc(JByte(), JKmer()), [JR.correctness_reward],
-                        mesh=mesh, params=params)
+    tr = JG.GRPOTrainer(jcfg, grpo_cfg(JC, **kw), JProc(JByte(), JKmer()),
+                        [JR.correctness_reward], mesh=mesh, params=params)
     init = jax.tree.map(np.asarray, tr.params)
     buf = dict(fixed_buffer())
     logps = jax.jit(JG.per_token_logps, static_argnames=("cfg", "completion_len"))
@@ -207,10 +230,10 @@ def jax_grpo(mesh_shape):
     return init, buf, tr.step([])
 
 
-def grpo_updates(init, buf, mesh=None):
+def grpo_updates(init, buf, mesh=None, **kw):
     """Two steps on the fixed buffer (this rank's rows under a mesh):
     metrics and the whole trainable parameters after them."""
-    tr = port_grpo(init, mesh)
+    tr = port_grpo(init, mesh, **kw)
     rows = (lambda x: x) if mesh is None else tr.run.rows
     fed(tr, {k: None if v is None else torch.as_tensor(rows(np.asarray(v)))
              for k, v in buf.items()})
@@ -231,28 +254,79 @@ def grpo_steps(init, mesh=None, steps=2):
                                   tr.trainable_state().items()}
 
 
-def int8_refusals(init, mesh):
-    """The messages of the int8 refusals under this mesh."""
+# -- int8 weights under the mesh -------------------------------------------------------
+
+def sft_cfg(module, **kw):
+    """test_torch_qlora's QLoRA SFTConfig (2 rows a batch)."""
+    return module.SFTConfig(**{
+        "batch_size": 2, "max_length_dna": 64, "bucket": None, "frozen_dtype": "int8",
+        "optim": module.OptimConfig(learning_rate=1e-2, total_steps=20, warmup_ratio=0.0,
+                                    eps=1e-3),
+        "lora": module.LoRAConfig(r=4, alpha=8, dropout=0.0), **kw})
+
+
+@functools.lru_cache(maxsize=None)
+def sft_batch(seed):
+    from bioreason_tpu_torch.data import collate as TD
+    from bioreason_tpu_torch.data import kegg as TK
+    exs = [TK.format_kegg_for_dna_llm(it) for it in TK.synthetic_kegg_items(2, seq_len=40,
+                                                                             seed=seed)]
+    return TD.sft_collate(exs, processor(), 512, 64)
+
+
+def qlora_sft(model, cfg, mesh=None):
+    """Two QLoRA SFT steps of `model`: metrics and the whole trained leaves."""
     from bioreason_tpu_torch import config as TC
     from bioreason_tpu_torch.train.sft import SFTTrainer
-    out = {}
-    for label, kw in (("qlora", dict(frozen_dtype="int8")), ("rollout_int8",
-                                                            dict(rollout_int8=True))):
-        try:
-            port_grpo(init, mesh, **kw)
-            out[label] = None
-        except ValueError as e:
-            out[label] = str(e)
-    try:
-        SFTTrainer(port_cfg(), TC.SFTConfig(frozen_dtype="int8", lora=TC.LoRAConfig(r=4)),
-                   device="cpu", mesh=mesh)
-        out["sft_qlora"] = None
-    except ValueError as e:
-        out["sft_qlora"] = str(e)
+    tr = SFTTrainer(cfg, sft_cfg(TC), model=model, device="cpu", mesh=mesh)
+    metrics = [tr.train_step(sft_batch(s)) for s in (10, 11)]
+    return metrics, {k: v.detach().numpy() for k, v in tr.trainable_state().items()}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_qlora_sft(mesh_shape):
+    """The first step of the JAX QLoRA SFTTrainer on `mesh_shape` from the
+    GRPO trainer's initial tree (the same LoRA draws: both trainers attach
+    them from fold_in(PRNGKey(0), 1))."""
+    import jax
+    from bioreason_tpu import config as JC
+    from bioreason_tpu.parallel import make_mesh
+    from bioreason_tpu.train.sft import SFTTrainer as JSFT
+    init, _, _ = jax_grpo(MESHES[0])
+    n = int(np.prod(mesh_shape))
+    tr = JSFT(jax_cfg(), sft_cfg(JC), mesh=make_mesh(JC.MeshConfig(*mesh_shape),
+                                                     devices=jax.devices()[:n]),
+              params=init)
+    return tr.train_step(sft_batch(10))
+
+
+def int8_state(model):
+    """name -> numpy of every int8 weight and scale `model` holds."""
+    from bioreason_tpu_torch.parallel.partition import int8_buffers
+    return {k: v.detach().numpy() for k, v in int8_buffers(model).items()}
+
+
+def rollout_copy(init, mesh=None):
+    """The `rollout_int8` copy of the float tree: its int8 weights and
+    scales, and the engine's greedy runs on it with an int8 KV cache,
+    ungrouped and at G."""
+    tr = port_grpo(init, mesh, rollout_int8=True)
+    roll = tr.rollout_model()
+    return int8_state(roll), {g: engine_run(roll, port_cfg(), tr.run, g, True) for g in (1, G)}
+
+
+def int8_cases(init, buf8, mesh):
+    """Every int8 case of the (1, 1, 2) world on this rank."""
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    out = {"sft": qlora_sft(model_for(2, init), port_cfg(), mesh),
+           "updates": grpo_updates(init, buf8, mesh, **QLORA),
+           "rollout": rollout_copy(init, mesh),
+           "moe": qlora_sft(init_fusion(port_cfg(moe=True), seed=0, device="cpu"),
+                            port_cfg(moe=True), mesh)}
     return out
 
 
-def _world(rank, world, mesh_shape, init, buf):
+def _world(rank, world, mesh_shape, init, buf, buf8):
     from bioreason_tpu_torch.config import MeshConfig
     from bioreason_tpu_torch.parallel.mesh import make_mesh
     from bioreason_tpu_torch.parallel.trainer import MeshRun
@@ -269,7 +343,8 @@ def _world(rank, world, mesh_shape, init, buf):
         out["moe"][group] = engine_run(model, port_cfg(moe=True), run, group, False)
     out["updates"] = grpo_updates(init, buf, mesh)
     out["steps"] = grpo_steps(init, mesh, steps=2 if mesh_shape[0] == 1 else 1)
-    out["int8"] = int8_refusals(init, mesh)
+    if buf8 is not None:
+        out["int8"] = int8_cases(init, buf8, mesh)
     out["coords"] = (rank // (mesh_shape[1] * mesh_shape[2]), rank % mesh_shape[2])
     return out
 
@@ -278,9 +353,10 @@ def _world(rank, world, mesh_shape, init, buf):
 def world(request, tmp_path_factory):
     mesh_shape = request.param
     init, buf, _ = jax_grpo(mesh_shape)
+    buf8 = jax_grpo(mesh_shape, **QLORA)[1] if mesh_shape == INT8_MESH else None
     n = int(np.prod(mesh_shape))
     return mesh_shape, spawn_world(_world, n, tmp_path_factory.mktemp("tp"), mesh_shape,
-                                   init, buf)
+                                   init, buf, buf8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -433,27 +509,222 @@ def test_grpo_steps_under_tp(world):
             np.testing.assert_allclose(got_s[k], want_s[k], atol=1e-5, rtol=0, err_msg=k)
 
 
-def test_int8_under_model_axis_is_refused(world):
-    """QLoRA and int8 rollouts in GRPO, and QLoRA in SFT, raise under
-    model > 1."""
-    _, results = world
+def _int8_world(world):
+    mesh_shape, results = world
+    assert mesh_shape == INT8_MESH
+    return [res["int8"] for res in results]
+
+
+# the int8 cases run in the (1, 1, 2) world alone
+in_int8_world = pytest.mark.parametrize("world", [INT8_MESH], indirect=True,
+                                        ids=lambda m: "x".join(map(str, m)))
+
+
+@in_int8_world
+def test_qlora_sft_under_model_axis_matches_one_device_and_jax(world):
+    """Two QLoRA SFT steps at (1, 1, 2), the int8 q / k / v / gate / up
+    computing on their rank's rows and o / down on their columns of the
+    replicated int8 weights: losses, grad-norms and the gathered adapters
+    against one device (rel 1e-5, atol 1e-5), the first step against the
+    JAX SFTTrainer(frozen_dtype="int8") on the same mesh (rel 1e-5)."""
+    from test_torch_parallel_train import _same_run
+    results = _int8_world(world)
+    init, _, _ = jax_grpo(MESHES[0])
+    want = qlora_sft(model_for(2, init), port_cfg())
+    jm = jax_qlora_sft(INT8_MESH)
     for res in results:
-        msgs = res["int8"]
-        assert "shard over 'data' only" in msgs["qlora"] and "ROADMAP" in msgs["qlora"]
-        assert msgs["rollout_int8"] == msgs["qlora"]
-        assert "shard over 'data' only" in msgs["sft_qlora"]
+        _same_run(res["sft"], want)
+    assert results[0]["sft"][0][0]["loss"] == pytest.approx(float(jm["loss"]), rel=1e-5)
+    assert results[0]["sft"][0][0]["grad_norm"] == pytest.approx(float(jm["grad_norm"]),
+                                                                 rel=1e-5)
 
 
-def test_tp_dense_refuses_int8_linears():
-    """`layers.tp_dense` takes float linears only."""
+@in_int8_world
+def test_qlora_grpo_update_under_model_axis_matches_one_device_and_jax(world):
+    """Two QLoRA updates (`rollout_int8`) on the JAX QLoRA trainer's buffer
+    at (1, 1, 2): loss, kl and grad norm (rel 1e-5, abs 1e-7) and the
+    adapters (1e-5) against one device, the first loss against the JAX
+    trainer on the same mesh."""
+    results = _int8_world(world)
+    init, _, _ = jax_grpo(MESHES[0])
+    _, buf8, jm = jax_grpo(INT8_MESH, **QLORA)
+    want_m, want_s = grpo_updates(init, buf8, None, **QLORA)
+    assert results[0]["updates"][0][0]["loss"] == pytest.approx(float(jm["loss"]), rel=1e-5,
+                                                                abs=1e-7)
+    for res in results:
+        got_m, got_s = res["updates"]
+        for g, w in zip(got_m, want_m):
+            for k in ("loss", "kl", "grad_norm"):
+                assert g[k] == pytest.approx(w[k], rel=1e-5, abs=1e-7), k
+        assert set(got_s) == set(want_s)
+        for k in want_s:
+            np.testing.assert_allclose(got_s[k], want_s[k], atol=1e-5, rtol=0, err_msg=k)
+
+
+@functools.lru_cache(maxsize=None)
+def one_device_rollout():
+    init, _, _ = jax_grpo(MESHES[0])
+    return rollout_copy(init)
+
+
+@in_int8_world
+def test_int8_rollout_copy_under_model_axis_is_one_devices_bitwise(world):
+    """`rollout_int8` on a float tree at (1, 1, 2): every int8 weight and
+    scale of the rollout copy (both towers, the embedding) is whole on each
+    rank and equal to one device's bit for bit, as JAX quantizes whole rows
+    and places the leaves P(); so each rank holds one device's int8 bytes."""
+    results = _int8_world(world)
+    want, _ = one_device_rollout()
+    assert any(k.startswith("decoder.embed.") for k in want) and len(want) > 40
+    for res in results:
+        got, _ = res["rollout"]
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@in_int8_world
+@pytest.mark.parametrize("group", [1, G])
+def test_int8_engine_under_model_axis_matches_one_device(world, group):
+    """The engine on the int8 rollout copy with an int8 KV cache at
+    (1, 1, 2), ungrouped and grouped: greedy ids equal one device's, every
+    logit row the sampler took within the float engine's int8-KV 1e-4, and each
+    rank's caches hold Hkv/2 heads."""
+    results = _int8_world(world)
+    _, engines = one_device_rollout()
+    ids, mask, rows, caches = engines[group]
+    for res in results:
+        got_ids, got_mask, got_rows, got_caches = res["rollout"][1][group]
+        np.testing.assert_array_equal(got_ids, ids)
+        np.testing.assert_array_equal(got_mask, mask)
+        assert len(got_rows) == len(rows)
+        for a, b in zip(got_rows, rows):
+            np.testing.assert_allclose(a, b, atol=LOGIT_ATOL[True], rtol=0)
+        assert got_caches[0][0]["k"].dtype == np.int8
+        assert got_caches[0][0]["k"].shape[2] * 2 == caches[0][0]["k"].shape[2]
+
+
+@in_int8_world
+def test_moe_qlora_under_model_axis_matches_one_device(world):
+    """The tiny MoE (E=4, k=2) under QLoRA at (1, 1, 2): its int8 banks and
+    router whole on each rank, each rank running its 2 experts and its
+    heads; two steps against one device (rel 1e-5, atol 1e-5)."""
+    from bioreason_tpu_torch.models.fusion import init_fusion
+    from test_torch_parallel_train import _same_run
+    results = _int8_world(world)
+    want = qlora_sft(init_fusion(port_cfg(moe=True), seed=0, device="cpu"), port_cfg(moe=True))
+    for res in results:
+        _same_run(res["moe"], want)
+
+
+class ThreadAxis:
+    """A fake 'model' axis of two ranks run as two threads of this process:
+    `comm.all_reduce` sums the ranks' tensors through a barrier."""
+
+    def __init__(self, n=2):
+        import threading
+        self.n, self.barrier, self.slots = n, threading.Barrier(n), [None] * n
+
+    def all_reduce(self, x, axis):
+        self.slots[axis.index] = x.detach().clone()
+        self.barrier.wait()
+        total = sum(self.slots)
+        self.barrier.wait()
+        return total
+
+    def run(self, fn):
+        """fn(axis) on every rank's thread; their results in rank order."""
+        import threading
+        from bioreason_tpu_torch.parallel.comm import Axis
+        out, errs = [None] * self.n, []
+
+        def main(i):
+            try:
+                out[i] = fn(Axis("model", None, self.n, i, tuple(range(self.n))))
+            except BaseException as e:          # re-raised below
+                errs.append(e)
+                self.barrier.abort()
+        threads = [threading.Thread(target=main, args=(i,)) for i in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise errs[0]
+        return out
+
+
+@pytest.mark.parametrize("kind", ["col", "row"])
+@pytest.mark.parametrize("adapter", [False, True])
+def test_tp_dense_on_int8_linears_matches_one_device(monkeypatch, kind, adapter):
+    """`layers.tp_dense` on an int8 linear (bf16 scales, as QLoRA stores
+    them; with a bias), its weight and scale whole on both ranks of a fake
+    axis: colwise each rank's output rows, rowwise its input columns summed
+    in fp32 with the scale applied once; the output and x's gradient
+    against one device's `dense` (1e-5 relative to max |y|, |dx|), the
+    adapters' gradients too, and a rank's backward saves no float weight."""
+    import copy
+
     from bioreason_tpu_torch.models import layers as L
-    from bioreason_tpu_torch.parallel.comm import Axis
+    from bioreason_tpu_torch.parallel import comm
     from bioreason_tpu_torch.train.quant import quantize_kernel_int8, store_int8
-    lin = torch.nn.Linear(8, 4, bias=False)
+    rng = np.random.default_rng(5)
+    lin = torch.nn.Linear(16, 12)
+    with torch.no_grad():
+        lin.weight.copy_(torch.as_tensor(rng.standard_normal((12, 16)), dtype=torch.float32))
+        lin.bias.copy_(torch.as_tensor(rng.standard_normal(12), dtype=torch.float32))
     store_int8(lin, *quantize_kernel_int8(lin.weight))
-    lin.tp = ("col", Axis("model", None, 1, 0, (0,)))
-    with pytest.raises(ValueError, match="float linears"):
-        L.dense(lin, torch.ones(2, 8))
+    lin.scale = lin.scale.to(torch.bfloat16)
+    if adapter:
+        L.add_adapter(lin, torch.as_tensor(rng.standard_normal((16, 4)), dtype=torch.float32),
+                      torch.as_tensor(rng.standard_normal((4, 12)), dtype=torch.float32), 2.0)
+    x0 = torch.as_tensor(rng.standard_normal((3, 5, 16)), dtype=torch.float32)
+    gy = torch.as_tensor(rng.standard_normal((3, 5, 12)), dtype=torch.float32)
+    x = x0.clone().requires_grad_(True)
+    want_y = L.dense(lin, x)
+    want_g = torch.autograd.grad(want_y, [x] + ([lin.lora_a, lin.lora_b] if adapter else []), gy)
+    fake = ThreadAxis()
+    monkeypatch.setattr(comm, "all_reduce", fake.all_reduce)
+
+    def rank(axis):
+        mod = copy.deepcopy(lin)
+        if adapter:                 # the adapter's pieces, as the plan slices them
+            name, dim = ("lora_b", 1) if kind == "col" else ("lora_a", 0)
+            setattr(mod, name, torch.nn.Parameter(
+                comm.local_slice(getattr(lin, name).detach(), axis, dim).clone()))
+        mod.tp = (kind, axis)
+        xr = (x0 if kind == "col" else comm.local_slice(x0, axis, 2)).clone().requires_grad_(True)
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t,
+                                                      lambda t: t):
+            y = L.dense(mod, xr)
+        g = torch.autograd.grad(y, [xr] + ([mod.lora_a, mod.lora_b] if adapter else []),
+                                comm.local_slice(gy, axis, 2) if kind == "col" else gy)
+        return y.detach(), [t.detach() for t in g], saved
+    ranks = fake.run(rank)
+    (y0, g0, _), (y1, g1, _) = ranks
+    if kind == "col":       # output rows per rank; x's gradient summed over the axis
+        y, dx = torch.cat([y0, y1], -1), g0[0]
+        torch.testing.assert_close(g1[0], dx, rtol=0, atol=0)
+    else:                   # the summed output on both ranks; x's gradient per column
+        y, dx = y0, torch.cat([g0[0], g1[0]], -1)
+        torch.testing.assert_close(y1, y0, rtol=0, atol=0)
+    close = lambda got, want: torch.testing.assert_close(
+        got, want.detach(), rtol=0, atol=1e-5 * float(want.detach().abs().max()))
+    close(y, want_y)
+    close(dx, want_g[0])
+    if adapter:             # lora_a / lora_b: whole on a rank, or its slice
+        if kind == "col":
+            close(g0[1], want_g[1])
+            close(torch.cat([g0[2], g1[2]], 1), want_g[2])
+        else:
+            close(torch.cat([g0[1], g1[1]], 0), want_g[1])
+            close(g0[2], want_g[2])
+    for _, _, saved in ranks:   # the int8 slice, never a float [6, 16] / [12, 8] weight
+        assert any(t.dtype == torch.int8 for t in saved)
+        assert not any(t.is_floating_point() and tuple(t.shape) in ((6, 16), (12, 8), (8, 12))
+                       for t in saved)
 
 
 @pytest.mark.parametrize("local_world,local_rank,cards,ok", [
@@ -523,3 +794,41 @@ def test_train_sft_cli_test_generative_under_mesh_1_1_2(tmp_path):
     got = [g["generation"] for g in mesh.test_result.generations]
     assert got and got == [g["generation"] for g in one.test_result.generations]
     assert (tmp_path / "m" / "test_generations.csv").exists()
+
+
+@pytest.mark.parametrize("mesh", ["1,1,2", "1,2,1"])
+def test_reason_cli_rollout_int8_under_a_mesh(tmp_path, mesh):
+    """`reason --rollout_int8 --rollout_kv_int8 --cpu_devices 2 --mesh <m>`
+    takes two steps on the int8 rollout copy, whole on both ranks; at
+    (1, 1, 2) its metrics equal the one-device CLI's (1e-5; at (1, 2, 1)
+    each data index draws its own samples, so they are only finite). Rank
+    0's grpo_final restores into the one-device trainer: its adapters
+    equal the checkpoint's, and at (1, 1, 2) the one-device run's own
+    (1e-5)."""
+    from bioreason_tpu_torch.cli import reason
+    from bioreason_tpu_torch.train.checkpoint import load_checkpoint
+    argv = ["--decoder", "tiny", "--encoder", "tiny", "--device", "cpu", "--seed", "3",
+            "--num_generations", "2", "--batch_size", "4", "--max_steps", "2",
+            "--max_completion_length", "4", "--max_length_dna", "64", "--n_synthetic", "16",
+            "--rollout_int8", "--rollout_kv_int8"]
+    got = reason.main(argv + ["--cpu_devices", "2", "--mesh", mesh, "--checkpoint_dir",
+                              str(tmp_path / "m"), "--log_dir", str(tmp_path / "ml")])
+    one = reason.main(argv + ["--checkpoint_dir", str(tmp_path / "o"), "--log_dir",
+                              str(tmp_path / "ol")])
+    assert one.cfg.rollout_kv_int8 and one.engine.kv_int8
+    assert len(got.metrics_history) == 2
+    for g, w in zip(got.metrics_history, one.metrics_history):
+        for k in ("loss", "kl", "reward", "grad_norm"):
+            assert math.isfinite(g[k]), k
+            if mesh == "1,1,2":
+                assert g[k] == pytest.approx(w[k], rel=1e-5, abs=1e-7), k
+    path = str(tmp_path / "m" / "grpo_final")
+    saved = load_checkpoint(path)["trainable"]
+    own = {k: v.detach().clone() for k, v in one.trainable_state().items()}
+    one.restore(path)
+    assert one.step_count == 2 and set(saved) == set(own)
+    for k, v in one.trainable_state().items():
+        np.testing.assert_array_equal(v.detach().numpy(), saved[k].numpy(), err_msg=k)
+        if mesh == "1,1,2":
+            np.testing.assert_allclose(v.detach().numpy(), own[k].numpy(), atol=1e-5,
+                                       err_msg=k)
