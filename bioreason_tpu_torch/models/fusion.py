@@ -71,7 +71,22 @@ def encode_dna(model: FusionModel, cfg: FusionConfig, dna_input_ids,
         else:
             hidden = encoder_forward(model.encoder, cfg.encoder, dna_input_ids,
                                      dna_attention_mask)
-    return L.dense(model.dna_projection, hidden, torch_dtype(cfg.decoder.dtype))
+    return project_dna(model.dna_projection, hidden, torch_dtype(cfg.decoder.dtype))
+
+
+def project_dna(proj: nn.Linear, hidden: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The DNA projection (with its bias) of the tower's output, in `dtype`.
+    A projection split over the mesh's 'model' axis (parallel/partition.py)
+    runs colwise on this rank's H_text/m output rows (`layers.tp_dense`),
+    and one `comm.gather_replicated` of the last dim gives every rank the
+    whole [.., H_text]; the tower's output reaching it is whole on every
+    rank (under sequence parallelism too, `sp.unshard_sequence`)."""
+    out = L.dense(proj, hidden, dtype)
+    tp = getattr(proj, "tp", None)
+    if tp is None:
+        return out
+    from bioreason_tpu_torch.parallel import comm
+    return comm.gather_replicated(out, tp[1], -1)
 
 
 def splice_embeddings(text_embeds, input_ids, dna_embeds, dna_mask,
@@ -185,22 +200,23 @@ def fusion_forward(
                                 lora_dropout_gen=lora_dropout_gen,
                                 lora_dropout_rate=lora_dropout_rate)
     dec = model.decoder
-    head = dec.lm_head.weight if dec.lm_head is not None else dec.embed.weight   # [V, H]
+    table = dec.lm_head if dec.lm_head is not None else dec.embed
+    head, vocab = table.weight, L.vocab_axis(table)     # [V, H], or V/m rows over 'model'
     h = hidden.to(torch.bfloat16) if cfg.decoder.dtype == "bfloat16" else hidden
     if focal_gamma > 0.0:
         if gathered:
             loss = CE.decoder_lm_loss_focal_gathered(
                 h, head, label_positions, label_targets, label_valid, focal_gamma,
-                need_embedding_grad=train_embeddings, axis=focal_axis)
+                need_embedding_grad=train_embeddings, axis=focal_axis, vocab_axis=vocab)
         else:
             loss = CE.decoder_lm_loss_focal(h, head, labels, focal_gamma,
                                             need_embedding_grad=train_embeddings,
-                                            axis=focal_axis)
+                                            axis=focal_axis, vocab_axis=vocab)
     elif gathered:
         loss = CE.decoder_lm_loss_gathered(h, head, label_positions, label_targets,
                                            label_valid, need_embedding_grad=train_embeddings,
-                                           save_logits=cfg.ce_save_logits)
+                                           save_logits=cfg.ce_save_logits, vocab_axis=vocab)
     else:
         loss = CE.decoder_lm_loss(h, head, labels, need_embedding_grad=train_embeddings,
-                                  save_logits=cfg.ce_save_logits)
+                                  save_logits=cfg.ce_save_logits, vocab_axis=vocab)
     return None, loss

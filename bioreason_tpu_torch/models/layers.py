@@ -432,14 +432,29 @@ def embed(emb: Embedding, ids: torch.Tensor,
     those rows anyway. `jnp.take` fills them instead; an out-of-range
     `torch.embedding` on CUDA is a device assert. An int8 table gathers its
     int8 rows and their scales, then multiplies in `dtype` (JAX
-    layers.py:130-138)."""
-    w = emb.weight
-    ids = ids.clamp(0, w.shape[0] - 1)
-    if is_int8(emb):
+    layers.py:130-138).
+
+    A table split over the 'model' axis (`vocab_axis`): the ids are clamped
+    to the whole vocabulary first, so the last rank serves an id past it;
+    each rank looks up the ids in its own rows, zeros elsewhere, and one
+    `comm.reduce_from` sums the ranks' rows (exact: one is nonzero)."""
+    axis = vocab_axis(emb)
+    w, scale, v0, v = vocab_rows(emb, axis)
+    ids = ids.clamp(0, v - 1)
+    if axis is not None:
+        ids = ids - v0
+        own = (ids >= 0) & (ids < w.shape[0])
+        ids = torch.where(own, ids, 0)
+    if scale is not None:
         dtype = torch.float32 if dtype is None else dtype
-        return w[ids].to(dtype) * emb.scale[ids].to(dtype)
-    out = F.embedding(ids, w)
-    return out if dtype is None else out.to(dtype)
+        out = w[ids].to(dtype) * scale[ids].to(dtype)
+    else:
+        out = F.embedding(ids, w)
+        out = out if dtype is None else out.to(dtype)
+    if axis is None:
+        return out
+    from bioreason_tpu_torch.parallel import comm
+    return comm.reduce_from(out.masked_fill(~own[..., None], 0), axis)
 
 
 def lm_logits(dec: nn.Module, h: torch.Tensor) -> torch.Tensor:
@@ -449,14 +464,50 @@ def lm_logits(dec: nn.Module, h: torch.Tensor) -> torch.Tensor:
     preferred_element_type=float32 does: a bf16-output GEMM would round the
     logits and can flip greedy near-ties. An int8 head streams its int8
     values as operands and scales the fp32 logits per vocabulary row after
-    the product (JAX layers.py:141-160)."""
+    the product (JAX layers.py:141-160).
+
+    A head split over the 'model' axis (`vocab_axis`): each rank computes
+    the logits of its V/m rows (h through `comm.copy_to`), and one
+    `comm.gather_replicated` puts them together in vocabulary order, so
+    every caller sees [..., V] as on one device."""
     head = dec.lm_head if dec.lm_head is not None else dec.embed
-    w = head.weight                                                    # [V, H]
+    axis = vocab_axis(head)
+    w, scale, _, _ = vocab_rows(head, axis)                            # [V(/m), H]
+    if axis is not None:
+        from bioreason_tpu_torch.parallel import comm
+        h = comm.copy_to(h, axis)
     h2 = h.reshape(-1, h.shape[-1])
     logits = mm_f32(h2, w.to(h.dtype).t())
-    if is_int8(head):
-        logits = logits * head.scale.reshape(-1)
-    return logits.reshape(*h.shape[:-1], w.shape[0])
+    if scale is not None:
+        logits = logits * scale.reshape(-1)
+    logits = logits.reshape(*h.shape[:-1], w.shape[0])
+    return logits if axis is None else comm.gather_replicated(logits, axis, -1)
+
+
+def vocab_axis(table: nn.Module):
+    """The 'model' axis whose ranks each hold V/m rows of a vocabulary table
+    (an `Embedding`, or the `lm_head` linear) under a mesh: `table.tp` =
+    ("vocab", axis), set by parallel/partition.py; None on one device."""
+    tp = getattr(table, "tp", None)
+    return tp[1] if tp is not None and tp[0] == "vocab" else None
+
+
+def vocab_rows(table: nn.Module, axis=None):
+    """(weight rows, their int8 scales or None, the first row's id, the
+    whole vocabulary V) that this rank of `axis` computes on: the whole
+    table without an axis; with one a float table's stored V/m rows, or
+    this rank's V/m rows of an int8 table and its scale, which every rank
+    holds whole (JAX places its `{q, scale}` leaves `P()`)."""
+    w = table.weight
+    scale = table.scale if is_int8(table) else None
+    if axis is None:
+        return w, scale, 0, w.shape[0]
+    if scale is None:
+        return w, None, axis.index * w.shape[0], w.shape[0] * axis.size
+    from bioreason_tpu_torch.parallel import comm
+    n = w.shape[0] // axis.size
+    return (comm.local_slice(w, axis, 0), comm.local_slice(scale, axis, 0), axis.index * n,
+            w.shape[0])
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,16 @@ dlogits = softmax - onehot straight into the two products, so the softmax is
 never stored either. Chunk logits come out in fp32 from bf16 operands
 (`layers.mm_f32`, the JAX dot with preferred_element_type=float32).
 
+Vocab-parallel (`vocab_axis`, the mesh's 'model' axis when the head's
+rows are split over it, parallel/partition.py): `embedding` holds this
+rank's V/m rows and the targets are global ids. Each rank runs the chunks
+of its own rows; one all-gather of every rank's (max, sum-exp, gold)
+combines them into the global LSE (exactly one rank holds each target, the
+others add zero), so the [N, V] logits exist on no rank and the forward
+reduces once per call. The backward's probabilities use that global LSE,
+the head's gradient is local, and the hidden's is a partial sum over the
+axis, summed once by the `comm.copy_to` the hidden passes through.
+
 The JAX package computes these products with `jnp.dot` outside any Pallas
 kernel, so here they are `torch.mm`; a hand kernel for the CE is queued
 (ROADMAP.md, section 2.3).
@@ -22,6 +32,7 @@ import numpy as np
 import torch
 
 from bioreason_tpu_torch.models.layers import mm_f32
+from bioreason_tpu_torch.parallel import comm
 
 DEFAULT_CHUNK = 8192
 
@@ -37,11 +48,18 @@ def _operands(hidden, embedding):
     return hidden.to(dt), embedding.to(dt)
 
 
-def _lse_and_gold(h, emb, targets, chunk, keep_logits: bool = False):
-    """h [N,H], emb [V,H], targets [N] -> (lse [N], gold [N] fp32, and with
+def _first_row(emb, axis) -> int:
+    """The vocabulary id of this rank's first head row (0 without an axis)."""
+    return 0 if axis is None else axis.index * emb.shape[0]
+
+
+def _lse_and_gold(h, emb, targets, chunk, keep_logits: bool = False, axis=None):
+    """h [N,H], emb [V,H] (this rank's V/m rows over `axis`), targets [N]
+    -> (lse [N], gold [N] fp32, both over the whole vocabulary, and with
     `keep_logits` the bf16 chunk logits shifted by the running row max at
     that chunk plus those fp32 maxes)."""
     n = h.shape[0]
+    targets = targets - _first_row(emb, axis)
     m = torch.full((n,), -torch.inf, dtype=torch.float32, device=h.device)
     s = torch.zeros((n,), dtype=torch.float32, device=h.device)
     gold = torch.zeros((n,), dtype=torch.float32, device=h.device)
@@ -59,13 +77,26 @@ def _lse_and_gold(h, emb, targets, chunk, keep_logits: bool = False):
             shifted.append((logits - m_new[:, None]).to(torch.bfloat16))
             shifts.append(m_new)
         m = m_new
+    if axis is not None:
+        m, s, gold = _combine(m, s, gold, axis)
     return m + torch.log(s), gold, shifted, shifts
 
 
+def _combine(m, s, gold, axis):
+    """The whole vocabulary's row max, sum of exp(logit - max) and gold
+    logit from every rank's over its own rows: one all-gather."""
+    ms, ss, golds = comm.all_gather(torch.stack([m, s, gold])[None], axis, 0).unbind(1)
+    mx = ms.amax(0)
+    return mx, (ss * torch.exp(ms - mx)).sum(0), golds.sum(0)
+
+
 def _backward_chunks(h, emb, lse, chunk, dlogits_of, need_embedding_grad,
-                     shifted=None, shifts=None):
+                     shifted=None, shifts=None, axis=None):
     """Sum over chunks of dlogits @ W (and dlogits^T @ h for the head),
-    with dlogits_of(probs, c0, c1) giving the chunk's dlogits [N, c]."""
+    with dlogits_of(probs, c0, c1) giving the dlogits [N, c] of vocabulary
+    ids c0..c1 (this rank's rows over `axis`: dh is then its partial
+    sum)."""
+    v0 = _first_row(emb, axis)
     dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
     demb = (torch.zeros(emb.shape, dtype=torch.float32, device=h.device)
             if need_embedding_grad else None)
@@ -76,7 +107,7 @@ def _backward_chunks(h, emb, lse, chunk, dlogits_of, need_embedding_grad,
         else:
             logits = mm_f32(h, w.t())
         probs = torch.exp(logits - lse[:, None])
-        dlogits = dlogits_of(probs, c0, c1)                        # [N, c] fp32
+        dlogits = dlogits_of(probs, v0 + c0, v0 + c1)              # [N, c] fp32
         if need_embedding_grad:
             demb[c0:c1] = dlogits.t() @ h.float()
         dh += dlogits @ w.float()
@@ -86,16 +117,16 @@ def _backward_chunks(h, emb, lse, chunk, dlogits_of, need_embedding_grad,
 class _FusedSoftmaxXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, embedding, targets, ignore_index, chunk,
-                need_embedding_grad, save_logits):
+                need_embedding_grad, save_logits, axis):
         h, emb = _operands(hidden, embedding)
         valid = targets != ignore_index
         safe_t = torch.where(valid, targets, 0)
-        lse, gold, shifted, shifts = _lse_and_gold(h, emb, safe_t, chunk, save_logits)
+        lse, gold, shifted, shifts = _lse_and_gold(h, emb, safe_t, chunk, save_logits, axis)
         denom = valid.sum().clamp(min=1)
         loss = ((lse - gold) * valid).sum() / denom
         ctx.save_for_backward(hidden, embedding, safe_t, valid, lse, denom,
                               *shifted, *shifts)
-        ctx.chunk, ctx.need_embedding_grad = chunk, need_embedding_grad
+        ctx.chunk, ctx.need_embedding_grad, ctx.axis = chunk, need_embedding_grad, axis
         ctx.n_saved = len(shifted)
         return loss
 
@@ -112,31 +143,40 @@ class _FusedSoftmaxXent(torch.autograd.Function):
             onehot = (col[None, :] == safe_t[:, None]).float()
             return (probs - onehot) * scale[:, None]
         dh, demb = _backward_chunks(h, emb, lse, ctx.chunk, dlogits_of,
-                                    ctx.need_embedding_grad, shifted, shifts)
+                                    ctx.need_embedding_grad, shifted, shifts, ctx.axis)
         demb = None if demb is None else demb.to(embedding.dtype)
-        return dh.to(hidden.dtype), demb, None, None, None, None, None
+        return dh.to(hidden.dtype), demb, None, None, None, None, None, None
+
+
+def _vocab_split(hidden, vocab_axis):
+    """hidden through `comm.copy_to` when the head is split over
+    `vocab_axis`: its gradient, a partial sum on each rank, is summed over
+    the axis once."""
+    return hidden if vocab_axis is None else comm.copy_to(hidden, vocab_axis)
 
 
 def fused_softmax_xent(hidden, embedding, targets, ignore_index: int = -100,
                        chunk: int = DEFAULT_CHUNK, need_embedding_grad: bool = False,
-                       save_logits: bool = False):
+                       save_logits: bool = False, vocab_axis=None):
     """Mean CE over valid targets. hidden [N,H], embedding [V,H] (the head,
     nn.Linear layout), targets [N] with ignore_index holes. With
     need_embedding_grad=False (a frozen head: LoRA runs) the backward
     returns no head gradient and skips its [V,H] accumulator.
     `save_logits=True` keeps the max-shifted chunk logits in bf16 so the
-    backward skips the recompute product."""
-    return _FusedSoftmaxXent.apply(hidden, embedding, targets, ignore_index, chunk,
-                                   need_embedding_grad, save_logits)
+    backward skips the recompute product. `vocab_axis`: `embedding` holds
+    this rank's rows of a head split over that axis (module docstring)."""
+    return _FusedSoftmaxXent.apply(_vocab_split(hidden, vocab_axis), embedding, targets,
+                                   ignore_index, chunk, need_embedding_grad, save_logits,
+                                   vocab_axis)
 
 
 class _ChunkedTokenLogps(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, hidden, embedding, targets, chunk, need_embedding_grad):
+    def forward(ctx, hidden, embedding, targets, chunk, need_embedding_grad, axis):
         h, emb = _operands(hidden, embedding)
-        lse, gold, _, _ = _lse_and_gold(h, emb, targets, chunk)
+        lse, gold, _, _ = _lse_and_gold(h, emb, targets, chunk, axis=axis)
         ctx.save_for_backward(hidden, embedding, targets, lse)
-        ctx.chunk, ctx.need_embedding_grad = chunk, need_embedding_grad
+        ctx.chunk, ctx.need_embedding_grad, ctx.axis = chunk, need_embedding_grad, axis
         return gold - lse
 
     @staticmethod
@@ -149,21 +189,22 @@ class _ChunkedTokenLogps(torch.autograd.Function):
             onehot = (col[None, :] == targets[:, None]).float()
             return (onehot - probs) * g[:, None]
         dh, demb = _backward_chunks(h, emb, lse, ctx.chunk, dlogits_of,
-                                    ctx.need_embedding_grad)
+                                    ctx.need_embedding_grad, axis=ctx.axis)
         demb = None if demb is None else demb.to(embedding.dtype)
-        return dh.to(hidden.dtype), demb, None, None, None
+        return dh.to(hidden.dtype), demb, None, None, None, None
 
 
 def chunked_token_logps(hidden, embedding, targets, chunk: int = DEFAULT_CHUNK,
-                        need_embedding_grad: bool = False):
+                        need_embedding_grad: bool = False, vocab_axis=None):
     """Per-token log p(target) [N] without the [N, V] logits (the GRPO
-    per-token logp primitive)."""
-    return _ChunkedTokenLogps.apply(hidden, embedding, targets, chunk, need_embedding_grad)
+    per-token logp primitive); `vocab_axis` as in `fused_softmax_xent`."""
+    return _ChunkedTokenLogps.apply(_vocab_split(hidden, vocab_axis), embedding, targets,
+                                    chunk, need_embedding_grad, vocab_axis)
 
 
 def decoder_lm_loss(hidden, embedding, labels, ignore_index: int = -100,
                     chunk: int = DEFAULT_CHUNK, need_embedding_grad: bool = False,
-                    save_logits: bool = False):
+                    save_logits: bool = False, vocab_axis=None):
     """Shifted causal LM loss on final-norm hidden states [B,T,H]: hidden t
     predicts label t+1 (mean over supervised tokens), without the [B,T,V]
     logits."""
@@ -171,7 +212,7 @@ def decoder_lm_loss(hidden, embedding, labels, ignore_index: int = -100,
     h = hidden[:, :-1].reshape(-1, hdim)
     y = labels[:, 1:].reshape(-1)
     return fused_softmax_xent(h, embedding, y, ignore_index, chunk,
-                              need_embedding_grad, save_logits)
+                              need_embedding_grad, save_logits, vocab_axis)
 
 
 def gather_label_positions(labels, bucket: int = 64):
@@ -209,12 +250,12 @@ def _gather_rows(hidden, positions):
 
 def decoder_lm_loss_gathered(hidden, embedding, positions, targets, valid,
                              chunk: int = DEFAULT_CHUNK, need_embedding_grad: bool = False,
-                             save_logits: bool = False):
+                             save_logits: bool = False, vocab_axis=None):
     """Shifted causal LM loss over pre-gathered supervised positions (see
     gather_label_positions); the same mean over valid targets."""
     y = torch.where(valid.bool(), targets.long(), -100)
     return fused_softmax_xent(_gather_rows(hidden, positions), embedding, y.reshape(-1),
-                              -100, chunk, need_embedding_grad, save_logits)
+                              -100, chunk, need_embedding_grad, save_logits, vocab_axis)
 
 
 def _focal_weighted_mean(logps, valid, gamma: float, axis=None):
@@ -229,29 +270,31 @@ def _focal_weighted_mean(logps, valid, gamma: float, axis=None):
     w = ((1.0 - p) ** gamma).detach() * valid
     total = w.sum()
     if axis is not None:
-        from bioreason_tpu_torch.parallel import comm
         total = comm.all_reduce(total, axis)
     return (w * ce).sum() / torch.clamp(total, min=1e-6)
 
 
 def decoder_lm_loss_focal(hidden, embedding, labels, gamma: float,
                           ignore_index: int = -100, chunk: int = DEFAULT_CHUNK,
-                          need_embedding_grad: bool = False, axis=None):
-    """Focal-weighted variant of decoder_lm_loss (same shift semantics)."""
+                          need_embedding_grad: bool = False, axis=None, vocab_axis=None):
+    """Focal-weighted variant of decoder_lm_loss (same shift semantics);
+    `axis` splits the rows (`_focal_weighted_mean`), `vocab_axis` the head."""
     hdim = hidden.shape[-1]
     h = hidden[:, :-1].reshape(-1, hdim)
     y = labels[:, 1:].reshape(-1)
     valid = (y != ignore_index).float()
     logps = chunked_token_logps(h, embedding, torch.where(y == ignore_index, 0, y),
-                                chunk, need_embedding_grad)
+                                chunk, need_embedding_grad, vocab_axis)
     return _focal_weighted_mean(logps, valid, gamma, axis)
 
 
 def decoder_lm_loss_focal_gathered(hidden, embedding, positions, targets, valid,
                                    gamma: float, chunk: int = DEFAULT_CHUNK,
-                                   need_embedding_grad: bool = False, axis=None):
+                                   need_embedding_grad: bool = False, axis=None,
+                                   vocab_axis=None):
     """Focal-weighted variant of decoder_lm_loss_gathered."""
     logps = chunked_token_logps(_gather_rows(hidden, positions), embedding,
-                                targets.reshape(-1).long(), chunk, need_embedding_grad)
+                                targets.reshape(-1).long(), chunk, need_embedding_grad,
+                                vocab_axis)
     return _focal_weighted_mean(logps, valid.reshape(-1).float(), gamma, axis)
 

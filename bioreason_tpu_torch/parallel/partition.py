@@ -30,12 +30,22 @@ Execution (`ShardPlan`) is explicit, as torch gives no GSPMD:
   * `model` on an expert bank's E axis: expert parallelism; each rank runs
     its E/m experts on all tokens and the combine sums over `model`
     (`layers.moe_apply`), with JAX's capacity and drops;
-  * `model` entries elsewhere (the embedding and lm_head tables, the
-    projection) are not executed: those stay replicated over `model`. So
-    does the NT tower when sequence parallelism shards its sequence over
-    `model` (an `sp*` attention) or GPipe stages hold the axis; the Evo2
-    tower's parameters (`encoder.blocks.*`) match no `model` rule, as in
-    JAX;
+  * `model` on the vocabulary rows of the decoder's tables
+    (`decoder.embed.weight`, and `decoder.lm_head.weight` where the config
+    unties it): each rank holds V/m rows (`tp` = ("vocab", axis));
+    `layers.embed` looks up its own rows and sums over the axis,
+    `layers.lm_logits` gathers its V/m logit columns, and the chunked CE
+    and logp passes (ops/fused_ce.py) combine the ranks' LSE, so no rank
+    builds [N, V] logits;
+  * `model` on the DNA projection's output rows (either tower): colwise
+    (`layers.tp_dense`), its output gathered whole (`fusion.encode_dna`);
+    its bias stays `P()`, a colwise bias;
+  * the NT tower stays replicated over `model` when sequence parallelism
+    shards its sequence over `model` (an `sp*` attention) or GPipe stages
+    hold the axis; the Evo2 tower's parameters (`encoder.blocks.*`) match
+    no `model` rule, as in JAX. Under GPipe the tables are replicated, as
+    JAX's `partition_rules_fusion(pp=True)` gives them, and so is the
+    projection, which the first stage alone runs;
   * under pipeline parallelism (`pp=True`) a decoder layer's leading
     `model` entry is its stage: a rank keeps only its stage's layers;
   * int8 storage (train/quant.py: an int8 `weight` buffer and its `scale`
@@ -46,8 +56,9 @@ Execution (`ShardPlan`) is explicit, as torch gives no GSPMD:
     whole on every rank, but it decides tensor and expert parallelism by
     the float weight's rule all the same: a colwise int8 linear computes on
     its rank's rows of the replicated weight and scale, a rowwise one on
-    its rank's input columns, an int8 bank on its rank's E/m experts
-    (`layers.tp_dense`, `layers.bank_product`).
+    its rank's input columns, an int8 bank on its rank's E/m experts, an
+    int8 table (the rollout copy's or a server's) on its rank's V/m rows
+    (`layers.tp_dense`, `layers.bank_product`, `layers.vocab_rows`).
 """
 
 from __future__ import annotations
@@ -117,7 +128,8 @@ def partition_rules_encoder(prefix: str = "") -> Rules:
 def partition_rules_fusion(pp: bool = False) -> Rules:
     """pp=True: each decoder layer belongs to one GPipe stage on 'model'
     (its leading layer entry), and the embedding table is replicated (JAX
-    partition.py:71-97)."""
+    partition.py:71-97). Without it the tables and the projection are
+    split over 'model' (`SPLIT_OUTSIDE_LAYERS`)."""
     decoder_rules = ([(r"^decoder\." + _LAYER + ".*", P("model"))] if pp
                      else partition_rules_decoder("decoder."))
     return (decoder_rules
@@ -127,6 +139,13 @@ def partition_rules_fusion(pp: bool = False) -> Rules:
             + [(r"dna_projection\.weight$", P("model", "fsdp")),
                (r"dna_projection\.bias$", P()),
                (r".*", P())])
+
+
+# the parameters outside the towers' layers whose `model` entry `ShardPlan`
+# executes (JAX partition.py:32-33,94): the vocabulary tables by rows, the
+# DNA projection by its output rows
+VOCAB_TABLES = ("decoder.embed.weight", "decoder.lm_head.weight")
+SPLIT_OUTSIDE_LAYERS = VOCAB_TABLES + ("dna_projection.weight",)
 
 
 def spec_for_path(path_str: str, rules: Rules) -> P:
@@ -269,8 +288,8 @@ class ShardPlan:
 
     `placements[name]` lists (axis, dim) in the order the parameter was
     sliced: `model` first, then `fsdp` (none for an int8 buffer, stored
-    whole). `model_dims[name]` is the dim of a weight run tensor or expert
-    parallel that 'model' splits: in storage for a float weight, at use
+    whole). `model_dims[name]` is the dim of a weight run tensor, vocab
+    or expert parallel that 'model' splits: in storage for a float weight, at use
     for an int8 one, whose float rule decides it. `stage_layers` is the
     range of decoder layers this rank runs under pipeline parallelism
     (None without). `encoder_cfg`: the NT encoder's config, whose layers then
@@ -307,8 +326,10 @@ class ShardPlan:
             dims = spec[1:] if is_layer_param(name) else spec
             if name.startswith("encoder.layers."):
                 tp = self.tower_tp and _tp_ok(encoder_cfg, name, m, encoder=True)
-            else:
-                tp = name.startswith("decoder.layers.") and not pp and _tp_ok(decoder_cfg, name, m)
+            elif name.startswith("decoder.layers."):
+                tp = not pp and _tp_ok(decoder_cfg, name, m)
+            else:                       # a dim 'model' does not divide has no entry
+                tp = not pp and name in SPLIT_OUTSIDE_LAYERS
             if "model" in dims and m > 1 and tp:
                 self.model_dims[name] = dims.index("model")
             place = []
@@ -364,6 +385,8 @@ class ShardPlan:
             mod, _ = _module(model, name)
             if ".experts." in name:
                 model.get_submodule(name.rsplit(".experts.", 1)[0]).experts.ep = model_axis
+            elif name in VOCAB_TABLES:
+                mod.tp = ("vocab", model_axis)
             else:
                 mod.tp = ("col" if dim == 0 else "row", model_axis)
 

@@ -52,7 +52,7 @@ from bioreason_tpu_torch.data.processor import BioProcessor, ProcessorOutput
 from bioreason_tpu_torch.generate.engine import GenerationEngine
 from bioreason_tpu_torch.models.fusion import (FusionModel, fused_input_embeddings,
                                                init_fusion, validate_splice)
-from bioreason_tpu_torch.models.layers import has_adapter
+from bioreason_tpu_torch.models.layers import has_adapter, vocab_axis
 from bioreason_tpu_torch.models.qwen3 import decoder_forward
 from bioreason_tpu_torch.ops.fused_ce import chunked_token_logps
 from bioreason_tpu_torch.train import trainable as T
@@ -96,11 +96,13 @@ def per_token_logps(model: FusionModel, cfg: FusionConfig, input_ids, attention_
     h = hidden[:, -(completion_len + 1):-1]
     targets = input_ids[:, -completion_len:]
     dec = model.decoder
-    head = dec.lm_head.weight if dec.lm_head is not None else dec.embed.weight   # [V, H]
+    table = dec.lm_head if dec.lm_head is not None else dec.embed
+    head = table.weight                          # [V, H], or V/m rows over 'model'
     dtype = torch_dtype(cfg.decoder.dtype)
     logps = chunked_token_logps(h.reshape(-1, h.shape[-1]).to(dtype), head.to(dtype),
                                 targets.reshape(-1).long(),
-                                need_embedding_grad=head.requires_grad)
+                                need_embedding_grad=head.requires_grad,
+                                vocab_axis=vocab_axis(table))
     return logps.reshape(b, completion_len)
 
 

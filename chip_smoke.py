@@ -429,10 +429,26 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
               rank, the adapters sharded, the int8 weights whole), for
               TP_SFT_STEPS steps: loss and grad-norm within MESH_LOSS_RTOL
               of the one-device QLoRA trainer's, launches a step equal, int8
-              bytes equal, resident and peak GiB a rank; (d) flash_fwd /
-              flash_bwd at a rank's grouped prefill [4,P,8/4,128], at the
-              classifier's [16,512,8,64] and at (g)'s per-rank shapes
-              against their plain versions. A hang guard of TP_HANG_S.
+              bytes equal, resident and peak GiB a rank; (h) bf16 LoRA
+              SFTTrainer at bench.py's shape on the mesh (1, 1, 2) with
+              Qwen3-0.6B's 151,936-row table (tied head) and the DNA
+              projection split over 'model': each rank's table [75968,
+              1024] and projection [512, 1024] (not replicated), their GiB,
+              resident and peak GiB against one device; TP_SFT_STEPS steps
+              whose loss and grad norm are held to one device's within
+              H_LOSS_RTOL / H_NORM_RTOL, with 57 flash_fwd + 28 flash_bwd
+              a step a rank at [4,768,8/4,128] (the encoder's at 8 heads);
+              the first step's gradients (cosine >= H_GRAD_COS) and one
+              `per_token_logps` pass (within H_LOGP_ATOL) against one
+              device's; each gate checked to lie between the noise floor
+              (one device's step taken twice) and a planted fault of the
+              split CE (`_vocab_faults`); one greedy engine call of 8
+              prompts and 8 new tokens on the split head, teacher-forced on
+              one device at cosine >= CONT_STEP_COS, its caches half one
+              device's bytes; (d) flash_fwd / flash_bwd at a rank's grouped
+              prefill [4,P,8/4,128], at the classifier's [16,512,8,64] and
+              at (g)'s and (h)'s per-rank shapes against their plain
+              versions. A hang guard of TP_HANG_S.
 
 Before its last line it prints one JSON object {"kernels": [...]}; its last
 line is {"ok": true, "device": {...}}. It exits non-zero without a result
@@ -5622,7 +5638,9 @@ def _store(tag):
 
 
 def _cos(torch, a, b):
-    a, b = a.float().flatten(), b.float().flatten()
+    """Cosine of two tensors, in fp64 (an fp32 dot of tens of millions of
+    gradients reads above 1)."""
+    a, b = a.double().flatten(), b.double().flatten()
     return float((a @ b) / (a.norm() * b.norm()).clamp(min=1e-30))
 
 
@@ -6114,8 +6132,10 @@ def phase_grpo_learns(torch, card):
 # (1, 1, 2): the decoder's and the NT encoder's layers split their heads and
 # MLP rows over the two ranks, the engine's caches hold Hkv/2 heads, GRPO
 # rolls out, scores and updates on those shards, and the DNA-only classifier
-# trains its encoder on them. Rank 0 also holds the one-device model from the
-# same seed and compares; rank 1 waits at a barrier meanwhile.
+# trains its encoder on them; (f)-(g) run QLoRA on the mesh and (h) bf16
+# LoRA SFT with the 151,936-row vocabulary table split. Rank 0 also holds
+# the one-device model from the same seed and compares; rank 1 waits at a
+# barrier meanwhile.
 
 TP_PROMPTS, TP_NEW = 8, 8            # (a): 8 prompts, greedy, 8 new tokens (cut from 32)
 TP_GRPO_STEPS = 1                    # (c), (f): timed, no warm-up step (cut from 1 + 2)
@@ -6388,6 +6408,12 @@ def _tp_rank(torch, mesh, axis, one_step_ms):
     part("g")
     dist.barrier()
     torch.cuda.empty_cache()
+    # (h) bf16 LoRA SFT at bench.py's shape, the vocabulary table and the
+    # projection split over 'model'
+    res["h"] = _tp_vocab_sft(torch, dist, axis, mesh, seen)
+    part("h")
+    dist.barrier()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -6442,6 +6468,246 @@ def _tp_qlora_sft(torch, dist, axis, seen):
         f"{[round(m['loss'], 5) for m in res['mesh']['metrics']]}; launches "
         f"{res['mesh']['launches']}; resident {res['mesh']['resident_gib']:.3f} GiB, peak "
         f"{res['mesh']['peak_gib']:.3f} GiB")
+    return res
+
+
+# (h): bf16 LoRA SFT at bench.py's shape with the 151,936-row vocabulary
+# table, its head and the DNA projection split over 'model' (each rank
+# V/2 table rows, H/2 projection rows). As for qlora (c): each gate sits
+# between the noise floor (one device's first step against the same loss
+# and gradients taken once more, through the kernels: flash_bwd's dq sums
+# in no fixed order) and the reading of the planted fault named beside
+# it, and the script fails where it does not part them. The mesh's
+# readings are against one device's from the same seed.
+H_LOSS_RTOL = 1e-3        # loss, both steps ("nomax")
+H_NORM_RTOL = 5e-3        # grad norm, both steps ("nosum")
+H_GRAD_COS = 0.999        # the first step's trainable gradients, cosine ("nosum")
+H_LOGP_ATOL = 0.1         # per_token_logps of the first step's state, max |diff| ("nomax")
+H_GATES = {"loss": ("nomax", H_LOSS_RTOL), "grad_norm": ("nosum", H_NORM_RTOL),
+           "grad_cos": ("nosum", H_GRAD_COS), "logp": ("nomax", H_LOGP_ATOL)}
+H_PROMPTS, H_PROMPT_TEXT, H_PROMPT_DNA, H_NEW = 8, 320, 64, 8
+
+
+def _vocab_faults(torch):
+    """Planted faults of the split CE and logp passes (ops/fused_ce.py):
+    name -> (attribute, replacement, whether its reading takes the
+    gradients). "offset": a rank's head rows read as the ids one past its
+    own (rank 1's gold logits and one-hots shifted); "nomax": the ranks'
+    sums of exp(logit - max) added without rescaling each to the global
+    max; "nosum": the hidden state's gradient left a partial sum on each
+    rank (no `comm.copy_to` before the head)."""
+    from bioreason_tpu_torch.parallel import comm
+
+    def offset(emb, axis):
+        return 0 if axis is None else axis.index * (emb.shape[0] + 1)
+
+    def nomax(m, s, gold, axis):
+        ms, ss, golds = comm.all_gather(torch.stack([m, s, gold])[None], axis, 0).unbind(1)
+        return ms.amax(0), ss.sum(0), golds.sum(0)
+    return {"offset": ("_first_row", offset, False), "nomax": ("_combine", nomax, False),
+            "nosum": ("_vocab_split", lambda hidden, axis: hidden, True)}
+
+
+def _h_whole_grads(torch, trainer, grads):
+    """The trainable gradients, whole, flattened in name order on the host
+    (under a mesh from this rank's reduced shards: a collective)."""
+    run = trainer.run
+    whole = dict(zip(trainer.names, grads)) if run is None else {
+        n: run.plan.unshard(n, g) for n, g in zip(trainer.names, grads)}
+    return torch.cat([whole[n].float().flatten() for n in sorted(whole)]).cpu()
+
+
+def _h_logps(torch, trainer, logp_args):
+    from bioreason_tpu_torch.train.grpo import per_token_logps
+    with torch.no_grad(), trainer.inference_scope():
+        return per_token_logps(trainer.model, trainer.fusion_cfg, *logp_args).float().cpu()
+
+
+def _h_reading(torch, trainer, db, logp_args, grads, logps=True):
+    """A planted fault's (or the noise floor's) reading at the trainer's
+    state: the loss, with `grads` the grad norm and the whole gradients
+    (without the update), with `logps` the batch's per-token logps."""
+    from bioreason_tpu_torch.train.optim import global_norm
+    run, out = trainer.run, {}
+    if grads:
+        loss, gs = trainer.loss_and_grads(db)
+        gs = [torch.zeros_like(p) if g is None else g for p, g in zip(trainer.params, gs)]
+        if run is None:
+            out["grad_norm"] = float(global_norm(gs))
+        else:
+            gs = trainer.opt.reduce(gs)
+            out["grad_norm"] = float(trainer.opt.norm(gs))
+        out["grads"] = _h_whole_grads(torch, trainer, gs)
+        del gs
+    else:
+        with torch.no_grad(), trainer._scope():
+            loss = trainer._loss(db, train=True)
+    out["loss"] = float(loss.detach() if run is None else run.sum_dp(loss.detach()))
+    if logps:
+        out["logps"] = _h_logps(torch, trainer, logp_args)
+    return out
+
+
+def _h_capture_first_step(torch, trainer, into):
+    """Have the trainer's next optimizer step put its gradients (whole, on
+    the host) into `into["grads"]`: the first step's own, not a second
+    backward's."""
+    opt = trainer.opt
+    name = "step" if trainer.run is None else "_step_shards"
+    real = getattr(opt, name)
+
+    def hooked(grads):
+        setattr(opt, name, real)
+        into["grads"] = _h_whole_grads(torch, trainer, grads)
+        return real(grads)
+    setattr(opt, name, hooked)
+
+
+def _h_compare(torch, mesh, one):
+    """(h)'s readings against one device's first step: for each of loss,
+    grad norm (relative differences), the gradients' cosine (in fp64) and
+    the logps' largest difference, the noise floor (one device against
+    itself), the mesh's and each planted fault's; the engine's
+    teacher-forced cosine floor, and its first tokens where one device's
+    top-2 gap exceeds twice the row's largest difference."""
+    ref = one["first"]
+
+    def read(x):
+        out = {"loss": abs(x["loss"] - ref["loss"]) / abs(ref["loss"])}
+        if "grads" in x:
+            out["grad_norm"] = abs(x["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+            out["grad_cos"] = _cos(torch, x["grads"], ref["grads"])
+        if "logps" in x:
+            out["logp"] = float((x["logps"] - ref["logps"]).abs().max())
+        return out
+    out = {"noise": read(one["again"]), "mesh": read(mesh["first"]),
+           **{name: read(x) for name, x in mesh["faults"].items()},
+           "n_grads": int(ref["grads"].numel()), "n_logps": int(ref["logps"].numel())}
+    rows_m, rows_o = mesh["engine"]["rows"], one["engine"]["rows"]
+    out["engine_cos"] = _tp_cos_floor(torch, rows_m, rows_o)
+    top2 = rows_o[0].topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    clear = gap > 2 * (rows_m[0] - rows_o[0]).abs().amax(-1)
+    agree = torch.as_tensor(rows_o[0].argmax(-1).numpy()
+                            == np.asarray(mesh["engine"]["ids"])[:, 0])
+    out["engine_first"] = bool(agree[clear].all())
+    out["engine_first_clear"] = int(clear.sum())
+    out["engine_first_equal"] = int(agree.sum())
+    out["engine_rows"] = len(rows_m) * rows_m[0].shape[0]
+    return out
+
+
+def _tp_vocab_sft(torch, dist, axis, mesh, seen):
+    """(24h) SFTTrainer(mesh) in bf16 with LoRA at bench.py's shape on the
+    mesh (1, 1, 2), Qwen3-0.6B's 151,936-row table (tied head) and the
+    DNA projection split over 'model', beside the one-device trainer on rank
+    0 from the same seed (built after the mesh trainer is freed): each
+    rank's table and projection pieces and their GiB, resident and peak
+    GiB; at the first step's state the planted faults' readings (mesh) or
+    the noise floor's (one device), and one `per_token_logps` pass of the
+    batch's supervised tail; one greedy engine call of H_PROMPTS prompts
+    and H_NEW new tokens on the ranks' shards, which one device then runs
+    teacher-forced on the ranks' stream; TP_SFT_STEPS steps with their
+    loss, grad norm, ms, launches and shapes, the first step's gradients
+    kept. Rank 0 compares (`_h_compare`) and returns numbers only."""
+    import types
+
+    from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
+                                            LoRAConfig, OptimConfig, SFTConfig)
+    from bioreason_tpu_torch.generate.engine import GenerationEngine
+    from bioreason_tpu_torch.models import layers as L
+    from bioreason_tpu_torch.ops import fused_ce as CE
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    dec = dataclasses.replace(DecoderConfig.qwen3_0_6b(), remat=False)
+    enc = dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False)
+    cfg = FusionConfig(decoder=dec, encoder=enc, dna_pad_token_id=151938)
+    sft = SFTConfig(batch_size=4, lora=LoRAConfig(r=32, alpha=64, dropout=0.0),
+                    optim=OptimConfig(total_steps=100, warmup_ratio=0.0), seed=0)
+    batch = bench_batch(cfg)
+    pb = bench_batch(cfg, b=H_PROMPTS, t_text=H_PROMPT_TEXT, l_dna=H_PROMPT_DNA)
+    prompts = types.SimpleNamespace(**{k: pb[k] for k in (
+        "input_ids", "attention_mask", "dna_input_ids", "dna_attention_mask")})
+    tail = 128                                   # bench_batch's supervised positions
+    logp_args = tuple(torch.as_tensor(batch[k], device="cuda") for k in (
+        "input_ids", "attention_mask", "dna_input_ids", "dna_attention_mask")) + (tail,)
+    eos = 151645
+    res, forced = {}, [None]
+    runs = [("mesh", mesh)] + ([("one", None)] if axis.index == 0 else [])
+    for label, m in runs:
+        t_run = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        trainer = SFTTrainer(cfg, sft, mesh=m)
+        table, proj = trainer.model.decoder.embed, trainer.model.dna_projection
+        r = {"resident_gib": (torch.cuda.memory_allocated() - base) / 2**30,
+             "table": tuple(table.weight.shape), "vocab_split": L.vocab_axis(table) is not None,
+             "table_gib": table.weight.numel() * table.weight.element_size() / 2**30,
+             "projection": tuple(proj.weight.shape),
+             "projection_split": getattr(proj, "tp", None) is not None,
+             "fallback": m is not None and trainer.run is None,
+             "ms": [], "metrics": [], "launches": [], "shapes": []}
+        db = trainer._device_batch(batch)
+        t0 = time.perf_counter()
+        if label == "mesh":
+            r["faults"] = {}
+            for name, (attr, fn, grads) in _vocab_faults(torch).items():
+                sound = getattr(CE, attr)
+                setattr(CE, attr, fn)
+                try:
+                    r["faults"][name] = _h_reading(torch, trainer, db, logp_args, grads,
+                                                   logps=not grads)
+                finally:
+                    setattr(CE, attr, sound)
+        else:                   # the noise floor: the first step's loss and gradients again
+            r["again"] = _h_reading(torch, trainer, db, logp_args, True)
+        r["first"] = {"logps": _h_logps(torch, trainer, logp_args)}
+        r["readings_s"] = time.perf_counter() - t0
+        engine = GenerationEngine(cfg, eos, device="cuda", run=trainer.run)
+        call = _tp_engine_call(torch, engine, trainer.model, prompts, seen, 1, H_NEW,
+                               forced=forced[0], greedy=True)
+        if label == "mesh":
+            forced[0] = torch.as_tensor(call["ids"], device="cuda")
+        r["engine"] = {"ms": call["ms"], "launches": call["launches"],
+                       "shapes": call["shapes"], "ids": call["ids"],
+                       "rows": [x.cpu() for x in call["rows"]],
+                       "cache_bytes": call["cache_bytes"]}
+        del engine, call
+        _h_capture_first_step(torch, trainer, r["first"])
+        for _ in range(TP_SFT_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            for d in seen.values():
+                d.clear()
+            t0 = time.perf_counter()
+            r["metrics"].append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            r["launches"].append(counts())
+            r["shapes"].append({k: dict(v) for k, v in seen.items()})
+        r["first"].update(loss=r["metrics"][0]["loss"], grad_norm=r["metrics"][0]["grad_norm"])
+        r["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        res[label] = r
+        del trainer, db, table, proj
+        torch.cuda.empty_cache()
+        r["seconds"] = time.perf_counter() - t_run
+        if label == "mesh":
+            dist.barrier()
+    if "one" in res:
+        res["readings"] = _h_compare(torch, res["mesh"], res["one"])
+    for r in res.values():           # the host tensors stay on this rank
+        for key in ("first", "again", "faults"):
+            r.pop(key, None)
+        if "engine" in r:
+            r["engine"].pop("rows")
+    g = res["mesh"]
+    log(f"tp (h) rank {axis.index}: table {g['table']} ({g['table_gib']:.3f} GiB), projection "
+        f"{g['projection']}; steps {[round(x, 1) for x in g['ms']]} ms; losses "
+        f"{[round(x['loss'], 5) for x in g['metrics']]}; launches {g['launches']}; engine "
+        f"{g['engine']['ms']:.1f} ms, flash_fwd {g['engine']['launches']}; resident "
+        f"{g['resident_gib']:.3f} GiB, peak {g['peak_gib']:.3f} GiB; readings "
+        f"{g['readings_s']:.1f} s; {g['seconds']:.1f} s in all"
+        + (f" (one device {res['one']['seconds']:.1f} s)" if "one" in res else ""))
     return res
 
 
@@ -6729,9 +6995,11 @@ def _tp_gates(torch, card, r0, r1, one_step_ms):
                 fail(f"tp (e): a rank launched {got} in a step, one device {want}")
             if any(set(shapes[k]) != {shape} for k in ("flash_fwd", "flash_bwd")):
                 fail(f"tp (e): the classifier's kernels ran at {shapes}, not at {shape}")
+    _h_gates(card, r0["h"], r1["h"], hq, hkv, eh, cfg)
     cls = lambda k: [sum(st[k] for st in e["launches"]) for e in (e0, e1)]
     grpo = lambda part, k: [r[part]["launches"][k] for r in (r0, r1)]
     sft = lambda k: [sum(st[k] for st in g["mesh"]["launches"]) for g in (g0, g1)]
+    vocab = lambda k: [sum(st[k] for st in r["h"]["mesh"]["launches"]) for r in (r0, r1)]
     launches = {"fwd": {"engine_per_call": [r0["a"]["launches"], r1["a"]["launches"]],
                         "grouped_per_call": [r0["b"]["launches"], r1["b"]["launches"]],
                         "grpo_steps": grpo("c", "flash_fwd"),
@@ -6739,12 +7007,96 @@ def _tp_gates(torch, card, r0, r1, one_step_ms):
                         "qlora_grouped_per_call": [f0["engine"]["launches"],
                                                    f1["engine"]["launches"]],
                         "qlora_grpo_steps": grpo("f", "flash_fwd"),
-                        "qlora_sft_fsdp_steps": sft("flash_fwd")},
+                        "qlora_sft_fsdp_steps": sft("flash_fwd"),
+                        "vocab_sft_steps": vocab("flash_fwd"),
+                        "vocab_engine_per_call": [r["h"]["mesh"]["engine"]["launches"]
+                                                  for r in (r0, r1)]},
                 "bwd": {"grpo_steps": grpo("c", "flash_bwd"),
                         "classifier_steps": cls("flash_bwd"),
                         "qlora_grpo_steps": grpo("f", "flash_bwd"),
-                        "qlora_sft_fsdp_steps": sft("flash_bwd")}}
+                        "qlora_sft_fsdp_steps": sft("flash_bwd"),
+                        "vocab_sft_steps": vocab("flash_bwd")}}
     return launches
+
+
+def _h_gates(card, h0, h1, hq, hkv, eh, gcfg):
+    """(h)'s gates and logs: the ranks' pieces, the steps against one device,
+    the readings against their noise floor and planted faults (`H_GATES`),
+    the engine call."""
+    one, rd = h0["one"], h0["readings"]
+    v, hid, d = 151936, gcfg.decoder.hidden_size, gcfg.encoder.hidden_size
+    ms = lambda r: [round(x, 1) for x in r["ms"]]
+    log(f"tp (h) [{card}] SFTTrainer(mesh 1,1,2) bf16 LoRA at bench.py's shape, Qwen3-0.6B's "
+        f"table split: table a rank {h0['mesh']['table']} {h0['mesh']['table_gib']:.3f} GiB, "
+        f"{h1['mesh']['table']} {h1['mesh']['table_gib']:.3f} GiB (one device {one['table']} "
+        f"{one['table_gib']:.3f} GiB); projection a rank {h0['mesh']['projection']}, "
+        f"{h1['mesh']['projection']} (one device {one['projection']}); resident / peak GiB "
+        f"rank 0 {h0['mesh']['resident_gib']:.3f} / {h0['mesh']['peak_gib']:.3f}, rank 1 "
+        f"{h1['mesh']['resident_gib']:.3f} / {h1['mesh']['peak_gib']:.3f}, one device "
+        f"{one['resident_gib']:.3f} / {one['peak_gib']:.3f}; step ms rank 0 "
+        f"{ms(h0['mesh'])}, rank 1 {ms(h1['mesh'])}, one device {ms(one)}; losses "
+        f"{[x['loss'] for x in h0['mesh']['metrics']]} vs one device "
+        f"{[x['loss'] for x in one['metrics']]}; grad norms "
+        f"{[x['grad_norm'] for x in h0['mesh']['metrics']]} vs "
+        f"{[x['grad_norm'] for x in one['metrics']]}; launches a step rank 0 "
+        f"{h0['mesh']['launches']}, rank 1 {h1['mesh']['launches']}, one device "
+        f"{one['launches']}; shapes {h0['mesh']['shapes'][0]}")
+    for key, (fault, gate) in H_GATES.items():
+        faults = ", ".join(f"{n} {rd[n][key]:.4g}" for n in _vocab_faults(None)
+                           if key in rd[n])
+        log(f"tp (h) [{card}] {key}: the mesh {rd['mesh'][key]:.4g}; one device's same step "
+            f"once more (noise floor) {rd['noise'][key]:.4g}; planted faults "
+            f"{faults}; gate {gate} (against {fault}; {rd['n_grads']} gradients, "
+            f"{rd['n_logps']} logps)")
+    log(f"tp (h) [{card}] engine: {H_PROMPTS} prompts, greedy, {H_NEW} new tokens on the "
+        f"split table; one device teacher-forced on the ranks' stream: first tokens equal "
+        f"{rd['engine_first_equal']} of {H_PROMPTS}, all {rd['engine_first_clear']} whose "
+        f"top-2 gap exceeds twice the row's largest difference {rd['engine_first']}, "
+        f"logits cosine floor {rd['engine_cos']:.6f} over "
+        f"{rd['engine_rows']} rows (floor {CONT_STEP_COS}); call ms rank 0 "
+        f"{h0['mesh']['engine']['ms']:.1f}, rank 1 {h1['mesh']['engine']['ms']:.1f}, one "
+        f"device {one['engine']['ms']:.1f}; cache bytes {h0['mesh']['engine']['cache_bytes']}, "
+        f"one device {one['engine']['cache_bytes']}; flash_fwd a call "
+        f"{h0['mesh']['engine']['launches']}, {h1['mesh']['engine']['launches']}")
+    if one["vocab_split"] or one["table"] != (v, hid) or one["projection"] != (hid, d):
+        fail(f"tp (h): the one-device model holds {one['table']} / {one['projection']}")
+    for h in (h0["mesh"], h1["mesh"]):
+        if h["fallback"] or not h["vocab_split"] or not h["projection_split"]:
+            fail("tp (h): a rank ran without its mesh or with a replicated table or projection")
+        if h["table"] != (v // 2, hid) or h["projection"] != (hid // 2, d):
+            fail(f"tp (h): a rank holds the table {h['table']} and the projection "
+                 f"{h['projection']}, not {(v // 2, hid)} and {(hid // 2, d)}")
+        for i, (got, want) in enumerate(zip(h["metrics"], one["metrics"])):
+            for k, tol in (("loss", H_LOSS_RTOL), ("grad_norm", H_NORM_RTOL)):
+                if not math.isfinite(got[k]) or abs(got[k] - want[k]) > tol * abs(want[k]):
+                    fail(f"tp (h): step {i}'s {k} {got[k]} against one device's {want[k]}")
+        for got, want, shapes in zip(h["launches"], one["launches"], h["shapes"]):
+            if got != want or not got["flash_fwd"] or not got["flash_bwd"]:
+                fail(f"tp (h): a rank launched {got} in a step, one device {want}")
+            for k in ("flash_fwd", "flash_bwd"):
+                heads = {key[3:5] for key in shapes[k]
+                         if key[5] == gcfg.decoder.head_dim}
+                if heads != {(hq, hkv)}:
+                    fail(f"tp (h): the decoder's {k} ran at {shapes[k]}, not {hq}/{hkv} heads")
+            if {key[3:5] for key in shapes["flash_fwd"]
+                    if key[5] == gcfg.encoder.head_dim} != {(eh, eh)}:
+                fail(f"tp (h): the encoder ran at {shapes['flash_fwd']}, not {eh} heads")
+        e = h["engine"]
+        if (e["launches"] != ENCODER_LAYERS + DECODER_LAYERS
+                or 2 * e["cache_bytes"] != one["engine"]["cache_bytes"]):
+            fail(f"tp (h): the engine call launched {e['launches']} flash_fwd with a cache of "
+                 f"{e['cache_bytes']} B (one device {one['engine']['cache_bytes']} B)")
+    if not rd["engine_first"] or rd["engine_cos"] < CONT_STEP_COS:
+        fail(f"tp (h): the engine's first tokens or logits disagree with one device's: "
+             f"{rd['engine_first']}, cosine {rd['engine_cos']}")
+    for key, (fault, gate) in H_GATES.items():
+        within = ((lambda x: x >= gate) if key == "grad_cos" else (lambda x: x <= gate))
+        if not within(rd["noise"][key]) or within(rd[fault][key]):
+            fail(f"tp (h): the {key} gate {gate} does not part the noise floor "
+                 f"{rd['noise'][key]} from the planted fault {fault}'s "
+                 f"{rd[fault][key]}")
+        if not within(rd["mesh"][key]):
+            fail(f"tp (h): the mesh's {key} {rd['mesh'][key]} is past its gate {gate}")
 
 
 def phase_tp(torch, card, one_step_ms=None):
@@ -6810,6 +7162,19 @@ def phase_tp(torch, card, one_step_ms=None):
                                     0 if causal else None, mask, 243))
         if key in g0["mesh"]["shapes"][0]["flash_bwd"]:
             bwd_rows.append(bwd_case(torch, name, b, tq, tk, h, hk, d, causal, 0, mask, 244))
+    # (h)'s per-rank shapes: bench.py's 4 rows, Hq/2, Hkv/2 (the encoder's
+    # at its frozen forward, 8 heads)
+    h_shapes = r0["h"]["mesh"]["shapes"][0]
+    for key in sorted(set(h_shapes["flash_fwd"]) | set(h_shapes["flash_bwd"])):
+        b, tq, tk, h, hk, d = key
+        causal = d == cfg.decoder.head_dim
+        mask = torch.ones((b, tk), dtype=torch.int32, device="cuda")
+        name = f"tp_vocab_sft_B{b}_T{tq}_H{h}_{hk}_D{d}"
+        if key in h_shapes["flash_fwd"]:
+            rows.append(kernel_case(torch, name, b, tq, tk, h, hk, d, causal,
+                                    0 if causal else None, mask, 245))
+        if key in h_shapes["flash_bwd"]:
+            bwd_rows.append(bwd_case(torch, name, b, tq, tk, h, hk, d, causal, 0, mask, 246))
     log(f"tp: phase done in {time.perf_counter() - t_phase:.1f} s (rank seconds "
         f"{r0['seconds']}, {r1['seconds']}; by part, rank 0 {r0['parts']}, rank 1 "
         f"{r1['parts']})")

@@ -65,10 +65,13 @@ def sft_setup(enc_impl=None, freeze_encoder=True, moe=False, batch=4, remat=Fals
     return fcfg, scfg, batches
 
 
-def sft_run(mesh=None, moe=False, model=None, remat=False, full=False, **kw):
+def sft_run(mesh=None, moe=False, model=None, remat=False, full=False, pieces=None, **kw):
     """Two steps: metrics, the final trainable parameters (whole) and, under
-    a mesh, each moment's local shape against its parameter's. `kw`: other
-    SFTConfig fields (frozen_dtype, focal_gamma)."""
+    a mesh, each moment's local shape against its parameter's. `pieces` (a
+    dict): filled with this rank's pieces of the table and the projection
+    (`split_pieces`). `kw`: other SFTConfig fields (frozen_dtype,
+    focal_gamma)."""
+    from test_torch_tp_generate import split_pieces
     from bioreason_tpu_torch.train.sft import SFTTrainer
     fcfg, scfg, batches = sft_setup(moe=moe, remat=remat, full=full)
     tr = SFTTrainer(fcfg, dataclasses.replace(scfg, **kw), device="cpu", mesh=mesh,
@@ -79,6 +82,8 @@ def sft_run(mesh=None, moe=False, model=None, remat=False, full=False, **kw):
     if mesh is not None:
         shapes = {n: (tuple(p.shape), tuple(mu.shape), z)
                   for n, p, mu, z in zip(tr.names, tr.params, tr.opt.mu, tr.opt.zdim)}
+    if pieces is not None:
+        pieces.update(split_pieces(tr.model))
     return metrics, state, shapes
 
 
@@ -91,11 +96,14 @@ def jax_model(jparams):
 def _train_world(rank, world, jparams):
     from bioreason_tpu_torch.config import MeshConfig
     from bioreason_tpu_torch.parallel.mesh import make_mesh
-    out = {}
+    out = {"pieces": {}}
+    piece = lambda label: out["pieces"].setdefault(label, {})
     for c in MESHES:          # remat on: the backward recomputes under the scope
-        out[c] = sft_run(make_mesh(MeshConfig(*c), device="cpu"), remat=True)
-    out["moe"] = sft_run(make_mesh(MeshConfig(2, 1, 2), device="cpu"), moe=True)
-    out["moe_full"] = sft_run(make_mesh(MeshConfig(1, 2, 2), device="cpu"), moe=True, full=True)
+        out[c] = sft_run(make_mesh(MeshConfig(*c), device="cpu"), remat=True, pieces=piece(c))
+    out["moe"] = sft_run(make_mesh(MeshConfig(2, 1, 2), device="cpu"), moe=True,
+                         pieces=piece("moe"))
+    out["moe_full"] = sft_run(make_mesh(MeshConfig(1, 2, 2), device="cpu"), moe=True, full=True,
+                              pieces=piece("moe_full"))
     out["jax"] = sft_run(make_mesh(MeshConfig(2, 2, 1), device="cpu"), model=jax_model(jparams))
     return out
 
@@ -188,6 +196,23 @@ def test_zero2_moments_are_sharded_over_data(train_world, mesh):
     if f * m > 1:
         assert any(np.prod(ps) < np.prod(full[n])
                    for n, (ps, _, _) in train_world[0][mesh][2].items())
+
+
+@pytest.mark.parametrize("label", [(1, 2, 2), (2, 1, 2), "moe", "moe_full"])
+def test_ranks_hold_their_table_and_projection_rows(train_world, label):
+    """At model 2 every rank stores [V/2, H/f] rows of the decoder's table,
+    marked vocab-parallel, and [H/2, D/f] of the DNA projection: the SFT
+    parity tests of these worlds run the split head, CE and projection
+    (the fully finetuned MoE trains its table split over both axes)."""
+    mesh = {"moe": (2, 1, 2), "moe_full": (1, 2, 2)}.get(label, label)
+    _, f, m = mesh
+    fcfg, _, _ = sft_setup(moe=str(label).startswith("moe"))
+    v, h, d = fcfg.decoder.vocab_size, fcfg.decoder.hidden_size, fcfg.encoder.hidden_size
+    for res in train_world:
+        assert res["pieces"][label] == {"table": (v // m, h // f), "vocab_split": True,
+                                        "projection": (h // m, d // f)}
+    if label == "moe_full":
+        assert "decoder.embed.weight" in train_world[0][label][2]
 
 
 def test_moe_with_model_2_matches_one_device(train_world):

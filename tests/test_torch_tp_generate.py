@@ -326,21 +326,33 @@ def int8_cases(init, buf8, mesh):
     return out
 
 
+def split_pieces(model):
+    """This rank's pieces of the decoder's table and the DNA projection,
+    and whether the table is marked vocab-parallel."""
+    from bioreason_tpu_torch.models.layers import vocab_axis
+    return {"table": tuple(model.decoder.embed.weight.shape),
+            "vocab_split": vocab_axis(model.decoder.embed) is not None,
+            "projection": tuple(model.dna_projection.weight.shape)}
+
+
 def _world(rank, world, mesh_shape, init, buf, buf8):
     from bioreason_tpu_torch.config import MeshConfig
     from bioreason_tpu_torch.parallel.mesh import make_mesh
     from bioreason_tpu_torch.parallel.trainer import MeshRun
     mesh = make_mesh(MeshConfig(*mesh_shape), device="cpu")
-    out = {"engine": {}, "tp_mlp": {}, "moe": {}}
+    out = {"engine": {}, "tp_mlp": {}, "moe": {}, "pieces": {}}
     for kv, group, kv8 in ENGINE_CASES:
         model = model_for(kv, init)
         run = MeshRun(mesh, model, port_cfg(kv).decoder)
+        out["pieces"]["engine"] = split_pieces(model)
         out["tp_mlp"][kv] = getattr(model.decoder.layers[0].mlp.gate, "tp", None) is not None
         out["engine"][(kv, group, kv8)] = engine_run(model, port_cfg(kv), run, group, kv8)
     for group in (1, G):          # the tiny MoE: experts over 'model', attention split
         model = model_for(2, init, moe=True)
         run = MeshRun(mesh, model, port_cfg(moe=True).decoder)
         out["moe"][group] = engine_run(model, port_cfg(moe=True), run, group, False)
+    tr = port_grpo(init, mesh)
+    out["pieces"].update(policy=split_pieces(tr.model), reference=split_pieces(tr.ref_model))
     out["updates"] = grpo_updates(init, buf, mesh)
     out["steps"] = grpo_steps(init, mesh, steps=2 if mesh_shape[0] == 1 else 1)
     if buf8 is not None:
@@ -436,6 +448,22 @@ def test_engine_under_tp_matches_one_device(world, kv, group, kv8):
                         np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
         assert flips <= INT8_FLIPS * max(codes, 1), (flips, codes)
         assert res["tp_mlp"][kv]
+
+
+def test_ranks_hold_their_table_and_projection_rows(world):
+    """The engine's model under `MeshRun`, the GRPO policy and its reference
+    policy each hold V/m rows of the decoder's table, marked vocab-parallel,
+    and H/m output rows of the DNA projection on every rank: the engine
+    and GRPO cases of this world run the split head and projection."""
+    mesh_shape, results = world
+    _, f, m = mesh_shape
+    cfg = port_cfg()
+    v, h, d = cfg.decoder.vocab_size, cfg.decoder.hidden_size, cfg.encoder.hidden_size
+    want = {"table": (v // m, h // f), "vocab_split": True, "projection": (h // m, d // f)}
+    for res in results:
+        assert set(res["pieces"]) == {"engine", "policy", "reference"}
+        for label, got in res["pieces"].items():
+            assert got == want, label
 
 
 @pytest.mark.parametrize("group", [1, G])
@@ -794,6 +822,16 @@ def test_train_sft_cli_test_generative_under_mesh_1_1_2(tmp_path):
     got = [g["generation"] for g in mesh.test_result.generations]
     assert got and got == [g["generation"] for g in one.test_result.generations]
     assert (tmp_path / "m" / "test_generations.csv").exists()
+    # the ranks trained a split table and projection; sft_final, loaded on
+    # one device, holds them whole and equal to the one-device run's
+    from bioreason_tpu_torch.train.checkpoint import rebuild_sft
+    loaded = [dict(rebuild_sft(str(tmp_path / run / "sft_final"), device="cpu")[1]
+                   .named_parameters()) for run in ("m", "o")]
+    for name in ("decoder.embed.weight", "dna_projection.weight", "dna_projection.bias"):
+        a, b = loaded[0][name], loaded[1][name]
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.detach().float().numpy(), b.detach().float().numpy(),
+                                   atol=1e-5, rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize("mesh", ["1,1,2", "1,2,1"])
