@@ -25,7 +25,12 @@ the per-completion decode cache are int8.
 
 Under a mesh (`run`, a `parallel.trainer.MeshRun`) the engine is one rank
 of it and runs on the model as the run shards it: the fsdp pieces are
-gathered for the call (`MeshRun.scope`), the decoder's tensor-parallel
+gathered whole once for the call (`MeshRun.scope(whole=True)`), and freed
+when it returns. This is the one place the port gathers the whole model:
+the trainers gather one layer at a time (`partition.layer_gathered`), as
+JAX's layer scan does, but here that would be one all-gather of every
+layer per decoded token (a jitted JAX scan pays it; this engine does not
+copy it). The decoder's tensor-parallel
 layers stay on this rank's heads, so the prefill, the ungrouped and the
 grouped decode all run on Hq/m and Hkv/m heads with caches of Hkv/m heads
 (`partition.local_heads`; every head where they do not divide); the NT
@@ -91,9 +96,11 @@ class GenerationEngine:
         return torch.as_tensor(arr, device=self.device)
 
     def _scope(self, model: FusionModel):
-        """Under a run, `MeshRun.scope_unsplit` over `model`: each rank's
-        rows are its own."""
-        return contextlib.nullcontext() if self.run is None else self.run.scope_unsplit(model)
+        """Under a run, `MeshRun.scope_unsplit` over `model`, its fsdp shards
+        gathered whole for the call (module docstring): each rank's rows
+        are its own."""
+        return (contextlib.nullcontext() if self.run is None
+                else self.run.scope_unsplit(model, whole=True))
 
     @torch.inference_mode()
     def prefill(self, model: FusionModel, input_ids, attention_mask,

@@ -27,6 +27,7 @@ from bioreason_tpu_torch.models.evo2 import HyenaTower, hyena_forward, init_filt
 from bioreason_tpu_torch.models.nt_encoder import NTEncoder, encoder_forward
 from bioreason_tpu_torch.models.qwen3 import Qwen3Decoder, decoder_forward
 from bioreason_tpu_torch.ops import fused_ce as CE
+from bioreason_tpu_torch.parallel.partition import layer_gathered
 from bioreason_tpu_torch.utils.devices import resolve_device, torch_dtype
 
 
@@ -80,8 +81,11 @@ def project_dna(proj: nn.Linear, hidden: torch.Tensor, dtype: torch.dtype) -> to
     runs colwise on this rank's H_text/m output rows (`layers.tp_dense`),
     and one `comm.gather_replicated` of the last dim gives every rank the
     whole [.., H_text]; the tower's output reaching it is whole on every
-    rank (under sequence parallelism too, `sp.unshard_sequence`)."""
-    out = L.dense(proj, hidden, dtype)
+    rank (under sequence parallelism too, `sp.unshard_sequence`). A
+    projection sharded over 'fsdp' is gathered for the product alone
+    (`partition.layer_gathered`)."""
+    with layer_gathered(proj, dtype):
+        out = L.dense(proj, hidden, dtype)
     tp = getattr(proj, "tp", None)
     if tp is None:
         return out
@@ -201,22 +205,27 @@ def fusion_forward(
                                 lora_dropout_rate=lora_dropout_rate)
     dec = model.decoder
     table = dec.lm_head if dec.lm_head is not None else dec.embed
-    head, vocab = table.weight, L.vocab_axis(table)     # [V, H], or V/m rows over 'model'
     h = hidden.to(torch.bfloat16) if cfg.decoder.dtype == "bfloat16" else hidden
-    if focal_gamma > 0.0:
-        if gathered:
-            loss = CE.decoder_lm_loss_focal_gathered(
-                h, head, label_positions, label_targets, label_valid, focal_gamma,
-                need_embedding_grad=train_embeddings, axis=focal_axis, vocab_axis=vocab)
+    # the head's fsdp shards are gathered for the CE alone (its backward
+    # gathers them again); the embedding lookup gathered the table for itself
+    with layer_gathered(table):
+        head, vocab = table.weight, L.vocab_axis(table)   # [V, H], or V/m rows over 'model'
+        if focal_gamma > 0.0:
+            if gathered:
+                loss = CE.decoder_lm_loss_focal_gathered(
+                    h, head, label_positions, label_targets, label_valid, focal_gamma,
+                    need_embedding_grad=train_embeddings, axis=focal_axis, vocab_axis=vocab)
+            else:
+                loss = CE.decoder_lm_loss_focal(h, head, labels, focal_gamma,
+                                                need_embedding_grad=train_embeddings,
+                                                axis=focal_axis, vocab_axis=vocab)
+        elif gathered:
+            loss = CE.decoder_lm_loss_gathered(h, head, label_positions, label_targets,
+                                               label_valid,
+                                               need_embedding_grad=train_embeddings,
+                                               save_logits=cfg.ce_save_logits,
+                                               vocab_axis=vocab)
         else:
-            loss = CE.decoder_lm_loss_focal(h, head, labels, focal_gamma,
-                                            need_embedding_grad=train_embeddings,
-                                            axis=focal_axis, vocab_axis=vocab)
-    elif gathered:
-        loss = CE.decoder_lm_loss_gathered(h, head, label_positions, label_targets,
-                                           label_valid, need_embedding_grad=train_embeddings,
-                                           save_logits=cfg.ce_save_logits, vocab_axis=vocab)
-    else:
-        loss = CE.decoder_lm_loss(h, head, labels, need_embedding_grad=train_embeddings,
-                                  save_logits=cfg.ce_save_logits, vocab_axis=vocab)
+            loss = CE.decoder_lm_loss(h, head, labels, need_embedding_grad=train_embeddings,
+                                      save_logits=cfg.ce_save_logits, vocab_axis=vocab)
     return None, loss

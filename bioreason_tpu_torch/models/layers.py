@@ -437,7 +437,16 @@ def embed(emb: Embedding, ids: torch.Tensor,
     A table split over the 'model' axis (`vocab_axis`): the ids are clamped
     to the whole vocabulary first, so the last rank serves an id past it;
     each rank looks up the ids in its own rows, zeros elsewhere, and one
-    `comm.reduce_from` sums the ranks' rows (exact: one is nonzero)."""
+    `comm.reduce_from` sums the ranks' rows (exact: one is nonzero).
+
+    A table sharded over 'fsdp' is gathered for the lookup alone
+    (`partition.layer_gathered`)."""
+    from bioreason_tpu_torch.parallel.partition import layer_gathered
+    with layer_gathered(emb):
+        return _embed(emb, ids, dtype)
+
+
+def _embed(emb: Embedding, ids: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     axis = vocab_axis(emb)
     w, scale, v0, v = vocab_rows(emb, axis)
     ids = ids.clamp(0, v - 1)
@@ -469,8 +478,15 @@ def lm_logits(dec: nn.Module, h: torch.Tensor) -> torch.Tensor:
     A head split over the 'model' axis (`vocab_axis`): each rank computes
     the logits of its V/m rows (h through `comm.copy_to`), and one
     `comm.gather_replicated` puts them together in vocabulary order, so
-    every caller sees [..., V] as on one device."""
+    every caller sees [..., V] as on one device. A head sharded over
+    'fsdp' is gathered for the product alone (`partition.layer_gathered`)."""
+    from bioreason_tpu_torch.parallel.partition import layer_gathered
     head = dec.lm_head if dec.lm_head is not None else dec.embed
+    with layer_gathered(head, h.dtype):
+        return _lm_logits(head, h)
+
+
+def _lm_logits(head: nn.Module, h: torch.Tensor) -> torch.Tensor:
     axis = vocab_axis(head)
     w, scale, _, _ = vocab_rows(head, axis)                            # [V(/m), H]
     if axis is not None:
@@ -779,6 +795,21 @@ def remat(fn: Callable, cfg) -> Callable:
             return fn(*args, **kw)
         return checkpoint(fn, *args, **kw_ckpt, **kw)
     return wrapped
+
+
+def layer_fn(fn: Callable, cfg) -> Callable:
+    """`remat(fn, cfg)` of a tower layer's fn(lp, h, ...) whose fsdp-sharded
+    parameters are all-gathered for the call, cast to h's dtype, inside
+    the function that remat wraps (`partition.layer_gathered`): a layer's
+    recompute in the backward gathers them again, as JAX's scan AD does,
+    and without remat the backward gathers again what it reads of them
+    (`regather`). One device, or a whole gather live: fn as it is."""
+    from bioreason_tpu_torch.parallel.partition import layer_gathered
+
+    def gathered(lp, h, *args, **kw):
+        with layer_gathered(lp, h.dtype, regather=not cfg.remat):
+            return fn(lp, h, *args, **kw)
+    return remat(gathered, cfg)
 
 
 def positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ last hidden state (reference dna_llm.py:156); no MLM head. Its denses may
 be int8 or fused for serving (train/quant.py, train/fuse.py) and take
 cfg.act_int8 (JAX nt_encoder.py:73-89). Under a mesh's 'model' axis a rank
 holds num_heads / m heads and I / m MLP rows of every layer
-(parallel/partition.py), and runs the same code on them.
+(parallel/partition.py), and runs the same code on them. Under its 'fsdp'
+axis each layer's parameters are gathered for that layer alone
+(`layers.layer_fn`), as JAX's layer scan gathers them (nt_encoder.py:92-93).
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ def encoder_forward(enc: NTEncoder, cfg: EncoderConfig, input_ids: torch.Tensor,
         h = h * ((1.0 - 0.15 * 0.8) / (1.0 - observed))[:, None, None].to(h.dtype)
     h = h * attention_mask[..., None].to(h.dtype)
 
-    layer = L.remat(_layer_forward, cfg)
+    layer = L.layer_fn(_layer_forward, cfg)
     for lp in enc.layers:
         h = layer(lp, h, cfg, positions, attention_mask)
     h = L.layernorm(enc.final_norm, h, cfg.norm_eps)

@@ -22,6 +22,11 @@ Training runs the same layers with autograd: each layer may be recomputed in
 backward (`cfg.remat`, `layers.remat`) and draws its LoRA dropout masks from
 its own generator, seeded per layer and step, so a recomputed layer draws
 the same masks (the JAX package's per-layer dropout keys, qwen3.py:251-260).
+
+Under a mesh's 'fsdp' axis every layer runs with its own parameters
+gathered for it alone (`layers.layer_fn`, `partition.layer_gathered`;
+inside the function remat wraps, so a recompute gathers again), as each
+iteration of JAX's layer scan gathers that layer's slice (qwen3.py:259-266).
 """
 
 from __future__ import annotations
@@ -233,7 +238,7 @@ def decoder_forward(
                                      attention_mask, axis, n_micro, pp._STATE["dp"],
                                      [seeds[i] for i in own], lora_dropout_rate)
         else:
-            layer = L.remat(_layer_forward, cfg)
+            layer = L.layer_fn(_layer_forward, cfg)
             for lp, seed in zip(dec.layers, seeds):
                 h = layer(lp, h, cfg, positions, attention_mask, True,
                           dropout_seed=seed, dropout_rate=lora_dropout_rate)

@@ -20,6 +20,13 @@ Autograd rules (each rank differentiates its own copy of the program):
   * `ppermute`: each (src, dst) pair sends src's tensor to dst (zeros where
     nothing arrives); the backward sends the gradient the opposite way.
 
+`regathered_saves` is the other half of FSDP's per-layer gather
+(`partition.layer_gathered`): autograd would keep every gathered weight
+that a product saves for its backward alive until that backward, so the
+whole model would be gathered at the end of a forward. Under these hooks a
+saved tensor that views a gathered parameter is kept as a handle on its
+shard instead, and all-gathered anew when the backward reads it.
+
 Gloo takes CPU tensors for every op used here, and CUDA tensors for the
 collectives (all_reduce, all_gather, reduce_scatter, broadcast: it copies
 them through host memory itself). Its point-to-point send of a CUDA tensor
@@ -34,7 +41,7 @@ directly.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -67,14 +74,17 @@ def _staged(axis: Axis, t: torch.Tensor, op: str) -> bool:
 
 
 def all_reduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """Sum over the axis (a new tensor; x is not changed)."""
+    """Sum over the axis (a new, contiguous tensor; x is not changed). The
+    sum runs over the buffers elementwise, so every rank's copy is laid
+    out row-major first: the ranks' x may hold one shape in different
+    strides (a reduce-scattered gradient on one rank, zeros on another)."""
     if axis.size == 1:
         return x
     if _staged(axis, x, "all_reduce"):
-        h = x.detach().cpu()
+        h = x.detach().contiguous().cpu()
         dist.all_reduce(h, group=axis.group)
         return h.to(x.device)
-    y = x.detach().clone()
+    y = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, group=axis.group)
     return y
 
@@ -220,3 +230,48 @@ def ppermute(x: torch.Tensor, axis: Axis, pairs: List[Tuple[int, int]]) -> torch
     if axis.size == 1:
         return sum((x for s, d in pairs if s == d == 0), torch.zeros_like(x))
     return _PPermute.apply(x, axis, tuple(pairs))
+
+
+@dataclass
+class Gathered:
+    """How to make a gathered parameter again: its shard, the axis and dim
+    it was gathered over, and the dtype it was cast to after the gather."""
+    shard: torch.Tensor
+    axis: Axis
+    dim: int
+    dtype: torch.dtype
+
+    def again(self) -> torch.Tensor:
+        return all_gather(self.shard, self.axis, self.dim).to(self.dtype)
+
+
+def storage_key(t: torch.Tensor) -> Tuple[str, int]:
+    return str(t.device), t.untyped_storage().data_ptr()
+
+
+class regathered_saves(torch.autograd.graph.saved_tensors_hooks):
+    """Saved-tensor hooks over a region whose parameters were all-gathered:
+    `registry` maps the storage of each gathered tensor (`storage_key`) to
+    its `Gathered`. A tensor that autograd saves in the region and that
+    views one of them (the weight itself, its transpose) is packed as that
+    `Gathered` and the view's geometry, and unpacked as the same view of a
+    new all-gather (`Gathered.again`, which lays the tensor out as the
+    forward's gather did); `on_gather(t)` sees each tensor so made. Every
+    other saved tensor is kept as it is."""
+
+    def __init__(self, registry: Dict[Tuple[str, int], Gathered], on_gather=None):
+        def pack(t):
+            g = registry.get(storage_key(t)) if t.numel() else None
+            if g is None or t.dtype != g.dtype:
+                return t
+            return g, tuple(t.shape), t.stride(), t.storage_offset()
+
+        def unpack(x):
+            if not isinstance(x, tuple):
+                return x
+            g, size, stride, offset = x
+            full = g.again()
+            if on_gather is not None:
+                on_gather(full)
+            return full.as_strided(size, stride, offset)
+        super().__init__(pack, unpack)

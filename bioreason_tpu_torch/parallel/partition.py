@@ -13,8 +13,22 @@ counterpart: an `nn.Linear` weight is [out, in] where JAX's kernel is
 
 Execution (`ShardPlan`) is explicit, as torch gives no GSPMD:
   * `fsdp` entries: the rank stores its slice of the parameter along that
-    dim; `gathered` all-gathers it for a forward (its backward
-    reduce-scatters the gradient, `comm.all_gather_sum`);
+    dim, and the module that holds it is marked (`mod.fsdp` = (axis,
+    {leaf: dim})). `layer_gathered(module)` all-gathers one module's
+    slices (a tower layer, a table, the projection) for as long as that
+    module runs and puts the shards back after it, as each iteration of
+    JAX's layer scan gathers that layer's slice under GSPMD: the towers'
+    layer loops, `layers.embed`, `layers.lm_logits`, the CE and logp
+    passes' head and `fusion.project_dna` each open one. A trainable
+    slice is gathered by `comm.all_gather_sum`, whose backward
+    reduce-scatters that use's gradient; what the backward needs of a
+    gathered weight is gathered again then (`comm.regathered_saves`), or
+    by the layer's remat, which recomputes the gather with the layer. So a
+    rank holds one or two layers gathered at a time, never the model.
+    `GATHERED` counts the gathered bytes alive on the rank.
+    `layer_gathered(model)` over the whole tree gathers every slice at
+    once for a whole call: the generation engine's, whose decode steps
+    would otherwise gather each layer once per token (generate/engine.py);
   * `model` entries of the decoder's layers, and of the NT encoder's
     (`encoder_cfg`): Megatron tensor parallelism on local shards. Colwise
     linears hold Hq/m, Hkv/m heads or I/m MLP rows, rowwise ones the
@@ -63,11 +77,13 @@ Execution (`ShardPlan`) is explicit, as torch gives no GSPMD:
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from bioreason_tpu_torch.parallel import comm
 
@@ -378,6 +394,10 @@ class ShardPlan:
             mod, leaf = _module(model, name)
             mod._parameters[leaf] = nn.Parameter(self.shard(name, p.data),
                                                  requires_grad=p.requires_grad)
+            dims = [d for ax, d in self.placements[name] if ax == "fsdp"]
+            if dims:
+                axis, marked = getattr(mod, "fsdp", (self.topo.fsdp, {}))
+                mod.fsdp = (axis, {**marked, leaf: dims[0]})
         model_axis = self.topo.model
         for name, dim in self.model_dims.items():
             if not name.endswith(".weight"):
@@ -390,33 +410,94 @@ class ShardPlan:
             else:
                 mod.tp = ("col" if dim == 0 else "row", model_axis)
 
-    def gathered(self, model: nn.Module):
-        """Context: the fsdp-sharded parameters all-gathered (autograd
-        all-gather for trainable ones) in place of their shards."""
-        return _Gathered(self, model)
-
-
-class _Gathered:
-    def __init__(self, plan: ShardPlan, model: nn.Module):
-        self.plan, self.model, self.saved = plan, model, []
-
-    def __enter__(self):
-        fsdp = self.plan.topo.fsdp
-        if fsdp.size == 1:
-            return self
-        for name, p in self.model.named_parameters():
-            dims = [d for ax, d in self.plan.placements.get(name, []) if ax == "fsdp"]
-            if not dims:
+    def gather_sizes(self, model: nn.Module) -> Dict[str, int]:
+        """The bytes each per-layer gather holds on this rank, reckoned from
+        the placements in the stored dtypes: a tower layer's fsdp-sharded
+        parameters together (keyed by the layer's prefix), every other one
+        alone (keyed by its name). Their sum is what a whole gather holds.
+        Call it with the shards in place."""
+        f = self.topo.fsdp.size
+        out: Dict[str, int] = {}
+        for name, p in model.named_parameters():
+            if not any(ax == "fsdp" for ax, _ in self.placements.get(name, [])):
                 continue
-            mod, leaf = _module(self.model, name)
-            full = (comm.all_gather_sum(p, fsdp, dims[0]) if p.requires_grad
-                    else comm.all_gather(p, fsdp, dims[0]))
-            self.saved.append((mod, leaf, p))
-            mod._parameters[leaf] = full
-        return self
+            layer = re.match(r"^(decoder|encoder)\." + _LAYER, name)
+            key = layer.group(0) if layer else name
+            out[key] = out.get(key, 0) + p.numel() * f * p.element_size()
+        return out
 
-    def __exit__(self, *exc):
-        for mod, leaf, p in self.saved:
+
+class GatherMeter:
+    """The bytes of fsdp-gathered parameters alive on this rank: every
+    tensor a gather puts in a module's place (`layer_gathered`) or makes
+    again for a backward
+    (`comm.regathered_saves`), counted by storage while it lives. `high`
+    is the most alive at once since `reset`."""
+
+    def __init__(self):
+        self.live: List[Tuple[StorageWeakRef, int]] = []
+        self.high = 0
+
+    def alive(self) -> int:
+        self.live = [(r, n) for r, n in self.live if not r.expired()]
+        return sum(n for _, n in self.live)
+
+    def add(self, t: torch.Tensor) -> None:
+        storage = t.untyped_storage()
+        self.live.append((StorageWeakRef(storage), storage.nbytes()))
+        self.high = max(self.high, self.alive())
+
+    def reset(self) -> None:
+        self.high = self.alive()
+
+
+GATHERED = GatherMeter()
+
+
+def fsdp_leaves(module: nn.Module):
+    """(module, leaf, axis, dim) of every fsdp-sharded parameter of `module`
+    and its submodules that holds its shard now (`ShardPlan.apply` marks
+    them; a whole gather's tensor in a shard's place is left alone)."""
+    for mod in module.modules():
+        axis, dims = getattr(mod, "fsdp", (None, {}))
+        for leaf, dim in dims.items():
+            if isinstance(mod._parameters.get(leaf), nn.Parameter):
+                yield mod, leaf, axis, dim
+
+
+@contextlib.contextmanager
+def layer_gathered(module: nn.Module, dtype: Optional[torch.dtype] = None,
+                   regather: bool = True):
+    """Context: `module`'s fsdp-sharded parameters all-gathered in place of
+    their shards, which are back on exit. A trainable one goes through
+    `comm.all_gather_sum`, whose backward reduce-scatters this use's
+    gradient. `dtype`: the gathered floats are cast to it (with autograd)
+    once, the dtype the module computes in, so a call's `.to(dtype)` makes
+    no second full-size copy. `regather`: while autograd records, the
+    tensors saved for the backward that view a gathered parameter are
+    kept as handles and gathered again by the backward
+    (`comm.regathered_saves`); a layer whose remat recomputes it in the
+    backward passes False, since its recompute gathers again itself. A
+    module with nothing sharded (one device, a whole gather live) runs
+    as it is."""
+    saved, registry = [], {}
+    for mod, leaf, axis, dim in list(fsdp_leaves(module)):
+        p = mod._parameters[leaf]
+        full = comm.all_gather_sum(p, axis, dim) if p.requires_grad else comm.all_gather(
+            p, axis, dim)
+        if dtype is not None and full.is_floating_point():
+            full = full.to(dtype)
+        GATHERED.add(full)
+        registry[comm.storage_key(full)] = comm.Gathered(p, axis, dim, full.dtype)
+        saved.append((mod, leaf, p))
+        mod._parameters[leaf] = full
+    hooks = (comm.regathered_saves(registry, GATHERED.add)
+             if regather and registry and torch.is_grad_enabled()
+             else contextlib.nullcontext())
+    try:
+        with hooks:
+            yield
+    finally:
+        for mod, leaf, p in saved:
             mod._parameters[leaf] = p
-        self.saved = []
-        return False
+

@@ -14,6 +14,10 @@ psum gives them.
 Every rank runs every tick's collective in the same order, forward and
 backward: the first stage adds 0 * the received state to its input so that
 each tick's ppermute stays in its graph. Bubble fraction (S-1)/(M+S-1).
+A stage runs each layer as the plain loop does (`layers.layer_fn`): an
+fsdp-sharded parameter is gathered for that layer and tick alone (JAX's
+pp rules give the decoder's layers no 'fsdp' entry, so today that is a
+no-op; the encoder and an untied head keep theirs).
 
 Held against the plain `decoder_forward` (tests/test_torch_pp.py), not
 against JAX pp.py, whose test was red at the seed.
@@ -95,7 +99,7 @@ def pp_decoder_layers(layers: Sequence, h: torch.Tensor, cfg, positions, attenti
     if b % n_micro:
         raise ValueError(f"batch {b * dp} not divisible by dp {dp} x n_micro {n_micro}")
     seeds = seeds if seeds is not None else [None] * len(layers)
-    layer = L.remat(_layer_forward, cfg)
+    layer = L.layer_fn(_layer_forward, cfg)
     mb = h.reshape(n_micro, b // n_micro, t, hid)
     pos_mb = positions.reshape(n_micro, b // n_micro, t)
     mask_mb = attention_mask.reshape(n_micro, b // n_micro, t)

@@ -5,11 +5,16 @@ trainers' sharded steps, written out (GSPMD derives them in JAX).
   * `plan` (`partition.ShardPlan`): fsdp / tensor / expert / stage shards,
     applied to the model when the run is made; with `encoder_cfg` the NT
     tower's layers are tensor-parallel too;
-  * `scope()`: the context of a forward: the fsdp-sharded parameters
-    gathered, and the sequence (`sp.sequence_sharding`) and pipeline
-    (`pp.pipeline_sharding`) scopes when the trainer asked for them; the
-    tensor-parallel shards stay as they are (the generation engine runs
-    on them too, `generate/engine.py`);
+  * `scope()`: the context of a forward and its backward: the sequence
+    (`sp.sequence_sharding`) and pipeline (`pp.pipeline_sharding`) scopes
+    when the trainer asked for them. The fsdp-sharded parameters stay
+    sharded in it: each tower layer, table and projection gathers its own
+    while it runs and frees them after, in the forward and in the backward
+    (`partition.layer_gathered`), so a rank holds one or two layers
+    gathered at a time. `scope(whole=True)` gathers every fsdp slice for
+    the extent instead: the generation engine's call alone. The
+    tensor-parallel shards stay as they are (the engine runs on them too,
+    `generate/engine.py`);
   * `rows(x)`: this rank's rows of a global host batch (the batch splits
     over data x fsdp, JAX's `batch_spec`).
 
@@ -37,7 +42,7 @@ import torch.distributed as dist
 
 from bioreason_tpu_torch.parallel import comm
 from bioreason_tpu_torch.parallel.mesh import topology
-from bioreason_tpu_torch.parallel.partition import ShardPlan, is_layer_param, zero2_sharding
+from bioreason_tpu_torch.parallel.partition import ShardPlan, layer_gathered, zero2_sharding
 from bioreason_tpu_torch.train.optim import AdamW
 
 
@@ -68,25 +73,29 @@ class MeshRun:
     def last_stage(self) -> bool:
         return not self.pp or self.topo.model.index == self.topo.model.size - 1
 
-    def scope(self, model: Optional[torch.nn.Module] = None):
+    def scope(self, model: Optional[torch.nn.Module] = None, whole: bool = False):
         """The context of a forward of `model` (default: the run's own; any
         tree that holds its pieces under the same names, such as GRPO's
-        reference policy)."""
+        reference policy) and of its backward. Its layers gather their fsdp
+        shards one at a time; `whole`: every fsdp-sharded parameter of
+        `model` is gathered for the extent (`partition.layer_gathered` over
+        the whole tree), which the generation engine alone asks for."""
         from bioreason_tpu_torch.parallel.pp import pipeline_sharding
         from bioreason_tpu_torch.parallel.sp import sequence_sharding
         stack = contextlib.ExitStack()
-        stack.enter_context(self.plan.gathered(self.model if model is None else model))
+        if whole:
+            stack.enter_context(layer_gathered(self.model if model is None else model))
         stack.enter_context(sequence_sharding(self.topo.model if self.sp else None))
         stack.enter_context(pipeline_sharding(
             self.topo.model if self.pp else None, self.pp_micro, self.dp.size,
             self.plan.stage_layers))
         return stack
 
-    def scope_unsplit(self, model: Optional[torch.nn.Module] = None):
+    def scope_unsplit(self, model: Optional[torch.nn.Module] = None, whole: bool = False):
         """`scope` for rows that every rank holds whole (a rollout, an eval
         batch), not split over dp: the MoE counts its capacity per rank."""
         self.split_rows(False)
-        return self.scope(model)
+        return self.scope(model, whole)
 
     def rows(self, x):
         """This rank's contiguous 1/dp of the leading dim (a host array or a

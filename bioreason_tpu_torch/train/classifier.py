@@ -86,7 +86,8 @@ class ClassifierTrainer:
         unless "cpu"). `mesh`: data parallelism over its 'data' and 'fsdp'
         axes: each rank takes its rows of every batch, the loss is the
         global batch's mean, the moments are ZeRO-2 shards; 'fsdp' also
-        shards the encoder's parameters, gathered for each step; 'model'
+        shards the encoder's parameters, each layer's gathered while that
+        layer runs (forward, recompute and backward) and freed after; 'model'
         splits the encoder's layers tensor-parallel (num_heads / m heads and
         I / m MLP rows a rank, JAX's `partition_rules_encoder` under
         `^encoder/`), the pooler and the head replicated."""
@@ -144,8 +145,9 @@ class ClassifierTrainer:
         return m
 
     def _scope(self):
-        """Under a mesh, `MeshRun.scope` (the gathered parameters) for the
-        forward and the backward."""
+        """Under a mesh, `MeshRun.scope` for the forward and the backward: the
+        encoder's embedding and each layer gather their fsdp shards while
+        they run (`partition.layer_gathered`)."""
         return contextlib.nullcontext() if self.run is None else self.run.scope()
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:

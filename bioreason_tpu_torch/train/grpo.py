@@ -55,6 +55,7 @@ from bioreason_tpu_torch.models.fusion import (FusionModel, fused_input_embeddin
 from bioreason_tpu_torch.models.layers import has_adapter, vocab_axis
 from bioreason_tpu_torch.models.qwen3 import decoder_forward
 from bioreason_tpu_torch.ops.fused_ce import chunked_token_logps
+from bioreason_tpu_torch.parallel.partition import layer_gathered
 from bioreason_tpu_torch.train import trainable as T
 from bioreason_tpu_torch.train.checkpoint import AsyncSaver, load_checkpoint, save_checkpoint
 from bioreason_tpu_torch.train.lora import attach_lora, has_lora, merged_weight, strip_lora
@@ -97,12 +98,15 @@ def per_token_logps(model: FusionModel, cfg: FusionConfig, input_ids, attention_
     targets = input_ids[:, -completion_len:]
     dec = model.decoder
     table = dec.lm_head if dec.lm_head is not None else dec.embed
-    head = table.weight                          # [V, H], or V/m rows over 'model'
     dtype = torch_dtype(cfg.decoder.dtype)
-    logps = chunked_token_logps(h.reshape(-1, h.shape[-1]).to(dtype), head.to(dtype),
-                                targets.reshape(-1).long(),
-                                need_embedding_grad=head.requires_grad,
-                                vocab_axis=vocab_axis(table))
+    # the head's fsdp shards are gathered (in the compute dtype) for the
+    # logp pass alone; its backward gathers them again
+    with layer_gathered(table, dtype):
+        head = table.weight                      # [V, H], or V/m rows over 'model'
+        logps = chunked_token_logps(h.reshape(-1, h.shape[-1]).to(dtype), head.to(dtype),
+                                    targets.reshape(-1).long(),
+                                    need_embedding_grad=head.requires_grad,
+                                    vocab_axis=vocab_axis(table))
     return logps.reshape(b, completion_len)
 
 
@@ -125,7 +129,8 @@ class GRPOTrainer:
         (parallel/trainer.py). The prompts split over 'data' x 'fsdp': each
         dp index rolls out, scores and updates its share, each prompt's G
         completions on one index, with ZeRO-2 moments; 'fsdp' also shards
-        the parameters, gathered for each rollout, logp pass and update;
+        the parameters: the rollout gathers them whole once a call (the
+        engine), the logp passes and the update one layer at a time;
         'model' > 1 is Megatron tensor parallelism of the decoder's layers,
         whose shards stay on their ranks through the rollout (the engine's
         caches hold Hkv/m heads), the logp passes and the update, while the
@@ -277,10 +282,12 @@ class GRPOTrainer:
                 (fa * p.to(r.dtype) + fb * r).to(r.dtype), requires_grad=False))
 
     def _gathered(self, model: FusionModel):
-        """Under an fsdp mesh, `model` (the policy or its reference) with its
-        fsdp-sharded parameters gathered for the dynamic extent; the
-        tensor-parallel shards stay as they are."""
-        return contextlib.nullcontext() if self.run is None else self.run.plan.gathered(model)
+        """Under a mesh, `MeshRun.scope` of a forward of `model` (the policy
+        or its reference) that may take a backward: each layer, table and
+        projection gathers its fsdp shards while it runs and frees them
+        after (`partition.layer_gathered`), in the forward and again in the
+        backward; the tensor-parallel shards stay as they are."""
+        return contextlib.nullcontext() if self.run is None else self.run.scope(model)
 
     def _prepare_prompts(self, items: Sequence[Dict[str, Any]]):
         """Chat rendering and the processor, left-padded; `max_prompt_length`

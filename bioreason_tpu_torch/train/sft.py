@@ -126,13 +126,16 @@ class SFTTrainer:
 
     def _scope(self):
         """Under a mesh, `MeshRun.scope`: it holds for the forward and the
-        backward, which recomputes remat layers (gathered parameters, the
-        sequence axis)."""
+        backward (the sequence and pipeline axes). Each layer, table and
+        projection gathers its fsdp shards for itself while it runs, in
+        the forward, in a remat layer's recompute and for the backward's
+        reads, and frees them after (`partition.layer_gathered`)."""
         return contextlib.nullcontext() if self.run is None else self.run.scope()
 
     def inference_scope(self):
         """The context of a forward of a batch that every rank holds whole
-        (the CLI's probe): under a mesh `MeshRun.scope_unsplit`."""
+        (the CLI's probe): under a mesh `MeshRun.scope_unsplit`, its layers
+        gathered one at a time as in `_scope`."""
         return contextlib.nullcontext() if self.run is None else self.run.scope_unsplit()
 
     def _loss(self, db: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:

@@ -6132,15 +6132,16 @@ def phase_grpo_learns(torch, card):
 # (1, 1, 2): the decoder's and the NT encoder's layers split their heads and
 # MLP rows over the two ranks, the engine's caches hold Hkv/2 heads, GRPO
 # rolls out, scores and updates on those shards, and the DNA-only classifier
-# trains its encoder on them; (f)-(g) run QLoRA on the mesh and (h) bf16
-# LoRA SFT with the 151,936-row vocabulary table split. Rank 0 also holds
-# the one-device model from the same seed and compares; rank 1 waits at a
-# barrier meanwhile.
+# trains its encoder on them; (f)-(g) run QLoRA on the mesh, (h) bf16
+# LoRA SFT with the 151,936-row vocabulary table split and (i) the same
+# SFT on the mesh (1, 2, 1), every fsdp leaf gathered one layer at a time.
+# Rank 0 also holds the one-device model from the same seed and compares;
+# rank 1 waits at a barrier meanwhile.
 
 TP_PROMPTS, TP_NEW = 8, 8            # (a): 8 prompts, greedy, 8 new tokens (cut from 32)
 TP_GRPO_STEPS = 1                    # (c), (f): timed, no warm-up step (cut from 1 + 2)
 TP_CLS_STEPS = 2                     # (e): the classifier's steps on phase 13's batch
-TP_SFT_STEPS = 2                     # (g): QLoRA SFT steps at bench.py's shape
+TP_SFT_STEPS = 2                     # (g), (h), (i): SFT steps at bench.py's shape
 TP_HANG_S = 600
 
 
@@ -6410,8 +6411,15 @@ def _tp_rank(torch, mesh, axis, one_step_ms):
     torch.cuda.empty_cache()
     # (h) bf16 LoRA SFT at bench.py's shape, the vocabulary table and the
     # projection split over 'model'
-    res["h"] = _tp_vocab_sft(torch, dist, axis, mesh, seen)
+    keep = {}
+    res["h"] = _tp_vocab_sft(torch, dist, axis, mesh, seen, keep)
     part("h")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    # (i) the same SFT on the mesh (1, 2, 1): the layers, tables, projection
+    # and adapters gathered per layer; one device's run is (h)'s
+    res["i"] = _tp_fsdp_sft(torch, dist, axis, seen, keep.get("grads"))
+    part("i")
     dist.barrier()
     torch.cuda.empty_cache()
     return res
@@ -6597,7 +6605,20 @@ def _h_compare(torch, mesh, one):
     return out
 
 
-def _tp_vocab_sft(torch, dist, axis, mesh, seen):
+def _bench_lora_sft():
+    """(FusionConfig, SFTConfig) of (h) and (i): bf16 LoRA SFT at bench.py's
+    shape, Qwen3-0.6B + NT-v2-500M at full width and depth, remat off."""
+    from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
+                                            LoRAConfig, OptimConfig, SFTConfig)
+    dec = dataclasses.replace(DecoderConfig.qwen3_0_6b(), remat=False)
+    enc = dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False)
+    cfg = FusionConfig(decoder=dec, encoder=enc, dna_pad_token_id=151938)
+    sft = SFTConfig(batch_size=4, lora=LoRAConfig(r=32, alpha=64, dropout=0.0),
+                    optim=OptimConfig(total_steps=100, warmup_ratio=0.0), seed=0)
+    return cfg, sft
+
+
+def _tp_vocab_sft(torch, dist, axis, mesh, seen, keep):
     """(24h) SFTTrainer(mesh) in bf16 with LoRA at bench.py's shape on the
     mesh (1, 1, 2), Qwen3-0.6B's 151,936-row table (tied head) and the
     DNA projection split over 'model', beside the one-device trainer on rank
@@ -6609,20 +6630,15 @@ def _tp_vocab_sft(torch, dist, axis, mesh, seen):
     and H_NEW new tokens on the ranks' shards, which one device then runs
     teacher-forced on the ranks' stream; TP_SFT_STEPS steps with their
     loss, grad norm, ms, launches and shapes, the first step's gradients
-    kept. Rank 0 compares (`_h_compare`) and returns numbers only."""
+    kept. Rank 0 compares (`_h_compare`) and returns numbers only; it puts
+    one device's first-step gradients (host) in `keep["grads"]` for (i)."""
     import types
 
-    from bioreason_tpu_torch.config import (DecoderConfig, EncoderConfig, FusionConfig,
-                                            LoRAConfig, OptimConfig, SFTConfig)
     from bioreason_tpu_torch.generate.engine import GenerationEngine
     from bioreason_tpu_torch.models import layers as L
     from bioreason_tpu_torch.ops import fused_ce as CE
     from bioreason_tpu_torch.train.sft import SFTTrainer
-    dec = dataclasses.replace(DecoderConfig.qwen3_0_6b(), remat=False)
-    enc = dataclasses.replace(EncoderConfig.nt_v2_500m(), remat=False)
-    cfg = FusionConfig(decoder=dec, encoder=enc, dna_pad_token_id=151938)
-    sft = SFTConfig(batch_size=4, lora=LoRAConfig(r=32, alpha=64, dropout=0.0),
-                    optim=OptimConfig(total_steps=100, warmup_ratio=0.0), seed=0)
+    cfg, sft = _bench_lora_sft()
     batch = bench_batch(cfg)
     pb = bench_batch(cfg, b=H_PROMPTS, t_text=H_PROMPT_TEXT, l_dna=H_PROMPT_DNA)
     prompts = types.SimpleNamespace(**{k: pb[k] for k in (
@@ -6695,6 +6711,7 @@ def _tp_vocab_sft(torch, dist, axis, mesh, seen):
             dist.barrier()
     if "one" in res:
         res["readings"] = _h_compare(torch, res["mesh"], res["one"])
+        keep["grads"] = res["one"]["first"]["grads"]
     for r in res.values():           # the host tensors stay on this rank
         for key in ("first", "again", "faults"):
             r.pop(key, None)
@@ -6709,6 +6726,116 @@ def _tp_vocab_sft(torch, dist, axis, mesh, seen):
         f"{g['readings_s']:.1f} s; {g['seconds']:.1f} s in all"
         + (f" (one device {res['one']['seconds']:.1f} s)" if "one" in res else ""))
     return res
+
+
+def _tp_fsdp_sft(torch, dist, axis, seen, one_grads):
+    """(24i) (h)'s bf16 LoRA SFT at bench.py's shape on the mesh (1, 2, 1) of
+    the same two processes: each rank stores half of every fsdp-sharded
+    leaf (both towers' frozen bf16 layers, the tables, the projection, the
+    adapters) and gathers them one layer, table or projection at a time
+    (`partition.layer_gathered`; the backward gathers again what it reads).
+    TP_SFT_STEPS steps: loss, grad norm, ms, launches and shapes; the most
+    gathered bytes alive on the rank (`partition.GATHERED`) beside the
+    plan's largest layer, largest parameter outside the layers and whole
+    gather; resident and peak GiB. Rank 0 holds the first step's whole
+    gradients to one device's (`one_grads`, (h)'s same configuration and
+    seed) and returns their cosine."""
+    from bioreason_tpu_torch.config import MeshConfig
+    from bioreason_tpu_torch.parallel.mesh import make_mesh
+    from bioreason_tpu_torch.parallel.partition import GATHERED
+    from bioreason_tpu_torch.train.sft import SFTTrainer
+    cfg, sft = _bench_lora_sft()
+    batch = bench_batch(cfg)
+    mesh = make_mesh(MeshConfig(data=1, fsdp=2, model=1), device="cuda")
+    t_run = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer = SFTTrainer(cfg, sft, mesh=mesh)
+    sizes = trainer.run.plan.gather_sizes(trainer.model)
+    r = {"resident_gib": (torch.cuda.memory_allocated() - base) / 2**30,
+         "fallback": trainer.run is None or trainer.run.topo.fsdp.size != 2,
+         "layer_bytes": max(n for k, n in sizes.items() if ".layers." in k),
+         "outside_bytes": max(n for k, n in sizes.items() if ".layers." not in k),
+         "whole_bytes": sum(sizes.values()), "ms": [], "metrics": [], "launches": [],
+         "shapes": []}
+    first = {}
+    _h_capture_first_step(torch, trainer, first)
+    r["build_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()          # the steps' peak, apart from the build's
+    GATHERED.reset()
+    for _ in range(TP_SFT_STEPS):
+        torch.cuda.synchronize()
+        reset_counts()
+        for d in seen.values():
+            d.clear()
+        t0 = time.perf_counter()
+        r["metrics"].append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        r["ms"].append((time.perf_counter() - t0) * 1e3)
+        r["launches"].append(counts())
+        r["shapes"].append({k: dict(v) for k, v in seen.items()})
+    r["gathered_high"] = GATHERED.high
+    r["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if one_grads is not None:
+        r["cos"] = _cos(torch, first["grads"], one_grads)
+        r["n_grads"] = int(one_grads.numel())
+    del trainer, first
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t_run
+    log(f"tp (i) rank {axis.index}: bf16 LoRA SFT at fsdp 2, per-layer gathers: steps "
+        f"{[round(x, 1) for x in r['ms']]} ms; losses "
+        f"{[round(m['loss'], 5) for m in r['metrics']]}; launches {r['launches']}; gathered "
+        f"high-water {r['gathered_high'] / 2**30:.3f} GiB (a layer {r['layer_bytes'] / 2**30:.4f}"
+        f", outside the layers {r['outside_bytes'] / 2**30:.4f}, whole "
+        f"{r['whole_bytes'] / 2**30:.3f}); resident {r['resident_gib']:.3f} GiB, peak "
+        f"{r['peak_gib']:.3f} GiB in the steps, {r['build_peak_gib']:.3f} GiB in the build; "
+        f"{r['seconds']:.1f} s")
+    return r
+
+
+def _i_gates(card, i0, i1, one, g_shapes):
+    """(i)'s gates and logs against one device's run (`one`, (h)'s) and at
+    (g)'s per-rank kernel shapes (`g_shapes`, its first step's)."""
+    ms = lambda x: [round(v, 1) for v in x["ms"]]
+    bound = 2 * i0["layer_bytes"] + i0["outside_bytes"]
+    gib = lambda b: b / 2**30
+    log(f"tp (i) [{card}] SFTTrainer(mesh 1,2,1) bf16 LoRA at bench.py's shape, every fsdp "
+        f"leaf gathered per layer: gathered bytes high-water rank 0 "
+        f"{gib(i0['gathered_high']):.4f} GiB, rank 1 {gib(i1['gathered_high']):.4f} GiB "
+        f"(gate: two layers {gib(2 * i0['layer_bytes']):.4f} + the largest parameter outside "
+        f"the layers {gib(i0['outside_bytes']):.4f} = {gib(bound):.4f} GiB; a whole gather, "
+        f"reckoned from the plan, {gib(i0['whole_bytes']):.4f} GiB); resident / peak GiB in "
+        f"the steps (in the build) rank 0 {i0['resident_gib']:.3f} / {i0['peak_gib']:.3f} "
+        f"({i0['build_peak_gib']:.3f}), rank 1 {i1['resident_gib']:.3f} / "
+        f"{i1['peak_gib']:.3f} ({i1['build_peak_gib']:.3f}), one device ((h)'s, its build "
+        f"to its last step) {one['resident_gib']:.3f} / {one['peak_gib']:.3f}; step ms rank 0 {ms(i0)}, rank 1 {ms(i1)}, one device "
+        f"{ms(one)}; losses {[x['loss'] for x in i0['metrics']]} vs one device "
+        f"{[x['loss'] for x in one['metrics']]}; grad norms "
+        f"{[x['grad_norm'] for x in i0['metrics']]} vs "
+        f"{[x['grad_norm'] for x in one['metrics']]} (MESH_LOSS_RTOL {MESH_LOSS_RTOL}); the "
+        f"first step's {i0['n_grads']} trainable gradients cosine {i0['cos']:.6f} (floor "
+        f"{SP_COS}); launches a step rank 0 {i0['launches']}, rank 1 {i1['launches']}, one "
+        f"device {one['launches']}; shapes {i0['shapes'][0]}")
+    if i0["cos"] < SP_COS:
+        fail(f"tp (i): the first step's gradients' cosine {i0['cos']} is under {SP_COS}")
+    want_shapes = {k: set(v) for k, v in g_shapes.items()}
+    for i in (i0, i1):
+        if i["fallback"]:
+            fail("tp (i): the mesh trainer ran without its fsdp axis")
+        if not 0 < i["gathered_high"] <= bound:
+            fail(f"tp (i): {i['gathered_high']} gathered bytes alive at once on a rank, not "
+                 f"within two layers and the table's {bound}")
+        for n, (got, want) in enumerate(zip(i["metrics"], one["metrics"])):
+            for k in ("loss", "grad_norm"):
+                if (not math.isfinite(got[k])
+                        or not math.isclose(got[k], want[k], rel_tol=MESH_LOSS_RTOL)):
+                    fail(f"tp (i): step {n}'s {k} {got[k]} against one device's {want[k]}")
+        for got, want, shapes in zip(i["launches"], one["launches"], i["shapes"]):
+            if got != want or not got["flash_fwd"] or not got["flash_bwd"]:
+                fail(f"tp (i): a rank launched {got} in a step, one device {want}")
+            if {k: set(v) for k, v in shapes.items()} != want_shapes:
+                fail(f"tp (i): the kernels ran at {shapes}, not at (g)'s {g_shapes}")
 
 
 def _tp_classifier(torch, dist, axis, mesh, seen):
@@ -6996,10 +7123,12 @@ def _tp_gates(torch, card, r0, r1, one_step_ms):
             if any(set(shapes[k]) != {shape} for k in ("flash_fwd", "flash_bwd")):
                 fail(f"tp (e): the classifier's kernels ran at {shapes}, not at {shape}")
     _h_gates(card, r0["h"], r1["h"], hq, hkv, eh, cfg)
+    _i_gates(card, r0["i"], r1["i"], r0["h"]["one"], g0["mesh"]["shapes"][0])
     cls = lambda k: [sum(st[k] for st in e["launches"]) for e in (e0, e1)]
     grpo = lambda part, k: [r[part]["launches"][k] for r in (r0, r1)]
     sft = lambda k: [sum(st[k] for st in g["mesh"]["launches"]) for g in (g0, g1)]
     vocab = lambda k: [sum(st[k] for st in r["h"]["mesh"]["launches"]) for r in (r0, r1)]
+    fsdp_lora = lambda k: [sum(st[k] for st in r["i"]["launches"]) for r in (r0, r1)]
     launches = {"fwd": {"engine_per_call": [r0["a"]["launches"], r1["a"]["launches"]],
                         "grouped_per_call": [r0["b"]["launches"], r1["b"]["launches"]],
                         "grpo_steps": grpo("c", "flash_fwd"),
@@ -7010,12 +7139,14 @@ def _tp_gates(torch, card, r0, r1, one_step_ms):
                         "qlora_sft_fsdp_steps": sft("flash_fwd"),
                         "vocab_sft_steps": vocab("flash_fwd"),
                         "vocab_engine_per_call": [r["h"]["mesh"]["engine"]["launches"]
-                                                  for r in (r0, r1)]},
+                                                  for r in (r0, r1)],
+                        "lora_sft_fsdp_steps": fsdp_lora("flash_fwd")},
                 "bwd": {"grpo_steps": grpo("c", "flash_bwd"),
                         "classifier_steps": cls("flash_bwd"),
                         "qlora_grpo_steps": grpo("f", "flash_bwd"),
                         "qlora_sft_fsdp_steps": sft("flash_bwd"),
-                        "vocab_sft_steps": vocab("flash_bwd")}}
+                        "vocab_sft_steps": vocab("flash_bwd"),
+                        "lora_sft_fsdp_steps": fsdp_lora("flash_bwd")}}
     return launches
 
 
